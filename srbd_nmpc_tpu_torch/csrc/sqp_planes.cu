@@ -1,0 +1,877 @@
+// K1 · fused SQP trip at a candidate point, one thread per scenario.
+//
+// Replaces the TPU kernel srbd_nmpc_tpu/ops/sqp_planes.py::_onepass_planes_kernel
+// (its plane phase _planes_phase and the stage body
+// sqp_pallas._riccati_stage_structured, K/kv form). Contract: the plain
+// PyTorch version srbd_nmpc_tpu_torch/ops/sqp_planes.py::
+// sqp_qp_solve_onepass_planes_ref.
+//
+// What bounds it on the H100: each scenario is a long sequential recursion
+// (N stages of linearization, then N dependent Riccati stages, then an N-step
+// rollout) over about 20 KB of per-scenario state. It is latency- and
+// register-bound per thread, not bandwidth- or FLOP-bound: the Riccati stage
+// alone keeps P (144), the Cholesky factor (78) and the 13-column forward
+// substitution (156) live, past the 255-register cap.
+//
+// What this simple design does about it: one thread walks one scenario through
+// three passes; nothing crosses lanes, so a compacted launch gives bitwise the
+// same per-lane result as a full-width one. Pass 1 linearizes every stage,
+// accumulates the merit and parks an 87-channel pack per stage in global
+// scratch [N, 87, B]; pass 2 runs the backward Riccati and parks K [N,12,12,B],
+// kv [N,12,B]; pass 3 rolls forward and forms dphi. All global arrays are
+// indexed (row * B + lane), so consecutive threads touch consecutive
+// addresses. Small-matrix loops have compile-time bounds so arrays stay
+// addressable by constants; whatever does not fit in registers spills to local
+// memory, which is accepted here. Structural zeros of the SRBD Jacobians are
+// never multiplied: the nonzero terms are written out.
+//
+// Full-precision math only (sinf/cosf/sqrtf/logf/rsqrtf; never fast-math):
+// the SO(3) chain runs down to the f32 angle clamp 1e-4. Built with
+// -fmad=false (utils/build.py), and the sums keep the plain version's order,
+// so the kernel rounds like the plain version: the 12x12 stage solve is
+// ill-conditioned enough (Reff ~ 1e-4 against dt^2 B'PB) that f32 rounding
+// differences alone move du by ~1e-4 relative.
+//
+// The per-scenario body is a template on the scalar type and also compiles as
+// host C++ (without __CUDACC__) so its arithmetic can be checked on a CPU in
+// double precision against the plain PyTorch version.
+
+#include <math.h>
+#include <stddef.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define HD __host__ __device__ __forceinline__
+#else
+#define HD inline
+#endif
+
+namespace k1 {
+
+// constants block (offsets match ops/sqp_planes.py::_K_*)
+constexpr int K_MASS = 0, K_DT = 1, K_IINV = 2, K_FOOT = 11;
+constexpr int K_AC1 = 17, K_AC2 = 89, K_BC = 161;
+constexpr int K_R = 185, K_Q = 329, K_QF = 473, K_LEN = 617;
+
+// pack channels (as ops/sqp_planes.py::_D1 ...)
+constexpr int P_D1 = 0, P_D2 = 9, P_SF = 18, P_SR = 21, P_SL = 24;
+constexpr int P_B = 27, P_Q = 39, P_RF = 51, P_DDB = 63, P_C = 87;
+
+HD float k_sqrt(float x) { return sqrtf(x); }
+HD double k_sqrt(double x) { return sqrt(x); }
+HD float k_sin(float x) { return sinf(x); }
+HD double k_sin(double x) { return sin(x); }
+HD float k_cos(float x) { return cosf(x); }
+HD double k_cos(double x) { return cos(x); }
+HD float k_log(float x) { return logf(x); }
+HD double k_log(double x) { return log(x); }
+#ifdef __CUDACC__
+HD float k_rsqrt(float x) { return rsqrtf(x); }
+#else
+HD float k_rsqrt(float x) { return 1.0f / sqrtf(x); }
+#endif
+HD double k_rsqrt(double x) { return 1.0 / sqrt(x); }
+
+template <typename T> HD T theta_min_sq();
+template <> HD float theta_min_sq<float>() { return 1e-8f; }     // (1e-4)^2
+template <> HD double theta_min_sq<double>() { return 1e-20; }   // (1e-10)^2
+
+template <typename T> struct M3 { T m[3][3]; };
+
+template <typename T>
+HD M3<T> mul3(const M3<T>& A, const M3<T>& B) {
+  M3<T> C;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      C.m[i][j] = A.m[i][0] * B.m[0][j] + A.m[i][1] * B.m[1][j] + A.m[i][2] * B.m[2][j];
+  return C;
+}
+
+// A @ B'
+template <typename T>
+HD M3<T> mul3t(const M3<T>& A, const M3<T>& B) {
+  M3<T> C;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      C.m[i][j] = A.m[i][0] * B.m[j][0] + A.m[i][1] * B.m[j][1] + A.m[i][2] * B.m[j][2];
+  return C;
+}
+
+template <typename T>
+HD void mv3(const M3<T>& A, const T* v, T* out) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[i] = A.m[i][0] * v[0] + A.m[i][1] * v[1] + A.m[i][2] * v[2];
+}
+
+template <typename T>
+HD void cross3(const T* a, const T* b, T* out) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// skew(r) entry (i, j); zero on the diagonal
+template <typename T>
+HD T skew_at(const T* r, int i, int j) {
+  if (i == 0 && j == 1) return -r[2];
+  if (i == 0 && j == 2) return r[1];
+  if (i == 1 && j == 0) return r[2];
+  if (i == 1 && j == 2) return -r[0];
+  if (i == 2 && j == 0) return -r[1];
+  if (i == 2 && j == 1) return r[0];
+  return T(0);
+}
+
+// skew(r)^2 = r r' - |r|^2 I, nonzero terms only
+template <typename T>
+HD M3<T> skew_sq(const T* r) {
+  M3<T> W;
+  W.m[0][0] = -(r[2] * r[2]) - r[1] * r[1];
+  W.m[1][1] = -(r[2] * r[2]) - r[0] * r[0];
+  W.m[2][2] = -(r[1] * r[1]) - r[0] * r[0];
+  W.m[0][1] = r[1] * r[0];
+  W.m[1][0] = r[0] * r[1];
+  W.m[0][2] = r[2] * r[0];
+  W.m[2][0] = r[0] * r[2];
+  W.m[1][2] = r[2] * r[1];
+  W.m[2][1] = r[1] * r[2];
+  return W;
+}
+
+template <typename T>
+HD T safe_theta(const T* r) {
+  T sq = (r[0] * r[0] + r[1] * r[1]) + r[2] * r[2];
+  const T h2 = theta_min_sq<T>();
+  sq = (sq < h2) ? h2 : sq;  // a NaN angle stays NaN
+  return k_sqrt(sq);
+}
+
+// R = expm(skew r) and Jlt = Jl(r)^-1 (srbd_planes._chain_lite forms)
+template <typename T>
+HD void chain_lite(const T* r, M3<T>& R, M3<T>& Jlt) {
+  const T t = safe_theta(r);
+  const T st = k_sin(t), ct = k_cos(t);
+  const T inv_t = T(1) / t;
+  const M3<T> WW = skew_sq(r);
+  const T sinc = st * inv_t;
+  const T cR = (T(1) - ct) * inv_t * inv_t;
+  const T it2 = inv_t * inv_t;
+  const T half_t = T(0.5) * t;
+  const T hc = half_t * (k_cos(half_t) / k_sin(half_t));
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const T vv = it2 * WW.m[i][j];
+      if (i == j) {
+        R.m[i][i] = T(1) + cR * WW.m[i][i];
+        Jlt.m[i][i] = hc + (T(1) - hc) * (vv + T(1));
+      } else {
+        const T w = skew_at(r, i, j);
+        R.m[i][j] = sinc * w + cR * WW.m[i][j];
+        Jlt.m[i][j] = (T(1) - hc) * vv + (-half_t) * (inv_t * w);
+      }
+    }
+}
+
+// R I^-1 R' and w = R I^-1 R' l
+template <typename T>
+HD M3<T> rirt(const M3<T>& R, const M3<T>& Iinv) {
+  return mul3t(mul3(R, Iinv), R);
+}
+
+// dx/dt of the SRBD (srbd_planes._deriv)
+template <typename T>
+HD void dynamics(const T* kc, const M3<T>& Iinv, const T* x, const T* u, T* out) {
+  M3<T> R, Jlt;
+  chain_lite(x, R, Jlt);
+  const M3<T> A = rirt(R, Iinv);
+  T w[3];
+  mv3(A, x + 3, w);
+  mv3(Jlt, w, out);
+  const T* pf0 = kc + K_FOOT;
+  const T* pf1 = kc + K_FOOT + 3;
+  T d0[3], d1[3], c0[3], c1[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    d0[i] = pf0[i] - x[6 + i];
+    d1[i] = pf1[i] - x[6 + i];
+  }
+  cross3(d0, u, c0);
+  cross3(d1, u + 6, c1);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    out[3 + i] = (u[3 + i] + u[9 + i]) + (c0[i] + c1[i]);
+    out[6 + i] = x[9 + i];
+  }
+  const T inv_m = T(1) / kc[K_MASS];
+  out[9] = inv_m * (u[0] + u[6]);
+  out[10] = inv_m * (u[1] + u[7]);
+  out[11] = inv_m * (u[2] + u[8]) + T(-9.8);
+}
+
+// Euler Jacobian blocks D1, D2 (row-major), skew generators sF, sr, sl and
+// the RK4 step x_next (srbd_planes.linearize_stage)
+template <typename T>
+HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
+                        T* D1, T* D2, T* sF, T* sr, T* sl, T* x_next) {
+  const T dt = kc[K_DT];
+  const T* r = x;
+  const T* l = x + 3;
+
+  // ---- so3 chain: R, Jl, Jlt and the djl_inv derivative pieces ----------
+  const T t = safe_theta(r);
+  const T st = k_sin(t), ct = k_cos(t);
+  const T t2 = t * t;
+  const T t3 = t2 * t;
+  const T inv_t = T(1) / t;
+  const M3<T> WW = skew_sq(r);
+  const T sinc = st * inv_t;
+  const T c2 = (T(1) - ct) / t2;
+  const T it2 = inv_t * inv_t;
+  const T cJ = (T(1) - ct) * inv_t;
+  const T half_t = T(0.5) * t;
+  const T hc = half_t * (k_cos(half_t) / k_sin(half_t));
+  const T ca = (t * st + T(2) * (ct - T(1))) / t3;
+  const T cb = -(T(2) * t - T(3) * st + t * ct) / t3;
+  const T c1 = (t - st) / t3;
+
+  M3<T> R, Jl, Jlt, base;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const T vv = it2 * WW.m[i][j];
+      if (i == j) {
+        R.m[i][i] = T(1) + c2 * WW.m[i][i];
+        Jl.m[i][i] = sinc + (T(1) - sinc) * (vv + T(1));
+        Jlt.m[i][i] = hc + (T(1) - hc) * (vv + T(1));
+        base.m[i][i] = cb * vv;
+      } else {
+        const T w = skew_at(r, i, j);
+        const T v = inv_t * w;
+        R.m[i][j] = sinc * w + c2 * WW.m[i][j];
+        Jl.m[i][j] = (T(1) - sinc) * vv + cJ * v;
+        Jlt.m[i][j] = (T(1) - hc) * vv + (-half_t) * v;
+        base.m[i][j] = ca * v + cb * vv;
+      }
+    }
+
+  const M3<T> A = rirt(R, Iinv);
+  T w[3];
+  mv3(A, l, w);
+  T Jw[3];
+  mv3(Jlt, w, Jw);
+
+  // djlt_a w = -(Jlt (djl_a (Jlt w))), with
+  // djl_a = c1 (E_a W + W E_a) + c2 E_a + r_a base, E_a = skew(e_a):
+  // (E_a W + W E_a) = r e_a' + e_a r' - 2 r_a I
+  T djw[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    M3<T> dj;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const T rb = r[a] * base.m[i][j];
+        if (i == j) {
+          dj.m[i][j] = (i == a) ? rb : c1 * (-r[a] - r[a]) + rb;
+        } else if (i == a) {
+          dj.m[i][j] = c1 * r[j] + rb;
+        } else if (j == a) {
+          dj.m[i][j] = c1 * r[i] + rb;
+        } else {
+          // E_a = skew(e_a): E_a[a+1][a+2] = -1, E_a[a+2][a+1] = +1
+          const bool neg = ((a + 1) % 3 == i);
+          dj.m[i][j] = (neg ? -c2 : c2) + rb;
+        }
+      }
+    T y[3], z[3];
+    mv3(dj, Jw, y);
+    mv3(Jlt, y, z);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) djw[a][i] = -z[i];
+  }
+
+  // core = Jlt ((A skew(l) - skew(w)) Jl); row i of A skew(l) is a_i x l
+  M3<T> X;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    T c[3];
+    cross3(A.m[i], l, c);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) X.m[i][j] = (i == j) ? c[j] : c[j] - skew_at(w, i, j);
+  }
+  const M3<T> core = mul3(Jlt, mul3(X, Jl));
+  const M3<T> D2m = mul3(Jlt, A);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      D1[3 * i + a] = djw[a][i] + core.m[i][a];
+      D2[3 * i + a] = D2m.m[i][a];
+    }
+
+  const T* pf0 = kc + K_FOOT;
+  const T* pf1 = kc + K_FOOT + 3;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    sF[i] = u[i] + u[6 + i];
+    sr[i] = pf0[i] - x[6 + i];
+    sl[i] = pf1[i] - x[6 + i];
+  }
+
+  // ---- RK4 with k1 from the shared chain ---------------------------------
+  T k1[12], k2[12], k3[12], k4[12], xs[12];
+  T c0[3], cc1[3];
+  cross3(sr, u, c0);
+  cross3(sl, u + 6, cc1);
+  const T inv_m = T(1) / kc[K_MASS];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    k1[i] = Jw[i];
+    k1[3 + i] = (u[3 + i] + u[9 + i]) + (c0[i] + cc1[i]);
+    k1[6 + i] = x[9 + i];
+  }
+  k1[9] = inv_m * (u[0] + u[6]);
+  k1[10] = inv_m * (u[1] + u[7]);
+  k1[11] = inv_m * (u[2] + u[8]) + T(-9.8);
+
+  const T hdt = T(0.5) * dt;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) xs[i] = x[i] + hdt * k1[i];
+  dynamics(kc, Iinv, xs, u, k2);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) xs[i] = x[i] + hdt * k2[i];
+  dynamics(kc, Iinv, xs, u, k3);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) xs[i] = x[i] + dt * k3[i];
+  dynamics(kc, Iinv, xs, u, k4);
+  const T dt6 = dt / T(6);
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+    x_next[i] = x[i] + dt6 * (((k1[i] + T(2) * k2[i]) + T(2) * k3[i]) + k4[i]);
+}
+
+// skew(s)' m = m x s (nonzero terms only)
+template <typename T>
+HD void skewT_mul(const T* s, T m0, T m1, T m2, T* out) {
+  out[0] = s[2] * m1 - s[1] * m2;
+  out[1] = s[0] * m2 - s[2] * m0;
+  out[2] = s[1] * m0 - s[0] * m1;
+}
+
+// (Ju' P)[j][c] from the symmetric P: rows [Sr' P1 + P3/m | P1 | Sl' P1 + P3/m | P1]
+template <typename T>
+HD T ju_p(const T (&P)[12][12], const T* sr, const T* sl, T m_inv, int j, int c) {
+  if (j >= 3 && j < 6) return P[j][c];
+  if (j >= 9) return P[j - 6][c];
+  const T* s = (j < 3) ? sr : sl;
+  const int i = (j < 3) ? j : j - 6;
+  T o[3];
+  skewT_mul(s, P[3][c], P[4][c], P[5][c], o);
+  return o[i] + m_inv * P[9 + i][c];
+}
+
+// (Jx' M)[i][j] with M = V' (M[r][j] = V[j][r]); rows D1' M0 | D2' M0 | SF' M1 | M2
+template <typename T>
+HD T jxt_m(const T (&V)[12][12], const T (&D1)[3][3], const T (&D2)[3][3], const T* sF,
+           int i, int j) {
+  if (i < 3) return D1[0][i] * V[j][0] + D1[1][i] * V[j][1] + D1[2][i] * V[j][2];
+  if (i < 6) {
+    const int a = i - 3;
+    return D2[0][a] * V[j][0] + D2[1][a] * V[j][1] + D2[2][a] * V[j][2];
+  }
+  if (i >= 9) return V[j][i - 3];
+  T o[3];
+  skewT_mul(sF, V[j][3], V[j][4], V[j][5], o);
+  return o[i - 6];
+}
+
+// ---------------------------------------------------------------------------
+// one scenario, three passes
+// ---------------------------------------------------------------------------
+template <typename T>
+HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dxc,
+                 const T* duc, const T* alpha, const T* dx0, T* dx_out, T* du_out,
+                 T* dphi_out, T* theta_out, T* phi_out, T* maxdef_out,
+                 T* mincon_out, T* pack, T* Kp, T* kvp, int N, int B, int b,
+                 T mu_b, T theta_b, T reg) {
+#define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
+  const T dt = kc[K_DT];
+  const T m_inv = T(1) / kc[K_MASS];
+  const T a = alpha[b];
+  M3<T> Iinv;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) Iinv.m[i][j] = kc[K_IINV + 3 * i + j];
+  const T* Ac1 = kc + K_AC1;  // [12, 6]
+  const T* Ac2 = kc + K_AC2;
+  const T* bc = kc + K_BC;
+  const T* Rw = kc + K_R;
+  const T* Qw = kc + K_Q;
+  const T* Qf = kc + K_QF;
+  const T log_th = k_log(theta_b);
+  const T ddb_quad = mu_b / (theta_b * theta_b);
+
+  // ======================= pass 1: planes phase ===========================
+  T theta = 0, s_bar = 0, s_uRu = 0, s_eq = 0;
+  T maxdef = 0, mincon = 0;
+  for (int k = 0; k < N; ++k) {
+    T x[12], xn[12], u[12], e[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      x[i] = AT(xa, k * 12 + i) + a * AT(dxc, k * 12 + i);
+      xn[i] = AT(xa, (k + 1) * 12 + i) + a * AT(dxc, (k + 1) * 12 + i);
+      u[i] = AT(us, k * 12 + i) + a * AT(duc, k * 12 + i);
+      e[i] = x[i] - AT(xr, k * 12 + i);
+    }
+    T D1[9], D2[9], sF[3], sr[3], sl[3], xnext[12];
+    linearize_stage(kc, Iinv, x, u, D1, D2, sF, sr, sl, xnext);
+
+    T* pk = pack + (size_t)k * P_C * B;
+#define PK(c) pk[(size_t)(c) * B + b]
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      PK(P_D1 + i) = D1[i];
+      PK(P_D2 + i) = D2[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      PK(P_SF + i) = sF[i];
+      PK(P_SR + i) = sr[i];
+      PK(P_SL + i) = sl[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      const T bi = xnext[i] - xn[i];
+      PK(P_B + i) = bi;
+      theta += bi * bi;
+      const T ab = bi < 0 ? -bi : bi;
+      maxdef = (k == 0 && i == 0) ? ab : (ab > maxdef || ab != ab ? ab : maxdef);
+    }
+
+    // constraints + relaxed barrier (24 rows)
+    T db[24];
+#pragma unroll
+    for (int g = 0; g < 24; ++g) {
+      const T* arow = (g < 12) ? Ac1 + 6 * g : Ac2 + 6 * (g - 12);
+      const T* ug = (g < 12) ? u : u + 6;
+      T con = arow[0] * ug[0];
+#pragma unroll
+      for (int j = 1; j < 6; ++j) con = con + arow[j] * ug[j];
+      con = con + bc[g];
+      mincon = (k == 0 && g == 0) ? con : (con < mincon || con != con ? con : mincon);
+      const bool in_log = con > theta_b;
+      const T vs = in_log ? con : theta_b;
+      T bb, d, dd;
+      if (in_log) {
+        bb = -mu_b * k_log(vs);
+        d = -mu_b / vs;
+        dd = mu_b / (vs * vs);
+      } else {
+        const T z = (con - T(2) * theta_b) / theta_b;
+        bb = T(0.5) * mu_b * (z * z - T(1)) - mu_b * log_th;
+        d = mu_b * (con - T(2) * theta_b) / (theta_b * theta_b);
+        dd = ddb_quad;
+      }
+      s_bar += bb;
+      db[g] = d;
+      PK(P_DDB + g) = dd;
+    }
+
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      T qi = Qw[12 * i] * e[0];
+      T ri = Rw[12 * i] * u[0];
+#pragma unroll
+      for (int j = 1; j < 12; ++j) {
+        qi = qi + Qw[12 * i + j] * e[j];
+        ri = ri + Rw[12 * i + j] * u[j];
+      }
+      s_eq += e[i] * qi;
+      s_uRu += u[i] * ri;
+      const T* Ab = (i < 6) ? Ac1 + i : Ac2 + (i - 6);
+      const T* dbl = (i < 6) ? db : db + 12;
+      T acc = Ab[0] * dbl[0];
+#pragma unroll
+      for (int g = 1; g < 12; ++g) acc = acc + Ab[6 * g] * dbl[g];
+      PK(P_Q + i) = qi;
+      PK(P_RF + i) = ri + acc;
+    }
+  }
+
+  // terminal stage + Riccati seed
+  T P[12][12], p[12], qN[12], eN[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+    eN[i] = AT(xa, N * 12 + i) + a * AT(dxc, N * 12 + i) - AT(xr, N * 12 + i);
+  T phiN = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    T acc = Qf[12 * i] * eN[0];
+#pragma unroll
+    for (int j = 1; j < 12; ++j) acc = acc + Qf[12 * i + j] * eN[j];
+    qN[i] = acc;
+    p[i] = acc;
+    phiN += eN[i] * acc;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) P[i][j] = Qf[12 * i + j];
+  }
+  AT(theta_out, 0) = T(0.5) * theta;
+  AT(phi_out, 0) = s_bar + T(0.5) * s_uRu + T(0.5) * s_eq + T(0.5) * phiN;
+  AT(maxdef_out, 0) = maxdef;
+  AT(mincon_out, 0) = mincon;
+
+  // ======================= pass 2: backward Riccati =======================
+  for (int k = N - 1; k >= 0; --k) {
+    const T* pk = pack + (size_t)k * P_C * B;
+    T D1[3][3], D2[3][3], sF[3], sr[3], sl[3], bv[12], q[12], rf[12];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        D1[i][j] = PK(P_D1 + 3 * i + j);
+        D2[i][j] = PK(P_D2 + 3 * i + j);
+      }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      sF[i] = PK(P_SF + i);
+      sr[i] = PK(P_SR + i);
+      sl[i] = PK(P_SL + i);
+    }
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      bv[i] = PK(P_B + i);
+      q[i] = PK(P_Q + i);
+      rf[i] = PK(P_RF + i);
+    }
+    T ddb[24];
+#pragma unroll
+    for (int g = 0; g < 24; ++g) ddb[g] = PK(P_DDB + g);
+
+    // Pb_p = P b + p
+    T Pbp[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      T acc = P[i][0] * bv[0];
+#pragma unroll
+      for (int j = 1; j < 12; ++j) acc = acc + P[i][j] * bv[j];
+      Pbp[i] = acc + p[i];
+    }
+
+    // V = Jx' P (rows: D1' P0 | D2' P0 | SF' P1 | P2)
+    T V[12][12];
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        V[i][j] = D1[0][i] * P[0][j] + D1[1][i] * P[1][j] + D1[2][i] * P[2][j];
+        V[3 + i][j] = D2[0][i] * P[0][j] + D2[1][i] * P[1][j] + D2[2][i] * P[2][j];
+        V[9 + i][j] = P[6 + i][j];
+      }
+      T s[3];
+      skewT_mul(sF, P[3][j], P[4][j], P[5][j], s);
+      V[6][j] = s[0];
+      V[7][j] = s[1];
+      V[8][j] = s[2];
+    }
+
+    // Y13 = [H | rv]: H = dt Ju'(P A), A = I + dt Jx, P A = P + dt V'
+    //   Ju' Mat rows: [Sr' M1 + M3/m | M1 | Sl' M1 + M3/m | M1]
+    T Y[12][13];
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      T m1[3], m3[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        m1[i] = P[3 + i][j] + dt * V[j][3 + i];
+        m3[i] = P[9 + i][j] + dt * V[j][9 + i];
+      }
+      T s1[3], s2[3];
+      skewT_mul(sr, m1[0], m1[1], m1[2], s1);
+      skewT_mul(sl, m1[0], m1[1], m1[2], s2);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        Y[i][j] = dt * (s1[i] + m_inv * m3[i]);
+        Y[3 + i][j] = dt * m1[i];
+        Y[6 + i][j] = dt * (s2[i] + m_inv * m3[i]);
+        Y[9 + i][j] = dt * m1[i];
+      }
+    }
+    {
+      T s1[3], s2[3];
+      skewT_mul(sr, Pbp[3], Pbp[4], Pbp[5], s1);
+      skewT_mul(sl, Pbp[3], Pbp[4], Pbp[5], s2);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        Y[i][12] = dt * (s1[i] + m_inv * Pbp[9 + i]) + rf[i];
+        Y[3 + i][12] = dt * Pbp[3 + i] + rf[3 + i];
+        Y[6 + i][12] = dt * (s2[i] + m_inv * Pbp[9 + i]) + rf[6 + i];
+        Y[9 + i][12] = dt * Pbp[3 + i] + rf[9 + i];
+      }
+    }
+
+    // G = Reff + dt^2 Ju'(P Ju) + reg I (lower triangle), with
+    // Reff = R + blockdiag(Ac1' diag(ddb1) Ac1, Ac2' diag(ddb2) Ac2) and
+    // P Ju = (Ju' P)' = U'
+    T L[12][12];
+    const T dt2 = dt * dt;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      // column j of Ju'(U'): rows from Mat = U' with Mat[r][j] = U[j][r]
+      T m1[3], m3[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        m1[i] = ju_p(P, sr, sl, m_inv, j, 3 + i);
+        m3[i] = ju_p(P, sr, sl, m_inv, j, 9 + i);
+      }
+      T s1[3], s2[3];
+      skewT_mul(sr, m1[0], m1[1], m1[2], s1);
+      skewT_mul(sl, m1[0], m1[1], m1[2], s2);
+      T col[12];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        col[i] = s1[i] + m_inv * m3[i];
+        col[3 + i] = m1[i];
+        col[6 + i] = s2[i] + m_inv * m3[i];
+        col[9 + i] = m1[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+        if (i < j) continue;
+        T re = Rw[12 * i + j];
+        const bool same_leg = (i < 6) == (j < 6);
+        if (same_leg) {
+          const T* Ab = (i < 6) ? Ac1 : Ac2;
+          const int ii = (i < 6) ? i : i - 6, jj = (j < 6) ? j : j - 6;
+          const int g0 = (i < 6) ? 0 : 12;
+          T c = Ab[ii] * (Ab[jj] * ddb[g0]);
+#pragma unroll
+          for (int g = 1; g < 12; ++g)
+            c = c + Ab[6 * g + ii] * (Ab[6 * g + jj] * ddb[g0 + g]);
+          re = re + c;
+        }
+        T gij = re + dt2 * col[i];
+        if (i == j) gij = gij + reg;
+        L[i][j] = gij;
+      }
+    }
+
+    // right-looking Cholesky on the lower triangle, dinv = rsqrt(pivot)
+    T dinv[12];
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      const T di = k_rsqrt(L[j][j]);
+      dinv[j] = di;
+#pragma unroll
+      for (int i = 0; i < 12; ++i)
+        if (i >= j) L[i][j] = L[i][j] * di;
+#pragma unroll
+      for (int c = 0; c < 12; ++c)
+#pragma unroll
+        for (int i = 0; i < 12; ++i)
+          if (c > j && i >= c) L[i][c] = L[i][c] - L[i][j] * L[c][j];
+    }
+
+    // forward substitution Y <- L^-1 [H | rv] (13 columns)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+#pragma unroll
+      for (int c = 0; c < 13; ++c) Y[i][c] = Y[i][c] * dinv[i];
+#pragma unroll
+      for (int r = 0; r < 12; ++r)
+        if (r > i) {
+#pragma unroll
+          for (int c = 0; c < 13; ++c) Y[r][c] = Y[r][c] - L[r][i] * Y[i][c];
+        }
+    }
+
+    // P_new = Qw + P + dt (M + V) + dt^2 Jx' M - Yh' Yh, M = V';
+    // p_new = q + Pb_p + dt Jx' Pb_p - Yh' yv
+    // entries (i, j) and (j, i) read only P[i][j] and P[j][i] of the old P
+    // (V is already formed), so the symmetrized update is done in place
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        if (j < i) continue;
+        T gr = Y[0][i] * Y[0][j];
+#pragma unroll
+        for (int r = 1; r < 12; ++r) gr = gr + Y[r][i] * Y[r][j];
+        const T mv = dt * (V[j][i] + V[i][j]);
+        const T xij = (((Qw[12 * i + j] + P[i][j]) + mv) + dt2 * jxt_m(V, D1, D2, sF, i, j)) - gr;
+        const T xji = (((Qw[12 * j + i] + P[j][i]) + mv) + dt2 * jxt_m(V, D1, D2, sF, j, i)) - gr;
+        const T s = T(0.5) * (xij + xji);
+        P[i][j] = s;
+        P[j][i] = s;
+      }
+    }
+    {
+      T jv[12];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        jv[i] = D1[0][i] * Pbp[0] + D1[1][i] * Pbp[1] + D1[2][i] * Pbp[2];
+        jv[3 + i] = D2[0][i] * Pbp[0] + D2[1][i] * Pbp[1] + D2[2][i] * Pbp[2];
+        jv[9 + i] = Pbp[6 + i];
+      }
+      T s[3];
+      skewT_mul(sF, Pbp[3], Pbp[4], Pbp[5], s);
+      jv[6] = s[0];
+      jv[7] = s[1];
+      jv[8] = s[2];
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+        T yy = Y[0][i] * Y[0][12];
+#pragma unroll
+        for (int r = 1; r < 12; ++r) yy = yy + Y[r][i] * Y[r][12];
+        p[i] = ((q[i] + Pbp[i]) + dt * jv[i]) - yy;
+      }
+    }
+
+    // back substitution L' X = Y; [K | kv] = -X, parked in global scratch
+#pragma unroll
+    for (int i = 11; i >= 0; --i) {
+#pragma unroll
+      for (int c = 0; c < 13; ++c) Y[i][c] = Y[i][c] * dinv[i];
+#pragma unroll
+      for (int r = 0; r < 12; ++r)
+        if (r < i) {
+#pragma unroll
+          for (int c = 0; c < 13; ++c) Y[r][c] = Y[r][c] - L[i][r] * Y[i][c];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+#pragma unroll
+      for (int j = 0; j < 12; ++j) AT(Kp, (k * 12 + i) * 12 + j) = -Y[i][j];
+      AT(kvp, k * 12 + i) = -Y[i][12];
+    }
+  }
+
+  // ======================= pass 3: rollout + dphi =========================
+  T dx[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) dx[i] = AT(dx0, i);
+  T tot = 0;
+  for (int k = 0; k < N; ++k) {
+    const T* pk = pack + (size_t)k * P_C * B;
+    T du[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      T acc = AT(Kp, (k * 12 + i) * 12) * dx[0];
+#pragma unroll
+      for (int j = 1; j < 12; ++j) acc = acc + AT(Kp, (k * 12 + i) * 12 + j) * dx[j];
+      du[i] = acc + AT(kvp, k * 12 + i);
+    }
+    T sF[3], sr[3], sl[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      sF[i] = PK(P_SF + i);
+      sr[i] = PK(P_SR + i);
+      sl[i] = PK(P_SL + i);
+    }
+    T jd[12];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      T acc = PK(P_D1 + 3 * i) * dx[0];
+      acc = acc + PK(P_D1 + 3 * i + 1) * dx[1];
+      acc = acc + PK(P_D1 + 3 * i + 2) * dx[2];
+      T acc2 = PK(P_D2 + 3 * i) * dx[3];
+      acc2 = acc2 + PK(P_D2 + 3 * i + 1) * dx[4];
+      acc2 = acc2 + PK(P_D2 + 3 * i + 2) * dx[5];
+      jd[i] = acc + acc2;
+    }
+    T c1[3], c2[3], c3[3];
+    cross3(sF, dx + 6, c1);
+    cross3(sr, du, c2);
+    cross3(sl, du + 6, c3);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      jd[3 + i] = (((c1[i] + c2[i]) + du[3 + i]) + c3[i]) + du[9 + i];
+      jd[6 + i] = dx[9 + i];
+      jd[9 + i] = m_inv * (du[i] + du[6 + i]);
+    }
+    T part_x = 0, part_u = 0;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      part_x += dx[i] * PK(P_Q + i);
+      part_u += du[i] * PK(P_RF + i);
+    }
+    tot += part_x + part_u;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      AT(du_out, k * 12 + i) = du[i];
+      dx[i] = (dx[i] + PK(P_B + i)) + dt * jd[i];
+      AT(dx_out, k * 12 + i) = dx[i];
+    }
+  }
+  T last = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) last += dx[i] * qN[i];
+  AT(dphi_out, 0) = tot + last;
+#undef PK
+#undef AT
+}
+
+}  // namespace k1
+
+#ifdef __CUDACC__
+
+__global__ void sqp_planes_kernel(const float* __restrict__ consts, const float* xa,
+                                  const float* us, const float* xr, const float* dxc,
+                                  const float* duc, const float* alpha, const float* dx0,
+                                  float* dx_out, float* du_out, float* dphi, float* theta,
+                                  float* phi, float* maxdef, float* mincon, float* pack,
+                                  float* Kp, float* kvp, int N, int B, float mu_b,
+                                  float theta_b, float reg) {
+  __shared__ float kc[k1::K_LEN];
+  for (int i = threadIdx.x; i < k1::K_LEN; i += blockDim.x) kc[i] = consts[i];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  k1::scenario<float>(kc, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi, theta,
+                      phi, maxdef, mincon, pack, Kp, kvp, N, B, b, mu_b, theta_b, reg);
+}
+
+extern "C" int srbd_sqp_planes_launch(const float* consts, const float* xa, const float* us,
+                                      const float* xr, const float* dxc, const float* duc,
+                                      const float* alpha, const float* dx0, float* dx_out,
+                                      float* du_out, float* dphi, float* theta, float* phi,
+                                      float* maxdef, float* mincon, float* pack, float* Kp,
+                                      float* kvp, int N, int B, float mu_b, float theta_b,
+                                      float reg, int threads, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const int blocks = (B + threads - 1) / threads;
+  sqp_planes_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi, theta, phi, maxdef,
+      mincon, pack, Kp, kvp, N, B, mu_b, theta_b, reg);
+  return (int)cudaGetLastError();
+}
+
+#else  // host build: the same per-scenario body over every lane, in f64
+
+extern "C" int srbd_sqp_planes_host_f64(const double* consts, const double* xa,
+                                        const double* us, const double* xr,
+                                        const double* dxc, const double* duc,
+                                        const double* alpha, const double* dx0,
+                                        double* dx_out, double* du_out, double* dphi,
+                                        double* theta, double* phi, double* maxdef,
+                                        double* mincon, double* pack, double* Kp,
+                                        double* kvp, int N, int B, double mu_b,
+                                        double theta_b, double reg) {
+  for (int b = 0; b < B; ++b)
+    k1::scenario<double>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi,
+                         theta, phi, maxdef, mincon, pack, Kp, kvp, N, B, b, mu_b, theta_b,
+                         reg);
+  return 0;
+}
+
+#endif

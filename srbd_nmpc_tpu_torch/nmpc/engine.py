@@ -1,0 +1,515 @@
+"""Speculative batched SQP NMPC solve with straggler compaction.
+
+Counterpart of ``srbd_nmpc_tpu/nmpc/engine.py`` (lines 49-313, 660-671,
+921-936, 1014-1342, 1397-1422): the path the default ``NmpcConfig`` takes
+for a batch of scenarios. Each while-trip launches ONE fused SQP trip
+(``ops.sqp_planes``, kernel K1) at every live scenario's next line-search
+candidate ``x + alpha dx``: its merit decides the filter acceptance, and
+on acceptance its QP solution is the next iteration's direction. As the
+live set shrinks, the carry is compacted into narrower tiers with the
+sorted lane permutes of ``ops.permute`` (kernel K2).
+
+Per-scenario semantics are the reference's sequential SQP with a
+backtracking filter line search (persistent alpha, convergence test
+``dphi > -1e-3 and theta < 1e-6``), exactly as in the JAX engine.
+
+Public layout is the JAX engine's: states are ``x [B, N+1, 12]``,
+``u [B, N, 12]``, ``alpha [B]``; inside the solve the trajectories are
+stage-major with the batch last (``[N+1, 12, B]``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from srbd_nmpc_tpu_torch.models import srbd
+from srbd_nmpc_tpu_torch.ops import permute, sqp_planes
+from srbd_nmpc_tpu_torch.utils.device import (DeviceLike, pin_float32,
+                                              resolve_device)
+
+# Engine status codes (IpmStatus encoding). STATUS_RUNNING doubles as
+# MAX_ITER_REACHED: a scenario that never leaves it ran out of iterations.
+STATUS_SUCCESS = 0
+STATUS_RUNNING = 1
+STATUS_MIN_STEP = 2          # line search stalled at alpha_min
+STATUS_NAN_DETECTED = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class NmpcConfig:
+    """Engine configuration: the JAX ``NmpcConfig``'s fields, defaults and
+    checks. Options outside the ported slice are accepted here (so a
+    configuration carries across unchanged) and raise
+    ``NotImplementedError`` in ``solve``."""
+
+    N: int = 20
+    sqp_max_iter: int = 15
+    mu_barrier: float = 0.1
+    theta_barrier: float = 5.0
+    sensitivity: str = "euler"
+
+    theta_max: float = 1e-6
+    theta_min: float = 5e-10
+    eta: float = 1e-4
+    beta_phi: float = 1e-6
+    beta_theta: float = 1e-6
+    beta_alpha: float = 0.5
+    alpha_min: float = 1e-4
+    persistent_alpha: bool = True
+
+    reg: float = 1e-9
+    refine: int = 0
+    qp_kernel: str = "auto"
+    pscan_min_N: int = 1 << 30
+    # granularity of the compaction tier widths (a tier engages only when
+    # its width is a multiple of it); the CUDA kernels' block sizes are
+    # separate constants in their wrappers
+    pallas_block: int = 256
+    speculative: bool = True
+    fold_forward: bool = True
+    planes: bool = True
+    compact: bool = True
+    compact_tiers: tuple = (2, 8, 32)
+    park_factor: bool = False
+
+    conv_dphi: float = -1e-3
+    conv_theta: float = 1e-6
+
+    def __post_init__(self):
+        if self.qp_kernel in ("pscan", "fused") and self.refine > 0:
+            raise ValueError(
+                f"qp_kernel={self.qp_kernel!r} does not support refine > 0 "
+                "(iterative refinement is only implemented in the "
+                "sequential XLA Riccati kernel); use qp_kernel='auto'/'xla' "
+                "or set refine=0")
+        if self.qp_kernel in ("pallas", "fused") and self.sensitivity != "euler":
+            raise ValueError(
+                f"qp_kernel={self.qp_kernel!r} implements the reference's "
+                "Euler sensitivities only; use sensitivity='euler' or "
+                "qp_kernel='auto'/'xla'")
+
+
+@dataclasses.dataclass(frozen=True)
+class NmpcWeights:
+    """Cost weights: Q = diag(Q_yaml), R = R_yaml * I, Qf = N * diag(Qf_yaml)."""
+
+    Q: torch.Tensor   # [nx, nx]
+    R: torch.Tensor   # [nu, nu]
+    Qf: torch.Tensor  # [nx, nx]
+
+    @staticmethod
+    def create(Q_diag, R_scalar, Qf_diag, N: int, dtype=torch.float32,
+               device: DeviceLike = None) -> "NmpcWeights":
+        dev = resolve_device(device)
+
+        def t(v):
+            return torch.as_tensor(v, dtype=dtype, device=dev)
+
+        return NmpcWeights(
+            Q=torch.diag(t(Q_diag)),
+            R=t(R_scalar) * torch.eye(srbd.NU, dtype=dtype, device=dev),
+            Qf=t(N) * torch.diag(t(Qf_diag)),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class NmpcState:
+    """Per-scenario SQP iterate; leaves may carry a leading batch axis."""
+
+    x: torch.Tensor      # [..., N+1, nx]
+    u: torch.Tensor      # [..., N, nu]
+    alpha: torch.Tensor  # [...]
+
+    @staticmethod
+    def initial(N: int, dtype=torch.float32, device: DeviceLike = None
+                ) -> "NmpcState":
+        """x = 0, u = 100, alpha = 1 (the reference's cold start)."""
+        dev = resolve_device(device)
+        return NmpcState(
+            x=torch.zeros((N + 1, srbd.NX), dtype=dtype, device=dev),
+            u=100.0 * torch.ones((N, srbd.NU), dtype=dtype, device=dev),
+            alpha=torch.tensor(1.0, dtype=dtype, device=dev),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class NmpcInfo:
+    """Per-scenario diagnostics. ``status``: 0 SUCCESS, 1 MAX_ITER_REACHED,
+    2 MIN_STEP_LENGTH_REACHED, 3 NAN_DETECTED. ``ls_trips`` counts fused
+    SQP-trip launches (every scenario of a batch pays the slowest's)."""
+
+    converged: torch.Tensor
+    sqp_iters: torch.Tensor
+    theta: torch.Tensor
+    phi: torch.Tensor
+    dphi: torch.Tensor
+    alpha: torch.Tensor
+    max_defect: torch.Tensor
+    min_constraint: torch.Tensor
+    status: torch.Tensor
+    ls_trips: torch.Tensor
+
+    def pretty(self) -> str:
+        """Human-readable report (the reference's printOptimizationInfo),
+        aggregated over the batch when one is present."""
+        def a(t):
+            return np.asarray(t.detach().cpu())
+
+        names = {0: "SUCCESS", 1: "MAX_ITER_REACHED",
+                 2: "MIN_STEP_LENGTH_REACHED", 3: "NAN_DETECTED"}
+        conv = a(self.converged)
+        stat = a(self.status)
+        lines = ["-----------------------"]
+        if conv.ndim == 0:
+            lines += [
+                f"status      : {names.get(int(stat), int(stat))}",
+                f"sqp_loop    : {int(a(self.sqp_iters))}",
+                f"ls_trips    : {int(a(self.ls_trips))}",
+                f"phi         : {float(a(self.phi)):.6e}",
+                f"dphi        : {float(a(self.dphi)):.6e}",
+                f"theta       : {float(a(self.theta)):.6e}",
+                f"alpha       : {float(a(self.alpha)):.6e}",
+                "max dynamic equation violation    : "
+                f"{float(a(self.max_defect)):.6e}",
+                "min friction cone constraint value: "
+                f"{float(a(self.min_constraint)):.6e}",
+            ]
+        else:
+            n = conv.size
+            counts = {names[k]: int(np.sum(stat == k)) for k in names
+                      if np.any(stat == k)}
+            lines += [
+                f"scenarios   : {n}  (converged {int(conv.sum())}/{n})",
+                f"status      : {counts}",
+                f"sqp_loop    : mean {float(np.mean(a(self.sqp_iters))):.2f}"
+                f"  max {int(np.max(a(self.sqp_iters)))}",
+                f"ls_trips    : max {int(np.max(a(self.ls_trips)))}",
+                f"phi         : max {float(np.max(a(self.phi))):.6e}",
+                f"theta       : max {float(np.max(a(self.theta))):.6e}",
+                f"alpha       : min {float(np.min(a(self.alpha))):.6e}",
+                "max dynamic equation violation    : "
+                f"{float(np.max(a(self.max_defect))):.6e}",
+                "min friction cone constraint value: "
+                f"{float(np.min(a(self.min_constraint))):.6e}",
+            ]
+        return "\n".join(lines)
+
+
+def _accept(cfg: NmpcConfig, theta_a, phi_a, alpha, theta0, phi0, dphi):
+    """Filter acceptance 3-case rule (reference NMPC_solver.cpp:200-264)."""
+    case_infeasible = theta_a > cfg.theta_max
+    acc_infeasible = theta_a < (1.0 - cfg.beta_theta) * theta0
+    case_small = (torch.maximum(theta_a, theta0) < cfg.theta_min) & (dphi < 0.0)
+    acc_small = phi_a < phi0 + cfg.eta * alpha * dphi
+    acc_mixed = (phi_a < phi0 - cfg.beta_phi * theta0) | (
+        theta_a < (1.0 - cfg.beta_theta) * theta0)
+    return torch.where(case_infeasible, acc_infeasible,
+                       torch.where(case_small, acc_small, acc_mixed))
+
+
+def _check_slice(cfg: NmpcConfig, state: NmpcState) -> None:
+    """Reject every configuration the port does not run yet."""
+    def todo(what, item):
+        raise NotImplementedError(
+            f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
+
+    if cfg.qp_kernel not in ("auto", "fused"):
+        todo(f"qp_kernel={cfg.qp_kernel!r}", "Queue 1 item 2")
+    if cfg.qp_kernel == "auto" and cfg.refine == 0 and cfg.N >= cfg.pscan_min_N:
+        todo("the associative-scan Riccati (N >= pscan_min_N)",
+             "Queue 1 item 6")
+    if not cfg.speculative:
+        todo("speculative=False (the synchronous SQP loop)", "Queue 1 item 2")
+    if not cfg.planes:
+        todo("planes=False (the dense one-pass kernels)", "Queue 2 K3")
+    if cfg.park_factor:
+        todo("park_factor=True", "Queue 2, K1 variants")
+    if cfg.refine > 0:
+        todo("refine > 0 (iterative refinement)", "Queue 1 item 4")
+    if cfg.sensitivity != "euler":
+        todo(f"sensitivity={cfg.sensitivity!r}", "Queue 1 item 2")
+    if state.x.dim() != 3:
+        todo("the single-scenario (unbatched) solve", "Queue 1 item 3")
+    if state.x.device.type == "cuda" and state.x.dtype != torch.float32:
+        todo(f"{state.x.dtype} on CUDA (the kernels are float32)",
+             "Queue 2, f64 kernels")
+
+
+def solve(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
+          state: NmpcState, x0: torch.Tensor, x_ref: torch.Tensor
+          ) -> Tuple[NmpcState, NmpcInfo]:
+    """Batched NMPC solve: SQP iterations until every scenario converged,
+    stalled or hit ``sqp_max_iter``. ``state`` leaves carry a leading
+    batch axis [B]; ``x0`` is [B, nx]; ``x_ref`` is [N+1, nx] (shared) or
+    [B, N+1, nx].
+
+    On CUDA, TF32 is switched off for matmuls and convolutions first: the
+    ``theta < 1e-6`` convergence test must never see TF32 rounding."""
+    _check_slice(cfg, state)
+    pin_float32(state.x.device)
+    return _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref)
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    # trajectory-sized arrays (ndim >= 2) go through the K2 kernel on CUDA;
+    # the [B]-sized bookkeeping (bool/int32/float vectors) is left to
+    # index_select, as the JAX engine leaves it to jnp.take
+    return permute.take_lanes(a, idx) if a.dim() >= 2 else a.index_select(0, idx)
+
+
+def _put(dst: torch.Tensor, src: torch.Tensor, idx: torch.Tensor
+         ) -> torch.Tensor:
+    if dst.dim() >= 2:
+        return permute.set_lanes(dst, src, idx)
+    return dst.index_copy(0, idx, src)
+
+
+def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
+    """Speculative-acceptance batched solve with phase-structured straggler
+    compaction (see the module docstring and the JAX engine's
+    ``_solve_batched_soa_spec``).
+
+    Each ``lax.while_loop`` phase of the JAX engine is a host ``while``
+    loop here: its condition ``n_live > thresh and trips < trip_cap`` is
+    read back once per trip (one device sync per trip)."""
+    Bn = state.x.shape[0]
+    dtype, dev = state.x.dtype, state.x.device
+    N = cfg.N
+    xa0 = state.x.permute(1, 2, 0).contiguous()
+    us0 = state.u.permute(1, 2, 0).contiguous()
+    x0s = x0.transpose(0, 1).contiguous()
+    shared_ref = x_ref.dim() == 2
+
+    def _xra_at(width):
+        return (x_ref[:, :, None].expand(N + 1, srbd.NX, width)
+                .to(dtype).contiguous())
+
+    xra = _xra_at(Bn) if shared_ref else x_ref.permute(1, 2, 0).contiguous()
+    Ac, bc = srbd.constraint_matrix(params)
+
+    def _cand_at(xa, us, dx_p, du_p, alpha_cand, xra_, x0s_):
+        return sqp_planes.sqp_qp_solve_onepass_planes(
+            params, weights.Q, weights.Qf, weights.R, Ac, bc,
+            xa, us, xra_, dx_p, du_p, alpha_cand, x0s_,
+            cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg)
+
+    tiers = []
+    if cfg.compact:
+        for f in cfg.compact_tiers:
+            if not isinstance(f, int) or f < 2:
+                raise ValueError(
+                    f"compact_tiers must be ints >= 2, got {f!r} in "
+                    f"{cfg.compact_tiers!r}")
+            Bc = Bn // f
+            if Bc >= cfg.pallas_block and Bc % cfg.pallas_block == 0:
+                tiers.append(Bc)
+    tiers.sort(reverse=True)
+
+    # ---- bootstrap: iteration 1's linearize + QP at the initial iterate --
+    dx_p, du_p, dphi_p, aux = _cand_at(
+        xa0, us0, torch.zeros_like(xa0), torch.zeros_like(us0),
+        torch.zeros(Bn, dtype=dtype, device=dev), xra, x0s)
+    th_p, ph_p, md_p, mc_p = aux
+    nan0 = ~torch.isfinite(th_p + ph_p + dphi_p)
+    conv_p = (dphi_p > cfg.conv_dphi) & (th_p < cfg.conv_theta)
+    live = ~nan0
+    i32 = torch.int32
+    status = torch.where(nan0, STATUS_NAN_DETECTED, STATUS_RUNNING).to(i32)
+    iters = torch.where(nan0, 1, 0).to(i32)
+    alpha_acc = state.alpha
+    alpha_cand = (state.alpha if cfg.persistent_alpha
+                  else torch.ones_like(state.alpha))
+    converged = torch.zeros(Bn, dtype=torch.bool, device=dev)
+    max_it = cfg.sqp_max_iter
+
+    # safety cap: alpha can be halved at most `halvings` times before it
+    # reaches alpha_min, plus one accepting trip per SQP iteration and
+    # slack for the bootstrap/straggler trips
+    halvings = max(1, int(math.ceil(
+        math.log(max(cfg.alpha_min, 1e-30))
+        / math.log(min(max(cfg.beta_alpha, 1e-6), 0.999999)))))
+    trip_cap = (cfg.sqp_max_iter * (1 if cfg.persistent_alpha else halvings)
+                + halvings + 16)
+
+    def body(carry, xra_p, x0s_p):
+        (xa, us, dx_p, du_p, dphi_p, th_p, ph_p, md_p, mc_p), live, \
+            (status, iters, conv_p, alpha_acc, alpha_cand,
+             i_th, i_ph, i_dphi, i_md, i_mc, converged), trips = carry
+
+        searching = live & (alpha_cand > cfg.alpha_min)
+        dx_c, du_c, dphi_c, aux_c = _cand_at(
+            xa, us, dx_p, du_p, alpha_cand, xra_p, x0s_p)
+        th_c, ph_c, md_c, mc_c = aux_c
+
+        ok = _accept(cfg, th_c, ph_c, alpha_cand, th_p, ph_p, dphi_p) \
+            & searching
+        reject = searching & ~ok
+        alpha_next = torch.where(reject, cfg.beta_alpha * alpha_cand,
+                                 alpha_cand)
+
+        # --- acceptance: step, then freeze/continue transitions -------------
+        m3 = ok[None, None, :]
+        af = alpha_cand[None, None, :]
+        xa2 = torch.where(m3, xa + af * dx_p, xa)
+        us2 = torch.where(m3, us + af * du_p, us)
+        alpha_acc2 = torch.where(ok, alpha_cand, alpha_acc)
+        iters2 = iters + ok.to(i32)
+
+        conv_c = (dphi_c > cfg.conv_dphi) & (th_c < cfg.conv_theta)
+        nan_c = ~torch.isfinite(th_c + ph_c + dphi_c)
+
+        succ = ok & conv_p
+        maxed = ok & ~conv_p & (iters2 >= max_it)
+        nanfr = ok & ~conv_p & (iters2 < max_it) & nan_c
+        cont = ok & ~(succ | maxed | nanfr)
+
+        # --- rejection bottoming out at alpha_min (or entering the loop
+        # already at the floor) ------------------------------------------------
+        stalled = (reject & (alpha_next <= cfg.alpha_min)) | (live & ~searching)
+        succ2 = stalled & conv_p
+        minstep = stalled & ~conv_p
+        alpha_acc2 = torch.where(stalled, alpha_next, alpha_acc2)
+
+        status2 = torch.where(
+            succ | succ2, STATUS_SUCCESS,
+            torch.where(nanfr, STATUS_NAN_DETECTED,
+                        torch.where(minstep, STATUS_MIN_STEP, status))
+        ).to(i32)
+        iters3 = torch.where(nanfr | succ2, iters2 + 1,
+                             torch.where(minstep, max_it, iters2)).to(i32)
+        live2 = live & ~(succ | succ2 | maxed | nanfr | minstep)
+        converged2 = converged | succ | succ2
+
+        # --- info bookkeeping: acceptance-frozen scenarios report the
+        # pre-step values; nan/stall-frozen ones the current pending values
+        acc_info = succ | maxed | cont
+        oth_info = nanfr | succ2 | minstep
+
+        def wr(prev_val, pend_val, cand_val):
+            return torch.where(acc_info, pend_val,
+                               torch.where(oth_info, cand_val, prev_val))
+
+        i_th2 = wr(i_th, th_p, torch.where(nanfr, th_c, th_p))
+        i_ph2 = wr(i_ph, ph_p, torch.where(nanfr, ph_c, ph_p))
+        i_dphi2 = wr(i_dphi, dphi_p, torch.where(nanfr, dphi_c, dphi_p))
+        i_md2 = wr(i_md, md_p, torch.where(nanfr, md_c, md_p))
+        i_mc2 = wr(i_mc, mc_p, torch.where(nanfr, mc_c, mc_p))
+
+        # --- pending state: accepted scenarios adopt the candidate ----------
+        up = cont | nanfr
+        mp = up[None, None, :]
+        dx_p2 = torch.where(mp, dx_c, dx_p)
+        du_p2 = torch.where(mp, du_c, du_p)
+        th_p2 = torch.where(up, th_c, th_p)
+        ph_p2 = torch.where(up, ph_c, ph_p)
+        dphi_p2 = torch.where(up, dphi_c, dphi_p)
+        md_p2 = torch.where(up, md_c, md_p)
+        mc_p2 = torch.where(up, mc_c, mc_p)
+        conv_p2 = torch.where(cont, conv_c, conv_p)
+
+        alpha_cand2 = torch.where(
+            ok, alpha_cand if cfg.persistent_alpha
+            else torch.ones_like(alpha_cand), alpha_next)
+
+        return ((xa2, us2, dx_p2, du_p2, dphi_p2, th_p2, ph_p2, md_p2, mc_p2),
+                live2,
+                (status2, iters3, conv_p2, alpha_acc2, alpha_cand2,
+                 i_th2, i_ph2, i_dphi2, i_md2, i_mc2, converged2),
+                trips + 1)
+
+    def run_phase(carry, xra_p, x0s_p, thresh):
+        # one host sync per trip: the live count decides whether to go on
+        while carry[3] < trip_cap and int(carry[1].sum()) > thresh:
+            carry = body(carry, xra_p, x0s_p)
+        return carry
+
+    def take_carry(carry, idx):
+        S, live, Bk, trips = carry
+        return (tuple(_take(a, idx) for a in S), _take(live, idx),
+                tuple(_take(a, idx) for a in Bk), trips)
+
+    def scatter_carry(dst, src, idx):
+        # dx_p/du_p (S[2], S[3]) are not scattered back: a frozen lane's
+        # pending direction is never read after the loop
+        S_d, live_d, Bk_d, _ = dst
+        S_s, live_s, Bk_s, trips_s = src
+        S_o = tuple(d if i in (2, 3) else _put(d, c, idx)
+                    for i, (d, c) in enumerate(zip(S_d, S_s)))
+        return (S_o, _put(live_d, live_s, idx),
+                tuple(_put(d, c, idx) for d, c in zip(Bk_d, Bk_s)), trips_s)
+
+    carry = ((xa0, us0, dx_p, du_p, dphi_p, th_p, ph_p, md_p, mc_p), live,
+             (status, iters, conv_p, alpha_acc, alpha_cand,
+              th_p, ph_p, dphi_p, md_p, mc_p, converged),
+             0)
+    carry = run_phase(carry, xra, x0s, thresh=tiers[0] if tiers else 0)
+    if tiers:
+        # compacted phases: gather the carry once per tier crossing, run the
+        # same loop at the smaller width, scatter back innermost first
+        stack = []
+        xra_p, x0s_p = xra, x0s
+        for i, Bc in enumerate(tiers):
+            live_o = carry[1]
+            # stable: live lanes first in their original order; then re-sort
+            # the selected prefix, since the permutes need a strictly
+            # increasing index list (which dead pad lanes fill it is moot)
+            order = torch.argsort((~live_o).to(torch.int32), stable=True)
+            idx = torch.sort(order[:Bc]).values
+            stack.append((carry, idx))
+            carry = take_carry(carry, idx)
+            xra_p = _xra_at(Bc) if shared_ref else permute.take_lanes(xra_p, idx)
+            x0s_p = permute.take_lanes(x0s_p, idx)
+            nxt = tiers[i + 1] if i + 1 < len(tiers) else 0
+            carry = run_phase(carry, xra_p, x0s_p, thresh=nxt)
+        for outer, idx in reversed(stack):
+            carry = scatter_carry(outer, carry, idx)
+
+    (xa_f, us_f, *_), _, \
+        (status_f, iters_f, _, alpha_f, alpha_cand_f,
+         f_th, f_ph, f_dphi, f_md, f_mc, converged_f), trips_f = carry
+
+    # live scenarios that hit the trip cap and any residual RUNNING-at-
+    # alpha-floor cases report the stall distinctly
+    stalled = (status_f == STATUS_RUNNING) & (alpha_cand_f <= cfg.alpha_min)
+    status_f = torch.where(stalled, STATUS_MIN_STEP, status_f).to(i32)
+    info = NmpcInfo(
+        converged=converged_f, sqp_iters=iters_f,
+        theta=f_th, phi=f_ph, dphi=f_dphi, alpha=alpha_f,
+        max_defect=f_md, min_constraint=f_mc, status=status_f,
+        ls_trips=torch.full((Bn,), 1 + trips_f, dtype=i32, device=dev),
+    )
+    state_f = NmpcState(x=xa_f.permute(2, 0, 1).contiguous(),
+                        u=us_f.permute(2, 0, 1).contiguous(), alpha=alpha_f)
+    return state_f, info
+
+
+def shift_state(state: NmpcState, steps: int = 1) -> NmpcState:
+    """Receding-horizon warm start: shift the trajectories ``steps`` stages
+    forward, repeating the terminal entries; alpha resets to 1."""
+    x = torch.cat([state.x[..., steps:, :],
+                   state.x[..., -1:, :].repeat_interleave(steps, dim=-2)],
+                  dim=-2)
+    u = torch.cat([state.u[..., steps:, :],
+                   state.u[..., -1:, :].repeat_interleave(steps, dim=-2)],
+                  dim=-2)
+    return NmpcState(x=x, u=u, alpha=torch.ones_like(state.alpha))
+
+
+def make_benchmark_problem(cfg: NmpcConfig, dtype=torch.float32,
+                           device: DeviceLike = None):
+    """The reference benchmark scenario: stance with a yaw / forward /
+    height reference step. Returns (x0 [nx], x_ref [N+1, nx])."""
+    dev = resolve_device(device)
+    x0 = torch.zeros(srbd.NX, dtype=dtype, device=dev)
+    x0[8] = 1.0
+    x_ref_k = torch.zeros(srbd.NX, dtype=dtype, device=dev)
+    x_ref_k[2] = 0.2
+    x_ref_k[6] = 0.5
+    x_ref_k[8] = 1.0
+    x_ref = x_ref_k.expand(cfg.N + 1, srbd.NX).contiguous()
+    return x0, x_ref

@@ -1,0 +1,309 @@
+"""One fused SQP trip at a candidate point: plane-phase linearization,
+structured backward Riccati, forward rollout and directional derivative.
+
+Counterpart of ``srbd_nmpc_tpu/ops/sqp_planes.py`` (kernel
+``_onepass_planes_kernel`` with ``_planes_phase`` and the stage body
+``sqp_pallas._riccati_stage_structured``), the kernel K1 of the port.
+
+- ``sqp_qp_solve_onepass_planes_ref``: the plain PyTorch version, any
+  device and dtype. Per-scenario arithmetic never crosses lanes, and every
+  reduction over stages or rows is an explicit loop, so a lane's result
+  does not depend on the batch width.
+- ``sqp_qp_solve_onepass_planes``: the public entry. CPU tensors go to the
+  plain version; CUDA tensors launch the hand-written kernel
+  ``csrc/sqp_planes.cu`` (f32 only) or raise.
+
+The candidate fold ``x + alpha dx`` is applied on load, so one function
+serves the bootstrap (alpha = 0) and every speculative line-search trip.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from srbd_nmpc_tpu_torch.models import srbd_planes as spl
+from srbd_nmpc_tpu_torch.models import srbd_soa
+from srbd_nmpc_tpu_torch.models.srbd import NG, NU, NX, SRBDParams
+from srbd_nmpc_tpu_torch.ops import smallmat as sm
+from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
+from srbd_nmpc_tpu_torch.ops.sqp_stage import (_riccati_stage_structured,
+                                               _split_leg_blocks)
+
+# pack channel layout (C rows per stage), as in the JAX kernel
+_D1 = 0          # 9: D1 row-major
+_D2 = 9          # 9: D2 row-major
+_SF = 18         # 3: generator of SF = skew(f01 + f02)
+_SR = 21         # 3: generator of Sr = skew(pf0 - p)
+_SL = 24         # 3: generator of Sl = skew(pf1 - p)
+_B = 27          # 12: defect b = rk4(x, u) - x_next
+_Q = 39          # 12: q = Qw (x - xr)
+_RF = 51         # 12: r_eff = Rw u + Ac' db
+_DDB = 63        # 24: barrier curvature ddb
+_C = 87
+
+# constants block handed to the CUDA kernel (offsets match csrc/sqp_planes.cu)
+_K_MASS, _K_DT, _K_IINV, _K_FOOT = 0, 1, 2, 11
+_K_AC1, _K_AC2, _K_BC = 17, 89, 161
+_K_R, _K_Q, _K_QF = 185, 329, 473
+_K_LEN = 617
+
+# CUDA threads per block of K1 (independent of NmpcConfig.pallas_block,
+# which only sets the granularity of the compaction tiers)
+THREADS = 128
+
+# launches of the CUDA kernel since the last reset (read by chip_smoke.py)
+launches = 0
+
+
+def _sum_rows(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis as an explicit left-to-right loop."""
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def _planes_phase(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc, xa, us, xra, dxc,
+                  duc, alpha, mu_b, theta_b):
+    """Linearize all stages on [N, B] planes; return the merit outputs,
+    the structured pack [C, N, B] and the terminal (P, p) seed."""
+    N = us.shape[0]
+    Bt = xa.shape[-1]
+    dtype, dev = xa.dtype, xa.device
+
+    x_p = tuple(xa[0:N, e] + alpha * dxc[0:N, e] for e in range(NX))
+    xn_p = tuple(xa[1:N + 1, e] + alpha * dxc[1:N + 1, e] for e in range(NX))
+    u_p = tuple(us[:, e] + alpha * duc[:, e] for e in range(NU))
+    e_p = tuple(x_p[e] - xra[0:N, e] for e in range(NX))
+
+    mass, dt = params.mass, params.dt
+    iv = params.inertia_inv.to(dtype)
+    Iinv = tuple(tuple(iv[i, j] for j in range(3)) for i in range(3))
+    ft = params.foot_pos.to(dtype)
+    pf0 = tuple(ft[0, j] for j in range(3))
+    pf1 = tuple(ft[1, j] for j in range(3))
+
+    D1, D2, sF, sr, sl, x_next = spl.linearize_stage(
+        mass, dt, Iinv, pf0, pf1, x_p, u_p)
+    b_p = tuple(x_next[e] - xn_p[e] for e in range(NX))
+
+    # ---- constraints + barrier on the [NG, N, B] stack ---------------------
+    con_p = [spl._addn(*(Ac1[g, j] * u_p[j] for j in range(6)), bc[g])
+             for g in range(12)]
+    con_p += [spl._addn(*(Ac2[g, j] * u_p[6 + j] for j in range(6)),
+                        bc[12 + g]) for g in range(12)]
+    CON = torch.stack(con_p)
+    b_bar, db, ddb = relaxed_log_barrier(CON, mu_b, theta_b)
+
+    q_p = tuple(spl._addn(*(Q_w[i, j] * e_p[j] for j in range(NX)))
+                for i in range(NX))
+    Ru_p = tuple(spl._addn(*(R_w[i, j] * u_p[j] for j in range(NU)))
+                 for i in range(NU))
+    reff_p = [Ru_p[i] + spl._addn(*(Ac1[g, i] * db[g] for g in range(12)))
+              for i in range(6)]
+    reff_p += [Ru_p[6 + i] + spl._addn(*(Ac2[g, i] * db[12 + g]
+                                         for g in range(12)))
+               for i in range(6)]
+
+    # ---- terminal stage + Riccati seed -------------------------------------
+    eN = xa[N] + alpha * dxc[N] - xra[N]
+    Qf_b = Qf_w[:, :, None].expand(NX, NX, Bt)
+    qN = sm.mv(Qf_b, eN)
+
+    # ---- merit reductions across stages ------------------------------------
+    theta = 0.5 * spl._addn(*(_sum_rows(b_p[e] * b_p[e]) for e in range(NX)))
+    maxdef = b_p[0].abs().amax(dim=0)
+    for e in range(1, NX):
+        maxdef = torch.maximum(maxdef, b_p[e].abs().amax(dim=0))
+    phiN = 0.5 * _sum_rows(eN * qN)
+    phi = (_sum_rows(_sum_rows(b_bar))
+           + 0.5 * spl._addn(*(_sum_rows(u_p[i] * Ru_p[i])
+                               for i in range(NU)))
+           + 0.5 * spl._addn(*(_sum_rows(e_p[i] * q_p[i])
+                               for i in range(NX)))
+           + phiN)
+    mincon = CON.amin(dim=(0, 1))
+
+    def plane(v):
+        if isinstance(v, (int, float)):
+            return torch.full((N, Bt), v, dtype=dtype, device=dev)
+        return v
+
+    planes = ([plane(D1[i][j]) for i in range(3) for j in range(3)]
+              + [plane(D2[i][j]) for i in range(3) for j in range(3)]
+              + [plane(v) for v in sF] + [plane(v) for v in sr]
+              + [plane(v) for v in sl]
+              + [plane(v) for v in b_p] + [plane(v) for v in q_p]
+              + [plane(v) for v in reff_p])
+    pack = torch.cat([torch.stack(planes), ddb], dim=0)   # [C, N, B]
+    return (theta, phi, maxdef, mincon), pack, Qf_b, qN
+
+
+def sqp_qp_solve_onepass_planes_ref(
+    params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+    alpha, x0s, mu_b: float, theta_b: float, reg: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Plain PyTorch version of K1: the fused SQP QP solve at the candidate
+    (xa + alpha dxc, us + alpha duc). Shapes: xa/xra/dxc [N+1, 12, B],
+    us/duc [N, 12, B], alpha [B], x0s [12, B]. Returns
+    (dx [N+1,12,B], du [N,12,B], dphi [B], (theta, phi, maxdef, mincon))."""
+    N = us.shape[0]
+    Bt = xa.shape[-1]
+    Ac1, Ac2 = _split_leg_blocks(Ac)
+    dt = params.dt
+    m_inv = 1.0 / params.mass
+
+    dx0 = x0s - (xa[0] + alpha[None, :] * dxc[0])
+    aux, pack, P, p = _planes_phase(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc,
+                                    xa, us, xra, dxc, duc, alpha,
+                                    mu_b, theta_b)
+    qN = p
+
+    def widen(c):
+        return c[..., None].expand(c.shape + (Bt,))
+
+    def stage(pk):
+        D1 = pk[_D1:_D1 + 9].reshape(3, 3, Bt)
+        D2 = pk[_D2:_D2 + 9].reshape(3, 3, Bt)
+        return (D1, D2, pk[_SF:_SF + 3], pk[_SR:_SR + 3], pk[_SL:_SL + 3],
+                pk[_B:_B + 12], pk[_Q:_Q + 12], pk[_RF:_RF + 12],
+                pk[_DDB:_DDB + 24])
+
+    Ac1_b, Ac2_b, Rw_b, Qw_b = widen(Ac1), widen(Ac2), widen(R_w), widen(Q_w)
+    z66 = torch.zeros((6, 6, Bt), dtype=xa.dtype, device=xa.device)
+    Ks, kvs = [None] * N, [None] * N
+    for k in reversed(range(N)):
+        D1, D2, sF, sr, sl, b, q, reff, ddb = stage(pack[:, k])
+        C11 = sm.mtm(Ac1_b, Ac1_b * ddb[0:12, None])
+        C22 = sm.mtm(Ac2_b, Ac2_b * ddb[12:24, None])
+        Reff = Rw_b + torch.cat([torch.cat([C11, z66], dim=1),
+                                 torch.cat([z66, C22], dim=1)], dim=0)
+        P, p, Ks[k], kvs[k] = _riccati_stage_structured(
+            dt, m_inv, D1, D2, srbd_soa.skew(sF), srbd_soa.skew(sr),
+            srbd_soa.skew(sl), Qw_b, Reff, reff, q, b, P, p, reg)
+
+    # forward rollout: dx_{k+1} = dx + dt (Jx dx + Ju du) + b, block-wise
+    dx = dx0
+    dxs, dus = [dx0], []
+    tot = None
+    for k in range(N):
+        D1, D2, sF, sr, sl, b, q, reff, _ = stage(pack[:, k])
+        du = sm.mv(Ks[k], dx) + kvs[k]
+        d0, d1, d2, d3 = dx[0:3], dx[3:6], dx[6:9], dx[9:12]
+        u0, u1, u2, u3 = du[0:3], du[3:6], du[6:9], du[9:12]
+        dxn = dx + b + dt * torch.cat([
+            sm.mv(D1, d0) + sm.mv(D2, d1),
+            srbd_soa.cross(sF, d2) + srbd_soa.cross(sr, u0) + u1
+            + srbd_soa.cross(sl, u2) + u3,
+            d3,
+            m_inv * (u0 + u2)], dim=0)
+        part = _sum_rows(dx * q) + _sum_rows(du * reff)
+        tot = part if tot is None else tot + part
+        dus.append(du)
+        dxs.append(dxn)
+        dx = dxn
+    dphi = tot + _sum_rows(dx * qN)
+    return torch.stack(dxs), torch.stack(dus), dphi, aux
+
+
+def _constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac1, Ac2, bc):
+    """The kernel's constants block, laid out at the ``_K_*`` offsets."""
+    parts = [params.mass.reshape(1), params.dt.reshape(1),
+             params.inertia_inv.reshape(9), params.foot_pos.reshape(6),
+             Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
+             R_w.reshape(144), Q_w.reshape(144), Qf_w.reshape(144)]
+    k = torch.cat([t.to(torch.float32) for t in parts]).contiguous()
+    assert k.numel() == _K_LEN
+    return k
+
+
+def _lib():
+    from srbd_nmpc_tpu_torch.utils.build import load_kernel
+
+    lib = load_kernel("sqp_planes")
+    fn = lib.srbd_sqp_planes_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 18
+                       + [ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_f32(name: str, t: torch.Tensor, shape) -> None:
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 CUDA tensors, "
+                        f"got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+                alpha, x0s, mu_b, theta_b, reg):
+    global launches
+    N = us.shape[0]
+    Bt = xa.shape[-1]
+    for name, t, shape in (("xa", xa, (N + 1, NX, Bt)),
+                           ("us", us, (N, NU, Bt)),
+                           ("xra", xra, (N + 1, NX, Bt)),
+                           ("dxc", dxc, (N + 1, NX, Bt)),
+                           ("duc", duc, (N, NU, Bt)),
+                           ("alpha", alpha, (Bt,)),
+                           ("x0s", x0s, (NX, Bt))):
+        _check_cuda_f32(name, t, shape)
+    Ac1, Ac2 = _split_leg_blocks(Ac)
+    consts = _constants(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc).to(xa.device)
+    xa, us, xra, dxc, duc, alpha, x0s = (
+        t.contiguous() for t in (xa, us, xra, dxc, duc, alpha, x0s))
+
+    dev = xa.device
+    f32 = torch.float32
+    dx = torch.empty((N + 1, NX, Bt), dtype=f32, device=dev)
+    dx[0] = x0s - (xa[0] + alpha[None, :] * dxc[0])
+    du = torch.empty((N, NU, Bt), dtype=f32, device=dev)
+    out5 = torch.empty((5, Bt), dtype=f32, device=dev)  # dphi, th, ph, md, mc
+    pack = torch.empty((N, _C, Bt), dtype=f32, device=dev)
+    K = torch.empty((N, NU, NX, Bt), dtype=f32, device=dev)
+    kv = torch.empty((N, NU, Bt), dtype=f32, device=dev)
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib()(consts.data_ptr(), xa.data_ptr(), us.data_ptr(),
+                 xra.data_ptr(), dxc.data_ptr(), duc.data_ptr(),
+                 alpha.data_ptr(), dx.data_ptr(),
+                 dx[1:].data_ptr(), du.data_ptr(),
+                 out5[0].data_ptr(), out5[1].data_ptr(), out5[2].data_ptr(),
+                 out5[3].data_ptr(), out5[4].data_ptr(),
+                 pack.data_ptr(), K.data_ptr(), kv.data_ptr(),
+                 N, Bt, float(mu_b), float(theta_b), float(reg),
+                 THREADS, stream)
+    if err != 0:
+        raise RuntimeError(f"sqp_planes kernel launch failed: CUDA error {err}")
+    launches += 1
+    return dx, du, out5[0], (out5[1], out5[2], out5[3], out5[4])
+
+
+def sqp_qp_solve_onepass_planes(
+    params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+    alpha, x0s, mu_b: float, theta_b: float, reg: float = 0.0,
+    rank6: bool = False, factor: bool = False,
+):
+    """Fused SQP QP solve at the candidate (xa + alpha dxc, us + alpha duc);
+    the contract of the JAX ``sqp_qp_solve_onepass_planes``. CPU tensors
+    run the plain version; CUDA tensors run the CUDA kernel (f32) or
+    raise. Requires ``Ac`` leg-block-diagonal (checked)."""
+    if rank6 or factor:
+        raise NotImplementedError(
+            "the rank6 / factor variants of the fused SQP trip are not "
+            "ported yet (ROADMAP.md Queue 2, K1 variants)")
+    if xa.device.type == "cuda":
+        return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
+                           duc, alpha, x0s, mu_b, theta_b, reg)
+    if xa.device.type != "cpu":
+        raise TypeError(f"unsupported device {xa.device}")
+    return sqp_qp_solve_onepass_planes_ref(
+        params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc, alpha, x0s,
+        mu_b, theta_b, reg)

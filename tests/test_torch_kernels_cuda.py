@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(K1 fused SQP trip, K2 lane permutes), at the main path's widths.
+
+Needs a CUDA card and nvcc: on a machine without a card every test skips.
+Run on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from srbd_nmpc_tpu_torch.models import srbd
+from srbd_nmpc_tpu_torch.nmpc import engine
+from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
+from srbd_nmpc_tpu_torch.ops import permute, sqp_planes
+from srbd_nmpc_tpu_torch.parallel import sharded
+from srbd_nmpc_tpu_torch.utils.config import MpcOptions
+from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _k1_args(dev, N, B, alpha_zero, seed=0):
+    rng = np.random.default_rng(seed)
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    x0, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+
+    def T(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    xa = T(rng.normal(size=(N + 1, 12, B)) * 0.3)
+    us = T(rng.normal(size=(N, 12, B)) * 30 + 80)
+    xra = x_ref[:, :, None].expand(N + 1, 12, B).contiguous()
+    x0s = T(x0.cpu().numpy()[:, None] + 0.01 * rng.normal(size=(12, B)))
+    if alpha_zero:
+        dxc, duc = torch.zeros_like(xa), torch.zeros_like(us)
+        alpha = torch.zeros(B, dtype=torch.float32, device=dev)
+    else:
+        dxc = T(rng.normal(size=(N + 1, 12, B)) * 0.05)
+        duc = T(rng.normal(size=(N, 12, B)) * 2.0)
+        alpha = T(0.25 + 0.5 * rng.random(B))
+    Ac, bc = srbd.constraint_matrix(params)
+    return (params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us, xra,
+            dxc, duc, alpha, x0s, cfg.mu_barrier, cfg.theta_barrier)
+
+
+@pytest.mark.parametrize("alpha_zero", [True, False])
+def test_k1_matches_plain(dev, alpha_zero):
+    args = _k1_args(dev, 20, 4096, alpha_zero)
+    before = sqp_planes.launches
+    got = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
+    torch.cuda.synchronize()
+    assert sqp_planes.launches == before + 1
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9)
+    for g, r in zip(got[:3], ref[:3]):
+        assert torch.isfinite(g).all()
+        assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
+    for g, r in zip(got[3][:2], ref[3][:2]):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-4)
+
+
+def test_k1_rejects_float64(dev):
+    args = list(_k1_args(dev, 20, 64, True))
+    for i in range(6, 13):
+        args[i] = args[i].double()
+    with pytest.raises(TypeError, match="float32"):
+        sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
+
+
+@pytest.mark.parametrize("Bc", [65536, 4096])
+@pytest.mark.parametrize("clumpy", [False, True])
+def test_k2_bitwise(dev, Bc, clumpy):
+    rng = np.random.default_rng(Bc + clumpy)
+    B = 131072
+    a = torch.as_tensor(rng.normal(size=(21, 12, B)), dtype=torch.float32,
+                        device=dev)
+    p = np.ones(B)
+    if clumpy:
+        p[: B // 3] = 8.0
+        p[-B // 5:] = 0.05
+    idx = torch.as_tensor(np.sort(rng.choice(B, Bc, replace=False,
+                                             p=p / p.sum())), device=dev)
+    src = torch.as_tensor(rng.normal(size=(21, 12, Bc)), dtype=torch.float32,
+                          device=dev)
+    assert torch.equal(permute.take_lanes(a, idx),
+                       permute.take_lanes_ref(a, idx))
+    assert torch.equal(permute.set_lanes(a, src, idx),
+                       permute.set_lanes_ref(a, src, idx))
+
+
+def test_compacted_solve_is_bitwise_and_launches_kernels(dev):
+    B = 8192
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    x0, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(x0.cpu().numpy()[None]
+                          + 0.01 * rng.normal(size=(B, 12)),
+                          dtype=torch.float32, device=dev)
+    states = sharded.broadcast_state(engine.NmpcState.initial(cfg.N, device=dev), B)
+    k2_before = dict(permute.launches)
+    st_c, in_c, _ = sharded.solve_batch(params, weights, cfg, states, x0s, x_ref)
+    assert permute.launches["take_lanes"] > k2_before["take_lanes"]
+    st_f, in_f, _ = sharded.solve_batch(
+        params, weights, dataclasses.replace(cfg, compact=False), states, x0s,
+        x_ref)
+    assert torch.equal(st_c.u, st_f.u) and torch.equal(st_c.x, st_f.x)
+    assert torch.equal(in_c.sqp_iters, in_f.sqp_iters)
+    assert torch.equal(in_c.status, in_f.status)
+    assert int(in_c.converged.sum()) >= 0.95 * B
