@@ -8,7 +8,12 @@ port's main path (``parallel.sharded.solve_batch``, the default NmpcConfig:
 N=20, speculative fused SQP trips, compaction tiers (2, 8, 32)) on a cold and
 a warm B=131072 solve, and checks the results: convergence, compaction
 bitwise on the card, the kernel path against the plain path on the CPU, and
-the independent f64 C++ oracle (``native/srbd_oracle.cpp``).
+the independent f64 C++ oracle (``native/srbd_oracle.cpp``). Phases 10-12 do
+the same for the iteration-synchronous loop: its kernels (K5, K6, K7a)
+against their plain versions, cold B=131072 solves on its ``pallas`` and
+``fused`` routes against the speculative path, and each kernel route against
+the plain ``xla`` route. Each path's launch counts are set to 0 just before
+it is driven and read just after.
 
 Every phase prints one line and raises on failure (non-zero exit). The line
 before the last is the card's ``nvidia-smi`` name and power limit; the last
@@ -30,6 +35,14 @@ B_MAIN = 131072
 N_MAIN = 20
 REL_TOL = 1e-4
 ORACLE_TOL = 1e-3
+SOURCES = ("permute", "sqp_planes", "linearize", "riccati", "merit")
+# the synchronous routes: converged within 0.5 % of B and mean SQP
+# iterations within 0.1 of the speculative path's cold solve
+SYNC_ROUTES = {"pallas": dict(qp_kernel="pallas"),
+               "fused": dict(qp_kernel="fused", speculative=False)}
+SYNC_CONV_FRAC = 0.005
+SYNC_ITER_TOL = 0.1
+PARITY_FLIP_FRAC = 0.005
 
 
 def _smi() -> str:
@@ -77,17 +90,23 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from srbd_nmpc_tpu_torch.utils import build
 
     t0 = time.perf_counter()
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build.build, SOURCES))
     spills = {}
-    for name in ("permute", "sqp_planes"):
+    for name in SOURCES:
         build.load_kernel(name)
         lines = [ln.strip() for ln in build.build_log(name).splitlines()
                  if "spill" in ln or "registers" in ln]
         spills[name] = lines
     secs = time.perf_counter() - t0
-    print(f"[2 build] both kernels built and loaded in {secs:.1f} s", flush=True)
+    print(f"[2 build] {len(SOURCES)} sources built in parallel and loaded in "
+          f"{secs:.1f} s", flush=True)
     for name, lines in spills.items():
         for ln in lines:
             print(f"[2 build] {name}: {ln}", flush=True)
@@ -265,7 +284,7 @@ def phase_cold(dev, card):
     print(f"[5 cold] p50 {p50:.3f} ms per B={B_MAIN} solve, "
           f"{B_MAIN / p50 * 1e3:.1f} solves/s (times {[round(t, 3) for t in times]}) "
           f"on {card}", flush=True)
-    return st, info, prob, launches
+    return st, info, prob, launches, (n_conv, mean_it)
 
 
 def phase_warm(dev, st_cold, prob):
@@ -349,18 +368,294 @@ def phase_oracle(st, info, prob):
         raise AssertionError(f"oracle error {err}")
 
 
+def _reset_counts():
+    from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
+    from srbd_nmpc_tpu_torch.ops import permute, riccati_kernel, sqp_planes
+
+    sqp_planes.launches = 0
+    srbd_linearize.launches = 0
+    merit_kernel.launches = 0
+    for d in (permute.launches, riccati_kernel.launches):
+        for k in d:
+            d[k] = 0
+
+
+def _counts():
+    from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
+    from srbd_nmpc_tpu_torch.ops import permute, riccati_kernel, sqp_planes
+
+    return {"sqp_planes": sqp_planes.launches, **permute.launches,
+            "linearize": srbd_linearize.launches, **riccati_kernel.launches,
+            "merit_alpha": merit_kernel.launches}
+
+
+def _sync_kernel_inputs(rng, B, dev):
+    """Inputs of K5, K6 and K7a around the benchmark problem: states
+    x0 + 0.01 N(0,1) at every stage, inputs at the cold start u = 100 plus
+    N(0,1), the benchmark reference; the LQR data is the plain K5's
+    linearization there, and the K7a direction is the plain LQR solution
+    with a random alpha per scenario."""
+    from srbd_nmpc_tpu_torch.models import srbd, srbd_linearize
+    from srbd_nmpc_tpu_torch.nmpc import engine
+    from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
+    from srbd_nmpc_tpu_torch.ops import riccati_kernel
+    from srbd_nmpc_tpu_torch.utils.config import MpcOptions
+
+    N = N_MAIN
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    x0, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+
+    def T(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    x0n = x0.cpu().numpy()
+    xa = T(x0n[None, :, None] + 0.01 * rng.normal(size=(N + 1, 12, B)))
+    us = T(100.0 + rng.normal(size=(N, 12, B)))
+    xra = x_ref[:, :, None].expand(N + 1, 12, B).contiguous()
+    x0s = T(x0n[:, None] + 0.01 * rng.normal(size=(12, B)))
+    Ac, bc = srbd.constraint_matrix(params)
+    lin_args = (params, weights.Q, weights.R, Ac, bc, xa[:-1], xa[1:], us,
+                xra[:-1], cfg.mu_barrier, cfg.theta_barrier)
+    A, Bm, b, R, q, r, _ = engine._stage_linearization(
+        srbd_linearize.linearize_ref, params, weights, cfg, xa, us, xra)
+    # per-stage Q (K6b): the weights plus a small PSD perturbation per
+    # stage and scenario
+    Mh = T(rng.normal(size=(N + 1, 12, 12, B)))
+    Qs = (torch.cat([weights.Q[None].expand(N, 12, 12),
+                     weights.Qf[None]])[..., None]
+          + 1e-3 * torch.einsum("nikb,njkb->nijb", Mh, Mh)).contiguous()
+    del Mh
+    dx0s = x0s - xa[0]
+    lqr = dict(A=A, B=Bm, b=b, R=R, q=q, r=r, Qc=(weights.Q, weights.Qf),
+               Qs=Qs, x0=dx0s, reg=cfg.reg)
+    K, k = riccati_kernel.lqr_backward_ref(A, Bm, b, lqr["Qc"], R, q, r,
+                                           cfg.reg)
+    dx_rest, du = riccati_kernel.lqr_forward_ref(A, Bm, b, K, k, dx0s)
+    alpha = T(0.1 + 0.9 * rng.random(B))
+    merit_args = (params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us,
+                  xra, torch.cat([dx0s[None], dx_rest]), du, alpha,
+                  cfg.mu_barrier, cfg.theta_barrier)
+    return lin_args, lqr, (K, k), merit_args
+
+
+def phase_sync_kernels(dev):
+    """K5, K6 (const-Q and per-stage Q backward, forward) and K7a against
+    their plain versions at N=20, B=4096; then ms per launch at B=131072,
+    kernel and plain."""
+    from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
+    from srbd_nmpc_tpu_torch.ops import riccati_kernel as rk
+    from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
+
+    rng = np.random.default_rng(10)
+    lin_args, lqr, (K_ref, k_ref), merit_args = _sync_kernel_inputs(rng, 4096,
+                                                                    dev)
+    L, Qc, Qs = lqr, lqr["Qc"], lqr["Qs"]
+    pairs = {
+        "linearize": (srbd_linearize.linearize(*lin_args),
+                      srbd_linearize.linearize_ref(*lin_args)),
+        "riccati_bwd_constq": (
+            rk.lqr_backward(L["A"], L["B"], L["b"], Qc, L["R"], L["q"],
+                            L["r"], L["reg"]), (K_ref, k_ref)),
+        "riccati_bwd": (
+            rk.lqr_backward(L["A"], L["B"], L["b"], Qs, L["R"], L["q"],
+                            L["r"], L["reg"]),
+            rk.lqr_backward_ref(L["A"], L["B"], L["b"], Qs, L["R"], L["q"],
+                                L["r"], L["reg"])),
+        "riccati_fwd": (
+            rk.lqr_forward(L["A"], L["B"], L["b"], K_ref, k_ref, L["x0"]),
+            rk.lqr_forward_ref(L["A"], L["B"], L["b"], K_ref, k_ref, L["x0"])),
+        "merit_alpha": (merit_kernel.merit_alpha(*merit_args),
+                        merit_kernel.merit_alpha_ref(*merit_args)),
+    }
+    torch.cuda.synchronize()
+    rel, max_abs = {}, {}
+    for name, (got, ref) in pairs.items():
+        rel[name] = max_abs[name] = 0.0
+        for g, r in zip(got, ref):
+            g = g.cpu().numpy().astype(np.float64)
+            r = r.cpu().numpy().astype(np.float64)
+            if not np.all(np.isfinite(g)):
+                raise AssertionError(f"{name}: kernel output not finite")
+            if name == "linearize" and g.ndim == 3 and g.shape[1] == 8:
+                # merit partials: one row at a time (their scales differ)
+                e = max(parity_metric(g[:, i], r[:, i]) for i in range(8))
+            elif name == "merit_alpha":
+                e = float(np.max(np.abs(g - r) / np.abs(r)))
+            else:
+                e = parity_metric(g, r)
+            rel[name] = max(rel[name], e)
+            max_abs[name] = max(max_abs[name], float(np.max(np.abs(g - r))))
+    del pairs
+    print("[10 kernels] kernel vs plain at N=20, B=4096: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in rel.items()) + f" (limit {REL_TOL:g}); "
+        "max |diff| " + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()),
+        flush=True)
+    if not all(v < REL_TOL for v in rel.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: {rel}")
+
+    lin_args, L, (K, k), merit_args = _sync_kernel_inputs(rng, B_MAIN, dev)
+    Qc, Qs = L["Qc"], L["Qs"]
+    bwd = (L["A"], L["B"], L["b"])
+    calls = {
+        "linearize": (lambda: srbd_linearize.linearize(*lin_args),
+                      lambda: srbd_linearize.linearize_ref(*lin_args)),
+        "riccati_bwd_constq": (
+            lambda: rk.lqr_backward(*bwd, Qc, L["R"], L["q"], L["r"], L["reg"]),
+            lambda: rk.lqr_backward_ref(*bwd, Qc, L["R"], L["q"], L["r"],
+                                        L["reg"])),
+        "riccati_bwd": (
+            lambda: rk.lqr_backward(*bwd, Qs, L["R"], L["q"], L["r"], L["reg"]),
+            lambda: rk.lqr_backward_ref(*bwd, Qs, L["R"], L["q"], L["r"],
+                                        L["reg"])),
+        "riccati_fwd": (lambda: rk.lqr_forward(*bwd, K, k, L["x0"]),
+                        lambda: rk.lqr_forward_ref(*bwd, K, k, L["x0"])),
+        "merit_alpha": (lambda: merit_kernel.merit_alpha(*merit_args),
+                        lambda: merit_kernel.merit_alpha_ref(*merit_args)),
+    }
+    times = {name: (_cuda_ms(kern, 5), _cuda_ms(plain, 1))
+             for name, (kern, plain) in calls.items()}
+    del calls, lin_args, L, K, k, merit_args
+    torch.cuda.empty_cache()
+    print(f"[10 kernels] ms per launch at B={B_MAIN}, kernel (plain): "
+          + ", ".join(f"{k} {t[0]:.3f} ({t[1]:.3f})" for k, t in times.items()),
+          flush=True)
+    return rel, max_abs, times
+
+
+def _route_problem(dev, B, kw, seed=0):
+    import dataclasses
+
+    params, weights, cfg, states, x0s, x_ref = _cold_problem(B, dev, seed=seed)
+    return params, weights, dataclasses.replace(cfg, **kw), states, x0s, x_ref
+
+
+def phase_sync(dev, card, spec):
+    """Cold B=131072 solves of the iteration-synchronous loop on its two
+    kernel routes, each read against the speculative path's cold solve."""
+    from srbd_nmpc_tpu_torch.parallel import sharded
+
+    n_spec, it_spec = spec
+    need = {"pallas": ("linearize", "riccati_bwd_constq", "riccati_fwd",
+                       "merit_alpha"),
+            "fused": ("sqp_planes", "merit_alpha")}
+    out = {}
+    for route, kw in SYNC_ROUTES.items():
+        prob = _route_problem(dev, B_MAIN, kw)
+        torch.cuda.synchronize()
+        _reset_counts()
+        st, info, summ = sharded.solve_batch(*prob)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _counts().items() if v}
+        n_conv, mean_it = int(summ.n_converged), float(summ.mean_iters)
+        loops = int(info.sqp_iters.max())
+        ls = int(info.ls_trips[0])
+        # one read-back per SQP loop test and per line-search loop test
+        syncs = (loops + (loops < prob[2].sqp_max_iter)) + (ls + loops)
+        u_ok = bool(torch.isfinite(st.u[info.converged]).all())
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sharded.solve_batch(*prob)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50 = float(np.percentile(times, 50))
+        d_conv, d_it = n_conv - n_spec, mean_it - it_spec
+        print(f"[11 sync] {route} (qp_kernel={kw['qp_kernel']!r}, speculative="
+              f"{kw.get('speculative', True)}) B={B_MAIN}: converged "
+              f"{n_conv}/{B_MAIN} ({d_conv:+d} vs speculative), mean SQP "
+              f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
+              f"line-search trips {ls}, host syncs {syncs}, launches "
+              f"{launches}; p50 {p50:.3f} ms per solve, "
+              f"{B_MAIN / p50 * 1e3:.1f} solves/s (times "
+              f"{[round(t, 3) for t in times]}) on {card}", flush=True)
+        missing = [k for k in need[route] if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{route}: kernels never launched: {missing}")
+        if not u_ok:
+            raise AssertionError(f"{route}: a converged solution is not finite")
+        if abs(d_conv) > SYNC_CONV_FRAC * B_MAIN or abs(d_it) > SYNC_ITER_TOL:
+            raise AssertionError(f"{route}: converged {d_conv:+d}, mean "
+                                 f"iterations {d_it:+.4f} vs speculative")
+        out[route] = dict(launches=launches, n_conv=n_conv, mean_it=mean_it,
+                          ls=ls, syncs=syncs, p50=p50)
+        del prob, st, info
+        torch.cuda.empty_cache()
+
+    # the LQR entry with a per-stage Q, as a caller of lqr_solve passes it
+    # (the engine always passes (Q, Qf)): K6b's own path
+    from srbd_nmpc_tpu_torch.ops import riccati_kernel
+
+    _, L, _, _ = _sync_kernel_inputs(np.random.default_rng(11), B_MAIN, dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    x, u = riccati_kernel.lqr_solve(L["A"], L["B"], L["b"], L["Qs"], L["R"],
+                                    L["q"], L["r"], L["x0"], reg=L["reg"])
+    torch.cuda.synchronize()
+    lqr_launches = {k: v for k, v in _counts().items() if v}
+    ok = bool(torch.isfinite(x).all() and torch.isfinite(u).all())
+    del L, x, u
+    torch.cuda.empty_cache()
+    print(f"[11 sync] lqr_solve with per-stage Q [21,12,12,{B_MAIN}]: "
+          f"finite {ok}, launches {lqr_launches}", flush=True)
+    if not ok or not lqr_launches.get("riccati_bwd"):
+        raise AssertionError(f"per-stage-Q LQR solve: finite {ok}, "
+                             f"launches {lqr_launches}")
+    out["lqr_per_stage_q"] = dict(launches=lqr_launches)
+    return out
+
+
+def phase_parity(dev):
+    """The JAX bench's parity gate on the card at B=4096: each kernel route
+    against the plain ``xla`` route."""
+    from srbd_nmpc_tpu_torch.parallel import sharded
+    from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
+
+    B = 4096
+    routes = {"fused+spec": dict(), "fused": SYNC_ROUTES["fused"],
+              "pallas": SYNC_ROUTES["pallas"]}
+    st_x, in_x, _ = sharded.solve_batch(
+        *_route_problem(dev, B, dict(qp_kernel="xla"), seed=7))
+    u_x = st_x.u.cpu().numpy()
+    res = {}
+    for name, kw in routes.items():
+        st, inf, _ = sharded.solve_batch(*_route_problem(dev, B, kw, seed=7))
+        both = (inf.converged & in_x.converged).cpu().numpy()
+        same = both & (inf.sqp_iters == in_x.sqp_iters).cpu().numpy()
+        flips = int(both.sum() - same.sum())
+        err = parity_metric(st.u.cpu().numpy()[same], u_x[same])
+        res[name] = (err, flips, int(same.sum()))
+    torch.cuda.synchronize()
+    print(f"[12 parity] B={B} vs the plain xla route (converged "
+          f"{int(in_x.converged.sum())}): " + ", ".join(
+              f"{k} {e:.3e} over {n} at the same iterate, {f} flips"
+              for k, (e, f, n) in res.items())
+          + f" (limits {REL_TOL:g}, {int(PARITY_FLIP_FRAC * B)} flips)",
+          flush=True)
+    for k, (e, f, n) in res.items():
+        if not (n > 0 and e < REL_TOL and f <= PARITY_FLIP_FRAC * B):
+            raise AssertionError(f"parity {k}: {e} over {n}, {f} flips")
+    return res
+
+
 def main() -> int:
     card, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
     k2_t = phase_permute(dev)
     k1_err, k1_t, k1_plain = phase_k1(dev)
-    st, info, prob, launches = phase_cold(dev, f"{smi}")
+    st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
     phase_compaction(dev)
     phase_plain_solve(dev)
     phase_oracle(st, info, prob)
+    del st, info, prob
+    torch.cuda.empty_cache()
+    _, k_err, k_t = phase_sync_kernels(dev)
+    sync = phase_sync(dev, f"{smi}", spec)
+    phase_parity(dev)
 
+    pallas = sync["pallas"]["launches"]
+    per_stage_q = sync["lqr_per_stage_q"]["launches"]
     kernels = [
         {"name": "sqp_planes", "route": "cuda",
          "source": "srbd_nmpc_tpu_torch/csrc/sqp_planes.cu",
@@ -378,6 +673,23 @@ def main() -> int:
          "launches": launches["set_lanes"], "max_abs_err": 0.0,
          "ms": k2_t["set_lanes"][0], "plain_ms": k2_t["set_lanes"][1]},
     ]
+    for name, source, replaces, n in (
+            ("linearize", "linearize.cu", "models/srbd_pallas.py:35",
+             pallas["linearize"]),
+            ("riccati_bwd_constq", "riccati.cu", "ops/riccati_pallas.py:100",
+             pallas["riccati_bwd_constq"]),
+            ("riccati_bwd", "riccati.cu", "ops/riccati_pallas.py:56",
+             per_stage_q["riccati_bwd"]),
+            ("riccati_fwd", "riccati.cu", "ops/riccati_pallas.py:142",
+             pallas["riccati_fwd"]),
+            ("merit_alpha", "merit.cu", "models/merit_pallas.py:131",
+             pallas["merit_alpha"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"srbd_nmpc_tpu_torch/csrc/{source}",
+            "replaces": f"srbd_nmpc_tpu/{replaces}", "launches": n,
+            "max_abs_err": k_err[name], "ms": k_t[name][0],
+            "plain_ms": k_t[name][1]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

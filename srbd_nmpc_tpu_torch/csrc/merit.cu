@@ -1,0 +1,145 @@
+// K7a · merit (theta, phi) at a line-search candidate, one thread per scenario.
+//
+// Replaces the TPU kernel srbd_nmpc_tpu/models/merit_pallas.py::_kernel_alpha
+// (through merit_alpha_pallas). Contract: the plain PyTorch version
+// srbd_nmpc_tpu_torch/models/merit_kernel.py::merit_alpha_ref.
+//
+// Per scenario, at the candidate (x + alpha dx, u + alpha du) with its own
+// alpha: theta = sum over stages of 1/2 |x_{g+1} - rk4(x_g, u_g)|^2 (four
+// dynamics calls, srbd_soa.rk4), and phi = sum over stages of the tracking
+// cost 1/2 e'Qe, the relaxed barrier of the 24 friction-cone rows and
+// 1/2 u'Ru, plus the terminal 1/2 e_N' Qf e_N.
+//
+// What bounds it on the H100: the RK4 chain (four SO(3) chain evaluations per
+// stage) and reading the candidate's inputs (x, dx, u, du, x_ref: ~250 bytes per
+// stage and scenario). One thread walks its scenario's stages in order, forms
+// the candidate in registers (it is never written to device memory) and
+// accumulates theta and phi in stage order, as the plain version does; global
+// arrays are indexed ((stage * 12 + row) * B + lane), so consecutive threads
+// read consecutive addresses. Constants (model, Ac, bc, R, Q, Qf) sit in
+// shared memory. Built with -fmad=false, so it rounds like the plain version.
+
+#include "srbd_dev.cuh"
+
+namespace k7 {
+
+using namespace srbd_dev;
+
+// constants block (offsets match models/merit_kernel.py::_K_*): mass, dt,
+// Iinv[9], foot[6], then Ac [24,12], bc [24], R, Q, Qf [12,12]
+constexpr int K_AC = 17, K_BC = 305, K_R = 329, K_Q = 473, K_QF = 617, K_LEN = 761;
+
+// 1/2 v' M v with M row-major, as 0.5 * sum_i v_i (sum_k M_ik v_k)
+template <typename T>
+HD T half_quad(const T* M, const T* v) {
+  T s = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    T acc = M[12 * i] * v[0];
+#pragma unroll
+    for (int k = 1; k < 12; ++k) acc = acc + M[12 * i + k] * v[k];
+    s = (i == 0) ? v[0] * acc : s + v[i] * acc;
+  }
+  return T(0.5) * s;
+}
+
+template <typename T>
+HD void scenario(const T* kc, const T* xa, const T* dx, const T* us, const T* du,
+                 const T* xr, const T* alpha, T* theta_out, T* phi_out, int N, int B,
+                 int b, T mu_b, T theta_b) {
+#define V12(ptr, g, row) (ptr)[((size_t)(g) * 12 + (row)) * B + b]
+  const Model<T> md = load_model(kc);
+  const T* Ac = kc + K_AC;
+  const T* bc = kc + K_BC;
+  const T log_th = k_log(theta_b);
+  const T a = alpha[b];
+
+  T x[12], xn[12], u[12], e[12], fx[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x[i] = V12(xa, 0, i) + a * V12(dx, 0, i);
+  T th = 0, ph = 0;
+  for (int g = 0; g < N; ++g) {
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      xn[i] = V12(xa, g + 1, i) + a * V12(dx, g + 1, i);
+      u[i] = V12(us, g, i) + a * V12(du, g, i);
+      e[i] = x[i] - V12(xr, g, i);
+    }
+    soa_rk4(md, x, u, fx);
+    T tp = 0;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      const T d = xn[i] - fx[i];
+      tp = (i == 0) ? d * d : tp + d * d;
+    }
+    const T phi_x = half_quad(kc + K_Q, e);
+
+    T sbar = 0;
+#pragma unroll
+    for (int r = 0; r < 24; ++r) {
+      T con = Ac[12 * r] * u[0];
+#pragma unroll
+      for (int k = 1; k < 12; ++k) con = con + Ac[12 * r + k] * u[k];
+      con = con + bc[r];
+      T bb, d, dd;
+      barrier(con, mu_b, theta_b, log_th, bb, d, dd);
+      sbar = (r == 0) ? bb : sbar + bb;
+    }
+    const T phi_u = sbar + half_quad(kc + K_R, u);
+
+    th = (g == 0) ? T(0.5) * tp : th + T(0.5) * tp;
+    ph = ((g == 0) ? phi_x : ph + phi_x) + phi_u;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) x[i] = xn[i];
+  }
+  // terminal: x holds the candidate x_N
+#pragma unroll
+  for (int i = 0; i < 12; ++i) e[i] = x[i] - V12(xr, N, i);
+  theta_out[b] = th;
+  phi_out[b] = ph + half_quad(kc + K_QF, e);
+#undef V12
+}
+
+}  // namespace k7
+
+#ifdef __CUDACC__
+
+__global__ void merit_alpha_kernel(const float* __restrict__ consts, const float* xa,
+                                   const float* dx, const float* us, const float* du,
+                                   const float* xr, const float* alpha, float* theta,
+                                   float* phi, int N, int B, float mu_b, float theta_b) {
+  __shared__ float kc[k7::K_LEN];
+  for (int i = threadIdx.x; i < k7::K_LEN; i += blockDim.x) kc[i] = consts[i];
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  k7::scenario<float>(kc, xa, dx, us, du, xr, alpha, theta, phi, N, B, lane, mu_b,
+                      theta_b);
+}
+
+extern "C" int srbd_merit_alpha_launch(const float* consts, const float* xa,
+                                       const float* dx, const float* us, const float* du,
+                                       const float* xr, const float* alpha, float* theta,
+                                       float* phi, int N, int B, float mu_b,
+                                       float theta_b, int threads, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const int blocks = (B + threads - 1) / threads;
+  merit_alpha_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      consts, xa, dx, us, du, xr, alpha, theta, phi, N, B, mu_b, theta_b);
+  return (int)cudaGetLastError();
+}
+
+#else  // host build: the same per-scenario body over every lane, in f64
+
+extern "C" int srbd_merit_alpha_host_f64(const double* consts, const double* xa,
+                                         const double* dx, const double* us,
+                                         const double* du, const double* xr,
+                                         const double* alpha, double* theta, double* phi,
+                                         int N, int B, double mu_b, double theta_b) {
+  for (int lane = 0; lane < B; ++lane)
+    k7::scenario<double>(consts, xa, dx, us, du, xr, alpha, theta, phi, N, B, lane, mu_b,
+                         theta_b);
+  return 0;
+}
+
+#endif

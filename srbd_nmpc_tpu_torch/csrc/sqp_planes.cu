@@ -36,17 +36,11 @@
 // host C++ (without __CUDACC__) so its arithmetic can be checked on a CPU in
 // double precision against the plain PyTorch version.
 
-#include <math.h>
-#include <stddef.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define HD __host__ __device__ __forceinline__
-#else
-#define HD inline
-#endif
+#include "srbd_dev.cuh"
 
 namespace k1 {
+
+using namespace srbd_dev;
 
 // constants block (offsets match ops/sqp_planes.py::_K_*)
 constexpr int K_MASS = 0, K_DT = 1, K_IINV = 2, K_FOOT = 11;
@@ -56,134 +50,6 @@ constexpr int K_R = 185, K_Q = 329, K_QF = 473, K_LEN = 617;
 // pack channels (as ops/sqp_planes.py::_D1 ...)
 constexpr int P_D1 = 0, P_D2 = 9, P_SF = 18, P_SR = 21, P_SL = 24;
 constexpr int P_B = 27, P_Q = 39, P_RF = 51, P_DDB = 63, P_C = 87;
-
-HD float k_sqrt(float x) { return sqrtf(x); }
-HD double k_sqrt(double x) { return sqrt(x); }
-HD float k_sin(float x) { return sinf(x); }
-HD double k_sin(double x) { return sin(x); }
-HD float k_cos(float x) { return cosf(x); }
-HD double k_cos(double x) { return cos(x); }
-HD float k_log(float x) { return logf(x); }
-HD double k_log(double x) { return log(x); }
-#ifdef __CUDACC__
-HD float k_rsqrt(float x) { return rsqrtf(x); }
-#else
-HD float k_rsqrt(float x) { return 1.0f / sqrtf(x); }
-#endif
-HD double k_rsqrt(double x) { return 1.0 / sqrt(x); }
-
-template <typename T> HD T theta_min_sq();
-template <> HD float theta_min_sq<float>() { return 1e-8f; }     // (1e-4)^2
-template <> HD double theta_min_sq<double>() { return 1e-20; }   // (1e-10)^2
-
-template <typename T> struct M3 { T m[3][3]; };
-
-template <typename T>
-HD M3<T> mul3(const M3<T>& A, const M3<T>& B) {
-  M3<T> C;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      C.m[i][j] = A.m[i][0] * B.m[0][j] + A.m[i][1] * B.m[1][j] + A.m[i][2] * B.m[2][j];
-  return C;
-}
-
-// A @ B'
-template <typename T>
-HD M3<T> mul3t(const M3<T>& A, const M3<T>& B) {
-  M3<T> C;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      C.m[i][j] = A.m[i][0] * B.m[j][0] + A.m[i][1] * B.m[j][1] + A.m[i][2] * B.m[j][2];
-  return C;
-}
-
-template <typename T>
-HD void mv3(const M3<T>& A, const T* v, T* out) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    out[i] = A.m[i][0] * v[0] + A.m[i][1] * v[1] + A.m[i][2] * v[2];
-}
-
-template <typename T>
-HD void cross3(const T* a, const T* b, T* out) {
-  out[0] = a[1] * b[2] - a[2] * b[1];
-  out[1] = a[2] * b[0] - a[0] * b[2];
-  out[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-// skew(r) entry (i, j); zero on the diagonal
-template <typename T>
-HD T skew_at(const T* r, int i, int j) {
-  if (i == 0 && j == 1) return -r[2];
-  if (i == 0 && j == 2) return r[1];
-  if (i == 1 && j == 0) return r[2];
-  if (i == 1 && j == 2) return -r[0];
-  if (i == 2 && j == 0) return -r[1];
-  if (i == 2 && j == 1) return r[0];
-  return T(0);
-}
-
-// skew(r)^2 = r r' - |r|^2 I, nonzero terms only
-template <typename T>
-HD M3<T> skew_sq(const T* r) {
-  M3<T> W;
-  W.m[0][0] = -(r[2] * r[2]) - r[1] * r[1];
-  W.m[1][1] = -(r[2] * r[2]) - r[0] * r[0];
-  W.m[2][2] = -(r[1] * r[1]) - r[0] * r[0];
-  W.m[0][1] = r[1] * r[0];
-  W.m[1][0] = r[0] * r[1];
-  W.m[0][2] = r[2] * r[0];
-  W.m[2][0] = r[0] * r[2];
-  W.m[1][2] = r[2] * r[1];
-  W.m[2][1] = r[1] * r[2];
-  return W;
-}
-
-template <typename T>
-HD T safe_theta(const T* r) {
-  T sq = (r[0] * r[0] + r[1] * r[1]) + r[2] * r[2];
-  const T h2 = theta_min_sq<T>();
-  sq = (sq < h2) ? h2 : sq;  // a NaN angle stays NaN
-  return k_sqrt(sq);
-}
-
-// R = expm(skew r) and Jlt = Jl(r)^-1 (srbd_planes._chain_lite forms)
-template <typename T>
-HD void chain_lite(const T* r, M3<T>& R, M3<T>& Jlt) {
-  const T t = safe_theta(r);
-  const T st = k_sin(t), ct = k_cos(t);
-  const T inv_t = T(1) / t;
-  const M3<T> WW = skew_sq(r);
-  const T sinc = st * inv_t;
-  const T cR = (T(1) - ct) * inv_t * inv_t;
-  const T it2 = inv_t * inv_t;
-  const T half_t = T(0.5) * t;
-  const T hc = half_t * (k_cos(half_t) / k_sin(half_t));
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const T vv = it2 * WW.m[i][j];
-      if (i == j) {
-        R.m[i][i] = T(1) + cR * WW.m[i][i];
-        Jlt.m[i][i] = hc + (T(1) - hc) * (vv + T(1));
-      } else {
-        const T w = skew_at(r, i, j);
-        R.m[i][j] = sinc * w + cR * WW.m[i][j];
-        Jlt.m[i][j] = (T(1) - hc) * vv + (-half_t) * (inv_t * w);
-      }
-    }
-}
-
-// R I^-1 R' and w = R I^-1 R' l
-template <typename T>
-HD M3<T> rirt(const M3<T>& R, const M3<T>& Iinv) {
-  return mul3t(mul3(R, Iinv), R);
-}
 
 // dx/dt of the SRBD (srbd_planes._deriv)
 template <typename T>

@@ -1,17 +1,26 @@
-"""Speculative batched SQP NMPC solve with straggler compaction.
+"""Batched SQP NMPC solves: the speculative loop with straggler compaction
+and the iteration-synchronous loop with its three QP routes.
 
-Counterpart of ``srbd_nmpc_tpu/nmpc/engine.py`` (lines 49-313, 660-671,
-921-936, 1014-1342, 1397-1422): the path the default ``NmpcConfig`` takes
-for a batch of scenarios. Each while-trip launches ONE fused SQP trip
-(``ops.sqp_planes``, kernel K1) at every live scenario's next line-search
-candidate ``x + alpha dx``: its merit decides the filter acceptance, and
-on acceptance its QP solution is the next iteration's direction. As the
-live set shrinks, the carry is compacted into narrower tiers with the
-sorted lane permutes of ``ops.permute`` (kernel K2).
+Counterpart of ``srbd_nmpc_tpu/nmpc/engine.py`` (lines 49-313, 424-540,
+660-1011, 1014-1342, 1397-1422). Per-scenario semantics are the
+reference's sequential SQP with a backtracking filter line search
+(persistent alpha, convergence test ``dphi > -1e-3 and theta < 1e-6``,
+NMPC_solver.cpp:143-274), exactly as in the JAX engine.
 
-Per-scenario semantics are the reference's sequential SQP with a
-backtracking filter line search (persistent alpha, convergence test
-``dphi > -1e-3 and theta < 1e-6``), exactly as in the JAX engine.
+- ``_solve_batched_soa_spec`` (the default ``NmpcConfig``): each while-trip
+  launches ONE fused SQP trip (``ops.sqp_planes``, kernel K1) at every live
+  scenario's next line-search candidate ``x + alpha dx``: its merit decides
+  the filter acceptance, and on acceptance its QP solution is the next
+  iteration's direction. As the live set shrinks, the carry is compacted
+  into narrower tiers with the sorted lane permutes of ``ops.permute``
+  (kernel K2).
+- ``_solve_batched_soa`` (every other batched configuration): each SQP
+  iteration linearizes and solves the QP, then runs the line search to its
+  end. The QP route (``_qp_route``) is ``fused`` (K1 at alpha = 0),
+  ``pallas`` (K5 ``models.srbd_linearize``, then K6
+  ``ops.riccati_kernel``) or ``xla`` (plain PyTorch, ``ops.riccati_soa``
+  with iterative refinement); the line search's merit is K7a
+  (``models.merit_kernel``) on the first two and plain on ``xla``.
 
 Public layout is the JAX engine's: states are ``x [B, N+1, 12]``,
 ``u [B, N, 12]``, ``alpha [B]``; inside the solve the trajectories are
@@ -27,8 +36,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from srbd_nmpc_tpu_torch.models import srbd
-from srbd_nmpc_tpu_torch.ops import permute, sqp_planes
+from srbd_nmpc_tpu_torch.models import merit_kernel, srbd, srbd_linearize
+from srbd_nmpc_tpu_torch.models import srbd_soa
+from srbd_nmpc_tpu_torch.ops import permute, riccati_kernel, riccati_soa
+from srbd_nmpc_tpu_torch.ops import sqp_planes
+from srbd_nmpc_tpu_torch.ops import smallmat as sm
+from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
 from srbd_nmpc_tpu_torch.utils.device import (DeviceLike, pin_float32,
                                               resolve_device)
 
@@ -140,8 +153,10 @@ class NmpcState:
 @dataclasses.dataclass(frozen=True)
 class NmpcInfo:
     """Per-scenario diagnostics. ``status``: 0 SUCCESS, 1 MAX_ITER_REACHED,
-    2 MIN_STEP_LENGTH_REACHED, 3 NAN_DETECTED. ``ls_trips`` counts fused
-    SQP-trip launches (every scenario of a batch pays the slowest's)."""
+    2 MIN_STEP_LENGTH_REACHED, 3 NAN_DETECTED. ``ls_trips``: in the
+    speculative loop the fused SQP-trip launches, in the synchronous loop
+    the line-search trips summed over the SQP iterations (every scenario of
+    a batch pays the slowest's)."""
 
     converged: torch.Tensor
     sqp_iters: torch.Tensor
@@ -212,25 +227,35 @@ def _accept(cfg: NmpcConfig, theta_a, phi_a, alpha, theta0, phi0, dphi):
                        torch.where(case_small, acc_small, acc_mixed))
 
 
+def _qp_route(cfg: NmpcConfig) -> str:
+    """The QP route of an SQP iteration, as the JAX ``_sqp_step_soa`` picks
+    it: ``fused`` for ``qp_kernel="fused"``, or ``"auto"`` with ``refine ==
+    0`` and Euler sensitivities (the port reads ``"auto"`` so on every
+    device); ``pallas`` for ``qp_kernel="pallas"`` with ``refine == 0``;
+    ``xla`` otherwise (``"xla"``, or ``"auto"``/``"pallas"`` with
+    ``refine > 0``)."""
+    if cfg.qp_kernel == "fused" or (cfg.qp_kernel == "auto" and cfg.refine == 0
+                                    and cfg.sensitivity == "euler"):
+        return "fused"
+    if cfg.qp_kernel == "pallas" and cfg.refine == 0:
+        return "pallas"
+    return "xla"
+
+
 def _check_slice(cfg: NmpcConfig, state: NmpcState) -> None:
     """Reject every configuration the port does not run yet."""
     def todo(what, item):
         raise NotImplementedError(
             f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
 
-    if cfg.qp_kernel not in ("auto", "fused"):
-        todo(f"qp_kernel={cfg.qp_kernel!r}", "Queue 1 item 2")
-    if cfg.qp_kernel == "auto" and cfg.refine == 0 and cfg.N >= cfg.pscan_min_N:
-        todo("the associative-scan Riccati (N >= pscan_min_N)",
-             "Queue 1 item 6")
-    if not cfg.speculative:
-        todo("speculative=False (the synchronous SQP loop)", "Queue 1 item 2")
-    if not cfg.planes:
+    if cfg.qp_kernel == "pscan" or (cfg.qp_kernel == "auto" and cfg.refine == 0
+                                    and cfg.N >= cfg.pscan_min_N):
+        todo("the associative-scan Riccati (qp_kernel='pscan', or "
+             "N >= pscan_min_N)", "Queue 1 item 6")
+    if _qp_route(cfg) == "fused" and not cfg.planes:
         todo("planes=False (the dense one-pass kernels)", "Queue 2 K3")
-    if cfg.park_factor:
+    if _qp_route(cfg) == "fused" and cfg.park_factor:
         todo("park_factor=True", "Queue 2, K1 variants")
-    if cfg.refine > 0:
-        todo("refine > 0 (iterative refinement)", "Queue 1 item 4")
     if cfg.sensitivity != "euler":
         todo(f"sensitivity={cfg.sensitivity!r}", "Queue 1 item 2")
     if state.x.dim() != 3:
@@ -252,7 +277,262 @@ def solve(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
     ``theta < 1e-6`` convergence test must never see TF32 rounding."""
     _check_slice(cfg, state)
     pin_float32(state.x.device)
-    return _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref)
+    if cfg.speculative and _qp_route(cfg) == "fused":
+        return _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref)
+    return _solve_batched_soa(params, weights, cfg, state, x0, x_ref)
+
+
+def _soa_inputs(cfg: NmpcConfig, state: NmpcState, x0, x_ref):
+    """States to stage-major SoA: xa [N+1,12,B], us [N,12,B], x0s [12,B],
+    xra [N+1,12,B] (a shared reference is broadcast)."""
+    Bn = state.x.shape[0]
+    xa = state.x.permute(1, 2, 0).contiguous()
+    us = state.u.permute(1, 2, 0).contiguous()
+    x0s = x0.transpose(0, 1).contiguous()
+    if x_ref.dim() == 2:
+        xra = (x_ref[:, :, None].expand(cfg.N + 1, srbd.NX, Bn)
+               .to(state.x.dtype).contiguous())
+    else:
+        xra = x_ref.permute(1, 2, 0).contiguous()
+    return xa, us, x0s, xra
+
+
+def _stage_linearization(lin, params, weights, cfg, xa, us, xra):
+    """Run a stage linearization ``lin`` (``srbd_linearize.linearize`` or
+    its plain version) and add the terminal gradient and the merit at the
+    current iterate from its partials (JAX ``_linearize_pallas_soa``)."""
+    Ac, bc = srbd.constraint_matrix(params)
+    A, Bm, b, q_run, r_eff, R_eff, mer = lin(
+        params, weights.Q, weights.R, Ac, bc, xa[:-1], xa[1:], us, xra[:-1],
+        cfg.mu_barrier, cfg.theta_barrier)
+    eN = xa[-1] - xra[-1]
+    q_term = sm.mv(weights.Qf.to(xa.dtype)[:, :, None], eN)
+    q = torch.cat([q_run, q_term[None]], dim=0)
+    theta = mer[:, 0].sum(dim=0)
+    phi = ((mer[:, 1] + mer[:, 4] + mer[:, 5]).sum(dim=0)
+           + 0.5 * (eN * q_term).sum(dim=0))
+    aux = (theta, phi, mer[:, 3].amax(dim=0), mer[:, 2].amin(dim=0))
+    return A, Bm, b, R_eff, q, r_eff, aux
+
+
+def _linearize_pallas_soa(params, weights, cfg, xa, us, xra):
+    """The ``pallas`` route's linearization: kernel K5 on CUDA tensors.
+    Returns (A, B, b, R_eff, q, r_eff, (theta, phi, max|defect|,
+    min constraint))."""
+    return _stage_linearization(srbd_linearize.linearize, params, weights,
+                                cfg, xa, us, xra)
+
+
+def _linearize_soa(params, weights, cfg, xa, us, xra):
+    """The ``xla`` route's linearization, plain PyTorch on every device
+    (Euler sensitivities). Returns (A, B, b, Q, S, R_eff, q, r_eff, aux)
+    with the stage-constant Q/Qf broadcast to [N+1,12,12,B] and S = 0, as
+    ``ops.riccati_soa`` takes them."""
+    A, Bm, b, R_eff, q, r_eff, aux = _stage_linearization(
+        srbd_linearize.linearize_ref, params, weights, cfg, xa, us, xra)
+    N, Bn = cfg.N, xa.shape[-1]
+    Qw = weights.Q.to(xa.dtype)[None, :, :, None].expand(N, srbd.NX, srbd.NX, Bn)
+    Qf = weights.Qf.to(xa.dtype)[None, :, :, None].expand(1, srbd.NX, srbd.NX, Bn)
+    Q = torch.cat([Qw, Qf], dim=0)
+    S = torch.zeros((N, srbd.NU, srbd.NX, Bn), dtype=xa.dtype, device=xa.device)
+    return A, Bm, b, Q, S, R_eff, q, r_eff, aux
+
+
+def _merit_soa(params, weights, cfg, xa, us, xra):
+    """(theta, phi) [B] at an SoA iterate, plain PyTorch: the ``xla``
+    route's line-search merit."""
+    x_in = xa[:-1].transpose(0, 1)                     # [12, N, B]
+    x_nx = xa[1:].transpose(0, 1)
+    u_in = us.transpose(0, 1)
+    d = x_nx - srbd_soa.rk4(params, x_in, u_in)
+    theta = 0.5 * (d * d).sum(dim=(0, 1))
+
+    dtype = xa.dtype
+    ex = xa - xra
+    Qe = torch.einsum("ij,njb->nib", weights.Q.to(dtype), ex[:-1])
+    phi_x = 0.5 * (ex[:-1] * Qe).sum(dim=(0, 1))
+    eN = ex[-1]
+    QfeN = torch.einsum("ij,jb->ib", weights.Qf.to(dtype), eN)
+    phi_N = 0.5 * (eN * QfeN).sum(dim=0)
+
+    Ac, bc = srbd.constraint_matrix(params)
+    con = torch.einsum("gi,nib->ngb", Ac.to(dtype), us) + bc.to(dtype)[:, None]
+    b_bar, _, _ = relaxed_log_barrier(con, cfg.mu_barrier, cfg.theta_barrier)
+    Ru = torch.einsum("ij,njb->nib", weights.R.to(dtype), us)
+    phi_u = b_bar.sum(dim=(0, 1)) + 0.5 * (us * Ru).sum(dim=(0, 1))
+    return theta, phi_x + phi_N + phi_u
+
+
+def _merit_candidate_soa(params, weights, cfg, xa, us, xra, dx, du, alpha,
+                         use_kernel: bool):
+    """(theta, phi) [B] at the candidate (xa + alpha dx, us + alpha du):
+    kernel K7a on the ``fused`` and ``pallas`` routes (the candidate is
+    formed inside the kernel), the plain merit on ``xla``."""
+    if use_kernel:
+        Ac, bc = srbd.constraint_matrix(params)
+        return merit_kernel.merit_alpha(
+            params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us, xra,
+            dx, du, alpha, cfg.mu_barrier, cfg.theta_barrier)
+    a = alpha[None, None, :]
+    return _merit_soa(params, weights, cfg, xa + a * dx, us + a * du, xra)
+
+
+def _line_search_soa(params, weights, cfg, xa, us, alpha0, xra, dx, du,
+                     theta0, phi0, dphi, active0, use_kernel: bool):
+    """Backtracking filter line search, per scenario the reference's loop
+    (NMPC_solver.cpp:200-264): evaluate at alpha, accept or multiply alpha
+    by beta_alpha. The JAX ``lax.while_loop`` is a host loop here with one
+    device sync per trip (its condition). The accepted trajectory is formed
+    once afterwards as xa + alpha dx. Returns (xa', us', alpha', trips)."""
+    alpha = alpha0
+    accepted = torch.zeros(alpha0.shape, dtype=torch.bool, device=xa.device)
+    trips = 0
+    while True:
+        searching = active0 & ~accepted & (alpha > cfg.alpha_min)
+        if not bool(searching.any()):
+            break
+        theta_a, phi_a = _merit_candidate_soa(
+            params, weights, cfg, xa, us, xra, dx, du, alpha, use_kernel)
+        ok = _accept(cfg, theta_a, phi_a, alpha, theta0, phi0, dphi) & searching
+        alpha = torch.where(searching & ~ok, cfg.beta_alpha * alpha, alpha)
+        accepted = accepted | ok
+        trips += 1
+    am = accepted[None, None, :]
+    af = alpha[None, None, :]
+    # where-guarded (not alpha * 0): a frozen or NaN scenario's dx may be NaN
+    return (torch.where(am, xa + af * dx, xa), torch.where(am, us + af * du, us),
+            alpha, trips)
+
+
+def _sqp_step_soa(params, weights, cfg, xa, us, alpha, x0s, xra, active):
+    """One SQP iteration in SoA layout (xa [N+1,12,B], us [N,12,B],
+    x0s [12,B], xra [N+1,12,B]): linearize, solve the QP on the route
+    ``_qp_route`` picks, line-search. Returns (xa', us', alpha',
+    (theta0, phi0, dphi, max_defect, min_con, nan, trips))."""
+    Bn = xa.shape[-1]
+    route = _qp_route(cfg)
+    dx0s = x0s - xa[0]
+    if route == "fused":
+        Ac, bc = srbd.constraint_matrix(params)
+        dx, du, dphi, aux = sqp_planes.sqp_qp_solve_onepass_planes(
+            params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us, xra,
+            torch.zeros_like(xa), torch.zeros_like(us),
+            torch.zeros(Bn, dtype=xa.dtype, device=xa.device), x0s,
+            cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg)
+    elif route == "pallas":
+        A, Bm, b, R, q, r, aux = _linearize_pallas_soa(
+            params, weights, cfg, xa, us, xra)
+        dx, du = riccati_kernel.lqr_solve(
+            A, Bm, b, (weights.Q, weights.Qf), R, q, r, dx0s, reg=cfg.reg)
+        dphi = (dx * q).sum(dim=(0, 1)) + (du * r).sum(dim=(0, 1))
+    else:
+        A, Bm, b, Q, S, R, q, r, aux = _linearize_soa(
+            params, weights, cfg, xa, us, xra)
+        dx, du, _ = riccati_soa.lqr_solve(A, Bm, b, Q, S, R, q, r, dx0s,
+                                          reg=cfg.reg, refine=cfg.refine)
+        dphi = (dx * q).sum(dim=(0, 1)) + (du * r).sum(dim=(0, 1))
+    theta0, phi0, max_defect, min_con = aux
+
+    nan = ~torch.isfinite(theta0 + phi0 + dphi)
+    alpha0 = alpha if cfg.persistent_alpha else torch.ones_like(alpha)
+    xa_n, us_n, alpha_n, trips = _line_search_soa(
+        params, weights, cfg, xa, us, alpha0, xra, dx, du, theta0, phi0, dphi,
+        active & ~nan, route != "xla")
+    return xa_n, us_n, alpha_n, (theta0, phi0, dphi, max_defect, min_con, nan,
+                                 trips)
+
+
+def _step_status(cfg, theta0, dphi, nan):
+    converged = (dphi > cfg.conv_dphi) & (theta0 < cfg.conv_theta)
+    status = torch.where(converged, STATUS_SUCCESS,
+                         torch.where(nan, STATUS_NAN_DETECTED, STATUS_RUNNING))
+    return converged, status.to(torch.int32)
+
+
+def sqp_step(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
+             state: NmpcState, x0: torch.Tensor, x_ref: torch.Tensor,
+             active=None) -> Tuple[NmpcState, NmpcInfo]:
+    """One batched SQP iteration: linearize, QP-solve, line-search,
+    convergence test (the body of NMPC_solver.cpp:367-374). ``active``
+    masks the scenarios still iterating (None = all)."""
+    _check_slice(cfg, state)
+    pin_float32(state.x.device)
+    Bn = state.x.shape[0]
+    xa, us, x0s, xra = _soa_inputs(cfg, state, x0, x_ref)
+    if active is None:
+        active = torch.ones((Bn,), dtype=torch.bool, device=xa.device)
+    xa_n, us_n, alpha_n, aux = _sqp_step_soa(
+        params, weights, cfg, xa, us, state.alpha, x0s, xra, active)
+    theta0, phi0, dphi, max_defect, min_con, nan, trips = aux
+    converged, status = _step_status(cfg, theta0, dphi, nan)
+    new_state = NmpcState(x=xa_n.permute(2, 0, 1).contiguous(),
+                          u=us_n.permute(2, 0, 1).contiguous(), alpha=alpha_n)
+    info = NmpcInfo(
+        converged=converged,
+        sqp_iters=torch.ones((Bn,), dtype=torch.int32, device=xa.device),
+        theta=theta0, phi=phi0, dphi=dphi, alpha=alpha_n,
+        max_defect=max_defect, min_constraint=min_con, status=status,
+        ls_trips=torch.full((Bn,), trips, dtype=torch.int32,
+                            device=xa.device))
+    return new_state, info
+
+
+def _solve_batched_soa(params, weights, cfg, state, x0, x_ref):
+    """Iteration-synchronous batched solve, trajectories in SoA for the
+    whole descent. The JAX ``lax.while_loop`` over SQP iterations is a host
+    loop: its condition (iterations left and a scenario still RUNNING) is
+    read back once per iteration, and the line search inside reads its own
+    condition once per trip."""
+    Bn = state.x.shape[0]
+    dtype, dev = state.x.dtype, state.x.device
+    xa, us, x0s, xra = _soa_inputs(cfg, state, x0, x_ref)
+    alpha = state.alpha
+    i32 = torch.int32
+    inf = torch.full((Bn,), math.inf, dtype=dtype, device=dev)
+    info = NmpcInfo(
+        converged=torch.zeros((Bn,), dtype=torch.bool, device=dev),
+        sqp_iters=torch.zeros((Bn,), dtype=i32, device=dev),
+        theta=inf, phi=inf, dphi=-inf, alpha=state.alpha,
+        max_defect=inf, min_constraint=-inf,
+        status=torch.full((Bn,), STATUS_RUNNING, dtype=i32, device=dev),
+        ls_trips=torch.zeros((Bn,), dtype=i32, device=dev))
+
+    it = 0
+    while it < cfg.sqp_max_iter and bool((info.status == STATUS_RUNNING).any()):
+        act = info.status == STATUS_RUNNING
+        xa_n, us_n, alpha_n, aux = _sqp_step_soa(
+            params, weights, cfg, xa, us, alpha, x0s, xra, act)
+        theta0, phi0, dphi, max_defect, min_con, nan, trips = aux
+        converged, step_status = _step_status(cfg, theta0, dphi, nan)
+
+        m = act[None, None, :]
+        xa = torch.where(m, xa_n, xa)
+        us = torch.where(m, us_n, us)
+        alpha = torch.where(act, alpha_n, alpha)
+
+        def upd(new, old):
+            return torch.where(act, new, old)
+
+        info = NmpcInfo(
+            converged=info.converged | (converged & act),
+            sqp_iters=info.sqp_iters + act.to(i32),
+            theta=upd(theta0, info.theta),
+            phi=upd(phi0, info.phi),
+            dphi=upd(dphi, info.dphi),
+            alpha=upd(alpha, info.alpha),
+            max_defect=upd(max_defect, info.max_defect),
+            min_constraint=upd(min_con, info.min_constraint),
+            status=torch.where(act, step_status, info.status),
+            ls_trips=info.ls_trips + trips,
+        )
+        it += 1
+
+    stalled = (info.status == STATUS_RUNNING) & (info.alpha <= cfg.alpha_min)
+    info = dataclasses.replace(
+        info, status=torch.where(stalled, STATUS_MIN_STEP, info.status).to(i32))
+    state_f = NmpcState(x=xa.permute(2, 0, 1).contiguous(),
+                        u=us.permute(2, 0, 1).contiguous(), alpha=alpha)
+    return state_f, info
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,14 @@ def mtm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def mmt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[i,j,...] = sum_k a[i,k,...] b[j,k,...]  (a @ b')."""
+    acc = a[:, 0:1] * b[:, 0].unsqueeze(0)
+    for k in range(1, a.shape[1]):
+        acc = acc + a[:, k:k + 1] * b[:, k].unsqueeze(0)
+    return acc
+
+
 def mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """y[i,...] = sum_k a[i,k,...] v[k,...]."""
     acc = a[:, 0] * v[0:1]
@@ -48,6 +56,24 @@ def mtv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     for k in range(1, a.shape[0]):
         acc = acc + a[k] * v[k:k + 1]
     return acc
+
+
+def sum_rows(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis as an explicit left-to-right loop (the
+    order the CUDA kernels accumulate in)."""
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def transpose(a: torch.Tensor) -> torch.Tensor:
+    """Swap the two leading (matrix) axes."""
+    return a.transpose(0, 1)
+
+
+def sym(a: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (a + transpose(a))
 
 
 def gram(y: torch.Tensor) -> torch.Tensor:
@@ -119,3 +145,15 @@ def bwd_subst(L: torch.Tensor, dinv: torch.Tensor, Y: torch.Tensor
         if i > 0:
             X = X - L[i].unsqueeze(1) * xi.unsqueeze(0)
     return torch.stack(xs, dim=0)
+
+
+def chol_solve(L: torch.Tensor, dinv: torch.Tensor, R: torch.Tensor
+               ) -> torch.Tensor:
+    """Solve (L L') X = R for R [n, m, ...] given ``cholesky``'s output."""
+    return bwd_subst(L, dinv, fwd_subst(L, dinv, R))
+
+
+def chol_solve_vec(L: torch.Tensor, dinv: torch.Tensor, r: torch.Tensor
+                   ) -> torch.Tensor:
+    """Solve (L L') x = r for a vector r [n, ...]."""
+    return chol_solve(L, dinv, r.unsqueeze(1)).squeeze(1)

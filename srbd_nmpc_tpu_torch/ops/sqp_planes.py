@@ -31,6 +31,7 @@ from srbd_nmpc_tpu_torch.ops import smallmat as sm
 from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
 from srbd_nmpc_tpu_torch.ops.sqp_stage import (_riccati_stage_structured,
                                                _split_leg_blocks)
+from srbd_nmpc_tpu_torch.utils.build import check_cuda_f32, load_kernel
 
 # pack channel layout (C rows per stage), as in the JAX kernel
 _D1 = 0          # 9: D1 row-major
@@ -56,14 +57,6 @@ THREADS = 128
 
 # launches of the CUDA kernel since the last reset (read by chip_smoke.py)
 launches = 0
-
-
-def _sum_rows(t: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading axis as an explicit left-to-right loop."""
-    acc = t[0]
-    for i in range(1, t.shape[0]):
-        acc = acc + t[i]
-    return acc
 
 
 def _planes_phase(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc, xa, us, xra, dxc,
@@ -114,15 +107,15 @@ def _planes_phase(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc, xa, us, xra, dxc,
     qN = sm.mv(Qf_b, eN)
 
     # ---- merit reductions across stages ------------------------------------
-    theta = 0.5 * spl._addn(*(_sum_rows(b_p[e] * b_p[e]) for e in range(NX)))
+    theta = 0.5 * spl._addn(*(sm.sum_rows(b_p[e] * b_p[e]) for e in range(NX)))
     maxdef = b_p[0].abs().amax(dim=0)
     for e in range(1, NX):
         maxdef = torch.maximum(maxdef, b_p[e].abs().amax(dim=0))
-    phiN = 0.5 * _sum_rows(eN * qN)
-    phi = (_sum_rows(_sum_rows(b_bar))
-           + 0.5 * spl._addn(*(_sum_rows(u_p[i] * Ru_p[i])
+    phiN = 0.5 * sm.sum_rows(eN * qN)
+    phi = (sm.sum_rows(sm.sum_rows(b_bar))
+           + 0.5 * spl._addn(*(sm.sum_rows(u_p[i] * Ru_p[i])
                                for i in range(NU)))
-           + 0.5 * spl._addn(*(_sum_rows(e_p[i] * q_p[i])
+           + 0.5 * spl._addn(*(sm.sum_rows(e_p[i] * q_p[i])
                                for i in range(NX)))
            + phiN)
     mincon = CON.amin(dim=(0, 1))
@@ -200,12 +193,12 @@ def sqp_qp_solve_onepass_planes_ref(
             + srbd_soa.cross(sl, u2) + u3,
             d3,
             m_inv * (u0 + u2)], dim=0)
-        part = _sum_rows(dx * q) + _sum_rows(du * reff)
+        part = sm.sum_rows(dx * q) + sm.sum_rows(du * reff)
         tot = part if tot is None else tot + part
         dus.append(du)
         dxs.append(dxn)
         dx = dxn
-    dphi = tot + _sum_rows(dx * qN)
+    dphi = tot + sm.sum_rows(dx * qN)
     return torch.stack(dxs), torch.stack(dus), dphi, aux
 
 
@@ -221,8 +214,6 @@ def _constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac1, Ac2, bc):
 
 
 def _lib():
-    from srbd_nmpc_tpu_torch.utils.build import load_kernel
-
     lib = load_kernel("sqp_planes")
     fn = lib.srbd_sqp_planes_launch
     if fn.argtypes is None:
@@ -231,15 +222,6 @@ def _lib():
                        + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
-
-
-def _check_cuda_f32(name: str, t: torch.Tensor, shape) -> None:
-    if t.device.type != "cuda" or t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 CUDA tensors, "
-                        f"got {t.dtype} on {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
 
 
 def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
@@ -254,7 +236,7 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
                            ("duc", duc, (N, NU, Bt)),
                            ("alpha", alpha, (Bt,)),
                            ("x0s", x0s, (NX, Bt))):
-        _check_cuda_f32(name, t, shape)
+        check_cuda_f32(name, t, shape)
     Ac1, Ac2 = _split_leg_blocks(Ac)
     consts = _constants(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc).to(xa.device)
     xa, us, xra, dxc, duc, alpha, x0s = (

@@ -8,8 +8,9 @@ shared library with a plain C interface, loaded with ``ctypes``:
          csrc/<name>.cu
 
 - The output goes to ``srbd_nmpc_tpu_torch/build/`` (ignored by git),
-  keyed by a hash of the source and the flags, so a changed source is
-  rebuilt and an unchanged one is reused.
+  keyed by a hash of the source, the shared headers ``csrc/*.cuh`` and the
+  flags, so a changed source or header is rebuilt and an unchanged one is
+  reused.
 - The library is written under a temporary name and renamed into place
   (atomic on POSIX), so concurrent processes never load a partial file.
 - A failed build raises with nvcc's output; ``-Xptxas -v`` output of a
@@ -21,6 +22,7 @@ shared library with a plain C interface, loaded with ``ctypes``:
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -28,6 +30,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Dict
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -56,11 +60,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda)")
 
 
+def _key(src: str, cmd) -> str:
+    """Hash of ``src``, every shared header in ``csrc/`` and the command."""
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(cmd).encode())
+    return h.hexdigest()[:16]
+
+
 def _paths(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        text = f.read()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = _key(src, NVCC_FLAGS)
     stem = os.path.join(BUILD_DIR, f"lib{name}_{key}")
     return src, stem + ".so", stem + ".log"
 
@@ -102,9 +114,7 @@ def build_host(src: str, flags=("-O2",)) -> str:
     g++ into a keyed shared library in the build directory; return its
     path."""
     cmd = ["g++", "-x", "c++", "-std=c++17", "-shared", "-fPIC", *flags]
-    with open(src, "rb") as f:
-        text = f.read()
-    key = hashlib.sha256(text + " ".join(cmd).encode()).hexdigest()[:16]
+    key = _key(src, cmd)
     stem = os.path.join(
         BUILD_DIR, f"libhost_{os.path.splitext(os.path.basename(src))[0]}_{key}")
     return _compile(cmd, src, stem + ".so", stem + ".log")
@@ -115,6 +125,17 @@ def build_log(name: str) -> str:
     _, _, log = _paths(name)
     with open(log) as f:
         return f.read()
+
+
+def check_cuda_f32(name: str, t, shape) -> None:
+    """Raise unless ``t`` is a float32 CUDA tensor of shape ``shape``: what
+    every kernel wrapper checks before it hands a pointer to a kernel."""
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 CUDA tensors, "
+                        f"got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
 
 
 def load_kernel(name: str) -> ctypes.CDLL:

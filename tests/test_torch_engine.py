@@ -193,10 +193,11 @@ def test_accept_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(qp_kernel="xla"), dict(qp_kernel="pallas"),
-    dict(speculative=False), dict(planes=False), dict(park_factor=True),
-    dict(refine=1), dict(sensitivity="exact"), dict(pscan_min_N=2),
-    dict(unbatched=True),
+    dict(qp_kernel="pscan"),
+    dict(qp_kernel="fused", speculative=False, planes=False),
+    dict(speculative=False, park_factor=True), dict(planes=False),
+    dict(park_factor=True), dict(qp_kernel="xla", sensitivity="exact"),
+    dict(sensitivity="exact"), dict(pscan_min_N=2), dict(unbatched=True),
 ])
 def test_configurations_outside_the_slice_raise(kw):
     params, weights, cfg, states, x0s, x_ref = _port_problem()

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 fused SQP trip, K2 lane permutes), at the main path's widths.
+(K1 fused SQP trip, K2 lane permutes, K5 stage linearization, K6 Riccati
+backward and forward passes, K7a line-search merit), at the main path's
+widths, and one synchronous ``pallas`` solve that launches K5, K6 and K7a.
 
 Needs a CUDA card and nvcc: on a machine without a card every test skips.
 Run on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
@@ -11,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from srbd_nmpc_tpu_torch.models import srbd
+from srbd_nmpc_tpu_torch.models import merit_kernel, srbd, srbd_linearize
 from srbd_nmpc_tpu_torch.nmpc import engine
 from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
-from srbd_nmpc_tpu_torch.ops import permute, sqp_planes
+from srbd_nmpc_tpu_torch.ops import permute, riccati_kernel, sqp_planes
 from srbd_nmpc_tpu_torch.parallel import sharded
 from srbd_nmpc_tpu_torch.utils.config import MpcOptions
 from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
@@ -117,3 +119,121 @@ def test_compacted_solve_is_bitwise_and_launches_kernels(dev):
     assert torch.equal(in_c.sqp_iters, in_f.sqp_iters)
     assert torch.equal(in_c.status, in_f.status)
     assert int(in_c.converged.sum()) >= 0.95 * B
+
+
+def _sync_args(dev, B, seed=0):
+    """K5 inputs around the benchmark problem, the plain linearization's
+    LQR data there, and a K7a direction with a random alpha per scenario."""
+    rng = np.random.default_rng(seed)
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    x0, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+    N = cfg.N
+
+    def T(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    xa = T(x0.cpu().numpy()[None, :, None]
+           + 0.01 * rng.normal(size=(N + 1, 12, B)))
+    us = T(100.0 + rng.normal(size=(N, 12, B)))
+    xra = x_ref[:, :, None].expand(N + 1, 12, B).contiguous()
+    Ac, bc = srbd.constraint_matrix(params)
+    lin = (params, weights.Q, weights.R, Ac, bc, xa[:-1], xa[1:], us,
+           xra[:-1], cfg.mu_barrier, cfg.theta_barrier)
+    A, Bm, b, R, q, r, _ = engine._stage_linearization(
+        srbd_linearize.linearize_ref, params, weights, cfg, xa, us, xra)
+    dx0 = T(0.01 * rng.normal(size=(12, B)))
+    lqr = (A, Bm, b, (weights.Q, weights.Qf), R, q, r, dx0, cfg.reg)
+    dx = T(0.01 * rng.normal(size=(N + 1, 12, B)))
+    du = T(rng.normal(size=(N, 12, B)))
+    alpha = T(0.1 + 0.9 * rng.random(B))
+    merit = (params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us, xra,
+             dx, du, alpha, cfg.mu_barrier, cfg.theta_barrier)
+    return lin, lqr, merit
+
+
+def test_k5_matches_plain(dev):
+    lin, _, _ = _sync_args(dev, 4096)
+    before = srbd_linearize.launches
+    got = srbd_linearize.linearize(*lin)
+    torch.cuda.synchronize()
+    assert srbd_linearize.launches == before + 1
+    ref = srbd_linearize.linearize_ref(*lin)
+    for g, r in zip(got[:6], ref[:6]):
+        assert torch.isfinite(g).all()
+        assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
+    for i in range(8):   # merit partials, one row at a time
+        assert parity_metric(got[6][:, i].cpu().numpy(),
+                             ref[6][:, i].cpu().numpy()) < 1e-4
+
+
+@pytest.mark.parametrize("const_q", [True, False])
+def test_k6_matches_plain(dev, const_q):
+    _, (A, Bm, b, Qc, R, q, r, x0, reg), _ = _sync_args(dev, 4096)
+    N, B = A.shape[0], A.shape[-1]
+    Q = Qc if const_q else torch.cat(
+        [Qc[0][None].expand(N, 12, 12), Qc[1][None]])[..., None].expand(
+            N + 1, 12, 12, B).contiguous()
+    key = "riccati_bwd_constq" if const_q else "riccati_bwd"
+    before = dict(riccati_kernel.launches)
+    K, k = riccati_kernel.lqr_backward(A, Bm, b, Q, R, q, r, reg)
+    x, u = riccati_kernel.lqr_forward(A, Bm, b, K, k, x0)
+    torch.cuda.synchronize()
+    assert riccati_kernel.launches[key] == before[key] + 1
+    assert riccati_kernel.launches["riccati_fwd"] == before["riccati_fwd"] + 1
+    K_r, k_r = riccati_kernel.lqr_backward_ref(A, Bm, b, Q, R, q, r, reg)
+    x_r, u_r = riccati_kernel.lqr_forward_ref(A, Bm, b, K, k, x0)
+    for g, ref in ((K, K_r), (k, k_r), (x, x_r), (u, u_r)):
+        assert torch.isfinite(g).all()
+        assert parity_metric(g.cpu().numpy(), ref.cpu().numpy()) < 1e-4
+
+
+def test_k7_matches_plain(dev):
+    _, _, merit = _sync_args(dev, 4096)
+    before = merit_kernel.launches
+    got = merit_kernel.merit_alpha(*merit)
+    torch.cuda.synchronize()
+    assert merit_kernel.launches == before + 1
+    ref = merit_kernel.merit_alpha_ref(*merit)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["linearize", "riccati", "merit"])
+def test_new_kernels_reject_float64(dev, kernel):
+    lin, lqr, merit = _sync_args(dev, 64)
+    with pytest.raises(TypeError, match="float32"):
+        if kernel == "linearize":
+            srbd_linearize.linearize(*lin[:5], *(t.double() for t in lin[5:9]),
+                                     *lin[9:])
+        elif kernel == "riccati":
+            riccati_kernel.lqr_solve(*(t.double() for t in lqr[:3]), lqr[3],
+                                     *(t.double() for t in lqr[4:8]),
+                                     reg=lqr[8])
+        else:
+            merit_kernel.merit_alpha(*merit[:6],
+                                     *(t.double() for t in merit[6:12]),
+                                     *merit[12:])
+
+
+def test_sync_pallas_solve_launches_kernels(dev):
+    B = 4096
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    x0, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(x0.cpu().numpy()[None]
+                          + 0.01 * rng.normal(size=(B, 12)),
+                          dtype=torch.float32, device=dev)
+    states = sharded.broadcast_state(engine.NmpcState.initial(cfg.N, device=dev), B)
+    before = (srbd_linearize.launches, riccati_kernel.launches[
+        "riccati_bwd_constq"], riccati_kernel.launches["riccati_fwd"],
+        merit_kernel.launches)
+    st, info, summ = sharded.solve_batch(
+        params, weights, dataclasses.replace(cfg, qp_kernel="pallas"), states,
+        x0s, x_ref)
+    after = (srbd_linearize.launches, riccati_kernel.launches[
+        "riccati_bwd_constq"], riccati_kernel.launches["riccati_fwd"],
+        merit_kernel.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert int(summ.n_converged) >= 0.95 * B
+    assert torch.isfinite(st.u[info.converged]).all()

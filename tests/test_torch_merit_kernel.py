@@ -1,0 +1,116 @@
+"""PyTorch port of the line-search merit at a candidate (kernel K7a): the
+plain version vs the JAX ``merit_alpha_pallas`` in interpret mode, f64;
+and the CUDA source's per-scenario arithmetic, built as host C++ in f64,
+vs the plain version.
+
+Tolerance: rtol 1e-12 (same formulas; the JAX row sums may be taken in
+another order)."""
+
+import ctypes
+import dataclasses
+import functools
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from srbd_nmpc_tpu.models import srbd as jsrbd
+from srbd_nmpc_tpu.nmpc import engine as jengine
+from srbd_nmpc_tpu_torch import convert
+from srbd_nmpc_tpu_torch.models import merit_kernel, srbd, srbd_linearize
+from srbd_nmpc_tpu_torch.utils import build
+
+torch.set_num_threads(1)
+F64 = torch.float64
+MU_B, THETA_B = 0.1, 5.0
+N, B = 5, 16
+ORDER = ("x", "u", "xr", "dx", "du", "alpha")
+
+
+def _problem(seed=0):
+    params = jsrbd.SRBDParams.create(dt=0.015, dtype=jnp.float64)
+    weights = jengine.NmpcWeights.create(
+        [0] * 11 + [10], 1e-4,
+        [.5, .5, .5, .01, .01, .01, 100, 100, 100, 0, 0, 100], N,
+        jnp.float64)
+    rng = np.random.default_rng(seed)
+    arr = dict(
+        x=rng.normal(size=(N + 1, 12, B)) * 0.3,
+        u=rng.normal(size=(N, 12, B)) * 30 + 80,
+        xr=rng.normal(size=(N + 1, 12, B)) * 0.1,
+        dx=rng.normal(size=(N + 1, 12, B)) * 0.05,
+        du=rng.normal(size=(N, 12, B)) * 2.0,
+        alpha=rng.random(B),
+    )
+    arr["alpha"][0] = 0.0
+    arr["alpha"][1] = 1.0
+    return params, weights, arr
+
+
+def _port(params, weights, arr):
+    tp = convert.params_from_numpy(
+        {f.name: np.asarray(getattr(params, f.name))
+         for f in dataclasses.fields(params)}, dtype=F64)
+    tw = convert.weights_from_numpy(
+        {f.name: np.asarray(getattr(weights, f.name))
+         for f in dataclasses.fields(weights)}, dtype=F64)
+    Ac, bc = srbd.constraint_matrix(tp)
+    return (tp, tw.Q, tw.Qf, tw.R, Ac, bc,
+            *(torch.as_tensor(arr[k]) for k in ORDER), MU_B, THETA_B)
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    from srbd_nmpc_tpu.models import merit_pallas
+
+    params, weights, arr = _problem()
+    orig = pl.pallas_call
+    pl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        Ac, bc = jsrbd.constraint_matrix(params)
+        th, ph = merit_pallas.merit_alpha_pallas(
+            params, weights.Q, weights.Qf, weights.R, Ac, bc,
+            *(jnp.asarray(arr[k]) for k in ORDER), MU_B, THETA_B, block=8)
+        return params, weights, arr, (np.asarray(th), np.asarray(ph))
+    finally:
+        pl.pallas_call = orig
+
+
+@pytest.mark.parametrize("i,name", [(0, "theta"), (1, "phi")])
+def test_plain_matches_jax_kernel(jax_ref, i, name):
+    params, weights, arr, ref = jax_ref
+    before = merit_kernel.launches
+    got = merit_kernel.merit_alpha(*_port(params, weights, arr))
+    assert merit_kernel.launches == before   # CPU tensors: the plain version
+    np.testing.assert_allclose(got[i].numpy(), ref[i], rtol=1e-12,
+                               err_msg=name)
+
+
+def test_cuda_source_host_build_matches_plain():
+    """The kernel's per-scenario body (csrc/merit.cu) compiled as host C++
+    in double precision reproduces the plain version; the CUDA launch is
+    checked on the card by test_torch_kernels_cuda.py."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    params, weights, arr = _problem(seed=1)
+    args = _port(params, weights, arr)
+    th_ref, ph_ref = merit_kernel.merit_alpha_ref(*args)
+    tp, Q, Qf, R, Ac, bc, x, u, xr, dx, du, alpha = args[:12]
+    lib = ctypes.CDLL(build.build_host(
+        f"{build.CSRC}/merit.cu", flags=("-O2", "-ffp-contract=off")))
+    fn = lib.srbd_merit_alpha_host_f64
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + \
+        [ctypes.c_double] * 2
+    fn.restype = ctypes.c_int
+    consts = torch.cat([srbd_linearize.model_constants(tp), Ac.reshape(-1),
+                        bc, R.reshape(-1), Q.reshape(-1), Qf.reshape(-1)])
+    assert consts.numel() == merit_kernel._K_LEN
+    out = torch.empty((2, B), dtype=F64)
+    assert fn(consts.data_ptr(), x.data_ptr(), dx.data_ptr(), u.data_ptr(),
+              du.data_ptr(), xr.data_ptr(), alpha.data_ptr(),
+              out[0].data_ptr(), out[1].data_ptr(), N, B, MU_B, THETA_B) == 0
+    np.testing.assert_allclose(out[0].numpy(), th_ref.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(out[1].numpy(), ph_ref.numpy(), rtol=1e-12)

@@ -68,3 +68,27 @@ def test_add_diag():
     a = rng.normal(size=(6, 6, B))
     _close(sm.add_diag(torch.as_tensor(a), 0.25),
            jsm.add_diag(jnp.asarray(a), 0.25))
+
+
+@pytest.mark.parametrize("name,shapes", [
+    ("mmt", ((12, 7, B), (5, 7, B))),
+    ("transpose", ((12, 7, B),)),
+    ("sym", ((12, 12, B),)),
+])
+def test_products_and_symmetrization(name, shapes):
+    rng = np.random.default_rng(4)
+    args = [rng.normal(size=s) for s in shapes]
+    got = getattr(sm, name)(*(torch.as_tensor(a) for a in args))
+    _close(got, getattr(jsm, name)(*(jnp.asarray(a) for a in args)))
+
+
+@pytest.mark.parametrize("name,rhs", [("chol_solve", (12, 13, B)),
+                                      ("chol_solve_vec", (12, B))])
+def test_chol_solve(name, rhs):
+    rng = np.random.default_rng(5)
+    G = _spd(rng)
+    R = rng.normal(size=rhs)
+    L, d = sm.cholesky(torch.as_tensor(G))
+    Lj, dj = jsm.cholesky(jnp.asarray(G))
+    got = getattr(sm, name)(L, d, torch.as_tensor(R))
+    _close(got, getattr(jsm, name)(Lj, dj, jnp.asarray(R)))
