@@ -12,8 +12,21 @@ the independent f64 C++ oracle (``native/srbd_oracle.cpp``). Phases 10-12 do
 the same for the iteration-synchronous loop: its kernels (K5, K6, K7a)
 against their plain versions, cold B=131072 solves on its ``pallas`` and
 ``fused`` routes against the speculative path, and each kernel route against
-the plain ``xla`` route. Each path's launch counts are set to 0 just before
-it is driven and read just after.
+the plain ``xla`` route. Phases 13-14 do it for the dense one-pass route
+(``planes=False``): its kernels (K3a, K3b) and the two-pass oracle (K4a,
+K4b) against their plain versions, and cold B=131072 solves of the dense
+route on both loops. Each path's launch counts are set to 0 just before it
+is driven and read just after.
+
+The ``kernels`` line gives, for each of the 12 kernels, its launches on its
+path, its largest difference from the plain version, ms per launch (kernel,
+plain, and the one PyTorch call that computes the same function where there
+is one) at the main path's shapes, and its bound: the larger of the bytes it
+must move over the HBM rate and its operations over the FP32 rate. The
+operations are counted on the plain version's elementwise arithmetic for two
+lanes of the same inputs, scaled to the width (the plain version also
+multiplies the structural zeros the kernels skip, so this count is above the
+kernels' own).
 
 Every phase prints one line and raises on failure (non-zero exit). The line
 before the last is the card's ``nvidia-smi`` name and power limit; the last
@@ -35,14 +48,25 @@ B_MAIN = 131072
 N_MAIN = 20
 REL_TOL = 1e-4
 ORACLE_TOL = 1e-3
-SOURCES = ("permute", "sqp_planes", "linearize", "riccati", "merit")
+SOURCES = ("permute", "sqp_planes", "linearize", "riccati", "merit",
+           "sqp_onepass", "sqp_twopass")
 # the synchronous routes: converged within 0.5 % of B and mean SQP
 # iterations within 0.1 of the speculative path's cold solve
 SYNC_ROUTES = {"pallas": dict(qp_kernel="pallas"),
                "fused": dict(qp_kernel="fused", speculative=False)}
+# the dense one-pass route on both loops
+DENSE_ROUTES = {"spec": dict(planes=False),
+                "sync": dict(planes=False, qp_kernel="fused", speculative=False)}
 SYNC_CONV_FRAC = 0.005
 SYNC_ITER_TOL = 0.1
 PARITY_FLIP_FRAC = 0.005
+# the dense route's kernels against each other on the card (K3b vs K4):
+# the f32 tolerances of tests/test_sqp_pallas.py::test_sqp_qp_solve_matches_xla
+DENSE_TOL = {"dx": (1e-4, 2e-4), "du": (1e-4, 2e-3)}
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
+# outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
 
 
 def _smi() -> str:
@@ -67,6 +91,54 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _nbytes(*ts) -> int:
+    """Bytes of the tensors among ``ts`` (nested tuples flattened)."""
+    n = 0
+    for t in ts:
+        if isinstance(t, (tuple, list)):
+            n += _nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size()
+    return n
+
+
+def _count_ops(fn, *args, **kw) -> int:
+    """Elementwise arithmetic operations of ``fn(*args, **kw)``: the output
+    size of every arithmetic op and the input size of every reduction."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    arith = {aten.add, aten.sub, aten.mul, aten.div, aten.neg, aten.abs,
+             aten.rsqrt, aten.sqrt, aten.sin, aten.cos, aten.log, aten.exp,
+             aten.reciprocal, aten.pow, aten.maximum, aten.minimum,
+             aten.clamp_min, aten.clamp_max, aten.clamp, aten.add_,
+             aten.sub_, aten.mul_, aten.div_}
+    reduce = {aten.sum, aten.amax, aten.amin}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket in arith:
+                Count.n += out.numel()
+            elif func.overloadpacket in reduce:
+                Count.n += args[0].numel()
+            return out
+
+    with Count():
+        fn(*args, **kw)
+    return Count.n
+
+
+def _bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the FP32 rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _sorted_idx(rng, B, Bc, clumpy):
@@ -132,22 +204,31 @@ def phase_permute(dev):
             torch.cuda.synchronize()
             if not (torch.equal(got, ref) and torch.equal(got_s, ref_s)):
                 raise AssertionError(f"K2 not bitwise at Bc={Bc} clumpy={clumpy}")
-    # time at the first tier crossing of the main path: [21,12,B] -> B/2
+    # time at the first tier crossing of the main path: [21,12,B] -> B/2;
+    # the library calls are index_select / index_copy themselves
     idx = torch.as_tensor(_sorted_idx(rng, B_MAIN, B_MAIN // 2, False),
                           device=dev)
     src = permute.take_lanes_ref(a, idx)
     t = {
         "take_lanes": (_cuda_ms(lambda: permute.take_lanes(a, idx), 20),
-                       _cuda_ms(lambda: permute.take_lanes_ref(a, idx), 20)),
+                       _cuda_ms(lambda: permute.take_lanes_ref(a, idx), 20),
+                       _cuda_ms(lambda: a.index_select(-1, idx), 20)),
         "set_lanes": (_cuda_ms(lambda: permute.set_lanes(a, src, idx), 20),
-                      _cuda_ms(lambda: permute.set_lanes_ref(a, src, idx), 20)),
+                      _cuda_ms(lambda: permute.set_lanes_ref(a, src, idx), 20),
+                      _cuda_ms(lambda: a.index_copy(2, idx, src), 20)),
     }
+    # a gather reads the selected lanes and writes them; a scatter reads the
+    # destination and the source and writes the destination (no arithmetic)
+    bounds = {"take_lanes": _bound(2 * _nbytes(src) + _nbytes(idx), 0),
+              "set_lanes": _bound(2 * _nbytes(a) + _nbytes(src, idx), 0)}
     print("[3 K2] take_lanes/set_lanes bitwise equal to plain on "
           f"{list(shape)} at 65536 and 4096 lanes, uniform and clumpy; "
           f"[21,12,131072]->65536: take {t['take_lanes'][0]:.4f} ms "
-          f"(plain {t['take_lanes'][1]:.4f}), set {t['set_lanes'][0]:.4f} ms "
-          f"(plain {t['set_lanes'][1]:.4f})", flush=True)
-    return t
+          f"(plain {t['take_lanes'][1]:.4f}, index_select "
+          f"{t['take_lanes'][2]:.4f}), set {t['set_lanes'][0]:.4f} ms "
+          f"(plain {t['set_lanes'][1]:.4f}, index_copy "
+          f"{t['set_lanes'][2]:.4f})", flush=True)
+    return t, bounds
 
 
 def _k1_inputs(rng, N, B, dev, alpha_zero):
@@ -216,12 +297,19 @@ def phase_k1(dev):
     args, reg = _k1_inputs(rng, N_MAIN, B_MAIN, dev, False)
     plain_ms = _cuda_ms(
         lambda: sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg), 1)
-    del args
+    out = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=reg)
+    # operations of the plain version on two lanes of the same construction
+    s_args, _ = _k1_inputs(np.random.default_rng(0), N_MAIN, 2, "cpu", False)
+    ops = B_MAIN * _count_ops(sqp_planes.sqp_qp_solve_onepass_planes_ref,
+                              *s_args, reg=reg) / 2
+    bound = _bound(_nbytes(args[6:13], out), ops)
+    del args, out
     torch.cuda.empty_cache()
     print("[4 K1] ms per launch: " + ", ".join(
         f"B={B} {ms:.3f}" for B, ms in times.items())
-        + f"; plain at B={B_MAIN}: {plain_ms:.3f} ms", flush=True)
-    return max_abs, times, plain_ms
+        + f"; plain at B={B_MAIN}: {plain_ms:.3f} ms; bound {bound[0]:.3f} ms "
+        f"({bound[1]})", flush=True)
+    return max_abs, times, plain_ms, bound
 
 
 def _cold_problem(B, dev, seed=0, compact=True):
@@ -370,23 +458,25 @@ def phase_oracle(st, info, prob):
 
 def _reset_counts():
     from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
-    from srbd_nmpc_tpu_torch.ops import permute, riccati_kernel, sqp_planes
+    from srbd_nmpc_tpu_torch.ops import (permute, riccati_kernel, sqp_kernel,
+                                         sqp_planes)
 
     sqp_planes.launches = 0
     srbd_linearize.launches = 0
     merit_kernel.launches = 0
-    for d in (permute.launches, riccati_kernel.launches):
+    for d in (permute.launches, riccati_kernel.launches, sqp_kernel.launches):
         for k in d:
             d[k] = 0
 
 
 def _counts():
     from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
-    from srbd_nmpc_tpu_torch.ops import permute, riccati_kernel, sqp_planes
+    from srbd_nmpc_tpu_torch.ops import (permute, riccati_kernel, sqp_kernel,
+                                         sqp_planes)
 
     return {"sqp_planes": sqp_planes.launches, **permute.launches,
             "linearize": srbd_linearize.launches, **riccati_kernel.launches,
-            "merit_alpha": merit_kernel.launches}
+            "merit_alpha": merit_kernel.launches, **sqp_kernel.launches}
 
 
 def _sync_kernel_inputs(rng, B, dev):
@@ -514,12 +604,40 @@ def phase_sync_kernels(dev):
     }
     times = {name: (_cuda_ms(kern, 5), _cuda_ms(plain, 1))
              for name, (kern, plain) in calls.items()}
-    del calls, lin_args, L, K, k, merit_args
+
+    # bounds: each kernel's inputs and outputs at B=131072; operations of the
+    # plain versions on two lanes of the same construction
+    s_lin, s_L, (s_K, s_k), s_mer = _sync_kernel_inputs(
+        np.random.default_rng(0), 2, "cpu")
+    s_bwd = (s_L["A"], s_L["B"], s_L["b"])
+    lane_ops = {
+        "linearize": _count_ops(srbd_linearize.linearize_ref, *s_lin),
+        "riccati_bwd_constq": _count_ops(
+            rk.lqr_backward_ref, *s_bwd, s_L["Qc"], s_L["R"], s_L["q"],
+            s_L["r"], s_L["reg"]),
+        "riccati_bwd": _count_ops(
+            rk.lqr_backward_ref, *s_bwd, s_L["Qs"], s_L["R"], s_L["q"],
+            s_L["r"], s_L["reg"]),
+        "riccati_fwd": _count_ops(rk.lqr_forward_ref, *s_bwd, s_K, s_k,
+                                  s_L["x0"]),
+        "merit_alpha": _count_ops(merit_kernel.merit_alpha_ref, *s_mer),
+    }
+    ins = {"linearize": lin_args[5:9],
+           "riccati_bwd_constq": (*bwd, L["R"], L["q"], L["r"]),
+           "riccati_bwd": (*bwd, Qs, L["R"], L["q"], L["r"]),
+           "riccati_fwd": (*bwd, K, k, L["x0"]),
+           "merit_alpha": merit_args[6:12]}
+    bounds = {}
+    for name, (kern, _) in calls.items():
+        bounds[name] = _bound(_nbytes(ins[name], kern()),
+                              B_MAIN * lane_ops[name] / 2)
+    del calls, lin_args, L, K, k, merit_args, ins
     torch.cuda.empty_cache()
-    print(f"[10 kernels] ms per launch at B={B_MAIN}, kernel (plain): "
-          + ", ".join(f"{k} {t[0]:.3f} ({t[1]:.3f})" for k, t in times.items()),
+    print(f"[10 kernels] ms per launch at B={B_MAIN}, kernel (plain; bound): "
+          + ", ".join(f"{k} {t[0]:.3f} ({t[1]:.3f}; {bounds[k][0]:.3f} "
+                      f"{bounds[k][1]})" for k, t in times.items()),
           flush=True)
-    return rel, max_abs, times
+    return rel, max_abs, times, bounds
 
 
 def _route_problem(dev, B, kw, seed=0):
@@ -612,7 +730,9 @@ def phase_parity(dev):
 
     B = 4096
     routes = {"fused+spec": dict(), "fused": SYNC_ROUTES["fused"],
-              "pallas": SYNC_ROUTES["pallas"]}
+              "pallas": SYNC_ROUTES["pallas"],
+              "fused+spec+dense": DENSE_ROUTES["spec"],
+              "fused+dense": DENSE_ROUTES["sync"]}
     st_x, in_x, _ = sharded.solve_batch(
         *_route_problem(dev, B, dict(qp_kernel="xla"), seed=7))
     u_x = st_x.u.cpu().numpy()
@@ -637,12 +757,260 @@ def phase_parity(dev):
     return res
 
 
+def _k3_args(rng, B, dev):
+    """K3a, K3b and K4a arguments on K1's random inputs (phase 4): the
+    candidate call, the call at the iterate (dx0 = x0 - xa[0]) and K4a's."""
+    args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
+    head, (xa, us, xra, dxc, duc, alpha, x0s), tail = \
+        args[:6], args[6:13], args[13:]
+    return (head + (xa, us, xra, dxc, duc, alpha, x0s) + tail,
+            head + (xa, us, xra, x0s - xa[0]) + tail,
+            head + (xa, us, xra) + tail, reg)
+
+
+def _flat(t):
+    if isinstance(t, (tuple, list)):
+        return [x for e in t for x in _flat(e)]
+    return [t]
+
+
+def phase_dense_kernels(dev):
+    """K3a, K3b, K4a and K4b against their plain versions at N=20, B=4096;
+    K3b against K4 (both kernels) at the f32 tolerances of the JAX tests;
+    ms per launch and bounds at B=131072."""
+    from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
+    from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
+
+    rng = np.random.default_rng(13)
+    cand, one, bwd, reg = _k3_args(rng, 4096, dev)
+    k4a_ref = sk.sqp_qp_backward_ref(*bwd, reg=reg)
+    fwd_in = (*k4a_ref[:7], one[9])
+    pairs = {
+        "sqp_onepass_cand": (sk.sqp_qp_solve_onepass_cand(*cand, reg=reg),
+                             sk.sqp_qp_solve_onepass_cand_ref(*cand, reg=reg)),
+        "sqp_onepass": (sk.sqp_qp_solve_onepass(*one, reg=reg),
+                        sk.sqp_qp_solve_onepass_ref(*one, reg=reg)),
+        "sqp_twopass_bwd": (sk.sqp_qp_backward(*bwd, reg=reg), k4a_ref),
+        "sqp_twopass_fwd": (sk.sqp_qp_forward(*fwd_in),
+                            sk.sqp_qp_forward_ref(*fwd_in)),
+    }
+    torch.cuda.synchronize()
+    rel, max_abs = {}, {}
+    for name, (got, ref) in pairs.items():
+        rel[name] = max_abs[name] = 0.0
+        for g, r in zip(_flat(got), _flat(ref)):
+            g = g.cpu().numpy().astype(np.float64)
+            r = r.cpu().numpy().astype(np.float64)
+            if not np.all(np.isfinite(g)):
+                raise AssertionError(f"{name}: kernel output not finite")
+            rel[name] = max(rel[name], parity_metric(g, r))
+            max_abs[name] = max(max_abs[name], float(np.max(np.abs(g - r))))
+
+    # the one-pass trip against the two-pass oracle, both on the card, near
+    # the cold start (phase 10's inputs: on K1's random iterates both f32
+    # solves sit ~half the du tolerance from f64, so they can differ by more
+    # than it); the two-pass entry sqp_qp_solve (as the tools and tests call
+    # it) is K4's own path, so its launches are counted here
+    del pairs
+    _, L, _, mer = _sync_kernel_inputs(rng, 4096, dev)
+    near = mer[:9] + (L["x0"],) + mer[12:]
+    one_k = sk.sqp_qp_solve_onepass(*near, reg=reg)
+    _reset_counts()
+    two_k = sk.sqp_qp_solve(*near, reg=reg)
+    torch.cuda.synchronize()
+    k4_launches = {k: v for k, v in _counts().items() if v}
+    if k4_launches != {"sqp_twopass_bwd": 1, "sqp_twopass_fwd": 1}:
+        raise AssertionError(f"sqp_qp_solve launches {k4_launches}")
+    oracle = {}
+    for i, key in ((0, "dx"), (1, "du")):
+        rtol, atol = DENSE_TOL[key]
+        g = one_k[i].cpu().numpy().astype(np.float64)
+        r = two_k[i].cpu().numpy().astype(np.float64)
+        oracle[key] = float(np.max(np.abs(g - r) / (atol + rtol * np.abs(r))))
+    del one_k, two_k, k4a_ref, fwd_in, L, mer, near
+    print("[13 dense kernels] kernel vs plain at N=20, B=4096: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in rel.items()) + f" (limit {REL_TOL:g}); "
+        "max |diff| " + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items())
+        + f"; K3b vs K4 on the card (launches {k4_launches}), worst "
+        "|diff| / (atol + rtol |K4|): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in oracle.items())
+        + " (limit 1)", flush=True)
+    if not all(v < REL_TOL for v in rel.values()):
+        raise AssertionError(f"a dense kernel disagrees with its plain "
+                             f"version: {rel}")
+    if not all(v <= 1.0 for v in oracle.values()):
+        raise AssertionError(f"K3b vs K4 outside the f32 tolerances: {oracle}")
+
+    cand, one, bwd, reg = _k3_args(rng, B_MAIN, dev)
+    prods = sk.sqp_qp_backward(*bwd, reg=reg)
+    fwd_in = (*prods[:7], one[9])
+    calls = {
+        "sqp_onepass_cand": (
+            lambda: sk.sqp_qp_solve_onepass_cand(*cand, reg=reg),
+            lambda: sk.sqp_qp_solve_onepass_cand_ref(*cand, reg=reg)),
+        "sqp_onepass": (lambda: sk.sqp_qp_solve_onepass(*one, reg=reg),
+                        lambda: sk.sqp_qp_solve_onepass_ref(*one, reg=reg)),
+        "sqp_twopass_bwd": (lambda: sk.sqp_qp_backward(*bwd, reg=reg),
+                            lambda: sk.sqp_qp_backward_ref(*bwd, reg=reg)),
+        "sqp_twopass_fwd": (lambda: sk.sqp_qp_forward(*fwd_in),
+                            lambda: sk.sqp_qp_forward_ref(*fwd_in)),
+    }
+    times = {name: (_cuda_ms(kern, 5), _cuda_ms(plain, 1))
+             for name, (kern, plain) in calls.items()}
+    s_cand, s_one, s_bwd, _ = _k3_args(np.random.default_rng(0), 2, "cpu")
+    s_prods = sk.sqp_qp_backward_ref(*s_bwd, reg=reg)
+    lane_ops = {
+        "sqp_onepass_cand": _count_ops(sk.sqp_qp_solve_onepass_cand_ref,
+                                       *s_cand, reg=reg),
+        "sqp_onepass": _count_ops(sk.sqp_qp_solve_onepass_ref, *s_one,
+                                  reg=reg),
+        "sqp_twopass_bwd": _count_ops(sk.sqp_qp_backward_ref, *s_bwd,
+                                      reg=reg),
+        "sqp_twopass_fwd": _count_ops(sk.sqp_qp_forward_ref, *s_prods[:7],
+                                      s_one[9]),
+    }
+    ins = {"sqp_onepass_cand": cand[6:13], "sqp_onepass": one[6:10],
+           "sqp_twopass_bwd": bwd[6:9], "sqp_twopass_fwd": fwd_in}
+    bounds = {name: _bound(_nbytes(ins[name], kern()),
+                           B_MAIN * lane_ops[name] / 2)
+              for name, (kern, _) in calls.items()}
+    del calls, cand, one, bwd, prods, fwd_in, ins
+    torch.cuda.empty_cache()
+    print(f"[13 dense kernels] ms per launch at B={B_MAIN}, kernel (plain; "
+          "bound): " + ", ".join(
+              f"{k} {t[0]:.3f} ({t[1]:.3f}; {bounds[k][0]:.3f} {bounds[k][1]})"
+              for k, t in times.items()), flush=True)
+    return max_abs, times, bounds, k4_launches
+
+
+def phase_dense(dev, card, spec):
+    """Cold B=131072 solves of the dense one-pass route on both loops, read
+    against the speculative planes path (phase 5); then the dense
+    speculative solve's compaction, bitwise, at B=8192."""
+    from srbd_nmpc_tpu_torch.parallel import sharded
+
+    n_spec, it_spec = spec
+    out = {}
+    for loop, kw in DENSE_ROUTES.items():
+        prob = _route_problem(dev, B_MAIN, kw)
+        torch.cuda.synchronize()
+        _reset_counts()
+        st, info, summ = sharded.solve_batch(*prob)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _counts().items() if v}
+        n_conv, mean_it = int(summ.n_converged), float(summ.mean_iters)
+        loops = int(info.sqp_iters.max())
+        trips = int(info.ls_trips[0])
+        u_ok = bool(torch.isfinite(st.u[info.converged]).all())
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sharded.solve_batch(*prob)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50 = float(np.percentile(times, 50))
+        # where the time goes: one more solve under the profiler
+        by_name = _device_ms(lambda: sharded.solve_batch(*prob))
+        busy = sum(by_name.values())
+        k3 = {k: v for k, v in by_name.items() if "sqp_onepass" in k}
+        d_conv, d_it = n_conv - n_spec, mean_it - it_spec
+        what = ("trips (bootstrap included)" if loop == "spec"
+                else "line-search trips")
+        print(f"[14 dense] {loop} (planes=False, {kw}) B={B_MAIN}: converged "
+              f"{n_conv}/{B_MAIN} ({d_conv:+d} vs phase 5), mean SQP "
+              f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
+              f"{what} {trips}, launches {launches}; p50 {p50:.3f} ms per "
+              f"solve, {B_MAIN / p50 * 1e3:.1f} solves/s (times "
+              f"{[round(t, 3) for t in times]}) on {card}", flush=True)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[14 dense] {loop} profiled solve: device busy {busy:.3f} ms "
+              f"({100 * busy / p50:.1f} % of the p50, so idle "
+              f"{100 * (1 - busy / p50):.1f} %), K3 {sum(k3.values()):.3f} ms; "
+              "top kernels " + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top),
+              flush=True)
+        if loop == "spec":
+            ok = (launches.get("sqp_onepass") == 1
+                  and launches.get("sqp_onepass_cand") == trips - 1
+                  and launches.get("take_lanes", 0) > 0
+                  and launches.get("set_lanes", 0) > 0)
+        else:
+            ok = (launches.get("sqp_onepass", 0) > 0
+                  and launches.get("merit_alpha", 0) > 0)
+        if not ok or launches.get("sqp_planes"):
+            raise AssertionError(f"dense {loop}: launches {launches}")
+        if not u_ok:
+            raise AssertionError(f"dense {loop}: a converged solution is "
+                                 "not finite")
+        if abs(d_conv) > SYNC_CONV_FRAC * B_MAIN or abs(d_it) > SYNC_ITER_TOL:
+            raise AssertionError(f"dense {loop}: converged {d_conv:+d}, mean "
+                                 f"iterations {d_it:+.4f} vs phase 5")
+        out[loop] = dict(launches=launches, n_conv=n_conv, mean_it=mean_it,
+                         loops=loops, trips=trips, p50=p50)
+        del prob, st, info
+        torch.cuda.empty_cache()
+
+    # K3a at the speculative loop's tier widths (as phase 4 times K1)
+    from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
+
+    widths = {}
+    for B in (B_MAIN // 2, B_MAIN // 8, B_MAIN // 32):
+        cand, _, _, reg = _k3_args(np.random.default_rng(14), B, dev)
+        widths[B] = _cuda_ms(
+            lambda: sk.sqp_qp_solve_onepass_cand(*cand, reg=reg), 5)
+    del cand
+    print("[14 dense] K3a ms per launch at the tier widths: " + ", ".join(
+        f"B={B} {ms:.3f}" for B, ms in widths.items()), flush=True)
+
+    B = 8192
+    res = [sharded.solve_batch(*_route_problem(
+        dev, B, dict(DENSE_ROUTES["spec"], compact=c))) for c in (True, False)]
+    torch.cuda.synchronize()
+    (st_c, in_c, _), (st_f, in_f, _) = res
+    same = (torch.equal(st_c.u, st_f.u) and torch.equal(st_c.x, st_f.x)
+            and torch.equal(in_c.sqp_iters, in_f.sqp_iters)
+            and torch.equal(in_c.status, in_f.status))
+    print(f"[14 dense] B={B}: dense compact=True vs compact=False bitwise "
+          f"equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("compacted dense solve differs from the "
+                             "full-width one")
+    return out
+
+
+def _device_ms(fn):
+    """Device ms by kernel name of one ``fn()`` under torch.profiler.
+    Kernels run on one stream, so their sum is the device busy time (the
+    profiled call's wall time includes the profiler's own start-up and is
+    not used)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return by_name
+
+
+def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+           bound, library_ms=None):
+    return {"name": name, "route": "cuda",
+            "source": f"srbd_nmpc_tpu_torch/csrc/{source}",
+            "replaces": f"srbd_nmpc_tpu/{replaces}", "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
+
+
 def main() -> int:
     card, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    k2_t = phase_permute(dev)
-    k1_err, k1_t, k1_plain = phase_k1(dev)
+    k2_t, k2_b = phase_permute(dev)
+    k1_err, k1_t, k1_plain, k1_b = phase_k1(dev)
     st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
     phase_compaction(dev)
@@ -650,46 +1018,47 @@ def main() -> int:
     phase_oracle(st, info, prob)
     del st, info, prob
     torch.cuda.empty_cache()
-    _, k_err, k_t = phase_sync_kernels(dev)
+    _, k_err, k_t, k_b = phase_sync_kernels(dev)
     sync = phase_sync(dev, f"{smi}", spec)
+    d_err, d_t, d_b, k4_launches = phase_dense_kernels(dev)
+    dense = phase_dense(dev, f"{smi}", spec)
     phase_parity(dev)
 
     pallas = sync["pallas"]["launches"]
     per_stage_q = sync["lqr_per_stage_q"]["launches"]
+    dense_spec = dense["spec"]["launches"]
+    dense_sync = dense["sync"]["launches"]
     kernels = [
-        {"name": "sqp_planes", "route": "cuda",
-         "source": "srbd_nmpc_tpu_torch/csrc/sqp_planes.cu",
-         "replaces": "srbd_nmpc_tpu/ops/sqp_planes.py:301",
-         "launches": launches["sqp_planes"], "max_abs_err": k1_err,
-         "ms": k1_t[B_MAIN], "plain_ms": k1_plain},
-        {"name": "take_lanes", "route": "cuda",
-         "source": "srbd_nmpc_tpu_torch/csrc/permute.cu",
-         "replaces": "srbd_nmpc_tpu/ops/permute_pallas.py:48",
-         "launches": launches["take_lanes"], "max_abs_err": 0.0,
-         "ms": k2_t["take_lanes"][0], "plain_ms": k2_t["take_lanes"][1]},
-        {"name": "set_lanes", "route": "cuda",
-         "source": "srbd_nmpc_tpu_torch/csrc/permute.cu",
-         "replaces": "srbd_nmpc_tpu/ops/permute_pallas.py:149",
-         "launches": launches["set_lanes"], "max_abs_err": 0.0,
-         "ms": k2_t["set_lanes"][0], "plain_ms": k2_t["set_lanes"][1]},
+        _entry("sqp_planes", "sqp_planes.cu", "ops/sqp_planes.py:301",
+               launches["sqp_planes"], k1_err, k1_t[B_MAIN], k1_plain, k1_b),
+        _entry("take_lanes", "permute.cu", "ops/permute_pallas.py:48",
+               launches["take_lanes"], 0.0, *k2_t["take_lanes"][:2],
+               k2_b["take_lanes"], k2_t["take_lanes"][2]),
+        _entry("set_lanes", "permute.cu", "ops/permute_pallas.py:149",
+               launches["set_lanes"], 0.0, *k2_t["set_lanes"][:2],
+               k2_b["set_lanes"], k2_t["set_lanes"][2]),
     ]
-    for name, source, replaces, n in (
+    for name, source, replaces, n, err, t, b in (
+            ("sqp_onepass_cand", "sqp_onepass.cu", "ops/sqp_pallas.py:574",
+             dense_spec["sqp_onepass_cand"], d_err, d_t, d_b),
+            ("sqp_onepass", "sqp_onepass.cu", "ops/sqp_pallas.py:492",
+             dense_sync["sqp_onepass"], d_err, d_t, d_b),
+            ("sqp_twopass_bwd", "sqp_twopass.cu", "ops/sqp_pallas.py:383",
+             k4_launches["sqp_twopass_bwd"], d_err, d_t, d_b),
+            ("sqp_twopass_fwd", "sqp_twopass.cu", "ops/sqp_pallas.py:465",
+             k4_launches["sqp_twopass_fwd"], d_err, d_t, d_b),
             ("linearize", "linearize.cu", "models/srbd_pallas.py:35",
-             pallas["linearize"]),
+             pallas["linearize"], k_err, k_t, k_b),
             ("riccati_bwd_constq", "riccati.cu", "ops/riccati_pallas.py:100",
-             pallas["riccati_bwd_constq"]),
+             pallas["riccati_bwd_constq"], k_err, k_t, k_b),
             ("riccati_bwd", "riccati.cu", "ops/riccati_pallas.py:56",
-             per_stage_q["riccati_bwd"]),
+             per_stage_q["riccati_bwd"], k_err, k_t, k_b),
             ("riccati_fwd", "riccati.cu", "ops/riccati_pallas.py:142",
-             pallas["riccati_fwd"]),
+             pallas["riccati_fwd"], k_err, k_t, k_b),
             ("merit_alpha", "merit.cu", "models/merit_pallas.py:131",
-             pallas["merit_alpha"])):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"srbd_nmpc_tpu_torch/csrc/{source}",
-            "replaces": f"srbd_nmpc_tpu/{replaces}", "launches": n,
-            "max_abs_err": k_err[name], "ms": k_t[name][0],
-            "plain_ms": k_t[name][1]})
+             pallas["merit_alpha"], k_err, k_t, k_b)):
+        kernels.append(_entry(name, source, replaces, n, err[name], *t[name],
+                              b[name]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,35 +33,6 @@ using namespace srbd_dev;
 constexpr int K_AC = 17, K_BC = 305, K_R = 329, K_Q = 473, K_LEN = 617;
 
 template <typename T>
-HD T jfx(const M3<T>& D1, const M3<T>& D2, const T* sF, int i, int j) {
-  if (i < 3) {
-    if (j < 3) return D1.m[i][j];
-    if (j < 6) return D2.m[i][j - 3];
-    return T(0);
-  }
-  if (i < 6) return (j >= 6 && j < 9) ? skew_at(sF, i - 3, j - 6) : T(0);
-  if (i < 9) return (j >= 9 && j - 9 == i - 6) ? T(1) : T(0);
-  return T(0);
-}
-
-template <typename T>
-HD T jfu(const T* sr, const T* sl, T inv_m, int i, int j) {
-  if (i >= 3 && i < 6) {
-    const int a = i - 3;
-    if (j < 3) return skew_at(sr, a, j);
-    if (j < 6) return (j - 3 == a) ? T(1) : T(0);
-    if (j < 9) return skew_at(sl, a, j - 6);
-    return (j - 9 == a) ? T(1) : T(0);
-  }
-  if (i >= 9) {
-    const int a = i - 9;
-    if (j < 3) return (j == a) ? inv_m : T(0);
-    if (j >= 6 && j < 9) return (j - 6 == a) ? inv_m : T(0);
-  }
-  return T(0);
-}
-
-template <typename T>
 HD void stage(const T* kc, const T* xs, const T* xn, const T* us, const T* xr, T* Ao,
               T* Bo, T* bo, T* Reffo, T* reffo, T* qo, T* mer, int B, int g, int b,
               T mu_b, T theta_b) {

@@ -225,41 +225,6 @@ HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
     x_next[i] = x[i] + dt6 * (((k1[i] + T(2) * k2[i]) + T(2) * k3[i]) + k4[i]);
 }
 
-// skew(s)' m = m x s (nonzero terms only)
-template <typename T>
-HD void skewT_mul(const T* s, T m0, T m1, T m2, T* out) {
-  out[0] = s[2] * m1 - s[1] * m2;
-  out[1] = s[0] * m2 - s[2] * m0;
-  out[2] = s[1] * m0 - s[0] * m1;
-}
-
-// (Ju' P)[j][c] from the symmetric P: rows [Sr' P1 + P3/m | P1 | Sl' P1 + P3/m | P1]
-template <typename T>
-HD T ju_p(const T (&P)[12][12], const T* sr, const T* sl, T m_inv, int j, int c) {
-  if (j >= 3 && j < 6) return P[j][c];
-  if (j >= 9) return P[j - 6][c];
-  const T* s = (j < 3) ? sr : sl;
-  const int i = (j < 3) ? j : j - 6;
-  T o[3];
-  skewT_mul(s, P[3][c], P[4][c], P[5][c], o);
-  return o[i] + m_inv * P[9 + i][c];
-}
-
-// (Jx' M)[i][j] with M = V' (M[r][j] = V[j][r]); rows D1' M0 | D2' M0 | SF' M1 | M2
-template <typename T>
-HD T jxt_m(const T (&V)[12][12], const T (&D1)[3][3], const T (&D2)[3][3], const T* sF,
-           int i, int j) {
-  if (i < 3) return D1[0][i] * V[j][0] + D1[1][i] * V[j][1] + D1[2][i] * V[j][2];
-  if (i < 6) {
-    const int a = i - 3;
-    return D2[0][a] * V[j][0] + D2[1][a] * V[j][1] + D2[2][a] * V[j][2];
-  }
-  if (i >= 9) return V[j][i - 3];
-  T o[3];
-  skewT_mul(sF, V[j][3], V[j][4], V[j][5], o);
-  return o[i - 6];
-}
-
 // ---------------------------------------------------------------------------
 // one scenario, three passes
 // ---------------------------------------------------------------------------
@@ -423,197 +388,11 @@ HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dx
 #pragma unroll
     for (int g = 0; g < 24; ++g) ddb[g] = PK(P_DDB + g);
 
-    // Pb_p = P b + p
-    T Pbp[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      T acc = P[i][0] * bv[0];
-#pragma unroll
-      for (int j = 1; j < 12; ++j) acc = acc + P[i][j] * bv[j];
-      Pbp[i] = acc + p[i];
-    }
-
-    // V = Jx' P (rows: D1' P0 | D2' P0 | SF' P1 | P2)
-    T V[12][12];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        V[i][j] = D1[0][i] * P[0][j] + D1[1][i] * P[1][j] + D1[2][i] * P[2][j];
-        V[3 + i][j] = D2[0][i] * P[0][j] + D2[1][i] * P[1][j] + D2[2][i] * P[2][j];
-        V[9 + i][j] = P[6 + i][j];
-      }
-      T s[3];
-      skewT_mul(sF, P[3][j], P[4][j], P[5][j], s);
-      V[6][j] = s[0];
-      V[7][j] = s[1];
-      V[8][j] = s[2];
-    }
-
-    // Y13 = [H | rv]: H = dt Ju'(P A), A = I + dt Jx, P A = P + dt V'
-    //   Ju' Mat rows: [Sr' M1 + M3/m | M1 | Sl' M1 + M3/m | M1]
+    // structured Riccati stage (srbd_dev.cuh); [K | kv] = -Y, parked in
+    // global scratch
     T Y[12][13];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      T m1[3], m3[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        m1[i] = P[3 + i][j] + dt * V[j][3 + i];
-        m3[i] = P[9 + i][j] + dt * V[j][9 + i];
-      }
-      T s1[3], s2[3];
-      skewT_mul(sr, m1[0], m1[1], m1[2], s1);
-      skewT_mul(sl, m1[0], m1[1], m1[2], s2);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        Y[i][j] = dt * (s1[i] + m_inv * m3[i]);
-        Y[3 + i][j] = dt * m1[i];
-        Y[6 + i][j] = dt * (s2[i] + m_inv * m3[i]);
-        Y[9 + i][j] = dt * m1[i];
-      }
-    }
-    {
-      T s1[3], s2[3];
-      skewT_mul(sr, Pbp[3], Pbp[4], Pbp[5], s1);
-      skewT_mul(sl, Pbp[3], Pbp[4], Pbp[5], s2);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        Y[i][12] = dt * (s1[i] + m_inv * Pbp[9 + i]) + rf[i];
-        Y[3 + i][12] = dt * Pbp[3 + i] + rf[3 + i];
-        Y[6 + i][12] = dt * (s2[i] + m_inv * Pbp[9 + i]) + rf[6 + i];
-        Y[9 + i][12] = dt * Pbp[3 + i] + rf[9 + i];
-      }
-    }
-
-    // G = Reff + dt^2 Ju'(P Ju) + reg I (lower triangle), with
-    // Reff = R + blockdiag(Ac1' diag(ddb1) Ac1, Ac2' diag(ddb2) Ac2) and
-    // P Ju = (Ju' P)' = U'
-    T L[12][12];
-    const T dt2 = dt * dt;
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      // column j of Ju'(U'): rows from Mat = U' with Mat[r][j] = U[j][r]
-      T m1[3], m3[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        m1[i] = ju_p(P, sr, sl, m_inv, j, 3 + i);
-        m3[i] = ju_p(P, sr, sl, m_inv, j, 9 + i);
-      }
-      T s1[3], s2[3];
-      skewT_mul(sr, m1[0], m1[1], m1[2], s1);
-      skewT_mul(sl, m1[0], m1[1], m1[2], s2);
-      T col[12];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        col[i] = s1[i] + m_inv * m3[i];
-        col[3 + i] = m1[i];
-        col[6 + i] = s2[i] + m_inv * m3[i];
-        col[9 + i] = m1[i];
-      }
-#pragma unroll
-      for (int i = 0; i < 12; ++i) {
-        if (i < j) continue;
-        T re = Rw[12 * i + j];
-        const bool same_leg = (i < 6) == (j < 6);
-        if (same_leg) {
-          const T* Ab = (i < 6) ? Ac1 : Ac2;
-          const int ii = (i < 6) ? i : i - 6, jj = (j < 6) ? j : j - 6;
-          const int g0 = (i < 6) ? 0 : 12;
-          T c = Ab[ii] * (Ab[jj] * ddb[g0]);
-#pragma unroll
-          for (int g = 1; g < 12; ++g)
-            c = c + Ab[6 * g + ii] * (Ab[6 * g + jj] * ddb[g0 + g]);
-          re = re + c;
-        }
-        T gij = re + dt2 * col[i];
-        if (i == j) gij = gij + reg;
-        L[i][j] = gij;
-      }
-    }
-
-    // right-looking Cholesky on the lower triangle, dinv = rsqrt(pivot)
-    T dinv[12];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      const T di = k_rsqrt(L[j][j]);
-      dinv[j] = di;
-#pragma unroll
-      for (int i = 0; i < 12; ++i)
-        if (i >= j) L[i][j] = L[i][j] * di;
-#pragma unroll
-      for (int c = 0; c < 12; ++c)
-#pragma unroll
-        for (int i = 0; i < 12; ++i)
-          if (c > j && i >= c) L[i][c] = L[i][c] - L[i][j] * L[c][j];
-    }
-
-    // forward substitution Y <- L^-1 [H | rv] (13 columns)
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-#pragma unroll
-      for (int c = 0; c < 13; ++c) Y[i][c] = Y[i][c] * dinv[i];
-#pragma unroll
-      for (int r = 0; r < 12; ++r)
-        if (r > i) {
-#pragma unroll
-          for (int c = 0; c < 13; ++c) Y[r][c] = Y[r][c] - L[r][i] * Y[i][c];
-        }
-    }
-
-    // P_new = Qw + P + dt (M + V) + dt^2 Jx' M - Yh' Yh, M = V';
-    // p_new = q + Pb_p + dt Jx' Pb_p - Yh' yv
-    // entries (i, j) and (j, i) read only P[i][j] and P[j][i] of the old P
-    // (V is already formed), so the symmetrized update is done in place
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-#pragma unroll
-      for (int j = 0; j < 12; ++j) {
-        if (j < i) continue;
-        T gr = Y[0][i] * Y[0][j];
-#pragma unroll
-        for (int r = 1; r < 12; ++r) gr = gr + Y[r][i] * Y[r][j];
-        const T mv = dt * (V[j][i] + V[i][j]);
-        const T xij = (((Qw[12 * i + j] + P[i][j]) + mv) + dt2 * jxt_m(V, D1, D2, sF, i, j)) - gr;
-        const T xji = (((Qw[12 * j + i] + P[j][i]) + mv) + dt2 * jxt_m(V, D1, D2, sF, j, i)) - gr;
-        const T s = T(0.5) * (xij + xji);
-        P[i][j] = s;
-        P[j][i] = s;
-      }
-    }
-    {
-      T jv[12];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        jv[i] = D1[0][i] * Pbp[0] + D1[1][i] * Pbp[1] + D1[2][i] * Pbp[2];
-        jv[3 + i] = D2[0][i] * Pbp[0] + D2[1][i] * Pbp[1] + D2[2][i] * Pbp[2];
-        jv[9 + i] = Pbp[6 + i];
-      }
-      T s[3];
-      skewT_mul(sF, Pbp[3], Pbp[4], Pbp[5], s);
-      jv[6] = s[0];
-      jv[7] = s[1];
-      jv[8] = s[2];
-#pragma unroll
-      for (int i = 0; i < 12; ++i) {
-        T yy = Y[0][i] * Y[0][12];
-#pragma unroll
-        for (int r = 1; r < 12; ++r) yy = yy + Y[r][i] * Y[r][12];
-        p[i] = ((q[i] + Pbp[i]) + dt * jv[i]) - yy;
-      }
-    }
-
-    // back substitution L' X = Y; [K | kv] = -X, parked in global scratch
-#pragma unroll
-    for (int i = 11; i >= 0; --i) {
-#pragma unroll
-      for (int c = 0; c < 13; ++c) Y[i][c] = Y[i][c] * dinv[i];
-#pragma unroll
-      for (int r = 0; r < 12; ++r)
-        if (r < i) {
-#pragma unroll
-          for (int c = 0; c < 13; ++c) Y[r][c] = Y[r][c] - L[i][r] * Y[i][c];
-        }
-    }
+    riccati_stage_structured(D1, D2, sF, sr, sl, bv, q, rf, ddb, Ac1, Ac2, Rw, Qw, dt,
+                             m_inv, reg, P, p, Y);
 #pragma unroll
     for (int i = 0; i < 12; ++i) {
 #pragma unroll

@@ -8,19 +8,20 @@ reference's sequential SQP with a backtracking filter line search
 NMPC_solver.cpp:143-274), exactly as in the JAX engine.
 
 - ``_solve_batched_soa_spec`` (the default ``NmpcConfig``): each while-trip
-  launches ONE fused SQP trip (``ops.sqp_planes``, kernel K1) at every live
-  scenario's next line-search candidate ``x + alpha dx``: its merit decides
-  the filter acceptance, and on acceptance its QP solution is the next
-  iteration's direction. As the live set shrinks, the carry is compacted
-  into narrower tiers with the sorted lane permutes of ``ops.permute``
-  (kernel K2).
+  launches ONE fused SQP trip at every live scenario's next line-search
+  candidate ``x + alpha dx``: its merit decides the filter acceptance, and
+  on acceptance its QP solution is the next iteration's direction. The
+  trip is ``ops.sqp_planes`` (kernel K1) with ``planes=True``, and the
+  dense ``ops.sqp_kernel`` trip (K3a, bootstrapped by K3b) with
+  ``planes=False``. As the live set shrinks, the carry is compacted into
+  narrower tiers with the sorted lane permutes of ``ops.permute`` (K2).
 - ``_solve_batched_soa`` (every other batched configuration): each SQP
   iteration linearizes and solves the QP, then runs the line search to its
-  end. The QP route (``_qp_route``) is ``fused`` (K1 at alpha = 0),
-  ``pallas`` (K5 ``models.srbd_linearize``, then K6
-  ``ops.riccati_kernel``) or ``xla`` (plain PyTorch, ``ops.riccati_soa``
-  with iterative refinement); the line search's merit is K7a
-  (``models.merit_kernel``) on the first two and plain on ``xla``.
+  end. The QP route (``_qp_route``) is ``fused`` (K1 at alpha = 0, or K3b
+  with ``planes=False``), ``pallas`` (K5 ``models.srbd_linearize``, then
+  K6 ``ops.riccati_kernel``) or ``xla`` (plain PyTorch,
+  ``ops.riccati_soa`` with iterative refinement); the line search's merit
+  is K7a (``models.merit_kernel``) on the first two and plain on ``xla``.
 
 Public layout is the JAX engine's: states are ``x [B, N+1, 12]``,
 ``u [B, N, 12]``, ``alpha [B]``; inside the solve the trajectories are
@@ -39,7 +40,7 @@ import torch
 from srbd_nmpc_tpu_torch.models import merit_kernel, srbd, srbd_linearize
 from srbd_nmpc_tpu_torch.models import srbd_soa
 from srbd_nmpc_tpu_torch.ops import permute, riccati_kernel, riccati_soa
-from srbd_nmpc_tpu_torch.ops import sqp_planes
+from srbd_nmpc_tpu_torch.ops import sqp_kernel, sqp_planes, sqp_stage
 from srbd_nmpc_tpu_torch.ops import smallmat as sm
 from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
 from srbd_nmpc_tpu_torch.utils.device import (DeviceLike, pin_float32,
@@ -252,8 +253,6 @@ def _check_slice(cfg: NmpcConfig, state: NmpcState) -> None:
                                     and cfg.N >= cfg.pscan_min_N):
         todo("the associative-scan Riccati (qp_kernel='pscan', or "
              "N >= pscan_min_N)", "Queue 1 item 6")
-    if _qp_route(cfg) == "fused" and not cfg.planes:
-        todo("planes=False (the dense one-pass kernels)", "Queue 2 K3")
     if _qp_route(cfg) == "fused" and cfg.park_factor:
         todo("park_factor=True", "Queue 2, K1 variants")
     if cfg.sensitivity != "euler":
@@ -280,6 +279,17 @@ def solve(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
     if cfg.speculative and _qp_route(cfg) == "fused":
         return _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref)
     return _solve_batched_soa(params, weights, cfg, state, x0, x_ref)
+
+
+def _fused_constants(params, weights, cfg, device):
+    """The constants block of the fused trips (K1, K3), built once per solve
+    on CUDA, where its leg-block-diagonal check costs a device read-back;
+    None elsewhere (the plain versions take the parameters themselves)."""
+    if _qp_route(cfg) != "fused" or torch.device(device).type != "cuda":
+        return None
+    Ac, bc = srbd.constraint_matrix(params)
+    return sqp_stage.kernel_constants(params, weights.Q, weights.Qf,
+                                      weights.R, Ac, bc)
 
 
 def _soa_inputs(cfg: NmpcConfig, state: NmpcState, x0, x_ref):
@@ -404,21 +414,28 @@ def _line_search_soa(params, weights, cfg, xa, us, alpha0, xra, dx, du,
             alpha, trips)
 
 
-def _sqp_step_soa(params, weights, cfg, xa, us, alpha, x0s, xra, active):
+def _sqp_step_soa(params, weights, cfg, xa, us, alpha, x0s, xra, active,
+                  consts=None):
     """One SQP iteration in SoA layout (xa [N+1,12,B], us [N,12,B],
     x0s [12,B], xra [N+1,12,B]): linearize, solve the QP on the route
-    ``_qp_route`` picks, line-search. Returns (xa', us', alpha',
-    (theta0, phi0, dphi, max_defect, min_con, nan, trips))."""
+    ``_qp_route`` picks, line-search. ``consts``: ``_fused_constants``.
+    Returns (xa', us', alpha', (theta0, phi0, dphi, max_defect, min_con,
+    nan, trips))."""
     Bn = xa.shape[-1]
     route = _qp_route(cfg)
     dx0s = x0s - xa[0]
     if route == "fused":
         Ac, bc = srbd.constraint_matrix(params)
-        dx, du, dphi, aux = sqp_planes.sqp_qp_solve_onepass_planes(
-            params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us, xra,
-            torch.zeros_like(xa), torch.zeros_like(us),
-            torch.zeros(Bn, dtype=xa.dtype, device=xa.device), x0s,
-            cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg)
+        head = (params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us, xra)
+        if cfg.planes:
+            dx, du, dphi, aux = sqp_planes.sqp_qp_solve_onepass_planes(
+                *head, torch.zeros_like(xa), torch.zeros_like(us),
+                torch.zeros(Bn, dtype=xa.dtype, device=xa.device), x0s,
+                cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg, consts=consts)
+        else:
+            dx, du, dphi, aux = sqp_kernel.sqp_qp_solve_onepass(
+                *head, dx0s, cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg,
+                fold=cfg.fold_forward, consts=consts)
     elif route == "pallas":
         A, Bm, b, R, q, r, aux = _linearize_pallas_soa(
             params, weights, cfg, xa, us, xra)
@@ -462,7 +479,8 @@ def sqp_step(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
     if active is None:
         active = torch.ones((Bn,), dtype=torch.bool, device=xa.device)
     xa_n, us_n, alpha_n, aux = _sqp_step_soa(
-        params, weights, cfg, xa, us, state.alpha, x0s, xra, active)
+        params, weights, cfg, xa, us, state.alpha, x0s, xra, active,
+        _fused_constants(params, weights, cfg, xa.device))
     theta0, phi0, dphi, max_defect, min_con, nan, trips = aux
     converged, status = _step_status(cfg, theta0, dphi, nan)
     new_state = NmpcState(x=xa_n.permute(2, 0, 1).contiguous(),
@@ -487,6 +505,7 @@ def _solve_batched_soa(params, weights, cfg, state, x0, x_ref):
     dtype, dev = state.x.dtype, state.x.device
     xa, us, x0s, xra = _soa_inputs(cfg, state, x0, x_ref)
     alpha = state.alpha
+    consts = _fused_constants(params, weights, cfg, dev)
     i32 = torch.int32
     inf = torch.full((Bn,), math.inf, dtype=dtype, device=dev)
     info = NmpcInfo(
@@ -501,7 +520,7 @@ def _solve_batched_soa(params, weights, cfg, state, x0, x_ref):
     while it < cfg.sqp_max_iter and bool((info.status == STATUS_RUNNING).any()):
         act = info.status == STATUS_RUNNING
         xa_n, us_n, alpha_n, aux = _sqp_step_soa(
-            params, weights, cfg, xa, us, alpha, x0s, xra, act)
+            params, weights, cfg, xa, us, alpha, x0s, xra, act, consts)
         theta0, phi0, dphi, max_defect, min_con, nan, trips = aux
         converged, step_status = _step_status(cfg, theta0, dphi, nan)
 
@@ -571,12 +590,34 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
 
     xra = _xra_at(Bn) if shared_ref else x_ref.permute(1, 2, 0).contiguous()
     Ac, bc = srbd.constraint_matrix(params)
+    head = (params, weights.Q, weights.Qf, weights.R, Ac, bc)
+    kw = dict(reg=cfg.reg, consts=_fused_constants(params, weights, cfg, dev))
 
-    def _cand_at(xa, us, dx_p, du_p, alpha_cand, xra_, x0s_):
-        return sqp_planes.sqp_qp_solve_onepass_planes(
-            params, weights.Q, weights.Qf, weights.R, Ac, bc,
-            xa, us, xra_, dx_p, du_p, alpha_cand, x0s_,
-            cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg)
+    if cfg.planes:
+        # one plane-phase kernel (K1) serves the bootstrap (alpha = 0) and
+        # the candidate trips
+        def _boot(xa, us):
+            return sqp_planes.sqp_qp_solve_onepass_planes(
+                *head, xa, us, xra, torch.zeros_like(xa), torch.zeros_like(us),
+                torch.zeros(Bn, dtype=dtype, device=dev), x0s,
+                cfg.mu_barrier, cfg.theta_barrier, **kw)
+
+        def _cand_at(xa, us, dx_p, du_p, alpha_cand, xra_, x0s_):
+            return sqp_planes.sqp_qp_solve_onepass_planes(
+                *head, xa, us, xra_, dx_p, du_p, alpha_cand, x0s_,
+                cfg.mu_barrier, cfg.theta_barrier, **kw)
+    else:
+        # dense one-pass trips: K3b at the iterate, K3a at the candidates
+        def _boot(xa, us):
+            return sqp_kernel.sqp_qp_solve_onepass(
+                *head, xa, us, xra, x0s - xa[0], cfg.mu_barrier,
+                cfg.theta_barrier, fold=cfg.fold_forward, **kw)
+
+        def _cand_at(xa, us, dx_p, du_p, alpha_cand, xra_, x0s_):
+            return sqp_kernel.sqp_qp_solve_onepass_cand(
+                *head, xa, us, xra_, dx_p, du_p, alpha_cand, x0s_,
+                cfg.mu_barrier, cfg.theta_barrier, fold=cfg.fold_forward,
+                **kw)
 
     tiers = []
     if cfg.compact:
@@ -591,9 +632,7 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
     tiers.sort(reverse=True)
 
     # ---- bootstrap: iteration 1's linearize + QP at the initial iterate --
-    dx_p, du_p, dphi_p, aux = _cand_at(
-        xa0, us0, torch.zeros_like(xa0), torch.zeros_like(us0),
-        torch.zeros(Bn, dtype=dtype, device=dev), xra, x0s)
+    dx_p, du_p, dphi_p, aux = _boot(xa0, us0)
     th_p, ph_p, md_p, mc_p = aux
     nan0 = ~torch.isfinite(th_p + ph_p + dphi_p)
     conv_p = (dphi_p > cfg.conv_dphi) & (th_p < cfg.conv_theta)

@@ -4,10 +4,11 @@
 Usage:
     python -m srbd_nmpc_tpu_torch.nmpc.runner [--config mpc_option.yaml]
         [--nrep 100] [--batch 1] [--dtype f32] [--sensitivity euler]
-        [--refine 0]
+        [--refine 0] [--device cuda]
 
-The CLI runs on the CUDA card when one is present and on the CPU
-otherwise (``run_control_loop`` takes an explicit ``device``).
+The CLI and ``run_control_loop`` run on the CUDA card unless asked for the
+CPU (``--device cpu``, ``device="cpu"``); without a card the default
+raises.
 """
 
 from __future__ import annotations
@@ -97,14 +98,14 @@ def main(argv=None) -> None:
     ap.add_argument("--dtype", choices=["f32", "f64"], default="f32")
     ap.add_argument("--sensitivity", choices=["euler", "exact"], default="euler")
     ap.add_argument("--refine", type=int, default=0)
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
 
     opts = load_mpc_options(args.config) if args.config else MpcOptions.default()
     dtype = torch.float32 if args.dtype == "f32" else torch.float64
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     run_control_loop(opts, batch=args.batch, dtype=dtype,
                      sensitivity=args.sensitivity, refine=args.refine,
-                     nrep=args.nrep, device=device)
+                     nrep=args.nrep, device=args.device)
 
 
 if __name__ == "__main__":

@@ -30,7 +30,8 @@ from srbd_nmpc_tpu_torch.models.srbd import NG, NU, NX, SRBDParams
 from srbd_nmpc_tpu_torch.ops import smallmat as sm
 from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
 from srbd_nmpc_tpu_torch.ops.sqp_stage import (_riccati_stage_structured,
-                                               _split_leg_blocks)
+                                               _split_leg_blocks,
+                                               kernel_constants)
 from srbd_nmpc_tpu_torch.utils.build import check_cuda_f32, load_kernel
 
 # pack channel layout (C rows per stage), as in the JAX kernel
@@ -44,12 +45,6 @@ _Q = 39          # 12: q = Qw (x - xr)
 _RF = 51         # 12: r_eff = Rw u + Ac' db
 _DDB = 63        # 24: barrier curvature ddb
 _C = 87
-
-# constants block handed to the CUDA kernel (offsets match csrc/sqp_planes.cu)
-_K_MASS, _K_DT, _K_IINV, _K_FOOT = 0, 1, 2, 11
-_K_AC1, _K_AC2, _K_BC = 17, 89, 161
-_K_R, _K_Q, _K_QF = 185, 329, 473
-_K_LEN = 617
 
 # CUDA threads per block of K1 (independent of NmpcConfig.pallas_block,
 # which only sets the granularity of the compaction tiers)
@@ -174,9 +169,10 @@ def sqp_qp_solve_onepass_planes_ref(
         C22 = sm.mtm(Ac2_b, Ac2_b * ddb[12:24, None])
         Reff = Rw_b + torch.cat([torch.cat([C11, z66], dim=1),
                                  torch.cat([z66, C22], dim=1)], dim=0)
-        P, p, Ks[k], kvs[k] = _riccati_stage_structured(
+        P, p, _, Ks[k], _, kvs[k] = _riccati_stage_structured(
             dt, m_inv, D1, D2, srbd_soa.skew(sF), srbd_soa.skew(sr),
-            srbd_soa.skew(sl), Qw_b, Reff, reff, q, b, P, p, reg)
+            srbd_soa.skew(sl), Qw_b, Reff, reff, q, b, P, p, reg,
+            with_acl=False)
 
     # forward rollout: dx_{k+1} = dx + dt (Jx dx + Ju du) + b, block-wise
     dx = dx0
@@ -202,17 +198,6 @@ def sqp_qp_solve_onepass_planes_ref(
     return torch.stack(dxs), torch.stack(dus), dphi, aux
 
 
-def _constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac1, Ac2, bc):
-    """The kernel's constants block, laid out at the ``_K_*`` offsets."""
-    parts = [params.mass.reshape(1), params.dt.reshape(1),
-             params.inertia_inv.reshape(9), params.foot_pos.reshape(6),
-             Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
-             R_w.reshape(144), Q_w.reshape(144), Qf_w.reshape(144)]
-    k = torch.cat([t.to(torch.float32) for t in parts]).contiguous()
-    assert k.numel() == _K_LEN
-    return k
-
-
 def _lib():
     lib = load_kernel("sqp_planes")
     fn = lib.srbd_sqp_planes_launch
@@ -225,7 +210,7 @@ def _lib():
 
 
 def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                alpha, x0s, mu_b, theta_b, reg):
+                alpha, x0s, mu_b, theta_b, reg, consts):
     global launches
     N = us.shape[0]
     Bt = xa.shape[-1]
@@ -237,8 +222,8 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
                            ("alpha", alpha, (Bt,)),
                            ("x0s", x0s, (NX, Bt))):
         check_cuda_f32(name, t, shape)
-    Ac1, Ac2 = _split_leg_blocks(Ac)
-    consts = _constants(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc).to(xa.device)
+    if consts is None:
+        consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc)
     xa, us, xra, dxc, duc, alpha, x0s = (
         t.contiguous() for t in (xa, us, xra, dxc, duc, alpha, x0s))
 
@@ -271,19 +256,21 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
 def sqp_qp_solve_onepass_planes(
     params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     alpha, x0s, mu_b: float, theta_b: float, reg: float = 0.0,
-    rank6: bool = False, factor: bool = False,
+    rank6: bool = False, factor: bool = False, consts=None,
 ):
     """Fused SQP QP solve at the candidate (xa + alpha dxc, us + alpha duc);
     the contract of the JAX ``sqp_qp_solve_onepass_planes``. CPU tensors
     run the plain version; CUDA tensors run the CUDA kernel (f32) or
-    raise. Requires ``Ac`` leg-block-diagonal (checked)."""
+    raise. Requires ``Ac`` leg-block-diagonal (checked). ``consts``: the
+    kernel's constants block from ``sqp_stage.kernel_constants`` (built,
+    with its check, on each CUDA call when not given)."""
     if rank6 or factor:
         raise NotImplementedError(
             "the rank6 / factor variants of the fused SQP trip are not "
             "ported yet (ROADMAP.md Queue 2, K1 variants)")
     if xa.device.type == "cuda":
         return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
-                           duc, alpha, x0s, mu_b, theta_b, reg)
+                           duc, alpha, x0s, mu_b, theta_b, reg, consts)
     if xa.device.type != "cpu":
         raise TypeError(f"unsupported device {xa.device}")
     return sqp_qp_solve_onepass_planes_ref(

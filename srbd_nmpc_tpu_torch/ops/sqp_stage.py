@@ -1,8 +1,12 @@
-"""Structured backward-Riccati stage of the fused SQP trip.
+"""Stage bodies shared by the fused SQP trips (K1 ``ops.sqp_planes``, K3 and
+K4 ``ops.sqp_kernel``).
 
-Counterpart of ``srbd_nmpc_tpu/ops/sqp_pallas.py:71-111, 179-274``
-(``_rb``, ``_split_leg_blocks``, ``_riccati_stage_structured`` in its
-``with_acl=False`` K/kv form), in batch-last layout ``[n, m, B]``.
+Counterpart of ``srbd_nmpc_tpu/ops/sqp_pallas.py:71-380`` (``_rb``,
+``_split_leg_blocks``, ``_backward_stage_structured``,
+``_riccati_stage_structured``, ``_accumulate_merit`` and the forward rollout
+of ``_forward_epilogue`` / ``_forward_phase``), in batch-last layout
+``[n, m, B]``. Every reduction over rows is an explicit left-to-right sum
+(``sm.sum_rows``), the order the CUDA kernels accumulate in.
 
 The SRBD Jacobians are sparse: with A = I + dt Jx and B = dt Ju, Jx has
 four nonzero 3x3 blocks [D1 D2 0 0; 0 0 SF 0; 0 0 0 I; 0 0 0 0] and Ju
@@ -13,12 +17,22 @@ is kept exactly symmetric, so P Jx = (Jx' P)'.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
-from srbd_nmpc_tpu_torch.models.srbd import NX
+from srbd_nmpc_tpu_torch.models import srbd_soa
+from srbd_nmpc_tpu_torch.models.srbd import NX, SRBDParams
 from srbd_nmpc_tpu_torch.ops import smallmat as sm
+from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
+
+# constants block of the structured kernels K1 and K3 (offsets match
+# csrc/sqp_planes.cu and csrc/sqp_onepass.cu): mass, dt, Iinv[9], foot[6],
+# then the leg blocks Ac1, Ac2 [12, 6], bc [24], R, Q, Qf [12, 12]
+K_MASS, K_DT, K_IINV, K_FOOT = 0, 1, 2, 11
+K_AC1, K_AC2, K_BC = 17, 89, 161
+K_R, K_Q, K_QF = 185, 329, 473
+K_LEN = 617
 
 
 def _rb(M: torch.Tensor, i: int) -> torch.Tensor:
@@ -29,9 +43,10 @@ def _rb(M: torch.Tensor, i: int) -> torch.Tensor:
 def _split_leg_blocks(Ac: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split the leg-block-diagonal constraint matrix Ac [24, 12] into its
     two nonzero [12, 6] diagonal blocks. The structured stage discards the
-    off-diagonal blocks, so they must be zero: checked here."""
-    off = max(float(Ac[0:12, 6:12].abs().max()),
-              float(Ac[12:24, 0:6].abs().max()))
+    off-diagonal blocks, so they must be zero: checked here (one read-back
+    on a CUDA tensor)."""
+    off = float(torch.maximum(Ac[0:12, 6:12].abs().max(),
+                              Ac[12:24, 0:6].abs().max()))
     if off > 0:
         raise ValueError(
             "structured SQP kernels require a leg-block-diagonal constraint "
@@ -39,15 +54,36 @@ def _split_leg_blocks(Ac: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return Ac[0:12, 0:6], Ac[12:24, 6:12]
 
 
+def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc
+                     ) -> torch.Tensor:
+    """The float32 constants block of K1 and K3, at the ``K_*`` offsets, on
+    the device of ``Ac``. Checks that ``Ac`` is leg-block-diagonal: build it
+    once per solve and hand it to the kernel wrappers (``consts=``), so the
+    check's read-back is not paid per launch."""
+    Ac1, Ac2 = _split_leg_blocks(Ac)
+    parts = [params.mass.reshape(1), params.dt.reshape(1),
+             params.inertia_inv.reshape(9), params.foot_pos.reshape(6),
+             Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
+             R_w.reshape(144), Q_w.reshape(144), Qf_w.reshape(144)]
+    k = torch.cat([t.to(device=Ac.device, dtype=torch.float32)
+                   for t in parts]).contiguous()
+    assert k.numel() == K_LEN
+    return k
+
+
 def _riccati_stage_structured(dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, Reff,
-                              reff, q, b, P, p, reg: float):
-    """One structured backward-Riccati stage. Returns (P_new, p_new, K, kv).
+                              reff, q, b, P, p, reg: float,
+                              with_acl: bool = True):
+    """One structured backward-Riccati stage. Returns (P_new, p_new, Acl,
+    K, bcl, kv); with ``with_acl=False`` Acl and bcl are None (K1 rolls
+    forward from the structured blocks instead).
 
     G = Reff + B'P B + reg I is factored once (12x12 Cholesky); one 13-rhs
     forward substitution Y = L^-1 [H | rv] gives the Schur downdates
     (H'G^-1 H = Y'Y, via ``gram``), so P_new/p_new never wait on the
     backward substitution that yields the gains [K | kv]."""
     dtype, dev = P.dtype, P.device
+    Bt = P.shape[-1]
 
     def JuT(Mat):
         """Ju' @ Mat rows: [Sr' M1 + M3/m | M1 | Sl' M1 + M3/m | M1]."""
@@ -92,4 +128,94 @@ def _riccati_stage_structured(dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, Reff,
     p_new = q + Pb_p + dt * JxTv(Pb_p) - sm.mtv(Yh, yv)
 
     KV = -sm.bwd_subst(L, dinv, Y13)
-    return P_new, p_new, KV[:, 0:12], KV[:, 12]
+    K, kv = KV[:, 0:12], KV[:, 12]
+    if not with_acl:
+        return P_new, p_new, None, K, None, kv
+
+    # Acl = A + B K; A assembled by concatenation only (I + dt Jx)
+    z3 = torch.zeros((3, 3, Bt), dtype=dtype, device=dev)
+    I3 = torch.eye(3, dtype=dtype, device=dev)[:, :, None].expand(3, 3, Bt)
+
+    def rows(*blocks):
+        return torch.cat(blocks, dim=1)
+
+    A = torch.cat([rows(I3 + dt * D1, dt * D2, z3, z3),
+                   rows(z3, I3, dt * SF, z3),
+                   rows(z3, z3, I3, dt * I3),
+                   rows(z3, z3, z3, I3)], dim=0)
+    Kr0, Kr1, Kr2, Kr3 = (_rb(K, i) for i in range(4))
+    zr = torch.zeros((3, NX, Bt), dtype=dtype, device=dev)
+    BK = torch.cat([zr, dt * (sm.mm(Sr, Kr0) + Kr1 + sm.mm(Sl, Kr2) + Kr3),
+                    zr, (dt * m_inv) * (Kr0 + Kr2)], dim=0)
+    kv0, kv1, kv2, kv3 = (_rb(kv, i) for i in range(4))
+    zv = torch.zeros((3, Bt), dtype=dtype, device=dev)
+    Bkv = torch.cat([zv, dt * (sm.mv(Sr, kv0) + kv1 + sm.mv(Sl, kv2) + kv3),
+                     zv, (dt * m_inv) * (kv0 + kv2)], dim=0)
+    return P_new, p_new, A + BK, K, b + Bkv, kv
+
+
+def _backward_stage_structured(params: SRBDParams, Ac1_b, Ac2_b, bc_col, Rw_b,
+                               Qw_b, x, xn, u, xr, P, p, reg: float,
+                               mu_b: float, theta_b: float):
+    """One linearize + structured backward-Riccati stage at (x, u), next
+    state xn: the linearization is ``srbd_soa.jacobian_blocks`` plus the
+    four-call ``srbd_soa.rk4`` (separate SO(3) chains). ``Ac1_b``/``Ac2_b``
+    are the leg blocks [12, 6, B]. Returns (P_new, p_new, Acl, K, bcl, kv,
+    q, reff, b, con, b_bar, Ru)."""
+    dt = params.dt
+    m_inv = 1.0 / params.mass
+    D1, D2, SF, Sr, Sl = srbd_soa.jacobian_blocks(params, x, u)
+    b = srbd_soa.rk4(params, x, u) - xn
+
+    con = torch.cat([sm.mv(Ac1_b, u[0:6]), sm.mv(Ac2_b, u[6:12])],
+                    dim=0) + bc_col
+    b_bar, db, ddb = relaxed_log_barrier(con, mu_b, theta_b)
+    C11 = sm.mtm(Ac1_b, Ac1_b * ddb[0:12, None])       # [6, 6, B]
+    C22 = sm.mtm(Ac2_b, Ac2_b * ddb[12:24, None])
+    z66 = torch.zeros_like(C11)
+    Reff = Rw_b + torch.cat([torch.cat([C11, z66], dim=1),
+                             torch.cat([z66, C22], dim=1)], dim=0)
+    Ru = sm.mv(Rw_b, u)
+    reff = Ru + torch.cat([sm.mtv(Ac1_b, db[0:12]), sm.mtv(Ac2_b, db[12:24])],
+                          dim=0)
+    q = sm.mv(Qw_b, x - xr)
+
+    P_new, p_new, Acl, K, bcl, kv = _riccati_stage_structured(
+        dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, Reff, reff, q, b, P, p, reg)
+    return P_new, p_new, Acl, K, bcl, kv, q, reff, b, con, b_bar, Ru
+
+
+def _accumulate_merit(acc: Optional[Tuple[torch.Tensor, ...]], b, con, b_bar,
+                      u, Ru, x, xr, q, phiN) -> Tuple[torch.Tensor, ...]:
+    """Add one stage to the merit (theta, phi, max|defect|, min constraint)
+    [B] each. Stages are visited in backward order; ``acc=None`` seeds
+    with (0, phiN, 0, 1e30) as the TPU kernels' first grid step does."""
+    if acc is None:
+        zero = torch.zeros_like(phiN)
+        acc = (zero, phiN, zero, torch.full_like(phiN, 1e30))
+    th, ph, md, mc = acc
+    th_part = 0.5 * sm.sum_rows(b * b)
+    ph_part = (sm.sum_rows(b_bar) + 0.5 * sm.sum_rows(u * Ru)
+               + 0.5 * sm.sum_rows((x - xr) * q))
+    return (th + th_part, ph + ph_part,
+            torch.maximum(md, b.abs().amax(dim=0)),
+            torch.minimum(mc, con.amin(dim=0)))
+
+
+def _forward_rollout(dx0, Acl: List, K: List, bcl: List, kv: List, q: List,
+                     reff: List, qN):
+    """Closed-loop rollout of the parked stage products: du_k = K dx_k + kv,
+    dx_{k+1} = Acl dx_k + bcl, dphi = sum_k dx_k.q_k + du_k.r_k +
+    dx_N.q_N. Returns (dx [N,12,B] for stages 1..N, du [N,12,B], dphi)."""
+    dx = dx0
+    dxs, dus = [], []
+    tot = None
+    for k in range(len(K)):
+        du = sm.mv(K[k], dx) + kv[k]
+        dxn = sm.mv(Acl[k], dx) + bcl[k]
+        part = sm.sum_rows(dx * q[k]) + sm.sum_rows(du * reff[k])
+        tot = part if tot is None else tot + part
+        dus.append(du)
+        dxs.append(dxn)
+        dx = dxn
+    return torch.stack(dxs), torch.stack(dus), tot + sm.sum_rows(dx * qN)

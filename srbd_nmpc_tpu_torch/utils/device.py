@@ -1,12 +1,13 @@
 """Device resolution.
 
-Asking for a CUDA device where CUDA is unavailable raises: the port never
-falls back to the CPU behind the caller's back.
+The port's entry points run on the CUDA card unless the caller asks for the
+CPU (``device="cpu"``). Asking for a CUDA device, explicitly or by default,
+where CUDA is unavailable raises: the port never falls back to the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -14,8 +15,9 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> CPU; ``"cuda"`` (or ``"cuda:i"``) requires a card."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` -> ``"cuda"``; ``"cuda"`` (or ``"cuda:i"``) requires a card,
+    ``"cpu"`` is the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
@@ -32,8 +34,9 @@ def pin_float32(device: torch.device) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
-def device_name(device: Optional[torch.device] = None) -> str:
-    dev = torch.device("cpu") if device is None else torch.device(device)
+def device_name(device: torch.device) -> str:
+    """The card's name for a CUDA device, ``"cpu"`` for the CPU."""
+    dev = torch.device(device)
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev)
     return "cpu"

@@ -40,9 +40,10 @@ def _x0s():
 def _port_problem():
     cfg = engine.NmpcConfig(N=5, sqp_max_iter=12, pallas_block=2,
                             qp_kernel="fused")
-    params = srbd.SRBDParams.create(dt=0.015, dtype=F64)
-    weights = engine.NmpcWeights.create(Q_DIAG, 1e-4, QF_DIAG, cfg.N, F64)
-    _, x_ref = engine.make_benchmark_problem(cfg, F64)
+    params = srbd.SRBDParams.create(dt=0.015, dtype=F64, device="cpu")
+    weights = engine.NmpcWeights.create(Q_DIAG, 1e-4, QF_DIAG, cfg.N, F64,
+                                     device="cpu")
+    _, x_ref = engine.make_benchmark_problem(cfg, F64, device="cpu")
     states = engine.NmpcState(
         x=torch.zeros((B, cfg.N + 1, 12), dtype=F64),
         u=torch.full((B, cfg.N, 12), 100.0, dtype=F64),
@@ -135,14 +136,15 @@ def test_shift_state_and_benchmark_problem_match_jax():
     x, u = rng.normal(size=(3, 6, 12)), rng.normal(size=(3, 5, 12))
     a = rng.random(3)
     for steps in (1, 2):
-        got = engine.shift_state(convert.state_from_numpy(x, u, a, F64), steps)
+        got = engine.shift_state(convert.state_from_numpy(
+            x, u, a, F64, device="cpu"), steps)
         ref = jengine.shift_state(jengine.NmpcState(
             x=jnp.asarray(x), u=jnp.asarray(u), alpha=jnp.asarray(a)), steps)
         for name in ("x", "u", "alpha"):
             np.testing.assert_array_equal(getattr(got, name).numpy(),
                                           np.asarray(getattr(ref, name)))
     cfg = engine.NmpcConfig(N=7)
-    x0, xr = engine.make_benchmark_problem(cfg, F64)
+    x0, xr = engine.make_benchmark_problem(cfg, F64, device="cpu")
     x0_j, xr_j = jengine.make_benchmark_problem(jengine.NmpcConfig(N=7),
                                                 jnp.float64)
     np.testing.assert_array_equal(x0.numpy(), np.asarray(x0_j))
@@ -151,16 +153,16 @@ def test_shift_state_and_benchmark_problem_match_jax():
 
 def test_weights_state_and_config_carry_across():
     w_j = jengine.NmpcWeights.create(Q_DIAG, 1e-4, QF_DIAG, 9, jnp.float64)
-    w = engine.NmpcWeights.create(Q_DIAG, 1e-4, QF_DIAG, 9, F64)
+    w = engine.NmpcWeights.create(Q_DIAG, 1e-4, QF_DIAG, 9, F64, device="cpu")
     w_c = convert.weights_from_numpy(
         {f.name: np.asarray(getattr(w_j, f.name))
-         for f in dataclasses.fields(w_j)}, dtype=F64)
+         for f in dataclasses.fields(w_j)}, dtype=F64, device="cpu")
     for name in ("Q", "R", "Qf"):
         np.testing.assert_array_equal(getattr(w, name).numpy(),
                                       np.asarray(getattr(w_j, name)))
         assert torch.equal(getattr(w, name), getattr(w_c, name))
     s_j = jengine.NmpcState.initial(4, jnp.float64)
-    s = engine.NmpcState.initial(4, F64)
+    s = engine.NmpcState.initial(4, F64, device="cpu")
     for name in ("x", "u", "alpha"):
         np.testing.assert_array_equal(getattr(s, name).numpy(),
                                       np.asarray(getattr(s_j, name)))
@@ -194,8 +196,7 @@ def test_accept_matches_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(qp_kernel="pscan"),
-    dict(qp_kernel="fused", speculative=False, planes=False),
-    dict(speculative=False, park_factor=True), dict(planes=False),
+    dict(speculative=False, park_factor=True),
     dict(park_factor=True), dict(qp_kernel="xla", sensitivity="exact"),
     dict(sensitivity="exact"), dict(pscan_min_N=2), dict(unbatched=True),
 ])

@@ -50,9 +50,10 @@ def _x0s():
 
 def _port_problem(**kw):
     cfg = engine.NmpcConfig(**{**BASE, **kw})
-    params = srbd.SRBDParams.create(dt=0.015, dtype=F64)
-    weights = engine.NmpcWeights.create(Q_DIAG, 1e-4, QF_DIAG, N, F64)
-    _, x_ref = engine.make_benchmark_problem(cfg, F64)
+    params = srbd.SRBDParams.create(dt=0.015, dtype=F64, device="cpu")
+    weights = engine.NmpcWeights.create(Q_DIAG, 1e-4, QF_DIAG, N, F64,
+                                         device="cpu")
+    _, x_ref = engine.make_benchmark_problem(cfg, F64, device="cpu")
     states = engine.NmpcState(
         x=torch.zeros((B, N + 1, 12), dtype=F64),
         u=torch.full((B, N, 12), 100.0, dtype=F64),

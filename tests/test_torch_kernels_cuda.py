@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 fused SQP trip, K2 lane permutes, K5 stage linearization, K6 Riccati
-backward and forward passes, K7a line-search merit), at the main path's
-widths, and one synchronous ``pallas`` solve that launches K5, K6 and K7a.
+(K1 fused SQP trip, K2 lane permutes, K3a/K3b dense one-pass trips, K4 the
+two-pass solve, K5 stage linearization, K6 Riccati backward and forward
+passes, K7a line-search merit), at the main path's widths; one synchronous
+``pallas`` solve that launches K5, K6 and K7a, and the dense route's solves
+on both loops.
 
 Needs a CUDA card and nvcc: on a machine without a card every test skips.
 Run on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
@@ -16,7 +18,8 @@ import torch
 from srbd_nmpc_tpu_torch.models import merit_kernel, srbd, srbd_linearize
 from srbd_nmpc_tpu_torch.nmpc import engine
 from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
-from srbd_nmpc_tpu_torch.ops import permute, riccati_kernel, sqp_planes
+from srbd_nmpc_tpu_torch.ops import (permute, riccati_kernel, sqp_kernel,
+                                     sqp_planes)
 from srbd_nmpc_tpu_torch.parallel import sharded
 from srbd_nmpc_tpu_torch.utils.config import MpcOptions
 from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
@@ -235,5 +238,93 @@ def test_sync_pallas_solve_launches_kernels(dev):
         "riccati_bwd_constq"], riccati_kernel.launches["riccati_fwd"],
         merit_kernel.launches)
     assert all(a > b for a, b in zip(after, before))
+    assert int(summ.n_converged) >= 0.95 * B
+    assert torch.isfinite(st.u[info.converged]).all()
+
+
+@pytest.mark.parametrize("cand", [True, False])
+def test_k3_matches_plain(dev, cand):
+    args = _k1_args(dev, 20, 4096, alpha_zero=False)
+    head, (xa, us, xra, dxc, duc, alpha, x0s), tail = \
+        args[:6], args[6:13], args[13:]
+    if cand:
+        call = (head + (xa, us, xra, dxc, duc, alpha, x0s) + tail,
+                sqp_kernel.sqp_qp_solve_onepass_cand,
+                sqp_kernel.sqp_qp_solve_onepass_cand_ref, "sqp_onepass_cand")
+    else:
+        call = (head + (xa, us, xra, x0s - xa[0]) + tail,
+                sqp_kernel.sqp_qp_solve_onepass,
+                sqp_kernel.sqp_qp_solve_onepass_ref, "sqp_onepass")
+    a, kern, plain, key = call
+    before = dict(sqp_kernel.launches)
+    got = kern(*a, reg=1e-9)
+    torch.cuda.synchronize()
+    assert sqp_kernel.launches[key] == before[key] + 1
+    ref = plain(*a, reg=1e-9)
+    for g, r in zip((*got[:3], *got[3]), (*ref[:3], *ref[3])):
+        assert torch.isfinite(g).all()
+        assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
+
+
+def test_k4_matches_plain(dev):
+    args = _k1_args(dev, 20, 4096, alpha_zero=True)
+    head, (xa, us, xra), tail = args[:6], args[6:9], args[13:]
+    dx0 = args[12] - xa[0]
+    before = dict(sqp_kernel.launches)
+    prods = sqp_kernel.sqp_qp_backward(*head, xa, us, xra, *tail, reg=1e-9)
+    fwd = sqp_kernel.sqp_qp_forward(*prods[:7], dx0)
+    torch.cuda.synchronize()
+    for key in ("sqp_twopass_bwd", "sqp_twopass_fwd"):
+        assert sqp_kernel.launches[key] == before[key] + 1
+    ref = sqp_kernel.sqp_qp_backward_ref(*head, xa, us, xra, *tail, reg=1e-9)
+    ref_f = sqp_kernel.sqp_qp_forward_ref(*prods[:7], dx0)
+    for g, r in zip((*prods[:7], *prods[7], *fwd),
+                    (*ref[:7], *ref[7], *ref_f)):
+        assert torch.isfinite(g).all()
+        assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
+
+
+def test_k3_k4_reject_float64(dev):
+    args = _k1_args(dev, 20, 64, alpha_zero=True)
+    head, tail = args[:6], args[13:]
+    xa, us, xra, x0s = (args[i].double() for i in (6, 7, 8, 12))
+    with pytest.raises(TypeError, match="float32"):
+        sqp_kernel.sqp_qp_solve_onepass(*head, xa, us, xra, x0s - xa[0],
+                                        *tail, reg=1e-9)
+    with pytest.raises(TypeError, match="float32"):
+        sqp_kernel.sqp_qp_backward(*head, xa, us, xra, *tail, reg=1e-9)
+
+
+@pytest.mark.parametrize("speculative", [True, False])
+def test_dense_solve_launches_kernels(dev, speculative):
+    """planes=False on both loops: the speculative loop launches K3b once
+    and K3a on every trip (compaction bitwise), the synchronous one K3b and
+    K7a; both converge like the planes path."""
+    B = 8192
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    cfg = dataclasses.replace(cfg, planes=False, speculative=speculative,
+                              qp_kernel="fused")
+    x0, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(x0.cpu().numpy()[None]
+                          + 0.01 * rng.normal(size=(B, 12)),
+                          dtype=torch.float32, device=dev)
+    states = sharded.broadcast_state(engine.NmpcState.initial(cfg.N, device=dev), B)
+    before = (dict(sqp_kernel.launches), merit_kernel.launches,
+              sqp_planes.launches)
+    st, info, summ = sharded.solve_batch(params, weights, cfg, states, x0s, x_ref)
+    k3 = {k: v - before[0][k] for k, v in sqp_kernel.launches.items()}
+    assert sqp_planes.launches == before[2]
+    if speculative:
+        assert k3["sqp_onepass"] == 1
+        assert k3["sqp_onepass_cand"] == int(info.ls_trips[0]) - 1
+        st_f, in_f, _ = sharded.solve_batch(
+            params, weights, dataclasses.replace(cfg, compact=False), states,
+            x0s, x_ref)
+        assert torch.equal(st.u, st_f.u) and torch.equal(st.x, st_f.x)
+        assert torch.equal(info.sqp_iters, in_f.sqp_iters)
+    else:
+        assert k3["sqp_onepass"] == int(info.sqp_iters.max())
+        assert merit_kernel.launches > before[1]
     assert int(summ.n_converged) >= 0.95 * B
     assert torch.isfinite(st.u[info.converged]).all()

@@ -53,10 +53,10 @@ def _problem(seed=0):
 def _port(params, weights, arr):
     tp = convert.params_from_numpy(
         {f.name: np.asarray(getattr(params, f.name))
-         for f in dataclasses.fields(params)}, dtype=F64)
+         for f in dataclasses.fields(params)}, dtype=F64, device="cpu")
     tw = convert.weights_from_numpy(
         {f.name: np.asarray(getattr(weights, f.name))
-         for f in dataclasses.fields(weights)}, dtype=F64)
+         for f in dataclasses.fields(weights)}, dtype=F64, device="cpu")
     Ac, bc = srbd.constraint_matrix(tp)
     return (tp, tw.Q, tw.Qf, tw.R, Ac, bc,
             *(torch.as_tensor(arr[k]) for k in ORDER), MU_B, THETA_B)

@@ -32,7 +32,7 @@ def test_constants_match():
 
 def test_params_create_matches_jax():
     jp = jsrbd.SRBDParams.create(dt=0.02, mass=12.0, dtype=jnp.float64)
-    tp = srbd.SRBDParams.create(dt=0.02, mass=12.0, dtype=F64)
+    tp = srbd.SRBDParams.create(dt=0.02, mass=12.0, dtype=F64, device="cpu")
     for f in dataclasses.fields(jp):
         np.testing.assert_array_equal(getattr(tp, f.name).numpy(),
                                       np.asarray(getattr(jp, f.name)))
@@ -40,7 +40,8 @@ def test_params_create_matches_jax():
 
 def test_constraint_matrix_exact():
     jp = jsrbd.SRBDParams.create(mu=0.7, fmin=2.0, dtype=jnp.float64)
-    tp = convert.params_from_numpy(_jax_params_dict(jp), dtype=F64)
+    tp = convert.params_from_numpy(_jax_params_dict(jp), dtype=F64,
+                                    device="cpu")
     Ac_j, bc_j = jsrbd.constraint_matrix(jp)
     Ac_t, bc_t = srbd.constraint_matrix(tp)
     np.testing.assert_array_equal(Ac_t.numpy(), np.asarray(Ac_j))
@@ -50,13 +51,14 @@ def test_constraint_matrix_exact():
 def test_params_round_trip_through_convert():
     jp = jsrbd.SRBDParams.create(mass=17.5, dt=0.01, dtype=jnp.float64)
     d = _jax_params_dict(jp)
-    tp = convert.params_from_numpy(d, dtype=F64)
+    tp = convert.params_from_numpy(d, dtype=F64, device="cpu")
     for name, arr in d.items():
         np.testing.assert_array_equal(getattr(tp, name).numpy(), arr)
     with pytest.raises(KeyError, match="missing"):
-        convert.params_from_numpy({k: v for k, v in d.items() if k != "mu"})
+        convert.params_from_numpy({k: v for k, v in d.items() if k != "mu"},
+                                  device="cpu")
     with pytest.raises(KeyError, match="unknown"):
-        convert.params_from_numpy({**d, "bogus": 1.0})
+        convert.params_from_numpy({**d, "bogus": 1.0}, device="cpu")
 
 
 def test_relaxed_log_barrier_straddling_theta():
@@ -100,7 +102,8 @@ def test_linearize_stage_matches_jax_twin():
     x[0:3, 0, 0] = 0.0              # a zero rotation exercises the clamp
     u = rng.normal(size=(12, N, B)) * 30 + 80
     jp = jsrbd.SRBDParams.create(dtype=jnp.float64)
-    tp = convert.params_from_numpy(_jax_params_dict(jp), dtype=F64)
+    tp = convert.params_from_numpy(_jax_params_dict(jp), dtype=F64,
+                                    device="cpu")
 
     def consts(p, conv):
         iv, ft = p.inertia_inv, p.foot_pos

@@ -1,5 +1,6 @@
 """The PyTorch port imports neither JAX nor (for its defaults) PyYAML, and
-never falls back to the CPU when a CUDA device is asked for."""
+never falls back to the CPU when a CUDA device is asked for, explicitly or
+by default."""
 
 import os
 import re
@@ -26,7 +27,7 @@ for name in names:
     importlib.import_module(name)
 from srbd_nmpc_tpu_torch.utils.config import MpcOptions
 from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
-build_from_options(MpcOptions.default())
+build_from_options(MpcOptions.default(), device="cpu")
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("srbd_nmpc_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print(len(names))
@@ -60,4 +61,9 @@ def test_cuda_request_raises_without_a_card():
 
     with pytest.raises(RuntimeError, match="cuda"):
         srbd.SRBDParams.create(device="cuda")
-    assert resolve_device(None) == torch.device("cpu")
+    # the default is the card, too
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        srbd.SRBDParams.create()
+    assert resolve_device("cpu") == torch.device("cpu")

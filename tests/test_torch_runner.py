@@ -39,7 +39,7 @@ def test_default_options_match_jax():
 
 def test_build_from_options_matches_jax_field_by_field():
     opts = config.MpcOptions.default()
-    p, w, cfg = runner.build_from_options(opts, torch.float64)
+    p, w, cfg = runner.build_from_options(opts, torch.float64, device="cpu")
     p_j, w_j, cfg_j = jrunner.build_from_options(
         jconfig.MpcOptions.default(), jnp.float64)
     for f in dataclasses.fields(cfg_j):
@@ -67,19 +67,47 @@ def test_load_mpc_options_parses_yaml(tmp_path):
 def test_cli_runs_and_converges(tmp_path, capsys):
     path = tmp_path / "mpc_option.yaml"
     path.write_text(YAML)
-    runner.main(["--config", str(path), "--batch", "4", "--nrep", "1"])
+    runner.main(["--config", str(path), "--batch", "4", "--nrep", "1",
+                 "--device", "cpu"])
     out = capsys.readouterr().out
     assert "(converged: 4/4)" in out
     assert "Device: " in out
 
 
+def test_entry_points_default_to_the_card(tmp_path, capsys):
+    """Without a card the default device raises at every entry point (no
+    CPU fallback); ``device="cpu"`` / ``--device cpu`` run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    opts = config.MpcOptions.default()
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner.build_from_options(opts)
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner.run_control_loop(opts, nrep=1)
+    for make in (lambda: engine.NmpcWeights.create([1.0] * 12, 1e-4,
+                                                   [1.0] * 12, 5),
+                 lambda: engine.NmpcState.initial(5),
+                 lambda: engine.make_benchmark_problem(engine.NmpcConfig(N=5))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    p, w, _ = runner.build_from_options(opts, device="cpu")
+    assert p.mass.device.type == w.Q.device.type == "cpu"
+    path = tmp_path / "mpc_option.yaml"
+    path.write_text(YAML)
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner.main(["--config", str(path), "--batch", "2", "--nrep", "1"])
+    runner.main(["--config", str(path), "--batch", "2", "--nrep", "1",
+                 "--device", "cpu"])
+    assert "Device: cpu" in capsys.readouterr().out
+
+
 def test_solve_batch_summary():
     opts = config.MpcOptions.default()
     params, weights, cfg = runner.build_from_options(
-        dataclasses.replace(opts, horizon=5), torch.float64)
-    x0, x_ref = engine.make_benchmark_problem(cfg, torch.float64)
+        dataclasses.replace(opts, horizon=5), torch.float64, device="cpu")
+    x0, x_ref = engine.make_benchmark_problem(cfg, torch.float64, device="cpu")
     states = sharded.broadcast_state(
-        engine.NmpcState.initial(cfg.N, torch.float64), 3)
+        engine.NmpcState.initial(cfg.N, torch.float64, device="cpu"), 3)
     assert states.x.shape == (3, 6, 12) and states.alpha.shape == (3,)
     st, info, s = sharded.solve_batch(params, weights, cfg, states,
                                       x0.expand(3, 12), x_ref)

@@ -23,7 +23,7 @@ from srbd_nmpc_tpu.models import srbd as jsrbd
 from srbd_nmpc_tpu.nmpc import engine as jengine
 from srbd_nmpc_tpu_torch import convert
 from srbd_nmpc_tpu_torch.models import srbd
-from srbd_nmpc_tpu_torch.ops import sqp_planes
+from srbd_nmpc_tpu_torch.ops import sqp_planes, sqp_stage
 from srbd_nmpc_tpu_torch.utils import build
 
 torch.set_num_threads(1)
@@ -72,10 +72,10 @@ _ORDER = ("xa", "us", "xra", "dxc", "duc", "alpha", "x0s")
 def _port_args(params, weights, arr, lanes=slice(None)):
     tp = convert.params_from_numpy(
         {f.name: np.asarray(getattr(params, f.name))
-         for f in dataclasses.fields(params)}, dtype=F64)
+         for f in dataclasses.fields(params)}, dtype=F64, device="cpu")
     tw = convert.weights_from_numpy(
         {f.name: np.asarray(getattr(weights, f.name))
-         for f in dataclasses.fields(weights)}, dtype=F64)
+         for f in dataclasses.fields(weights)}, dtype=F64, device="cpu")
     Ac, bc = srbd.constraint_matrix(tp)
     data = [torch.as_tensor(np.ascontiguousarray(arr[k][..., lanes]))
             for k in _ORDER]
@@ -172,7 +172,7 @@ def test_cuda_source_host_build_matches_plain(N):
                         tp.inertia_inv.reshape(9), tp.foot_pos.reshape(6),
                         Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
                         R.reshape(144), Q.reshape(144), Qf.reshape(144)])
-    assert consts.numel() == sqp_planes._K_LEN
+    assert consts.numel() == sqp_stage.K_LEN
     B = xa.shape[-1]
     dx = torch.empty((N + 1, 12, B), dtype=F64)
     dx[0] = x0s - (xa[0] + alpha[None] * dxc[0])

@@ -27,7 +27,8 @@ def _inputs(seed=0):
     jp = jsrbd.SRBDParams.create(dtype=jnp.float64)
     tp = convert.params_from_numpy(
         {f.name: np.asarray(getattr(jp, f.name))
-         for f in dataclasses.fields(jp)}, dtype=torch.float64)
+         for f in dataclasses.fields(jp)}, dtype=torch.float64,
+        device="cpu")
     return jp, tp, x, u
 
 
