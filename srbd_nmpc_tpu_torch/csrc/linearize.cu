@@ -165,14 +165,16 @@ extern "C" int srbd_linearize_launch(const float* consts, const float* xs, const
 
 #else  // host build: the same per-thread body over every (stage, lane), in f64
 
-extern "C" int srbd_linearize_host_f64(const double* consts, const double* xs,
-                                       const double* xn, const double* us,
-                                       const double* xr, double* A, double* Bm, double* b,
-                                       double* Reff, double* reff, double* q, double* mer,
+using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
+
+extern "C" int srbd_linearize_host_f64(const host_t* consts, const host_t* xs,
+                                       const host_t* xn, const host_t* us,
+                                       const host_t* xr, host_t* A, host_t* Bm, host_t* b,
+                                       host_t* Reff, host_t* reff, host_t* q, host_t* mer,
                                        int N, int B, double mu_b, double theta_b) {
   for (int g = 0; g < N; ++g)
     for (int lane = 0; lane < B; ++lane)
-      k5::stage<double>(consts, xs, xn, us, xr, A, Bm, b, Reff, reff, q, mer, B, g, lane,
+      k5::stage<host_t>(consts, xs, xn, us, xr, A, Bm, b, Reff, reff, q, mer, B, g, lane,
                         mu_b, theta_b);
   return 0;
 }

@@ -81,8 +81,7 @@ HD void scenario(const T* kc, const T* xa, const T* dx, const T* us, const T* du
 #pragma unroll
       for (int k = 1; k < 12; ++k) con = con + Ac[12 * r + k] * u[k];
       con = con + bc[r];
-      T bb, d, dd;
-      barrier(con, mu_b, theta_b, log_th, bb, d, dd);
+      const T bb = barrier_value(con, mu_b, theta_b, log_th);
       sbar = (r == 0) ? bb : sbar + bb;
     }
     const T phi_u = sbar + half_quad(kc + K_R, u);
@@ -131,13 +130,15 @@ extern "C" int srbd_merit_alpha_launch(const float* consts, const float* xa,
 
 #else  // host build: the same per-scenario body over every lane, in f64
 
-extern "C" int srbd_merit_alpha_host_f64(const double* consts, const double* xa,
-                                         const double* dx, const double* us,
-                                         const double* du, const double* xr,
-                                         const double* alpha, double* theta, double* phi,
+using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
+
+extern "C" int srbd_merit_alpha_host_f64(const host_t* consts, const host_t* xa,
+                                         const host_t* dx, const host_t* us,
+                                         const host_t* du, const host_t* xr,
+                                         const host_t* alpha, host_t* theta, host_t* phi,
                                          int N, int B, double mu_b, double theta_b) {
   for (int lane = 0; lane < B; ++lane)
-    k7::scenario<double>(consts, xa, dx, us, du, xr, alpha, theta, phi, N, B, lane, mu_b,
+    k7::scenario<host_t>(consts, xa, dx, us, du, xr, alpha, theta, phi, N, B, lane, mu_b,
                          theta_b);
   return 0;
 }

@@ -290,26 +290,28 @@ extern "C" int srbd_riccati_fwd_launch(const float* A, const float* Bm, const fl
 
 #else  // host build: the same per-scenario bodies over every lane, in f64
 
-extern "C" int srbd_riccati_bwd_host_f64(const double* A, const double* Bm,
-                                         const double* bv, const double* Qc,
-                                         const double* R, const double* q,
-                                         const double* r, double* K, double* k, int N,
+using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
+
+extern "C" int srbd_riccati_bwd_host_f64(const host_t* A, const host_t* Bm,
+                                         const host_t* bv, const host_t* Qc,
+                                         const host_t* R, const host_t* q,
+                                         const host_t* r, host_t* K, host_t* k, int N,
                                          int B, double reg, int const_q) {
   for (int lane = 0; lane < B; ++lane) {
     if (const_q)
-      k6::backward<double, true>(A, Bm, bv, Qc, R, q, r, K, k, N, B, lane, reg);
+      k6::backward<host_t, true>(A, Bm, bv, Qc, R, q, r, K, k, N, B, lane, reg);
     else
-      k6::backward<double, false>(A, Bm, bv, Qc, R, q, r, K, k, N, B, lane, reg);
+      k6::backward<host_t, false>(A, Bm, bv, Qc, R, q, r, K, k, N, B, lane, reg);
   }
   return 0;
 }
 
-extern "C" int srbd_riccati_fwd_host_f64(const double* A, const double* Bm,
-                                         const double* bv, const double* K,
-                                         const double* k, const double* x0, double* x,
-                                         double* u, int N, int B) {
+extern "C" int srbd_riccati_fwd_host_f64(const host_t* A, const host_t* Bm,
+                                         const host_t* bv, const host_t* K,
+                                         const host_t* k, const host_t* x0, host_t* x,
+                                         host_t* u, int N, int B) {
   for (int lane = 0; lane < B; ++lane)
-    k6::forward<double>(A, Bm, bv, K, k, x0, x, u, N, B, lane);
+    k6::forward<host_t>(A, Bm, bv, K, k, x0, x, u, N, B, lane);
   return 0;
 }
 

@@ -260,22 +260,24 @@ extern "C" int srbd_sqp_onepass_launch(const float* consts, const float* xa, con
 
 #else  // host build: the same per-scenario body over every lane, in f64
 
-extern "C" int srbd_sqp_onepass_host_f64(const double* consts, const double* xa,
-                                         const double* us, const double* xr,
-                                         const double* dxc, const double* duc,
-                                         const double* alpha, const double* dx0,
-                                         double* dx_out, double* du_out, double* dphi,
-                                         double* theta, double* phi, double* maxdef,
-                                         double* mincon, double* Acl, double* K, double* bcl,
-                                         double* kv, double* q, double* rf, int N, int B,
+using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
+
+extern "C" int srbd_sqp_onepass_host_f64(const host_t* consts, const host_t* xa,
+                                         const host_t* us, const host_t* xr,
+                                         const host_t* dxc, const host_t* duc,
+                                         const host_t* alpha, const host_t* dx0,
+                                         host_t* dx_out, host_t* du_out, host_t* dphi,
+                                         host_t* theta, host_t* phi, host_t* maxdef,
+                                         host_t* mincon, host_t* Acl, host_t* K, host_t* bcl,
+                                         host_t* kv, host_t* q, host_t* rf, int N, int B,
                                          double mu_b, double theta_b, double reg, int cand) {
   for (int b = 0; b < B; ++b) {
     if (cand)
-      k3::scenario<double, true>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out,
+      k3::scenario<host_t, true>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out,
                                  dphi, theta, phi, maxdef, mincon, Acl, K, bcl, kv, q, rf,
                                  N, B, b, mu_b, theta_b, reg);
     else
-      k3::scenario<double, false>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out,
+      k3::scenario<host_t, false>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out,
                                   dphi, theta, phi, maxdef, mincon, Acl, K, bcl, kv, q, rf,
                                   N, B, b, mu_b, theta_b, reg);
   }

@@ -503,17 +503,19 @@ extern "C" int srbd_sqp_planes_launch(const float* consts, const float* xa, cons
 
 #else  // host build: the same per-scenario body over every lane, in f64
 
-extern "C" int srbd_sqp_planes_host_f64(const double* consts, const double* xa,
-                                        const double* us, const double* xr,
-                                        const double* dxc, const double* duc,
-                                        const double* alpha, const double* dx0,
-                                        double* dx_out, double* du_out, double* dphi,
-                                        double* theta, double* phi, double* maxdef,
-                                        double* mincon, double* pack, double* Kp,
-                                        double* kvp, int N, int B, double mu_b,
+using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
+
+extern "C" int srbd_sqp_planes_host_f64(const host_t* consts, const host_t* xa,
+                                        const host_t* us, const host_t* xr,
+                                        const host_t* dxc, const host_t* duc,
+                                        const host_t* alpha, const host_t* dx0,
+                                        host_t* dx_out, host_t* du_out, host_t* dphi,
+                                        host_t* theta, host_t* phi, host_t* maxdef,
+                                        host_t* mincon, host_t* pack, host_t* Kp,
+                                        host_t* kvp, int N, int B, double mu_b,
                                         double theta_b, double reg) {
   for (int b = 0; b < B; ++b)
-    k1::scenario<double>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi,
+    k1::scenario<host_t>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi,
                          theta, phi, maxdef, mincon, pack, Kp, kvp, N, B, b, mu_b, theta_b,
                          reg);
   return 0;

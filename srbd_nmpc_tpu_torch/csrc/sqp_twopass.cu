@@ -369,27 +369,29 @@ extern "C" int srbd_sqp_twopass_fwd_launch(const float* Acl, const float* K, con
 
 #else  // host build: the same per-scenario bodies over every lane, in f64
 
-extern "C" int srbd_sqp_twopass_bwd_host_f64(const double* consts, const double* xa,
-                                             const double* us, const double* xr, double* Acl,
-                                             double* K, double* bcl, double* kv, double* q,
-                                             double* rf, double* qN, double* theta,
-                                             double* phi, double* maxdef, double* mincon,
+using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
+
+extern "C" int srbd_sqp_twopass_bwd_host_f64(const host_t* consts, const host_t* xa,
+                                             const host_t* us, const host_t* xr, host_t* Acl,
+                                             host_t* K, host_t* bcl, host_t* kv, host_t* q,
+                                             host_t* rf, host_t* qN, host_t* theta,
+                                             host_t* phi, host_t* maxdef, host_t* mincon,
                                              int N, int B, double mu_b, double theta_b,
                                              double reg) {
   for (int b = 0; b < B; ++b)
-    k4::backward<double>(consts, xa, us, xr, Acl, K, bcl, kv, q, rf, qN, theta, phi, maxdef,
+    k4::backward<host_t>(consts, xa, us, xr, Acl, K, bcl, kv, q, rf, qN, theta, phi, maxdef,
                          mincon, N, B, b, mu_b, theta_b, reg);
   return 0;
 }
 
-extern "C" int srbd_sqp_twopass_fwd_host_f64(const double* Acl, const double* K,
-                                             const double* bcl, const double* kv,
-                                             const double* q, const double* rf,
-                                             const double* qN, const double* dx0,
-                                             double* dx_out, double* du_out, double* dphi,
+extern "C" int srbd_sqp_twopass_fwd_host_f64(const host_t* Acl, const host_t* K,
+                                             const host_t* bcl, const host_t* kv,
+                                             const host_t* q, const host_t* rf,
+                                             const host_t* qN, const host_t* dx0,
+                                             host_t* dx_out, host_t* du_out, host_t* dphi,
                                              int N, int B) {
   for (int b = 0; b < B; ++b)
-    k4::forward<double>(Acl, K, bcl, kv, q, rf, qN, dx0, dx_out, du_out, dphi, N, B, b);
+    k4::forward<host_t>(Acl, K, bcl, kv, q, rf, qN, dx0, dx_out, du_out, dphi, N, B, b);
   return 0;
 }
 

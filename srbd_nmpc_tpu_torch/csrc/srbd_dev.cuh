@@ -45,6 +45,49 @@ template <typename T> HD T theta_min_sq();
 template <> HD float theta_min_sq<float>() { return 1e-8f; }     // (1e-4)^2
 template <> HD double theta_min_sq<double>() { return 1e-20; }   // (1e-10)^2
 
+#ifndef __CUDACC__
+#ifdef SRBD_OPCOUNT
+// Host build with -DSRBD_OPCOUNT: a double that counts the floating-point
+// operations done on it, so the kernels' own arithmetic (the branch each
+// lane takes included) is counted by running their per-thread bodies.
+// Counted, one each: + - * / and sqrt, rsqrt, sin, cos, log. Not counted:
+// negation (an operand modifier on the card), comparisons and selects.
+// Layout-compatible with double: the host entries take the same buffers.
+struct OpCount {
+  double v;
+  static inline long long n = 0;
+  OpCount() = default;
+  OpCount(double x) : v(x) {}
+  friend OpCount operator+(OpCount a, OpCount b) { ++n; return a.v + b.v; }
+  friend OpCount operator-(OpCount a, OpCount b) { ++n; return a.v - b.v; }
+  friend OpCount operator*(OpCount a, OpCount b) { ++n; return a.v * b.v; }
+  friend OpCount operator/(OpCount a, OpCount b) { ++n; return a.v / b.v; }
+  friend OpCount operator-(OpCount a) { return -a.v; }
+  OpCount& operator+=(OpCount b) { return *this = *this + b; }
+  friend bool operator<(OpCount a, OpCount b) { return a.v < b.v; }
+  friend bool operator>(OpCount a, OpCount b) { return a.v > b.v; }
+  friend bool operator!=(OpCount a, OpCount b) { return a.v != b.v; }
+  friend OpCount k_sqrt(OpCount a) { ++n; return sqrt(a.v); }
+  friend OpCount k_rsqrt(OpCount a) { ++n; return 1.0 / sqrt(a.v); }
+  friend OpCount k_sin(OpCount a) { ++n; return sin(a.v); }
+  friend OpCount k_cos(OpCount a) { ++n; return cos(a.v); }
+  friend OpCount k_log(OpCount a) { ++n; return log(a.v); }
+};
+static_assert(sizeof(OpCount) == sizeof(double), "OpCount must alias double");
+template <> HD OpCount theta_min_sq<OpCount>() { return 1e-8; }  // the f32 clamp
+
+// operations counted since the last call
+extern "C" long long srbd_opcount_take() {
+  const long long n = OpCount::n;
+  OpCount::n = 0;
+  return n;
+}
+using host_t = OpCount;
+#else
+using host_t = double;
+#endif
+#endif
+
 template <typename T> struct M3 { T m[3][3]; };
 
 template <typename T>
@@ -168,6 +211,14 @@ HD void barrier(T con, T mu_b, T theta_b, T log_th, T& bb, T& d, T& dd) {
     d = mu_b * (con - T(2) * theta_b) / (theta_b * theta_b);
     dd = mu_b / (theta_b * theta_b);
   }
+}
+
+// the barrier's value alone (the same arithmetic as barrier's bb)
+template <typename T>
+HD T barrier_value(T con, T mu_b, T theta_b, T log_th) {
+  if (con > theta_b) return -mu_b * k_log(con);
+  const T z = (con - T(2) * theta_b) / theta_b;
+  return T(0.5) * mu_b * (z * z - T(1)) - mu_b * log_th;
 }
 
 // ---------------------------------------------------------------------------

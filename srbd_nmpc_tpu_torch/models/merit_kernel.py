@@ -67,6 +67,16 @@ def merit_alpha_ref(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx,
     return th, ph + _half_quad(Qf_w, xc[:, -1] - xr[-1])
 
 
+def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc
+                     ) -> torch.Tensor:
+    """The kernel's float32 constants block (``_K_LEN`` entries)."""
+    k = torch.cat([model_constants(params), Ac.reshape(NG * NU),
+                   bc.reshape(NG), R_w.reshape(-1), Q_w.reshape(-1),
+                   Qf_w.reshape(-1)]).to(torch.float32).contiguous()
+    assert k.numel() == _K_LEN
+    return k
+
+
 def _lib():
     fn = load_kernel("merit").srbd_merit_alpha_launch
     if fn.argtypes is None:
@@ -85,11 +95,7 @@ def _merit_alpha_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
                            ("dx", dx, (Np1, NX, Bt)), ("u", u, (N, NU, Bt)),
                            ("du", du, (N, NU, Bt)), ("alpha", alpha, (Bt,))):
         check_cuda_f32(name, t, shape)
-    consts = torch.cat([model_constants(params), Ac.reshape(NG * NU),
-                        bc.reshape(NG), R_w.reshape(-1), Q_w.reshape(-1),
-                        Qf_w.reshape(-1)]).to(
-        device=x.device, dtype=torch.float32).contiguous()
-    assert consts.numel() == _K_LEN
+    consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc).to(x.device)
     x, dx, u, du, xr, alpha = (t.contiguous()
                                for t in (x, dx, u, du, xr, alpha))
     out = torch.empty((2, Bt), dtype=torch.float32, device=x.device)

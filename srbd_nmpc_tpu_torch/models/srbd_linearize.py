@@ -43,6 +43,15 @@ def model_constants(params: SRBDParams) -> torch.Tensor:
                       params.foot_pos.reshape(6)])
 
 
+def kernel_constants(params: SRBDParams, Q_w, R_w, Ac, bc) -> torch.Tensor:
+    """The kernel's float32 constants block at the ``_K_*`` offsets."""
+    k = torch.cat([model_constants(params), Ac.reshape(NG * NU),
+                   bc.reshape(NG), R_w.reshape(NU * NU),
+                   Q_w.reshape(NX * NX)]).to(torch.float32).contiguous()
+    assert k.numel() == _K_LEN
+    return k
+
+
 def linearize_ref(params: SRBDParams, Q_w, R_w, Ac, bc, xs, xn, us, xr,
                   mu_b: float, theta_b: float) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K5. Inputs stage-major [N, 12, B]: state,
@@ -95,11 +104,7 @@ def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b):
     N, _, Bt = xs.shape
     for name, t in (("xs", xs), ("xn", xn), ("us", us), ("xr", xr)):
         check_cuda_f32(name, t, (N, NX, Bt))
-    consts = torch.cat([model_constants(params), Ac.reshape(NG * NU),
-                        bc.reshape(NG), R_w.reshape(NU * NU),
-                        Q_w.reshape(NX * NX)]).to(
-        device=xs.device, dtype=torch.float32).contiguous()
-    assert consts.numel() == _K_LEN
+    consts = kernel_constants(params, Q_w, R_w, Ac, bc).to(xs.device)
     xs, xn, us, xr = (t.contiguous() for t in (xs, xn, us, xr))
 
     def empty(*shape):

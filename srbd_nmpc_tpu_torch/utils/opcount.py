@@ -1,0 +1,226 @@
+"""Floating-point operations of the port's CUDA kernels, counted on the
+kernels' own arithmetic.
+
+Every kernel source's per-thread body also compiles as host C++. Built with
+``-DSRBD_OPCOUNT`` its scalar is ``OpCount`` (``csrc/srbd_dev.cuh``), a
+double that counts each + - * / and each sqrt, rsqrt, sin, cos and log done
+on it. Each ``count_*`` function takes the arguments of the kernel's wrapper
+(on any device), runs the host entry on ``lanes`` scenarios spread evenly
+over the batch (each lane's data-dependent branches as its inputs take them)
+and returns the operations scaled to the whole batch. The inputs are rounded
+to float32 first, as the card sees them.
+
+    ops = opcount.count_sqp_onepass(*args, reg=reg)   # at args' batch width
+
+Used for the roofline bound of ``chip_smoke.py``; the work the wrapper does
+around a launch in PyTorch (forming dx0, for one) is not counted.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict
+
+import torch
+
+from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
+from srbd_nmpc_tpu_torch.ops import sqp_kernel, sqp_planes, sqp_stage
+from srbd_nmpc_tpu_torch.utils import build
+
+SOURCES = ("sqp_planes", "sqp_onepass", "sqp_twopass", "linearize",
+           "riccati", "merit")
+FLAGS = ("-O2", "-ffp-contract=off", "-DSRBD_OPCOUNT", "-fno-strict-aliasing")
+LANES = 1024
+F64 = torch.float64
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def build_source(name: str) -> str:
+    """g++ build of ``csrc/<name>.cu`` with the counting scalar; its path."""
+    return build.build_host(f"{build.CSRC}/{name}.cu", flags=FLAGS)
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(build_source(name))
+            lib.srbd_opcount_take.restype = ctypes.c_longlong
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _lanes(B: int, lanes: int) -> torch.Tensor:
+    return torch.linspace(0, B - 1, min(B, lanes)).round().long()
+
+
+def _host(idx, *ts):
+    """The lanes ``idx`` of each tensor, float32-rounded, as f64 on the CPU."""
+    return [t[..., idx.to(t.device)].to(torch.float32).to("cpu", F64)
+            .contiguous() for t in ts]
+
+
+def _consts(k: torch.Tensor) -> torch.Tensor:
+    return k.to("cpu", F64).contiguous()
+
+
+def _empty(*shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=F64)
+
+
+def _run(source: str, entry: str, tensors, tail, B: int, n: int) -> float:
+    """Run ``entry`` of the counting build on ``n`` lanes (``tail``: its
+    trailing arguments, Python ints as C ints, floats as doubles);
+    operations for ``B`` lanes."""
+    lib = _lib(source)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [
+        ctypes.c_int if isinstance(v, int) else ctypes.c_double for v in tail]
+    fn.restype = ctypes.c_int
+    lib.srbd_opcount_take()
+    if fn(*(t.data_ptr() for t in tensors), *tail) != 0:
+        raise RuntimeError(f"{entry} failed")
+    return lib.srbd_opcount_take() * B / n
+
+
+def count_sqp_planes(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+                     alpha, x0s, mu_b, theta_b, reg=0.0, lanes=LANES):
+    """K1 (``sqp_planes.sqp_qp_solve_onepass_planes``)."""
+    N, B = us.shape[0], xa.shape[-1]
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    xa, us, xra, dxc, duc, alpha, x0s = _host(idx, xa, us, xra, dxc, duc,
+                                              alpha, x0s)
+    consts = _consts(sqp_stage.kernel_constants(params, Q_w, Qf_w, R_w, Ac,
+                                                bc))
+    dx = _empty(N + 1, 12, n)
+    dx[0] = x0s - (xa[0] + alpha[None] * dxc[0])
+    du, out5 = _empty(N, 12, n), _empty(5, n)
+    pack, K, kv = (_empty(N, sqp_planes._C, n), _empty(N, 12, 12, n),
+                   _empty(N, 12, n))
+    return _run("sqp_planes", "srbd_sqp_planes_host_f64",
+                (consts, xa, us, xra, dxc, duc, alpha, dx, dx[1:], du, *out5,
+                 pack, K, kv),
+                (N, n, float(mu_b), float(theta_b), float(reg)), B, n)
+
+
+def _onepass(cand, params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+             alpha, dx0, mu_b, theta_b, reg, lanes):
+    N, B = us.shape[0], xa.shape[-1]
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    xa, us, xra, dxc, duc, alpha, dx0 = _host(idx, xa, us, xra, dxc, duc,
+                                              alpha, dx0)
+    consts = _consts(sqp_stage.kernel_constants(params, Q_w, Qf_w, R_w, Ac,
+                                                bc))
+    dx = _empty(N + 1, 12, n)
+    dx[0] = dx0
+    du, out5 = _empty(N, 12, n), _empty(5, n)
+    Acl, K = _empty(N, 12, 12, n), _empty(N, 12, 12, n)
+    vecs = _empty(4, N, 12, n)
+    return _run("sqp_onepass", "srbd_sqp_onepass_host_f64",
+                (consts, xa, us, xra, dxc, duc, alpha, dx, dx[1:], du, *out5,
+                 Acl, K, *vecs),
+                (N, n, float(mu_b), float(theta_b), float(reg), int(cand)),
+                B, n)
+
+
+def count_sqp_onepass_cand(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
+                           duc, alpha, x0s, mu_b, theta_b, reg=0.0,
+                           lanes=LANES):
+    """K3a (``sqp_kernel.sqp_qp_solve_onepass_cand``)."""
+    dx0 = x0s - (xa[0] + alpha[None, :] * dxc[0])
+    return _onepass(True, params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
+                    duc, alpha, dx0, mu_b, theta_b, reg, lanes)
+
+
+def count_sqp_onepass(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dx0, mu_b,
+                      theta_b, reg=0.0, lanes=LANES):
+    """K3b (``sqp_kernel.sqp_qp_solve_onepass``)."""
+    return _onepass(False, params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, xa,
+                    us, xa[0, 0], dx0, mu_b, theta_b, reg, lanes)
+
+
+def count_sqp_twopass_bwd(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, mu_b,
+                          theta_b, reg=0.0, lanes=LANES):
+    """K4a (``sqp_kernel.sqp_qp_backward``)."""
+    N, B = us.shape[0], xa.shape[-1]
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    xa, us, xra = _host(idx, xa, us, xra)
+    consts = _consts(sqp_kernel._k4_constants(params, Q_w, Qf_w, R_w, Ac, bc,
+                                              "cpu"))
+    Acl, K = _empty(N, 12, 12, n), _empty(N, 12, 12, n)
+    vecs = _empty(4, N, 12, n)
+    qN, mer = _empty(12, n), _empty(4, n)
+    return _run("sqp_twopass", "srbd_sqp_twopass_bwd_host_f64",
+                (consts, xa, us, xra, Acl, K, *vecs, qN, *mer),
+                (N, n, float(mu_b), float(theta_b), float(reg)), B, n)
+
+
+def count_sqp_twopass_fwd(Acl, K, bcl, kv, q, reff, qN, dx0, lanes=LANES):
+    """K4b (``sqp_kernel.sqp_qp_forward``)."""
+    N, B = Acl.shape[0], Acl.shape[-1]
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    ins = _host(idx, Acl, K, bcl, kv, q, reff, qN, dx0)
+    outs = (_empty(N, 12, n), _empty(N, 12, n), _empty(n))
+    return _run("sqp_twopass", "srbd_sqp_twopass_fwd_host_f64", (*ins, *outs),
+                (N, n), B, n)
+
+
+def count_linearize(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b,
+                    lanes=LANES):
+    """K5 (``srbd_linearize.linearize``)."""
+    N, _, B = xs.shape
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    ins = _host(idx, xs, xn, us, xr)
+    consts = _consts(srbd_linearize.kernel_constants(params, Q_w, R_w, Ac, bc))
+    # the C entry's outputs: A, B, b, R_eff, r_eff, q, merit partials
+    outs = (_empty(N, 12, 12, n), _empty(N, 12, 12, n), _empty(N, 12, n),
+            _empty(N, 12, 12, n), _empty(N, 12, n), _empty(N, 12, n),
+            _empty(N, 8, n))
+    return _run("linearize", "srbd_linearize_host_f64", (consts, *ins, *outs),
+                (N, n, float(mu_b), float(theta_b)), B, n)
+
+
+def count_riccati_bwd(A, Bm, b, Q, R, q, r, reg=0.0, lanes=LANES):
+    """K6a/K6b (``riccati_kernel.lqr_backward``): Q a (Q, Qf) pair (K6a) or
+    per-stage [N+1,12,12,B] (K6b)."""
+    N, B = A.shape[0], A.shape[-1]
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    const_q = isinstance(Q, tuple)
+    A, Bm, b, R, q, r = _host(idx, A, Bm, b, R, q, r)
+    Qptr = (_consts(torch.cat([Q[0].reshape(-1), Q[1].reshape(-1)])
+                    .to(torch.float32)) if const_q else _host(idx, Q)[0])
+    return _run("riccati", "srbd_riccati_bwd_host_f64",
+                (A, Bm, b, Qptr, R, q, r, _empty(N, 12, 12, n),
+                 _empty(N, 12, n)), (N, n, float(reg), int(const_q)), B, n)
+
+
+def count_riccati_fwd(A, Bm, b, K, k, x0, lanes=LANES):
+    """K6c (``riccati_kernel.lqr_forward``)."""
+    N, B = A.shape[0], A.shape[-1]
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    ins = _host(idx, A, Bm, b, K, k, x0)
+    return _run("riccati", "srbd_riccati_fwd_host_f64",
+                (*ins, _empty(N, 12, n), _empty(N, 12, n)), (N, n), B, n)
+
+
+def count_merit_alpha(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du, alpha,
+                      mu_b, theta_b, lanes=LANES):
+    """K7a (``merit_kernel.merit_alpha``)."""
+    N, B = u.shape[0], x.shape[-1]
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    x, dx, u, du, xr, alpha = _host(idx, x, dx, u, du, xr, alpha)
+    consts = _consts(merit_kernel.kernel_constants(params, Q_w, Qf_w, R_w, Ac,
+                                                   bc))
+    return _run("merit", "srbd_merit_alpha_host_f64",
+                (consts, x, dx, u, du, xr, alpha, _empty(n), _empty(n)),
+                (N, n, float(mu_b), float(theta_b)), B, n)

@@ -160,14 +160,3 @@ def test_dense_compaction_is_bitwise_identical():
             assert torch.equal(getattr(info, name), getattr(info_f, name)), \
                 (key, name)
 
-
-@pytest.mark.parametrize("loop", sorted(LOOPS))
-def test_fold_forward_is_the_same_recursion(loop):
-    """``fold_forward`` picks the TPU kernels' grid layout; the port's
-    dense route gives the same solve for both values."""
-    prob = list(_port_problem(**LOOPS[loop], N=5))
-    st_a, info_a = engine.solve(*prob)
-    prob[2] = dataclasses.replace(prob[2], fold_forward=False)
-    st_b, info_b = engine.solve(*prob)
-    assert torch.equal(st_a.u, st_b.u) and torch.equal(st_a.x, st_b.x)
-    assert torch.equal(info_a.sqp_iters, info_b.sqp_iters)

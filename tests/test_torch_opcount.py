@@ -1,0 +1,142 @@
+"""Operation counts of the port's CUDA kernels (``utils/opcount.py``): each
+kernel source, built as host C++ with the counting scalar, counts its own
+arithmetic on the lanes and branches of its inputs. Checked against hand
+counts of the two rollouts, against the barrier branch each constraint
+takes, and for the lane sampling of every kernel's count."""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as smoke
+from srbd_nmpc_tpu_torch.models import srbd
+from srbd_nmpc_tpu_torch.ops import sqp_kernel
+from srbd_nmpc_tpu_torch.utils import opcount
+
+torch.set_num_threads(1)
+F64 = torch.float64
+N = 4
+
+pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
+                                reason="no host C++ compiler")
+
+
+def _rand(rng, *shape):
+    return torch.as_tensor(rng.normal(size=shape), dtype=F64)
+
+
+@pytest.mark.parametrize("kernel", ["sqp_twopass_fwd", "riccati_fwd"])
+def test_rollout_counts_match_hand_count(kernel):
+    """K4b per lane and stage: du = K dx + kv and dx' = Acl dx + bcl (24
+    operations a row, 12 rows each), the two dphi dot products (23 each)
+    and the running sum (1 at the first stage, 2 after), then the terminal
+    dot product and the last add: 624 N + 23. K6c per lane and stage:
+    u = K x + k (24 a row) and x' = A x + B u + b (48 a row): 864 N."""
+    rng = np.random.default_rng(0)
+    B = 5
+    if kernel == "sqp_twopass_fwd":
+        ops = opcount.count_sqp_twopass_fwd(
+            _rand(rng, N, 12, 12, B), _rand(rng, N, 12, 12, B),
+            *(_rand(rng, N, 12, B) for _ in range(4)), _rand(rng, 12, B),
+            _rand(rng, 12, B))
+        assert ops == (624 * N + 23) * B
+    else:
+        ops = opcount.count_riccati_fwd(
+            _rand(rng, N, 12, 12, B), _rand(rng, N, 12, 12, B),
+            _rand(rng, N, 12, B), _rand(rng, N, 12, 12, B),
+            _rand(rng, N, 12, B), _rand(rng, 12, B))
+        assert ops == 864 * N * B
+
+
+def test_merit_count_follows_the_barrier_branch():
+    """K7a evaluates the barrier's value on one branch per constraint: 2
+    operations above theta (mu log), 9 at or below it (the quadratic), so
+    moving theta changes the count by 7 for each (stage, row, lane) whose
+    constraint changes side, and by nothing else."""
+    from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
+    from srbd_nmpc_tpu_torch.utils.config import MpcOptions
+
+    params, weights, cfg = build_from_options(MpcOptions.default(),
+                                              device="cpu")
+    rng = np.random.default_rng(1)
+    B = 6
+    x = torch.as_tensor(rng.normal(size=(N + 1, 12, B)) * 0.1,
+                        dtype=torch.float32)
+    u = torch.as_tensor(rng.normal(size=(N, 12, B)) * 40 + 60,
+                        dtype=torch.float32)
+    du = torch.as_tensor(rng.normal(size=(N, 12, B)) * 5, dtype=torch.float32)
+    alpha = torch.as_tensor(0.2 + 0.6 * rng.random(B), dtype=torch.float32)
+    Ac, bc = srbd.constraint_matrix(params)
+    args = (params, weights.Q, weights.Qf, weights.R, Ac, bc, x, u,
+            torch.zeros_like(x), torch.zeros_like(x), du, alpha)
+    # the constraint values as the counting build forms them (f64 on the
+    # float32 inputs, each row summed left to right)
+    uc = (u.double() + alpha.double() * du.double()).numpy()
+    A64, b64 = Ac.double().numpy(), bc.double().numpy()
+    con = np.zeros((N, 24, B))
+    for r in range(24):
+        acc = A64[r, 0] * uc[:, 0]
+        for k in range(1, 12):
+            acc = acc + A64[r, k] * uc[:, k]
+        con[:, r] = acc + b64[r]
+    lo, hi = np.quantile(con, 0.3), np.quantile(con, 0.7)
+    flipped = int(((con > lo) & (con <= hi)).sum())
+    assert flipped > 0
+    ops_lo = opcount.count_merit_alpha(*args, cfg.mu_barrier, float(lo))
+    ops_hi = opcount.count_merit_alpha(*args, cfg.mu_barrier, float(hi))
+    assert ops_hi - ops_lo == 7 * flipped
+
+
+def _lane(t, B):
+    """``t`` with its lane axis (last, of size 1) repeated ``B`` times."""
+    if isinstance(t, tuple):
+        return tuple(_lane(e, B) for e in t)
+    if isinstance(t, torch.Tensor) and t.dim() and t.shape[-1] == 1:
+        return t.expand(t.shape[:-1] + (B,)).contiguous()
+    return t
+
+
+def _count_args(kernel):
+    """(count function, arguments at one lane, keyword arguments)."""
+    rng = np.random.default_rng(2)
+    if kernel == "sqp_planes":
+        args, reg = smoke._k1_inputs(rng, smoke.N_MAIN, 1, "cpu", False)
+        return opcount.count_sqp_planes, args, dict(reg=reg)
+    if kernel.startswith("sqp_"):
+        cand, one, bwd, reg = smoke._k3_args(rng, 1, "cpu")
+        fwd = (*sqp_kernel.sqp_qp_backward_ref(*bwd, reg=reg)[:7], one[9])
+        return {"sqp_onepass_cand": (opcount.count_sqp_onepass_cand, cand,
+                                     dict(reg=reg)),
+                "sqp_onepass": (opcount.count_sqp_onepass, one, dict(reg=reg)),
+                "sqp_twopass_bwd": (opcount.count_sqp_twopass_bwd, bwd,
+                                    dict(reg=reg)),
+                "sqp_twopass_fwd": (opcount.count_sqp_twopass_fwd, fwd, {}),
+                }[kernel]
+    lin, L, (K, k), mer = smoke._sync_kernel_inputs(rng, 1, "cpu")
+    bwd = (L["A"], L["B"], L["b"])
+    return {"linearize": (opcount.count_linearize, lin, {}),
+            "riccati_bwd_constq": (opcount.count_riccati_bwd,
+                                   (*bwd, L["Qc"], L["R"], L["q"], L["r"]),
+                                   dict(reg=L["reg"])),
+            "riccati_bwd": (opcount.count_riccati_bwd,
+                            (*bwd, L["Qs"], L["R"], L["q"], L["r"]),
+                            dict(reg=L["reg"])),
+            "riccati_fwd": (opcount.count_riccati_fwd,
+                            (*bwd, K, k, L["x0"]), {}),
+            "merit_alpha": (opcount.count_merit_alpha, mer, {})}[kernel]
+
+
+@pytest.mark.parametrize("kernel", [
+    "sqp_planes", "sqp_onepass_cand", "sqp_onepass", "sqp_twopass_bwd",
+    "sqp_twopass_fwd", "linearize", "riccati_bwd_constq", "riccati_bwd",
+    "riccati_fwd", "merit_alpha"])
+def test_sampled_count_scales_to_the_batch(kernel):
+    """On a batch of 8 copies of one scenario, counting 3 sampled lanes
+    and counting every lane both give 8 times the one-lane count."""
+    fn, args, kw = _count_args(kernel)
+    one = fn(*args, **kw)
+    wide = _lane(args, 8)
+    assert one > 0
+    assert fn(*wide, **kw, lanes=3) == fn(*wide, **kw) == 8 * one
