@@ -17,10 +17,18 @@ the plain ``xla`` route. Phases 13-14 do it for the dense one-pass route
 K4b) against their plain versions (at B=4096 and at B=131072), K3b against
 K4 on the inputs the JAX tests' f32 tolerances were set on, and cold
 B=131072 solves of the dense
-route on both loops. Each path's launch counts are set to 0 just before it
-is driven and read just after.
+route on both loops. Phase 15 checks the batched merit with diagnostics
+(K7b, with and without gradients) against its plain version at B=4096 and
+B=131072 and drives it through ``engine._merit_fast``; phase 16 drives the
+single-scenario solve (one robot, ``x [N+1, 12]``, the reference's own
+workload) on the card in f64 against the CPU and the f64 oracle, in f32,
+and with exact sensitivities, and times its cold and warm solves; phase 16b
+runs the batched exact-sensitivity (``xla``) route at B=4096 against the
+CPU. Each path's launch counts are set to 0 just before it is driven and
+read just after.
 
-The ``kernels`` line gives, for each of the 12 kernels, its launches on its
+The ``kernels`` line gives, for each of the 14 kernel bodies behind the 12
+TPU call sites, its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
 plain, and the one PyTorch call that computes the same function where there
 is one) at the main path's shapes, and its bound: the larger of the bytes it
@@ -439,8 +447,8 @@ def _reset_counts():
 
     sqp_planes.launches = 0
     srbd_linearize.launches = 0
-    merit_kernel.launches = 0
-    for d in (permute.launches, riccati_kernel.launches, sqp_kernel.launches):
+    for d in (permute.launches, riccati_kernel.launches, sqp_kernel.launches,
+              merit_kernel.launches):
         for k in d:
             d[k] = 0
 
@@ -452,7 +460,7 @@ def _counts():
 
     return {"sqp_planes": sqp_planes.launches, **permute.launches,
             "linearize": srbd_linearize.launches, **riccati_kernel.launches,
-            "merit_alpha": merit_kernel.launches, **sqp_kernel.launches}
+            **merit_kernel.launches, **sqp_kernel.launches}
 
 
 def _sync_kernel_inputs(rng, B, dev):
@@ -924,7 +932,7 @@ def phase_dense(dev, card, spec):
             times.append((time.perf_counter() - t0) * 1e3)
         p50 = float(np.percentile(times, 50))
         # where the time goes: one more solve under the profiler
-        by_name = _device_ms(lambda: sharded.solve_batch(*prob))
+        by_name, _ = _device_ms(lambda: sharded.solve_batch(*prob))
         busy = sum(by_name.values())
         k3 = {k: v for k, v in by_name.items() if "sqp_onepass" in k}
         d_conv, d_it = n_conv - n_spec, mean_it - it_spec
@@ -991,32 +999,341 @@ def phase_dense(dev, card, spec):
     return out
 
 
+def _ptxas(source: str, needle: str):
+    """(registers, spill stores, spill loads, stack bytes) of the kernels
+    of ``source`` whose mangled name contains ``needle``, from nvcc's
+    ``-Xptxas -v`` report, one tuple per such kernel."""
+    import re
+
+    from srbd_nmpc_tpu_torch.utils import build
+
+    out, cur = [], None
+    for ln in build.build_log(source).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1) if needle in m.group(1) else None
+            stack = stores = loads = None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            stack, stores, loads = (int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append((cur, int(m.group(1)), stores, loads, stack))
+            cur = None
+    return out
+
+
+def _k7b_inputs(rng, B, dev, kind):
+    """K7b arguments at width B: the cold problem's iterate (x = 0,
+    u = 100, as ``NmpcState.initial``) or random iterates (x ~ 0.1 N(0,1),
+    u ~ 90 + 20 N(0,1), as tools/profile_stages.py draws them), with the
+    benchmark reference broadcast over the batch."""
+    from srbd_nmpc_tpu_torch.models import srbd
+    from srbd_nmpc_tpu_torch.nmpc import engine
+    from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
+    from srbd_nmpc_tpu_torch.utils.config import MpcOptions
+
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    _, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+    N = cfg.N
+    f32 = torch.float32
+    if kind == "cold":
+        x = torch.zeros((N + 1, 12, B), dtype=f32, device=dev)
+        u = torch.full((N, 12, B), 100.0, dtype=f32, device=dev)
+    else:
+        x = torch.as_tensor(0.1 * rng.normal(size=(N + 1, 12, B)), dtype=f32,
+                            device=dev)
+        u = torch.as_tensor(90 + 20 * rng.normal(size=(N, 12, B)), dtype=f32,
+                            device=dev)
+    xr = x_ref[:, :, None].expand(N + 1, 12, B).contiguous()
+    Ac, bc = srbd.constraint_matrix(params)
+    return ((params, weights.Q, weights.Qf, weights.R, Ac, bc, x, u, xr,
+             cfg.mu_barrier, cfg.theta_barrier), (params, weights, cfg, x_ref))
+
+
+K7B = {"merit": True, "merit_nograd": False}
+
+
+def phase_k7b(dev):
+    """K7b, both variants, against its plain version at N=20 on the cold
+    iterate and on random iterates at B=4096 and B=131072; then its path,
+    ``engine._merit_fast`` with ``qp_kernel="auto"``, at B=131072 (launch
+    counts, and its outputs against the plain ``merit`` the ``xla`` setting
+    takes); ms per launch, registers and spills, bounds."""
+    import dataclasses
+
+    from srbd_nmpc_tpu_torch.models import merit_kernel
+    from srbd_nmpc_tpu_torch.nmpc import engine
+    from srbd_nmpc_tpu_torch.utils import opcount
+
+    rng = np.random.default_rng(15)
+    rel = {k: 0.0 for k in K7B}
+    max_abs = {k: 0.0 for k in K7B}
+    for B in (4096, B_MAIN):
+        for kind in ("cold", "random"):
+            args, _ = _k7b_inputs(rng, B, dev, kind)
+            for name, g in K7B.items():
+                got = [t for t in merit_kernel.merit(*args, with_grad=g)
+                       if t is not None]
+                ref = [t for t in merit_kernel.merit_ref(*args, with_grad=g)
+                       if t is not None]
+                r, a = _diff(got, ref)
+                rel[name] = max(rel[name], r)
+                max_abs[name] = max(max_abs[name], a)
+                del got, ref
+            del args
+    torch.cuda.empty_cache()
+    print(f"[15 K7b] kernel vs plain at N=20, B=4096 and B={B_MAIN}, cold and "
+          "random iterates: " + ", ".join(
+              f"{k} {v:.3e} (max |diff| {max_abs[k]:.3e})"
+              for k, v in rel.items()) + f" (limit {REL_TOL:g})", flush=True)
+    if not all(v < REL_TOL for v in rel.values()):
+        raise AssertionError(f"K7b disagrees with its plain version: {rel}")
+
+    # the path: the batched merit entry point on AoS states [B, N+1, 12]
+    args, (params, weights, cfg, x_ref) = _k7b_inputs(rng, B_MAIN, dev,
+                                                      "random")
+    x = args[6].permute(2, 0, 1).contiguous()
+    u = args[7].permute(2, 0, 1).contiguous()
+    assert cfg.qp_kernel == "auto"
+    torch.cuda.synchronize()
+    _reset_counts()
+    path = {g: engine._merit_fast(params, weights, cfg, x, u, x_ref,
+                                  with_grad=g) for g in (True, False)}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _counts().items() if v}
+    plain_cfg = dataclasses.replace(cfg, qp_kernel="xla")
+    path_rel = max(_diff(path[g], engine._merit_fast(
+        params, weights, plain_cfg, x, u, x_ref, with_grad=g))[0]
+        for g in (True, False))
+    del path, x, u
+    print(f"[15 K7b] engine._merit_fast (qp_kernel='auto') at B={B_MAIN}: "
+          f"launches {launches}; against the plain merit (qp_kernel='xla') "
+          f"{path_rel:.3e} (limit {REL_TOL:g})", flush=True)
+    if launches != {"merit": 1, "merit_nograd": 1}:
+        raise AssertionError(f"_merit_fast launches {launches}")
+    if not path_rel < REL_TOL:
+        raise AssertionError(f"_merit_fast vs plain merit: {path_rel}")
+
+    times, bounds = {}, {}
+    for name, g in K7B.items():
+        out = merit_kernel.merit(*args, with_grad=g)
+        bounds[name] = _bound(_nbytes(args[6:9], out),
+                              opcount.count_merit(*args, with_grad=g))
+        del out
+        times[name] = (_cuda_ms(lambda: merit_kernel.merit(*args, with_grad=g),
+                                20),
+                       _cuda_ms(lambda: merit_kernel.merit_ref(
+                           *args, with_grad=g), 1))
+    regs = _ptxas("merit", "merit_kernel")
+    del args
+    torch.cuda.empty_cache()
+    print(f"[15 K7b] ms per launch at B={B_MAIN}, kernel (plain; bound): "
+          + ", ".join(f"{k} {t[0]:.4f} ({t[1]:.3f}; {bounds[k][0]:.4f} "
+                      f"{bounds[k][1]})" for k, t in times.items())
+          + "; ptxas: " + ", ".join(
+              f"{n[:24]} {r} registers, {st} B spill stores, {ld} B spill "
+              f"loads, {sk} B stack" for n, r, st, ld, sk in regs), flush=True)
+    return max_abs, times, bounds, launches
+
+
+def _single_problem(dev, dtype, **kw):
+    """The reference problem for one robot (``MpcOptions.default()``: N=20,
+    dt=0.015, at most 15 SQP iterations; the benchmark reference step) on
+    ``dev``, states [N+1, 12]."""
+    import dataclasses
+
+    from srbd_nmpc_tpu_torch.nmpc import engine
+    from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
+    from srbd_nmpc_tpu_torch.utils.config import MpcOptions
+
+    params, weights, cfg = build_from_options(MpcOptions.default(),
+                                              dtype=dtype, device=dev)
+    cfg = dataclasses.replace(cfg, **kw)
+    x0, x_ref = engine.make_benchmark_problem(cfg, dtype, device=dev)
+    return (params, weights, cfg,
+            engine.NmpcState.initial(cfg.N, dtype, device=dev), x0, x_ref)
+
+
+def _timed_solve(prob):
+    from srbd_nmpc_tpu_torch.nmpc import engine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.solve(*prob)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_single(dev, card):
+    """The single-scenario solve on the card: f64 against the CPU and the
+    f64 C++ oracle, f32 with one refinement pass against the oracle, exact
+    sensitivities; cold and warm (20 repetitions from the converged state)
+    solve times."""
+    from srbd_nmpc_tpu_torch.nmpc import engine
+    from srbd_nmpc_tpu_torch.utils.metrics import oracle_solve, parity_metric
+
+    f64, f32 = torch.float64, torch.float32
+    prob = _single_problem(dev, f64)
+    _timed_solve(prob)                       # first call: handles, caches
+    _reset_counts()
+    cold = [_timed_solve(prob) for _ in range(3)]
+    launches = {k: v for k, v in _counts().items() if v}
+    (st, info), _ = cold[0]
+    cold_ms = float(np.percentile([t for _, t in cold], 50))
+    # the same solve on this machine's CPU: the reference for the card's
+    # iterations and u, and its time beside the card's
+    cpu = [_timed_solve(_single_problem("cpu", f64)) for _ in range(3)]
+    (st_c, info_c), _ = cpu[0]
+    cpu_ms = float(np.percentile([t for _, t in cpu], 50))
+    same ={k: (int(getattr(info, k)), int(getattr(info_c, k)))
+            for k in ("sqp_iters", "status", "ls_trips")}
+    du_cpu = float((st.u.cpu() - st_c.u).abs().max())
+    ok, x_o, u_o = oracle_solve(prob[4].cpu().numpy())
+    err_u = float(np.max(np.abs(st.u.cpu().numpy() - u_o)))
+    err_x = float(np.max(np.abs(st.x.cpu().numpy() - x_o)))
+    par = parity_metric(st.u.cpu().numpy(), u_o)
+
+    params, weights, cfg, _, x0, x_ref = prob
+    warm = [_timed_solve((params, weights, cfg, st, x0, x_ref))
+            for _ in range(20)]
+    warm_iters = sorted({int(i.sqp_iters) for (_, i), _ in warm})
+    warm_conv = all(bool(i.converged) for (_, i), _ in warm)
+    warm_ms = float(np.percentile([t for _, t in warm], 50))
+    # where the time goes: one cold and one warm solve under the profiler
+    prof = {}
+    for name, p_ms, start in (("cold", cold_ms, prob[3]), ("warm", warm_ms, st)):
+        by_name, n = _device_ms(
+            lambda: engine.solve(params, weights, cfg, start, x0, x_ref))
+        busy = sum(by_name.values())
+        prof[name] = (f"{n} device kernels, busy {busy:.3f} ms (idle "
+                      f"{100 * (1 - busy / p_ms):.1f} % of the p50)")
+    print(f"[16 single] f64 on {card}: converged {bool(info.converged)}, "
+          f"status {int(info.status)}, SQP iterations/status/trips card vs "
+          f"CPU {same}, max |u - u_cpu| {du_cpu:.3e} (limit 1e-8); vs the f64 "
+          f"oracle (converged {ok}): err_u/100 {err_u / 100:.3e}, err_x "
+          f"{err_x:.3e} (limits 1e-4), parity_metric {par:.3e}; kernel "
+          f"launches {launches}; cold solve p50 {cold_ms:.3f} ms (of 3: "
+          f"{[round(t, 3) for _, t in cold]}; the CPU's {cpu_ms:.3f}); warm "
+          f"p50 {warm_ms:.3f} ms over "
+          f"20 repetitions, SQP iterations {warm_iters}; profiled: cold "
+          f"{prof['cold']}, warm {prof['warm']}", flush=True)
+    if not (bool(info.converged) and all(a == b for a, b in same.values())
+            and du_cpu < 1e-8 and ok and err_u / 100 < 1e-4 and err_x < 1e-4):
+        raise AssertionError(f"single-scenario f64 solve: {same}, {du_cpu}, "
+                             f"{err_u}, {err_x}")
+    if not (warm_conv and warm_iters == [1]):
+        raise AssertionError(f"warm solves: converged {warm_conv}, "
+                             f"iterations {warm_iters}")
+    if launches:
+        raise AssertionError(f"the single-scenario solve launched {launches}")
+
+    prob32 = _single_problem(dev, f32, refine=1)
+    _timed_solve(prob32)
+    (st32, info32), cold32 = _timed_solve(prob32)
+    warm32 = [_timed_solve((*prob32[:3], st32, *prob32[4:]))[1]
+              for _ in range(20)]
+    err32 = float(np.max(np.abs(st32.u.cpu().double().numpy() - u_o)))
+    (st_x, info_x), exact_ms = _timed_solve(
+        _single_problem(dev, f64, sensitivity="exact", persistent_alpha=False))
+    print(f"[16 single] f32 refine=1: status {int(info32.status)}, SQP "
+          f"iterations {int(info32.sqp_iters)}, err_u/100 vs oracle "
+          f"{err32 / 100:.3e} (limit 1e-3); cold {cold32:.3f} ms, warm p50 "
+          f"{float(np.percentile(warm32, 50)):.3f} ms. Exact sensitivities "
+          f"(f64, alpha reset): converged {bool(info_x.converged)} in "
+          f"{int(info_x.sqp_iters)} iterations, phi {float(info_x.phi):.6f} "
+          f"vs Euler {float(info.phi):.6f}; cold {exact_ms:.3f} ms",
+          flush=True)
+    if not err32 / 100 < 1e-3:
+        raise AssertionError(f"f32 single-scenario vs oracle: {err32}")
+    if not (bool(info_x.converged)
+            and float(info_x.phi) <= float(info.phi) + 1e-6):
+        raise AssertionError("exact sensitivities: converged "
+                             f"{bool(info_x.converged)}, phi "
+                             f"{float(info_x.phi)} vs {float(info.phi)}")
+    return dict(cold_ms=cold_ms, warm_ms=warm_ms, cold32_ms=cold32,
+                warm32_ms=float(np.percentile(warm32, 50)), exact_ms=exact_ms)
+
+
+def phase_exact_batched(dev, card):
+    """The batched exact-sensitivity route (``sensitivity="exact"`` takes
+    the plain ``xla`` route) at B=4096, f32, refine=1, alpha reset, against
+    the CPU plain run of its first 64 scenarios."""
+    from srbd_nmpc_tpu_torch.parallel import sharded
+    from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
+
+    B, S = 4096, 64
+    kw = dict(sensitivity="exact", refine=1, persistent_alpha=False)
+    prob = _route_problem(dev, B, kw, seed=9)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    st, info, summ = sharded.solve_batch(*prob)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in _counts().items() if v}
+    params, weights, cfg, states, _, x_ref = _route_problem("cpu", S, kw)
+    st_c, in_c, _ = sharded.solve_batch(params, weights, cfg, states,
+                                        prob[4][:S].cpu(), x_ref)
+    both = (info.converged[:S].cpu() & in_c.converged).numpy()
+    same = both & (info.sqp_iters[:S].cpu() == in_c.sqp_iters).numpy()
+    flips = int(both.sum() - same.sum())
+    err = parity_metric(st.u[:S].cpu().numpy()[same], st_c.u.numpy()[same])
+    n_conv = int(summ.n_converged)
+    print(f"[16b exact] batched sensitivity='exact' (xla route, f32, refine=1, "
+          f"alpha reset) B={B}: converged {n_conv}/{B} "
+          f"({100 * n_conv / B:.2f} %), mean SQP iterations "
+          f"{float(summ.mean_iters):.4f}, {ms:.1f} ms, launches {launches}; "
+          f"first {S} vs the CPU plain run: converged in both {int(both.sum())}, "
+          f"{flips} at another iteration, relative u error {err:.3e} over "
+          f"{int(same.sum())} (limit {REL_TOL:g}) on {card}", flush=True)
+    if not (same.sum() > 0 and err < REL_TOL and flips <= 1):
+        raise AssertionError(f"exact route vs CPU: {err}, {flips} flips")
+    if launches:
+        raise AssertionError(f"the xla route launched {launches}")
+    return dict(n_conv=n_conv, ms=ms)
+
+
 def _device_ms(fn):
-    """Device ms by kernel name of one ``fn()`` under torch.profiler.
-    Kernels run on one stream, so their sum is the device busy time (the
-    profiled call's wall time includes the profiler's own start-up and is
-    not used)."""
+    """Device ms by kernel name of one ``fn()`` under torch.profiler, and
+    the number of device kernels it ran. Kernels run on one stream, so
+    their sum is the device busy time (the profiled call's wall time
+    includes the profiler's own start-up and is not used)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, n = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
-    return by_name
+            n += e.count
+    return by_name, n
 
 
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
            bound, library_ms=None):
-    return {"name": name, "route": "cuda",
+    return {"name": name, "id": KERNEL_IDS[name], "route": "cuda",
             "source": f"srbd_nmpc_tpu_torch/csrc/{source}",
             "replaces": f"srbd_nmpc_tpu/{replaces}", "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library_ms}
+
+
+# the TPU kernels' ids (PERF.md's table) by the port's counter names
+KERNEL_IDS = {"sqp_planes": "K1", "take_lanes": "K2a", "set_lanes": "K2b",
+              "sqp_onepass_cand": "K3a", "sqp_onepass": "K3b",
+              "sqp_twopass_bwd": "K4a", "sqp_twopass_fwd": "K4b",
+              "linearize": "K5", "riccati_bwd_constq": "K6a",
+              "riccati_bwd": "K6b", "riccati_fwd": "K6c",
+              "merit_alpha": "K7a", "merit": "K7b", "merit_nograd": "K7b_nograd"}
 
 
 def main() -> int:
@@ -1037,6 +1354,9 @@ def main() -> int:
     d_err, d_t, d_b, k4_launches = phase_dense_kernels(dev)
     dense = phase_dense(dev, f"{smi}", spec)
     phase_parity(dev)
+    k7b_err, k7b_t, k7b_b, k7b_launches = phase_k7b(dev)
+    phase_single(dev, f"{smi}")
+    phase_exact_batched(dev, f"{smi}")
 
     pallas = sync["pallas"]["launches"]
     per_stage_q = sync["lqr_per_stage_q"]["launches"]
@@ -1073,6 +1393,10 @@ def main() -> int:
              pallas["merit_alpha"], k_err, k_t, k_b)):
         kernels.append(_entry(name, source, replaces, n, err[name], *t[name],
                               b[name]))
+    for name, replaces in (("merit", "models/merit_pallas.py:32"),
+                           ("merit_nograd", "models/merit_pallas.py:42")):
+        kernels.append(_entry(name, "merit.cu", replaces, k7b_launches[name],
+                              k7b_err[name], *k7b_t[name], k7b_b[name]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
-// K7a · merit (theta, phi) at a line-search candidate, one thread per scenario.
+// K7a · merit (theta, phi) at a line-search candidate, and K7b · merit with
+// diagnostics and (optionally) gradients; one thread per scenario.
 //
-// Replaces the TPU kernel srbd_nmpc_tpu/models/merit_pallas.py::_kernel_alpha
-// (through merit_alpha_pallas). Contract: the plain PyTorch version
-// srbd_nmpc_tpu_torch/models/merit_kernel.py::merit_alpha_ref.
+// K7a replaces the TPU kernel srbd_nmpc_tpu/models/merit_pallas.py::
+// _kernel_alpha (through merit_alpha_pallas); contract: the plain PyTorch
+// version srbd_nmpc_tpu_torch/models/merit_kernel.py::merit_alpha_ref.
+// K7b replaces merit_pallas.py::_kernel (GRAD) and ::_kernel_nograd (through
+// merit_pallas); contract: merit_kernel.py::merit_ref.
 //
 // Per scenario, at the candidate (x + alpha dx, u + alpha du) with its own
 // alpha: theta = sum over stages of 1/2 |x_{g+1} - rk4(x_g, u_g)|^2 (four
@@ -18,6 +21,16 @@
 // arrays are indexed ((stage * 12 + row) * B + lane), so consecutive threads
 // read consecutive addresses. Constants (model, Ac, bc, R, Q, Qf) sit in
 // shared memory. Built with -fmad=false, so it rounds like the plain version.
+//
+// K7b evaluates the same sums at the iterate itself (x, u) and adds the
+// diagnostics max|defect| (seeded 0) and min constraint (seeded 1e30), each
+// taken over a stage's rows and then over the stages, NaN-propagating. With
+// GRAD it also writes the running-stage gradients Jx[g] = Q e_g and
+// Ju[g] = Ac' db_g + R u_g, coalesced at ((g * 12 + row) * B + lane); the
+// wrapper adds the terminal row Jx[N] = Qf e_N. It moves ~3.0 KB per scenario
+// without gradients (x, u, x_ref) and ~4.9 KB with them, and is bound, like
+// K7a, by the RK4 chain's arithmetic and those bytes. A TPU grid axis over the
+// stages (with the sums carried in scratch) becomes the thread's stage loop.
 
 #include "srbd_dev.cuh"
 
@@ -99,6 +112,107 @@ HD void scenario(const T* kc, const T* xa, const T* dx, const T* us, const T* du
 #undef V12
 }
 
+// y = M v with M row-major [12, 12], each row summed left to right
+template <typename T>
+HD void mat_vec12(const T* M, const T* v, T* y) {
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    T acc = M[12 * i] * v[0];
+#pragma unroll
+    for (int k = 1; k < 12; ++k) acc = acc + M[12 * i + k] * v[k];
+    y[i] = acc;
+  }
+}
+
+// 1/2 v' w, summed left to right (half_quad with w = M v given)
+template <typename T>
+HD T half_dot12(const T* v, const T* w) {
+  T s = v[0] * w[0];
+#pragma unroll
+  for (int i = 1; i < 12; ++i) s = s + v[i] * w[i];
+  return T(0.5) * s;
+}
+
+// K7b: out [4, B] = theta, phi, max|defect|, min constraint; with GRAD the
+// running-stage rows of Jx [N+1, 12, B] and Ju [N, 12, B]
+template <typename T, bool GRAD>
+HD void merit_scenario(const T* kc, const T* xa, const T* us, const T* xr, T* out,
+                       T* Jx, T* Ju, int N, int B, int b, T mu_b, T theta_b) {
+#define V12(ptr, g, row) (ptr)[((size_t)(g) * 12 + (row)) * B + b]
+  const Model<T> md = load_model(kc);
+  const T* Ac = kc + K_AC;
+  const T* bc = kc + K_BC;
+  const T log_th = k_log(theta_b);
+
+  T x[12], xn[12], u[12], e[12], fx[12], qx[12], ru[12], db[24];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x[i] = V12(xa, 0, i);
+  T th = 0, ph = 0, mdef = 0, mcon = T(1e30);
+  for (int g = 0; g < N; ++g) {
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      xn[i] = V12(xa, g + 1, i);
+      u[i] = V12(us, g, i);
+      e[i] = x[i] - V12(xr, g, i);
+    }
+    soa_rk4(md, x, u, fx);
+    T tp = 0, mb = 0;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      const T d = xn[i] - fx[i];
+      const T ad = d < 0 ? -d : d;
+      tp = (i == 0) ? d * d : tp + d * d;
+      mb = (i == 0) ? ad : nan_max(mb, ad);
+    }
+    mat_vec12(kc + K_Q, e, qx);
+    const T phi_x = half_dot12(e, qx);
+
+    T sbar = 0, mc = 0;
+#pragma unroll
+    for (int r = 0; r < 24; ++r) {
+      T con = Ac[12 * r] * u[0];
+#pragma unroll
+      for (int k = 1; k < 12; ++k) con = con + Ac[12 * r + k] * u[k];
+      con = con + bc[r];
+      T bb;
+      if (GRAD) {
+        barrier_grad(con, mu_b, theta_b, log_th, bb, db[r]);
+      } else {
+        bb = barrier_value(con, mu_b, theta_b, log_th);
+      }
+      sbar = (r == 0) ? bb : sbar + bb;
+      mc = (r == 0) ? con : nan_min(mc, con);
+    }
+    mat_vec12(kc + K_R, u, ru);
+    const T phi_u = sbar + half_dot12(u, ru);
+
+    th = (g == 0) ? T(0.5) * tp : th + T(0.5) * tp;
+    ph = ((g == 0) ? phi_x : ph + phi_x) + phi_u;
+    mdef = nan_max(mdef, mb);
+    mcon = nan_min(mcon, mc);
+    if (GRAD) {
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+        T acc = Ac[i] * db[0];
+#pragma unroll
+        for (int r = 1; r < 24; ++r) acc = acc + Ac[12 * r + i] * db[r];
+        V12(Jx, g, i) = qx[i];
+        V12(Ju, g, i) = acc + ru[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 12; ++i) x[i] = xn[i];
+  }
+  // terminal: x holds x_N
+#pragma unroll
+  for (int i = 0; i < 12; ++i) e[i] = x[i] - V12(xr, N, i);
+  out[b] = th;
+  out[B + b] = ph + half_quad(kc + K_QF, e);
+  out[2 * B + b] = mdef;
+  out[3 * B + b] = mcon;
+#undef V12
+}
+
 }  // namespace k7
 
 #ifdef __CUDACC__
@@ -128,6 +242,35 @@ extern "C" int srbd_merit_alpha_launch(const float* consts, const float* xa,
   return (int)cudaGetLastError();
 }
 
+template <bool GRAD>
+__global__ void merit_kernel(const float* __restrict__ consts, const float* xa,
+                             const float* us, const float* xr, float* out, float* Jx,
+                             float* Ju, int N, int B, float mu_b, float theta_b) {
+  __shared__ float kc[k7::K_LEN];
+  for (int i = threadIdx.x; i < k7::K_LEN; i += blockDim.x) kc[i] = consts[i];
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  k7::merit_scenario<float, GRAD>(kc, xa, us, xr, out, Jx, Ju, N, B, lane, mu_b,
+                                  theta_b);
+}
+
+// grad != 0: the variant with gradients (Jx, Ju written); else Jx, Ju unused
+extern "C" int srbd_merit_launch(const float* consts, const float* xa, const float* us,
+                                 const float* xr, float* out, float* Jx, float* Ju, int N,
+                                 int B, float mu_b, float theta_b, int grad, int threads,
+                                 void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const int blocks = (B + threads - 1) / threads;
+  if (grad)
+    merit_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        consts, xa, us, xr, out, Jx, Ju, N, B, mu_b, theta_b);
+  else
+    merit_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        consts, xa, us, xr, out, Jx, Ju, N, B, mu_b, theta_b);
+  return (int)cudaGetLastError();
+}
+
 #else  // host build: the same per-scenario body over every lane, in f64
 
 using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
@@ -140,6 +283,20 @@ extern "C" int srbd_merit_alpha_host_f64(const host_t* consts, const host_t* xa,
   for (int lane = 0; lane < B; ++lane)
     k7::scenario<host_t>(consts, xa, dx, us, du, xr, alpha, theta, phi, N, B, lane, mu_b,
                          theta_b);
+  return 0;
+}
+
+extern "C" int srbd_merit_host_f64(const host_t* consts, const host_t* xa, const host_t* us,
+                                   const host_t* xr, host_t* out, host_t* Jx, host_t* Ju,
+                                   int N, int B, double mu_b, double theta_b, int grad) {
+  for (int lane = 0; lane < B; ++lane) {
+    if (grad)
+      k7::merit_scenario<host_t, true>(consts, xa, us, xr, out, Jx, Ju, N, B, lane, mu_b,
+                                       theta_b);
+    else
+      k7::merit_scenario<host_t, false>(consts, xa, us, xr, out, Jx, Ju, N, B, lane,
+                                        mu_b, theta_b);
+  }
   return 0;
 }
 

@@ -198,7 +198,7 @@ HD M3<T> rirt(const M3<T>& R, const M3<T>& Iinv) {
 }
 
 // relaxed log barrier of one constraint value (ops/barrier.py): value,
-// first and second derivative
+// first and second derivative; a NaN value takes the quadratic branch
 template <typename T>
 HD void barrier(T con, T mu_b, T theta_b, T log_th, T& bb, T& d, T& dd) {
   if (con > theta_b) {
@@ -219,6 +219,20 @@ HD T barrier_value(T con, T mu_b, T theta_b, T log_th) {
   if (con > theta_b) return -mu_b * k_log(con);
   const T z = (con - T(2) * theta_b) / theta_b;
   return T(0.5) * mu_b * (z * z - T(1)) - mu_b * log_th;
+}
+
+// the barrier's value and first derivative (the same arithmetic as barrier's
+// bb and d)
+template <typename T>
+HD void barrier_grad(T con, T mu_b, T theta_b, T log_th, T& bb, T& d) {
+  if (con > theta_b) {
+    bb = -mu_b * k_log(con);
+    d = -mu_b / con;
+  } else {
+    const T z = (con - T(2) * theta_b) / theta_b;
+    bb = T(0.5) * mu_b * (z * z - T(1)) - mu_b * log_th;
+    d = mu_b * (con - T(2) * theta_b) / (theta_b * theta_b);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,16 +1,20 @@
-"""Merit (theta, phi) at a line-search candidate (kernel K7a of the port).
+"""The batched merit (kernels K7a and K7b of the port).
 
-Counterpart of ``srbd_nmpc_tpu/models/merit_pallas.py`` (``merit_alpha_pallas``
-and its Pallas kernel ``_kernel_alpha``): the merit at the candidate
-``(x + alpha dx, u + alpha du)`` with a per-scenario alpha, so the
-backtracking line search never stores candidate trajectories. theta is the
+Counterpart of ``srbd_nmpc_tpu/models/merit_pallas.py``. theta is the
 shooting-defect norm (four-call RK4), phi the tracking, barrier and input
 cost plus the terminal cost, both accumulated stage by stage.
 
-- ``merit_alpha_ref``: the plain PyTorch version, any device and dtype.
-- ``merit_alpha``: the public entry. CPU tensors run the plain version;
-  CUDA tensors launch the hand-written kernel ``csrc/merit.cu`` (f32 only)
-  or raise.
+- K7a, ``merit_alpha`` (``merit_alpha_pallas``, Pallas ``_kernel_alpha``):
+  (theta, phi) at the line-search candidate ``(x + alpha dx, u + alpha du)``
+  with a per-scenario alpha, so the backtracking line search never stores
+  candidate trajectories.
+- K7b, ``merit`` (``merit_pallas``, Pallas ``_kernel`` / ``_kernel_nograd``):
+  (theta, phi), the diagnostics max|defect| and min constraint and, with
+  ``with_grad``, the gradients Jphi_x, Jphi_u at the iterate (x, u).
+
+Each has a plain PyTorch version (``*_ref``, any device and dtype). The
+public entries run it on CPU tensors; on CUDA tensors they launch the
+hand-written kernel ``csrc/merit.cu`` (f32 only) or raise.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from srbd_nmpc_tpu_torch.utils.build import check_cuda_f32, load_kernel
 _K_LEN = 761
 THREADS = 128
 
-# launches of the CUDA kernel since the last reset (read by chip_smoke.py)
-launches = 0
+# launches of each CUDA kernel since the last reset (read by chip_smoke.py):
+# K7a, and K7b with and without gradients
+launches = {"merit_alpha": 0, "merit": 0, "merit_nograd": 0}
 
 
 def _half_quad(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -77,18 +82,76 @@ def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc
     return k
 
 
-def _lib():
-    fn = load_kernel("merit").srbd_merit_alpha_launch
+def merit_ref(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, x, u, xr,
+              mu_b: float, theta_b: float, with_grad: bool = True):
+    """Plain PyTorch version of K7b. x/xr [N+1,12,B], u [N,12,B]; returns
+    (theta [B], phi [B], Jphi_x [N+1,12,B], Jphi_u [N,12,B], max|defect| [B],
+    min constraint [B]), the gradients None without ``with_grad``. The
+    stage sums run in the kernel's order: theta and phi from stage 0 up,
+    max|defect| seeded 0, min constraint seeded 1e30, and the terminal
+    1/2 e_N' Qf e_N added to phi last."""
+    dtype = x.dtype
+    xc = x.permute(1, 0, 2)                            # [12, N+1, B]
+    uc = u.permute(1, 0, 2)                            # [12, N, B]
+    xs, xn = xc[:, :-1], xc[:, 1:]
+    nb = (1, 1)
+
+    defect = xn - srbd_soa.rk4(params, xs, uc)         # [12, N, B]
+    theta_part = 0.5 * sm.sum_rows(defect * defect)    # [N, B]
+    e = xs - xr[:-1].permute(1, 0, 2)
+    Qx = sm.mv(Q_w.to(dtype).reshape(Q_w.shape + nb), e)
+    phi_x = 0.5 * sm.sum_rows(e * Qx)
+    Ac_b = Ac.to(dtype)[:, :, None, None]
+    con = sm.mv(Ac_b, uc) + bc.to(dtype)[:, None, None]   # [24, N, B]
+    b_bar, db, _ = relaxed_log_barrier(con, mu_b, theta_b)
+    Ru = sm.mv(R_w.to(dtype).reshape(R_w.shape + nb), uc)
+    phi_u = sm.sum_rows(b_bar) + 0.5 * sm.sum_rows(uc * Ru)
+    md_s = defect.abs().amax(dim=0)                    # [N, B]
+    mc_s = con.amin(dim=0)
+
+    th, ph = theta_part[0], phi_x[0] + phi_u[0]
+    md = torch.maximum(torch.zeros_like(th), md_s[0])
+    mc = torch.minimum(torch.full_like(th, 1e30), mc_s[0])
+    for g in range(1, theta_part.shape[0]):
+        th = th + theta_part[g]
+        ph = (ph + phi_x[g]) + phi_u[g]
+        md = torch.maximum(md, md_s[g])
+        mc = torch.minimum(mc, mc_s[g])
+    phi = ph + _half_quad(Qf_w, xc[:, -1] - xr[-1])
+    if not with_grad:
+        return th, phi, None, None, md, mc
+    Jx = torch.cat([Qx.permute(1, 0, 2), _terminal_grad(Qf_w, x, xr)[None]])
+    Ju = (sm.mtv(Ac_b, db) + Ru).permute(1, 0, 2)
+    return th, phi, Jx, Ju, md, mc
+
+
+def _terminal_grad(Qf_w, x, xr) -> torch.Tensor:
+    """Jphi_x[N] = Qf e_N [12, B] (computed outside the kernel, as JAX does)."""
+    return sm.mv(Qf_w.to(x.dtype)[:, :, None], x[-1] - xr[-1])
+
+
+def _fn(entry: str, argtypes):
+    fn = getattr(load_kernel("merit"), entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
+def _lib():
+    return _fn("srbd_merit_alpha_launch",
+               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+               + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _lib_merit():
+    return _fn("srbd_merit_launch",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+               + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 def _merit_alpha_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
                       alpha, mu_b, theta_b):
-    global launches
     Np1, _, Bt = x.shape
     N = Np1 - 1
     for name, t, shape in (("x", x, (Np1, NX, Bt)), ("xr", xr, (Np1, NX, Bt)),
@@ -106,7 +169,7 @@ def _merit_alpha_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"merit kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches["merit_alpha"] += 1
     return out[0], out[1]
 
 
@@ -124,3 +187,50 @@ def merit_alpha(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
         raise TypeError(f"unsupported device {x.device}")
     return merit_alpha_ref(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
                            alpha, mu_b, theta_b)
+
+
+def _merit_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, mu_b, theta_b,
+                with_grad):
+    Np1, _, Bt = x.shape
+    N = Np1 - 1
+    for name, t, shape in (("x", x, (Np1, NX, Bt)), ("xr", xr, (Np1, NX, Bt)),
+                           ("u", u, (N, NU, Bt))):
+        check_cuda_f32(name, t, shape)
+    consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc).to(x.device)
+    x, u, xr = (t.contiguous() for t in (x, u, xr))
+    dev = x.device
+    out = torch.empty((4, Bt), dtype=torch.float32, device=dev)
+    Jx = Ju = None
+    if with_grad:
+        Jx = torch.empty((Np1, NX, Bt), dtype=torch.float32, device=dev)
+        Ju = torch.empty((N, NU, Bt), dtype=torch.float32, device=dev)
+    err = _lib_merit()(consts.data_ptr(), x.data_ptr(), u.data_ptr(),
+                       xr.data_ptr(), out.data_ptr(),
+                       Jx.data_ptr() if with_grad else None,
+                       Ju.data_ptr() if with_grad else None, N, Bt,
+                       float(mu_b), float(theta_b), int(with_grad), THREADS,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"merit kernel launch failed: CUDA error {err}")
+    launches["merit" if with_grad else "merit_nograd"] += 1
+    if with_grad:
+        # the kernel wrote the N running rows; the terminal row is Qf e_N
+        Jx[N] = _terminal_grad(Qf_w, x, xr)
+    return out[0], out[1], Jx, Ju, out[2], out[3]
+
+
+def merit(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, mu_b: float,
+          theta_b: float, with_grad: bool = True):
+    """Merit with diagnostics and, with ``with_grad``, gradients: the
+    contract of the JAX ``merit_pallas`` (any width B). x/xr [N+1,12,B],
+    u [N,12,B]; returns (theta, phi, Jphi_x [N+1,12,B], Jphi_u [N,12,B],
+    max|defect|, min constraint), the gradients None without
+    ``with_grad``. CPU tensors run the plain version; CUDA tensors run the
+    CUDA kernel's variant (f32) or raise."""
+    if x.device.type == "cuda":
+        return _merit_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, mu_b,
+                           theta_b, with_grad)
+    if x.device.type != "cpu":
+        raise TypeError(f"unsupported device {x.device}")
+    return merit_ref(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, mu_b, theta_b,
+                     with_grad)

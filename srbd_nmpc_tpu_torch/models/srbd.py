@@ -1,11 +1,21 @@
-"""SRBD model constants, parameters and the friction-cone constraint rows.
+"""Single-rigid-body-dynamics (SRBD) model: constants, parameters, the
+dynamics in "AoS" layout (vectors ``[..., 12]``, batched over leading
+axes), their Euler and exact (RK4) sensitivities, and the friction-cone
+constraint rows.
 
-Counterpart of ``srbd_nmpc_tpu/models/srbd.py:32-88, 213-257``. The
-dynamics themselves are ported as stage-plane algebra in
-``models.srbd_planes`` (the only form the main path runs).
+Counterpart of ``srbd_nmpc_tpu/models/srbd.py``. This layout serves the
+single-scenario solve and the exact sensitivities; the batched solve runs
+the same model in batch-last layout (``models.srbd_soa``,
+``models.srbd_planes``).
 
 State  x = [r (axis-angle, 3), l (angular momentum, 3), p (CoM, 3), v (3)]
 Input  u = [F_right (3), tau_right (3), F_left (3), tau_left (3)]
+
+Continuous dynamics (SRBD_model.cpp:75-99):
+    r_dot = Jl(r)^-1 w          with w = R I^-1 R' l,  R = expm(r)
+    l_dot = tau_r + tau_l + (p_fr - p) x F_r + (p_fl - p) x F_l
+    p_dot = v
+    v_dot = (F_r + F_l)/m + g
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from srbd_nmpc_tpu_torch.ops import so3
 from srbd_nmpc_tpu_torch.utils.device import DeviceLike, resolve_device
 
 NX = 12  # state dim
@@ -102,3 +113,121 @@ def constraint_matrix(params: SRBDParams) -> Tuple[torch.Tensor, torch.Tensor]:
     bc[16] = params.fmax
     bc[17] = -params.fmin
     return Ac, bc
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matrix @ vector on the trailing axes."""
+    return torch.einsum("...ij,...j->...i", M, v)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def _p(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return t.to(dtype=x.dtype, device=x.device)
+
+
+def continuous_dynamics(params: SRBDParams, x: torch.Tensor, u: torch.Tensor
+                        ) -> torch.Tensor:
+    """dx/dt = f(x, u), batched over leading axes (SRBD_model.cpp:87-99)."""
+    r, l, p, v = x[..., 0:3], x[..., 3:6], x[..., 6:9], x[..., 9:12]
+    R = so3.expm(r)
+    RIRt = R @ _p(params.inertia_inv, x) @ R.mT
+    w = _mv(RIRt, l)
+    r_dot = _mv(so3.jl_inv(r), w)
+    feet = _p(params.foot_pos, x)
+    l_dot = (u[..., 3:6] + u[..., 9:12]
+             + _cross(feet[0] - p, u[..., 0:3])
+             + _cross(feet[1] - p, u[..., 6:9]))
+    # gravity as a constant tensor: no in-place write, so torch.func traces it
+    g = torch.tensor([0.0, 0.0, GRAVITY], dtype=x.dtype, device=x.device)
+    v_dot = (u[..., 0:3] + u[..., 6:9]) / _p(params.mass, x) + g
+    return torch.cat([r_dot, l_dot, v, v_dot], dim=-1)
+
+
+def continuous_jacobians(params: SRBDParams, x: torch.Tensor, u: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form (J_fx, J_fu) [..., 12, 12] of the continuous dynamics
+    (SRBD_model.cpp:105-140), assembled from a 4x4 grid of 3x3 blocks."""
+    r, l, p = x[..., 0:3], x[..., 3:6], x[..., 6:9]
+    R = so3.expm(r)
+    RIRt = R @ _p(params.inertia_inv, x) @ R.mT
+    w = _mv(RIRt, l)
+    Jlt = so3.jl_inv(r)
+    Jl = so3.jl(r)
+    # djlt_w[..., :, a] = (d jl_inv / d r_a) @ w
+    djlt_w = torch.einsum("...aij,...j->...ia", so3.djl_inv(r), w)
+
+    D1 = djlt_w + Jlt @ (RIRt @ so3.skew(l) - so3.skew(w)) @ Jl
+    D2 = Jlt @ RIRt
+    SF = so3.skew(u[..., 0:3] + u[..., 6:9])
+    Z = torch.zeros_like(D1)
+    I = torch.eye(3, dtype=x.dtype, device=x.device).expand(D1.shape)
+
+    def row(*blocks):
+        return torch.cat(blocks, dim=-1)
+
+    J_fx = torch.cat([row(D1, D2, Z, Z), row(Z, Z, SF, Z), row(Z, Z, Z, I),
+                      row(Z, Z, Z, Z)], dim=-2)
+    feet = _p(params.foot_pos, x)
+    Sr = so3.skew(feet[0] - p)
+    Sl = so3.skew(feet[1] - p)
+    Im = I / _p(params.mass, x)
+    J_fu = torch.cat([row(Z, Z, Z, Z), row(Sr, I, Sl, I), row(Z, Z, Z, Z),
+                      row(Im, Z, Im, Z)], dim=-2)
+    return J_fx, J_fu
+
+
+def rk4_step(params: SRBDParams, x: torch.Tensor, u: torch.Tensor
+             ) -> torch.Tensor:
+    """Classical RK4 step of the SRBD ODE over ``params.dt``, batched
+    (SRBD_model.cpp:174-179)."""
+    dt = _p(params.dt, x)
+    k1 = continuous_dynamics(params, x, u)
+    k2 = continuous_dynamics(params, x + 0.5 * dt * k1, u)
+    k3 = continuous_dynamics(params, x + 0.5 * dt * k2, u)
+    k4 = continuous_dynamics(params, x + dt * k3, u)
+    return x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def shooting_defect(params: SRBDParams, x: torch.Tensor, x_next: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """Multiple-shooting defect ``x_next - RK4(x, u)`` (SRBD_model.cpp:189-197;
+    the orientation rows subtract plainly, as the reference does)."""
+    return x_next - rk4_step(params, x, u)
+
+
+def linearize_shooting(params: SRBDParams, x: torch.Tensor,
+                       x_next: torch.Tensor, u: torch.Tensor,
+                       sensitivity: str = "euler"):
+    """Linearized shooting: (A, B, b, f) with ``b = -f``, batched.
+
+    ``"euler"`` is the reference's: RK4 state, first-order sensitivities
+    ``A = I + dt J_fx``, ``B = dt J_fu`` (SRBD_model.cpp:180-181).
+    ``"exact"`` differentiates the RK4 map: ``torch.func.jacfwd`` over
+    ``rk4_step``, wrapped in ``torch.func.vmap`` once per leading axis."""
+    f = shooting_defect(params, x, x_next, u)
+    if sensitivity == "euler":
+        J_fx, J_fu = continuous_jacobians(params, x, u)
+        dt = _p(params.dt, x)
+        A = torch.eye(NX, dtype=x.dtype, device=x.device) + dt * J_fx
+        B = dt * J_fu
+    elif sensitivity == "exact":
+        jac = torch.func.jacfwd(lambda xx, uu: rk4_step(params, xx, uu),
+                                argnums=(0, 1))
+        for _ in range(x.dim() - 1):
+            jac = torch.func.vmap(jac)
+        A, B = jac(x, u)
+    else:
+        raise ValueError(f"unknown sensitivity mode: {sensitivity!r}")
+    return A, B, -f, f
+
+
+def constraint_values(params: SRBDParams, u: torch.Tensor) -> torch.Tensor:
+    """``Ac @ u + bc`` (>= 0 when feasible), batched (SRBD_model.cpp:259)."""
+    Ac, bc = constraint_matrix(params)
+    return _mv(_p(Ac, u), u) + _p(bc, u)

@@ -224,3 +224,19 @@ def count_merit_alpha(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du, alpha,
     return _run("merit", "srbd_merit_alpha_host_f64",
                 (consts, x, dx, u, du, xr, alpha, _empty(n), _empty(n)),
                 (N, n, float(mu_b), float(theta_b)), B, n)
+
+
+def count_merit(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, mu_b, theta_b,
+                with_grad=True, lanes=LANES):
+    """K7b (``merit_kernel.merit``), the variant ``with_grad`` picks; the
+    terminal gradient row the wrapper adds is not counted."""
+    N, B = u.shape[0], x.shape[-1]
+    idx = _lanes(B, lanes)
+    n = len(idx)
+    x, u, xr = _host(idx, x, u, xr)
+    consts = _consts(merit_kernel.kernel_constants(params, Q_w, Qf_w, R_w, Ac,
+                                                   bc))
+    return _run("merit", "srbd_merit_host_f64",
+                (consts, x, u, xr, _empty(4, n), _empty(N + 1, 12, n),
+                 _empty(N, 12, n)),
+                (N, n, float(mu_b), float(theta_b), int(with_grad)), B, n)

@@ -20,6 +20,7 @@ from srbd_nmpc_tpu.nmpc import engine as jengine
 from srbd_nmpc_tpu_torch import convert
 from srbd_nmpc_tpu_torch.models import srbd
 from srbd_nmpc_tpu_torch.nmpc import engine
+from srbd_nmpc_tpu_torch.ops import permute
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -197,16 +198,55 @@ def test_accept_matches_jax():
 @pytest.mark.parametrize("kw", [
     dict(qp_kernel="pscan"),
     dict(speculative=False, park_factor=True),
-    dict(park_factor=True), dict(qp_kernel="xla", sensitivity="exact"),
-    dict(sensitivity="exact"), dict(pscan_min_N=2), dict(unbatched=True),
+    dict(park_factor=True), dict(rank4=True),
+    dict(unbatched=True, qp_kernel="pscan"), dict(pscan_min_N=2),
+    dict(unbatched=True, pscan_min_N=2),
 ])
 def test_configurations_outside_the_slice_raise(kw):
+    """Still outside the port: the associative-scan Riccati (batched and
+    for one scenario, where the JAX unbatched step takes lqr_solve_pscan),
+    park_factor, and states of a rank other than 2 and 3."""
     params, weights, cfg, states, x0s, x_ref = _port_problem()
     kw = dict(kw)
     if kw.pop("unbatched", False):
         states = engine.NmpcState(x=states.x[0], u=states.u[0],
                                   alpha=states.alpha[0])
         x0s = x0s[0]
+    if kw.pop("rank4", False):
+        states = engine.NmpcState(x=states.x.reshape((4, 8) + states.x.shape[1:]),
+                                  u=states.u.reshape((4, 8) + states.u.shape[1:]),
+                                  alpha=states.alpha.reshape(4, 8))
+        x0s = x0s.reshape(4, 8, 12)
     cfg = dataclasses.replace(cfg, **{"qp_kernel": "auto", **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         engine.solve(params, weights, cfg, states, x0s, x_ref)
+
+
+@pytest.mark.parametrize("tiers", [(2, 8, 8), (np.int64(2), 8)])
+def test_compact_tiers_accept_numpy_ints_and_drop_duplicates(
+        port_solves, monkeypatch, tiers):
+    """``compact_tiers`` takes numpy integers, and a repeated width adds no
+    tier crossing (as many lane gathers as with (2, 8)); both give the
+    (2, 8) result, bitwise."""
+    params, weights, cfg, states, x0s, x_ref = _port_problem()
+    calls = []
+    take = permute.take_lanes
+    monkeypatch.setattr(permute, "take_lanes",
+                        lambda a, idx: calls.append(1) or take(a, idx))
+
+    def gathers(ts):
+        del calls[:]
+        out = engine.solve(params, weights, dataclasses.replace(
+            cfg, compact_tiers=ts), states, x0s, x_ref)
+        return out, len(calls)
+
+    (st, info), n = gathers(tiers)
+    _, n28 = gathers((2, 8))
+    st_t, info_t = port_solves["tiers28"]
+    assert n == n28 > 0
+    assert torch.equal(st.u, st_t.u) and torch.equal(st.x, st_t.x)
+    assert torch.equal(info.sqp_iters, info_t.sqp_iters)
+    assert torch.equal(info.status, info_t.status)
+    with pytest.raises(ValueError, match="compact_tiers"):
+        engine.solve(params, weights, dataclasses.replace(
+            cfg, compact_tiers=(2.0, 8)), states, x0s, x_ref)

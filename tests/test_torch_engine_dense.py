@@ -74,7 +74,7 @@ def _jax_problem(**kw):
 
 def _counts():
     return (dict(sqp_kernel.launches), sqp_planes.launches,
-            merit_kernel.launches, dict(permute.launches))
+            dict(merit_kernel.launches), dict(permute.launches))
 
 
 @pytest.fixture(scope="module", params=sorted(LOOPS))

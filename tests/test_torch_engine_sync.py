@@ -107,7 +107,8 @@ def test_route_matches_jax(route_solves):
 
 def test_routes_run_on_cpu_without_launching_kernels():
     counts = lambda: (sqp_planes.launches, srbd_linearize.launches,  # noqa
-                      merit_kernel.launches, dict(riccati_kernel.launches))
+                      dict(merit_kernel.launches),
+                      dict(riccati_kernel.launches))
     before = counts()
     for kw in ROUTES.values():
         engine.solve(*_port_problem(**kw))

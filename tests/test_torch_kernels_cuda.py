@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (K1 fused SQP trip, K2 lane permutes, K3a/K3b dense one-pass trips, K4 the
 two-pass solve, K5 stage linearization, K6 Riccati backward and forward
-passes, K7a line-search merit), at the main path's widths; one synchronous
-``pallas`` solve that launches K5, K6 and K7a, and the dense route's solves
-on both loops.
+passes, K7a line-search merit, K7b merit with and without gradients), at
+the main path's widths; one synchronous ``pallas`` solve that launches K5,
+K6 and K7a, the dense route's solves on both loops, the batched merit
+``engine._merit_fast`` through K7b, and the single-scenario solve on the
+card against the CPU.
 
 Needs a CUDA card and nvcc: on a machine without a card every test skips.
 Run on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
@@ -192,10 +194,10 @@ def test_k6_matches_plain(dev, const_q):
 
 def test_k7_matches_plain(dev):
     _, _, merit = _sync_args(dev, 4096)
-    before = merit_kernel.launches
+    before = merit_kernel.launches["merit_alpha"]
     got = merit_kernel.merit_alpha(*merit)
     torch.cuda.synchronize()
-    assert merit_kernel.launches == before + 1
+    assert merit_kernel.launches["merit_alpha"] == before + 1
     ref = merit_kernel.merit_alpha_ref(*merit)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
@@ -230,13 +232,13 @@ def test_sync_pallas_solve_launches_kernels(dev):
     states = sharded.broadcast_state(engine.NmpcState.initial(cfg.N, device=dev), B)
     before = (srbd_linearize.launches, riccati_kernel.launches[
         "riccati_bwd_constq"], riccati_kernel.launches["riccati_fwd"],
-        merit_kernel.launches)
+        merit_kernel.launches["merit_alpha"])
     st, info, summ = sharded.solve_batch(
         params, weights, dataclasses.replace(cfg, qp_kernel="pallas"), states,
         x0s, x_ref)
     after = (srbd_linearize.launches, riccati_kernel.launches[
         "riccati_bwd_constq"], riccati_kernel.launches["riccati_fwd"],
-        merit_kernel.launches)
+        merit_kernel.launches["merit_alpha"])
     assert all(a > b for a, b in zip(after, before))
     assert int(summ.n_converged) >= 0.95 * B
     assert torch.isfinite(st.u[info.converged]).all()
@@ -310,7 +312,7 @@ def test_dense_solve_launches_kernels(dev, speculative):
                           + 0.01 * rng.normal(size=(B, 12)),
                           dtype=torch.float32, device=dev)
     states = sharded.broadcast_state(engine.NmpcState.initial(cfg.N, device=dev), B)
-    before = (dict(sqp_kernel.launches), merit_kernel.launches,
+    before = (dict(sqp_kernel.launches), merit_kernel.launches["merit_alpha"],
               sqp_planes.launches)
     st, info, summ = sharded.solve_batch(params, weights, cfg, states, x0s, x_ref)
     k3 = {k: v - before[0][k] for k, v in sqp_kernel.launches.items()}
@@ -325,6 +327,85 @@ def test_dense_solve_launches_kernels(dev, speculative):
         assert torch.equal(info.sqp_iters, in_f.sqp_iters)
     else:
         assert k3["sqp_onepass"] == int(info.sqp_iters.max())
-        assert merit_kernel.launches > before[1]
+        assert merit_kernel.launches["merit_alpha"] > before[1]
     assert int(summ.n_converged) >= 0.95 * B
     assert torch.isfinite(st.u[info.converged]).all()
+
+
+@pytest.mark.parametrize("with_grad", [True, False])
+def test_k7b_matches_plain(dev, with_grad):
+    """K7b at N=20, B=4096 on random iterates (x ~ 0.1 N(0,1),
+    u ~ 90 + 20 N(0,1)): every output within 1e-4 of the plain version
+    (bitwise expected, as K7a)."""
+    rng = np.random.default_rng(3)
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    _, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+    N, B = cfg.N, 4096
+    x = torch.as_tensor(0.1 * rng.normal(size=(N + 1, 12, B)),
+                        dtype=torch.float32, device=dev)
+    u = torch.as_tensor(90 + 20 * rng.normal(size=(N, 12, B)),
+                        dtype=torch.float32, device=dev)
+    xr = x_ref[:, :, None].expand(N + 1, 12, B).contiguous()
+    Ac, bc = srbd.constraint_matrix(params)
+    args = (params, weights.Q, weights.Qf, weights.R, Ac, bc, x, u, xr,
+            cfg.mu_barrier, cfg.theta_barrier)
+    key = "merit" if with_grad else "merit_nograd"
+    before = merit_kernel.launches[key]
+    got = merit_kernel.merit(*args, with_grad=with_grad)
+    torch.cuda.synchronize()
+    assert merit_kernel.launches[key] == before + 1
+    ref = merit_kernel.merit_ref(*args, with_grad=with_grad)
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+            continue
+        assert torch.isfinite(g).all()
+        assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
+    with pytest.raises(TypeError, match="float32"):
+        merit_kernel.merit(*args[:6], x.double(), u.double(), xr.double(),
+                           *args[9:], with_grad=with_grad)
+
+
+def test_merit_fast_launches_k7b(dev):
+    """``engine._merit_fast`` on a batch with a shared reference and
+    ``qp_kernel="auto"`` launches K7b's variant for ``with_grad``."""
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    _, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+    B = 1024
+    st = sharded.broadcast_state(engine.NmpcState.initial(cfg.N, device=dev), B)
+    for g, key in ((True, "merit"), (False, "merit_nograd")):
+        before = dict(merit_kernel.launches)
+        out = engine._merit_fast(params, weights, cfg, st.x, st.u, x_ref,
+                                 with_grad=g)
+        torch.cuda.synchronize()
+        assert merit_kernel.launches[key] == before[key] + 1
+        assert len(out) == (6 if g else 4)
+        assert all(torch.isfinite(t).all() for t in out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_single_scenario_solve_on_the_card(dev, dtype):
+    """The single-scenario solve runs on CUDA tensors (no kernel; f64 and
+    f32) like on the CPU: same iterations, status and trips in f64."""
+    def run(device):
+        cfg = engine.NmpcConfig(refine=0 if dtype == torch.float64 else 1)
+        params = srbd.SRBDParams.create(dt=0.015, dtype=dtype, device=device)
+        weights = engine.NmpcWeights.create(
+            [0] * 11 + [10], 1e-4,
+            [.5, .5, .5, .01, .01, .01, 100, 100, 100, 0, 0, 100], cfg.N,
+            dtype, device=device)
+        x0, x_ref = engine.make_benchmark_problem(cfg, dtype, device=device)
+        return engine.solve(params, weights, cfg,
+                            engine.NmpcState.initial(cfg.N, dtype,
+                                                     device=device),
+                            x0, x_ref)
+
+    st, info = run(dev)
+    st_c, info_c = run("cpu")
+    assert st.u.device.type == "cuda" and torch.isfinite(st.u).all()
+    if dtype == torch.float64:
+        for name in ("sqp_iters", "status", "ls_trips"):
+            assert int(getattr(info, name)) == int(getattr(info_c, name))
+        assert float((st.u.cpu() - st_c.u).abs().max()) < 1e-8
+    else:
+        assert float((st.u.cpu().double() - st_c.u.double()).abs().max()) < 0.1

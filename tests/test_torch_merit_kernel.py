@@ -1,10 +1,12 @@
-"""PyTorch port of the line-search merit at a candidate (kernel K7a): the
-plain version vs the JAX ``merit_alpha_pallas`` in interpret mode, f64;
-and the CUDA source's per-scenario arithmetic, built as host C++ in f64,
-vs the plain version.
+"""PyTorch port of the batched merit: the line-search merit at a candidate
+(kernel K7a) and the merit with diagnostics and gradients (K7b, both
+variants). The plain versions vs the JAX ``merit_alpha_pallas`` /
+``merit_pallas`` in interpret mode, f64; and the CUDA source's
+per-scenario arithmetic, built as host C++ in f64, vs the plain versions.
 
 Tolerance: rtol 1e-12 (same formulas; the JAX row sums may be taken in
-another order)."""
+another order); the host build against the plain version also rtol 1e-12
+(same order, f64)."""
 
 import ctypes
 import dataclasses
@@ -63,6 +65,27 @@ def _port(params, weights, arr):
 
 
 @pytest.fixture(scope="module")
+def jax_ref_k7b():
+    """JAX merit_pallas (both variants) on the same inputs, interpret mode."""
+    from srbd_nmpc_tpu.models import merit_pallas
+
+    params, weights, arr = _problem()
+    orig = pl.pallas_call
+    pl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        Ac, bc = jsrbd.constraint_matrix(params)
+        outs = {g: [None if o is None else np.asarray(o)
+                    for o in merit_pallas.merit_pallas(
+                        params, weights.Q, weights.Qf, weights.R, Ac, bc,
+                        *(jnp.asarray(arr[k]) for k in ORDER[:3]), MU_B,
+                        THETA_B, block=8, with_grad=g)]
+                for g in (True, False)}
+        return params, weights, arr, outs
+    finally:
+        pl.pallas_call = orig
+
+
+@pytest.fixture(scope="module")
 def jax_ref():
     from srbd_nmpc_tpu.models import merit_pallas
 
@@ -82,7 +105,7 @@ def jax_ref():
 @pytest.mark.parametrize("i,name", [(0, "theta"), (1, "phi")])
 def test_plain_matches_jax_kernel(jax_ref, i, name):
     params, weights, arr, ref = jax_ref
-    before = merit_kernel.launches
+    before = dict(merit_kernel.launches)
     got = merit_kernel.merit_alpha(*_port(params, weights, arr))
     assert merit_kernel.launches == before   # CPU tensors: the plain version
     np.testing.assert_allclose(got[i].numpy(), ref[i], rtol=1e-12,
@@ -114,3 +137,61 @@ def test_cuda_source_host_build_matches_plain():
               out[0].data_ptr(), out[1].data_ptr(), N, B, MU_B, THETA_B) == 0
     np.testing.assert_allclose(out[0].numpy(), th_ref.numpy(), rtol=1e-12)
     np.testing.assert_allclose(out[1].numpy(), ph_ref.numpy(), rtol=1e-12)
+
+
+K7B_OUT = ("theta", "phi", "Jphi_x", "Jphi_u", "max_defect", "min_con")
+
+
+@pytest.mark.parametrize("with_grad", [True, False])
+def test_k7b_plain_matches_jax_kernel(jax_ref_k7b, with_grad):
+    params, weights, arr, outs = jax_ref_k7b
+    args = _port(params, weights, arr)
+    before = dict(merit_kernel.launches)
+    got = merit_kernel.merit(*args[:9], MU_B, THETA_B, with_grad=with_grad)
+    assert merit_kernel.launches == before   # CPU tensors: the plain version
+    for name, g, r in zip(K7B_OUT, got, outs[with_grad]):
+        if r is None:
+            assert g is None and not with_grad, name
+            continue
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-12, atol=1e-13,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("with_grad", [True, False])
+def test_k7b_cuda_source_host_build_matches_plain(with_grad):
+    """K7b's per-scenario body (csrc/merit.cu, both template variants)
+    compiled as host C++ in double precision reproduces the plain version:
+    the four diagnostics and the N running gradient rows (the terminal row
+    is the wrapper's)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    params, weights, arr = _problem(seed=2)
+    arr["x"][2, 3, 5] = np.nan      # a NaN scenario stays NaN in both
+    tp, Q, Qf, R, Ac, bc, x, u, xr = _port(params, weights, arr)[:9]
+    ref = merit_kernel.merit_ref(tp, Q, Qf, R, Ac, bc, x, u, xr, MU_B,
+                                 THETA_B, with_grad=with_grad)
+    lib = ctypes.CDLL(build.build_host(
+        f"{build.CSRC}/merit.cu", flags=("-O2", "-ffp-contract=off")))
+    fn = lib.srbd_merit_host_f64
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + \
+        [ctypes.c_double] * 2 + [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    consts = torch.cat([srbd_linearize.model_constants(tp), Ac.reshape(-1),
+                        bc, R.reshape(-1), Q.reshape(-1), Qf.reshape(-1)])
+    out = torch.empty((4, B), dtype=F64)
+    Jx = torch.zeros((N + 1, 12, B), dtype=F64)
+    Ju = torch.zeros((N, 12, B), dtype=F64)
+    assert fn(consts.data_ptr(), x.data_ptr(), u.data_ptr(), xr.data_ptr(),
+              out.data_ptr(), Jx.data_ptr(), Ju.data_ptr(), N, B, MU_B,
+              THETA_B, int(with_grad)) == 0
+    for i, j in ((0, 0), (1, 1), (2, 4), (3, 5)):
+        np.testing.assert_allclose(out[i].numpy(), ref[j].numpy(), rtol=1e-12,
+                                   err_msg=K7B_OUT[j])
+    assert np.isnan(out[0, 5].item()) and np.isnan(ref[0][5].item())
+    if with_grad:
+        np.testing.assert_allclose(Jx[:N].numpy(), ref[2][:N].numpy(),
+                                   rtol=1e-12, atol=1e-13)
+        np.testing.assert_allclose(Ju.numpy(), ref[3].numpy(), rtol=1e-12,
+                                   atol=1e-13)
+    else:
+        assert not Jx.any() and not Ju.any()   # nothing written

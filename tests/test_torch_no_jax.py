@@ -30,7 +30,7 @@ from srbd_nmpc_tpu_torch.nmpc.runner import build_from_options
 build_from_options(MpcOptions.default(), device="cpu")
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("srbd_nmpc_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -39,7 +39,12 @@ def test_imports_without_jax_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    names = proc.stdout.split()
+    assert len(names) >= 19
+    # the OCP-QP package and the AoS Riccati of the single-scenario solve
+    for name in ("ocpqp", "ocpqp.data", "ocpqp.solution", "ops.riccati",
+                 "ops.so3", "models.srbd"):
+        assert f"srbd_nmpc_tpu_torch.{name}" in names, name
 
 
 def test_sources_never_import_jax():

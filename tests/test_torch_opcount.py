@@ -125,13 +125,17 @@ def _count_args(kernel):
                             dict(reg=L["reg"])),
             "riccati_fwd": (opcount.count_riccati_fwd,
                             (*bwd, K, k, L["x0"]), {}),
-            "merit_alpha": (opcount.count_merit_alpha, mer, {})}[kernel]
+            "merit_alpha": (opcount.count_merit_alpha, mer, {}),
+            "merit": (opcount.count_merit, mer[:9] + mer[12:],
+                      dict(with_grad=True)),
+            "merit_nograd": (opcount.count_merit, mer[:9] + mer[12:],
+                             dict(with_grad=False))}[kernel]
 
 
 @pytest.mark.parametrize("kernel", [
     "sqp_planes", "sqp_onepass_cand", "sqp_onepass", "sqp_twopass_bwd",
     "sqp_twopass_fwd", "linearize", "riccati_bwd_constq", "riccati_bwd",
-    "riccati_fwd", "merit_alpha"])
+    "riccati_fwd", "merit_alpha", "merit", "merit_nograd"])
 def test_sampled_count_scales_to_the_batch(kernel):
     """On a batch of 8 copies of one scenario, counting 3 sampled lanes
     and counting every lane both give 8 times the one-lane count."""
@@ -140,3 +144,21 @@ def test_sampled_count_scales_to_the_batch(kernel):
     wide = _lane(args, 8)
     assert one > 0
     assert fn(*wide, **kw, lanes=3) == fn(*wide, **kw) == 8 * one
+
+
+def test_k7b_gradients_count_the_gradient_rows():
+    """K7b with gradients does the variant without them plus, per stage and
+    lane, the 12 rows of Ac' db + R u (24 products, 23 sums and one add
+    each: 576) and the barrier's derivative of each of the 24 rows (1
+    operation above theta, -mu / con; 5 at or below it)."""
+    rng = np.random.default_rng(3)
+    _, _, _, mer = smoke._sync_kernel_inputs(rng, 1, "cpu")
+    args = mer[:9] + mer[12:]
+    theta_b = mer[13]
+    grad = opcount.count_merit(*args, with_grad=True)
+    nograd = opcount.count_merit(*args, with_grad=False)
+    Ac, bc, u = (t.double().numpy() for t in (mer[4], mer[5], mer[7]))
+    con = np.einsum("gi,nib->ngb", Ac, u) + bc[None, :, None]
+    above = int((con > theta_b).sum())
+    assert grad - nograd == (576 * smoke.N_MAIN + above
+                             + 5 * (con.size - above))
