@@ -1,12 +1,12 @@
 """Single-rigid-body-dynamics (SRBD) model: constants, parameters, the
-dynamics in "AoS" layout (vectors ``[..., 12]``, batched over leading
-axes), their Euler and exact (RK4) sensitivities, and the friction-cone
-constraint rows.
+friction-cone constraint rows, and the dynamics in "AoS" layout (vectors
+``[..., 12]``, batched over leading axes) with the exact sensitivities of
+their RK4 map.
 
 Counterpart of ``srbd_nmpc_tpu/models/srbd.py``. This layout serves the
-single-scenario solve and the exact sensitivities; the batched solve runs
-the same model in batch-last layout (``models.srbd_soa``,
-``models.srbd_planes``).
+exact sensitivities, which ``torch.func`` differentiates per scenario and
+stage; the solves run the same model in batch-last layout
+(``models.srbd_soa``, ``models.srbd_planes``).
 
 State  x = [r (axis-angle, 3), l (angular momentum, 3), p (CoM, 3), v (3)]
 Input  u = [F_right (3), tau_right (3), F_left (3), tau_left (3)]
@@ -149,39 +149,6 @@ def continuous_dynamics(params: SRBDParams, x: torch.Tensor, u: torch.Tensor
     return torch.cat([r_dot, l_dot, v, v_dot], dim=-1)
 
 
-def continuous_jacobians(params: SRBDParams, x: torch.Tensor, u: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Closed-form (J_fx, J_fu) [..., 12, 12] of the continuous dynamics
-    (SRBD_model.cpp:105-140), assembled from a 4x4 grid of 3x3 blocks."""
-    r, l, p = x[..., 0:3], x[..., 3:6], x[..., 6:9]
-    R = so3.expm(r)
-    RIRt = R @ _p(params.inertia_inv, x) @ R.mT
-    w = _mv(RIRt, l)
-    Jlt = so3.jl_inv(r)
-    Jl = so3.jl(r)
-    # djlt_w[..., :, a] = (d jl_inv / d r_a) @ w
-    djlt_w = torch.einsum("...aij,...j->...ia", so3.djl_inv(r), w)
-
-    D1 = djlt_w + Jlt @ (RIRt @ so3.skew(l) - so3.skew(w)) @ Jl
-    D2 = Jlt @ RIRt
-    SF = so3.skew(u[..., 0:3] + u[..., 6:9])
-    Z = torch.zeros_like(D1)
-    I = torch.eye(3, dtype=x.dtype, device=x.device).expand(D1.shape)
-
-    def row(*blocks):
-        return torch.cat(blocks, dim=-1)
-
-    J_fx = torch.cat([row(D1, D2, Z, Z), row(Z, Z, SF, Z), row(Z, Z, Z, I),
-                      row(Z, Z, Z, Z)], dim=-2)
-    feet = _p(params.foot_pos, x)
-    Sr = so3.skew(feet[0] - p)
-    Sl = so3.skew(feet[1] - p)
-    Im = I / _p(params.mass, x)
-    J_fu = torch.cat([row(Z, Z, Z, Z), row(Sr, I, Sl, I), row(Z, Z, Z, Z),
-                      row(Im, Z, Im, Z)], dim=-2)
-    return J_fx, J_fu
-
-
 def rk4_step(params: SRBDParams, x: torch.Tensor, u: torch.Tensor
              ) -> torch.Tensor:
     """Classical RK4 step of the SRBD ODE over ``params.dt``, batched
@@ -194,40 +161,14 @@ def rk4_step(params: SRBDParams, x: torch.Tensor, u: torch.Tensor
     return x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
-def shooting_defect(params: SRBDParams, x: torch.Tensor, x_next: torch.Tensor,
-                    u: torch.Tensor) -> torch.Tensor:
-    """Multiple-shooting defect ``x_next - RK4(x, u)`` (SRBD_model.cpp:189-197;
-    the orientation rows subtract plainly, as the reference does)."""
-    return x_next - rk4_step(params, x, u)
-
-
-def linearize_shooting(params: SRBDParams, x: torch.Tensor,
-                       x_next: torch.Tensor, u: torch.Tensor,
-                       sensitivity: str = "euler"):
-    """Linearized shooting: (A, B, b, f) with ``b = -f``, batched.
-
-    ``"euler"`` is the reference's: RK4 state, first-order sensitivities
-    ``A = I + dt J_fx``, ``B = dt J_fu`` (SRBD_model.cpp:180-181).
-    ``"exact"`` differentiates the RK4 map: ``torch.func.jacfwd`` over
-    ``rk4_step``, wrapped in ``torch.func.vmap`` once per leading axis."""
-    f = shooting_defect(params, x, x_next, u)
-    if sensitivity == "euler":
-        J_fx, J_fu = continuous_jacobians(params, x, u)
-        dt = _p(params.dt, x)
-        A = torch.eye(NX, dtype=x.dtype, device=x.device) + dt * J_fx
-        B = dt * J_fu
-    elif sensitivity == "exact":
-        jac = torch.func.jacfwd(lambda xx, uu: rk4_step(params, xx, uu),
-                                argnums=(0, 1))
-        for _ in range(x.dim() - 1):
-            jac = torch.func.vmap(jac)
-        A, B = jac(x, u)
-    else:
-        raise ValueError(f"unknown sensitivity mode: {sensitivity!r}")
-    return A, B, -f, f
-
-
-def constraint_values(params: SRBDParams, u: torch.Tensor) -> torch.Tensor:
-    """``Ac @ u + bc`` (>= 0 when feasible), batched (SRBD_model.cpp:259)."""
-    Ac, bc = constraint_matrix(params)
-    return _mv(_p(Ac, u), u) + _p(bc, u)
+def rk4_jacobians(params: SRBDParams, x: torch.Tensor, u: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact sensitivities of the RK4 map, (A, B) = (d rk4 / dx, d rk4 / du)
+    [..., 12, 12]: ``torch.func.jacfwd`` over ``rk4_step``, wrapped in
+    ``torch.func.vmap`` once per leading axis (the JAX
+    ``linearize_shooting``'s ``"exact"`` sensitivities)."""
+    jac = torch.func.jacfwd(lambda xx, uu: rk4_step(params, xx, uu),
+                            argnums=(0, 1))
+    for _ in range(x.dim() - 1):
+        jac = torch.func.vmap(jac)
+    return jac(x, u)

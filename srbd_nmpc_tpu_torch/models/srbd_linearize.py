@@ -53,15 +53,18 @@ def kernel_constants(params: SRBDParams, Q_w, R_w, Ac, bc) -> torch.Tensor:
 
 
 def linearize_ref(params: SRBDParams, Q_w, R_w, Ac, bc, xs, xn, us, xr,
-                  mu_b: float, theta_b: float) -> Tuple[torch.Tensor, ...]:
+                  mu_b: float, theta_b: float, jac=srbd_soa.euler_AB
+                  ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K5. Inputs stage-major [N, 12, B]: state,
     next state, input and reference per stage. Returns (A, B
     [N,12,12,B], b, q, r_eff [N,12,B], R_eff [N,12,12,B], mer [N,8,B]);
     ``mer`` rows: 1/2 sum b^2, sum barrier, min constraint, max |b|,
-    1/2 u'Ru, 1/2 ex'q, 0, 0."""
+    1/2 u'Ru, 1/2 ex'q, 0, 0. ``jac(params, x, u)`` gives (A, B)
+    [12, 12, N, B] from x, u [12, N, B]: the Euler sensitivities (K5's)
+    by default; the ``xla`` route passes the exact ones."""
     dtype = xs.dtype
     x, x_next, u, x_r = (t.permute(1, 0, 2) for t in (xs, xn, us, xr))
-    A, Bm = srbd_soa.euler_AB(params, x, u)            # [12, 12, N, B]
+    A, Bm = jac(params, x, u)                          # [12, 12, N, B]
     b = srbd_soa.rk4(params, x, u) - x_next            # [12, N, B]
 
     Ac_b = Ac.to(dtype)[:, :, None, None]

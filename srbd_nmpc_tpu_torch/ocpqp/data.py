@@ -1,47 +1,19 @@
-"""OCP-QP data: stage-stacked tensors in plain dataclasses (counterpart of
-``srbd_nmpc_tpu/ocpqp/data.py``).
+"""OCP-QP data: stage-stacked tensors in a plain dataclass (counterpart of
+``srbd_nmpc_tpu/ocpqp/data.py``'s ``OcpQp``, its equality-constrained
+part: the IPM's bound and general-constraint fields come with the IPM).
 
 The QP over stages i = 0..N-1 (terminal N):
 
     min  sum_i 1/2 x_i' Q_i x_i + u_i' S_i x_i + 1/2 u_i' R_i u_i
               + q_i' x_i + r_i' u_i      (+ terminal 1/2 x_N' Q_N x_N + q_N' x_N)
     s.t. x_{i+1} = A_i x_i + B_i u_i + b_i
-         lbx <= x[idxbx] <= ubx          (stages 1..N; x_0 is fixed)
-         lbu <= u[idxbu] <= ubu          (stages 0..N-1)
-         lg  <= C x + D u <= ug          (stages 0..N; D only < N)
-
-Masks (0 disables a bound, 1 keeps it) follow HPIPM's semantics. One
-``(nbx, nbu, ng)`` triple holds for the whole horizon; per-stage variation
-is expressed with the masks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
 
 import torch
-
-
-@dataclasses.dataclass(frozen=True)
-class OcpQpDims:
-    """Dimensions of an OCP-QP, uniform across stages."""
-
-    N: int
-    nx: int
-    nu: int
-    nbx: int = 0
-    nbu: int = 0
-    ng: int = 0
-    ns: int = 0
-
-    @property
-    def n_ineq_per_stage(self) -> int:
-        return self.nbx + self.nbu + self.ng
-
-    @property
-    def has_constraints(self) -> bool:
-        return self.n_ineq_per_stage > 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,14 +22,7 @@ class OcpQp:
 
     Shapes (N = horizon):
       A [N,nx,nx]  B [N,nx,nu]  b [N,nx]
-      Q [N+1,nx,nx]  q [N+1,nx]  S [N,nu,nx]  R [N,nu,nu]  r [N,nu]
-      lbx/ubx/lbx_mask/ubx_mask [N+1,nbx]   (row 0 is ignored: x0 is fixed)
-      lbu/ubu/lbu_mask/ubu_mask [N,nbu]
-      C [N+1,ng,nx]  D [N,ng,nu]  lg/ug/lg_mask/ug_mask [N+1,ng]
-      Zl/Zu/zl/zu/lls/lus [N+1,ns]: soft constraints, the rows ``idxs`` of
-      the stacked per-stage [box-x, box-u, general] rows relaxed by slacks
-      with penalty 1/2 s' Z s + z' s.
-    ``idxbx``/``idxbu``/``idxs`` are index tuples, uniform across stages."""
+      Q [N+1,nx,nx]  q [N+1,nx]  S [N,nu,nx]  R [N,nu,nu]  r [N,nu]"""
 
     A: torch.Tensor
     B: torch.Tensor
@@ -67,89 +32,3 @@ class OcpQp:
     R: torch.Tensor
     q: torch.Tensor
     r: torch.Tensor
-
-    idxbx: Tuple[int, ...] = ()
-    lbx: Optional[torch.Tensor] = None
-    ubx: Optional[torch.Tensor] = None
-    lbx_mask: Optional[torch.Tensor] = None
-    ubx_mask: Optional[torch.Tensor] = None
-
-    idxbu: Tuple[int, ...] = ()
-    lbu: Optional[torch.Tensor] = None
-    ubu: Optional[torch.Tensor] = None
-    lbu_mask: Optional[torch.Tensor] = None
-    ubu_mask: Optional[torch.Tensor] = None
-
-    C: Optional[torch.Tensor] = None
-    D: Optional[torch.Tensor] = None
-    lg: Optional[torch.Tensor] = None
-    ug: Optional[torch.Tensor] = None
-    lg_mask: Optional[torch.Tensor] = None
-    ug_mask: Optional[torch.Tensor] = None
-
-    idxs: Tuple[int, ...] = ()
-    Zl: Optional[torch.Tensor] = None
-    Zu: Optional[torch.Tensor] = None
-    zl: Optional[torch.Tensor] = None
-    zu: Optional[torch.Tensor] = None
-    lls: Optional[torch.Tensor] = None
-    lus: Optional[torch.Tensor] = None
-
-    @property
-    def dims(self) -> OcpQpDims:
-        N, nx, nu = self.A.shape[-3], self.A.shape[-1], self.B.shape[-1]
-        ng = 0 if self.C is None else self.C.shape[-2]
-        return OcpQpDims(N=N, nx=nx, nu=nu, nbx=len(self.idxbx),
-                         nbu=len(self.idxbu), ng=ng, ns=len(self.idxs))
-
-    def check(self) -> None:
-        """Shape validation (HPIPM's ``OcpQpDim::checkSize``): every stacked
-        tensor must agree with the dims inferred from A and B; raises
-        ValueError otherwise."""
-        d = self.dims
-        N, nx, nu, nbx, nbu, ng = d.N, d.nx, d.nu, d.nbx, d.nbu, d.ng
-
-        def want(name, arr, shape):
-            if arr is None:
-                return
-            if tuple(arr.shape[-len(shape):]) != shape:
-                raise ValueError(f"OcpQp.{name}: expected trailing shape "
-                                 f"{shape}, got {tuple(arr.shape)}")
-
-        want("A", self.A, (N, nx, nx))
-        want("B", self.B, (N, nx, nu))
-        want("b", self.b, (N, nx))
-        want("Q", self.Q, (N + 1, nx, nx))
-        want("q", self.q, (N + 1, nx))
-        want("S", self.S, (N, nu, nx))
-        want("R", self.R, (N, nu, nu))
-        want("r", self.r, (N, nu))
-        if nbx:
-            if not all(0 <= i < nx for i in self.idxbx):
-                raise ValueError("OcpQp.idxbx entries must be in [0, nx)")
-            for name in ("lbx", "ubx", "lbx_mask", "ubx_mask"):
-                want(name, getattr(self, name), (N + 1, nbx))
-        if nbu:
-            if not all(0 <= i < nu for i in self.idxbu):
-                raise ValueError("OcpQp.idxbu entries must be in [0, nu)")
-            for name in ("lbu", "ubu", "lbu_mask", "ubu_mask"):
-                want(name, getattr(self, name), (N, nbu))
-        if ng:
-            want("C", self.C, (N + 1, ng, nx))
-            want("D", self.D, (N, ng, nu))
-            for name in ("lg", "ug", "lg_mask", "ug_mask"):
-                want(name, getattr(self, name), (N + 1, ng))
-        ns = d.ns
-        if ns:
-            if not all(0 <= i < nbx + nbu + ng for i in self.idxs):
-                raise ValueError("OcpQp.idxs entries must index the stacked "
-                                 "[box-x, box-u, general] rows")
-            for name in ("Zl", "Zu", "zl", "zu", "lls", "lus"):
-                want(name, getattr(self, name), (N + 1, ns))
-
-
-def unconstrained_qp(A, B, b, Q, S, R, q, r) -> OcpQp:
-    """An equality-constrained (LQR) OCP-QP from stacked arrays."""
-    qp = OcpQp(*(torch.as_tensor(a) for a in (A, B, b, Q, S, R, q, r)))
-    qp.check()
-    return qp

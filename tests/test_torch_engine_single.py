@@ -10,7 +10,9 @@ oracle (``native/srbd_oracle.cpp``) at the bars of
 with one refinement pass err_u / 100 < 1e-3). The merit functions are held
 to JAX's at rtol 1e-12 (same formulas, sums in another order), the
 linearization at 1e-11 absolute and the batched exact route at B=4 like the
-solve. Each JAX reference solve runs once per module."""
+solve. The port solves one scenario as a batch of one on the plain ``xla``
+route, and is held to that bit for bit. Each JAX reference solve runs once
+per module."""
 
 import dataclasses
 
@@ -257,3 +259,20 @@ def test_single_solve_ignores_batched_only_options(port_solves):
     ref_st, ref_info = port_solves["default"]
     assert torch.equal(got[0].u, ref_st.u)
     assert torch.equal(got[1].sqp_iters, ref_info.sqp_iters)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_single_solve_is_a_batch_of_one(port_solves, case):
+    """One scenario is a batch of one on the plain ``xla`` route: the same
+    iterate and diagnostics, bit for bit, as that batch's solve."""
+    p, w, cfg, st, x0, x_ref = _port_setup(**CASES[case])
+    batch = engine.NmpcState(x=st.x[None], u=st.u[None],
+                             alpha=st.alpha.reshape(1))
+    st_b, info_b = engine.solve(p, w, dataclasses.replace(cfg, qp_kernel="xla"),
+                                batch, x0[None], x_ref)
+    st_s, info_s = port_solves[case]
+    assert st_s.x.shape == st.x.shape and info_s.status.dim() == 0
+    assert torch.equal(st_s.x, st_b.x[0]) and torch.equal(st_s.u, st_b.u[0])
+    for f in dataclasses.fields(info_s):
+        assert torch.equal(getattr(info_s, f.name),
+                           getattr(info_b, f.name)[0]), f.name

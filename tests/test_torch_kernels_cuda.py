@@ -386,7 +386,8 @@ def test_merit_fast_launches_k7b(dev):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_single_scenario_solve_on_the_card(dev, dtype):
     """The single-scenario solve runs on CUDA tensors (no kernel; f64 and
-    f32) like on the CPU: same iterations, status and trips in f64."""
+    f32) like on the CPU: same iterations, status and trips, u within
+    1e-8 (f64) or 2.5e-4 (f32 with one refinement pass)."""
     def run(device):
         cfg = engine.NmpcConfig(refine=0 if dtype == torch.float64 else 1)
         params = srbd.SRBDParams.create(dt=0.015, dtype=dtype, device=device)
@@ -403,9 +404,9 @@ def test_single_scenario_solve_on_the_card(dev, dtype):
     st, info = run(dev)
     st_c, info_c = run("cpu")
     assert st.u.device.type == "cuda" and torch.isfinite(st.u).all()
-    if dtype == torch.float64:
-        for name in ("sqp_iters", "status", "ls_trips"):
-            assert int(getattr(info, name)) == int(getattr(info_c, name))
-        assert float((st.u.cpu() - st_c.u).abs().max()) < 1e-8
-    else:
-        assert float((st.u.cpu().double() - st_c.u.double()).abs().max()) < 0.1
+    for name in ("sqp_iters", "status", "ls_trips"):
+        assert int(getattr(info, name)) == int(getattr(info_c, name))
+    # f32: a lost refinement pass or a lower precision fails here (u ~100 N;
+    # the card measured 2.3e-05 N from the CPU)
+    tol = 1e-8 if dtype == torch.float64 else 2.5e-4
+    assert float((st.u.cpu() - st_c.u).abs().max()) < tol

@@ -41,9 +41,9 @@ def test_imports_without_jax_or_yaml():
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
     assert len(names) >= 19
-    # the OCP-QP package and the AoS Riccati of the single-scenario solve
-    for name in ("ocpqp", "ocpqp.data", "ocpqp.solution", "ops.riccati",
-                 "ops.so3", "models.srbd"):
+    # the OCP-QP package, the shared Riccati solve and the AoS model
+    for name in ("ocpqp", "ocpqp.data", "ops.riccati_soa", "ops.so3",
+                 "models.srbd"):
         assert f"srbd_nmpc_tpu_torch.{name}" in names, name
 
 

@@ -1,8 +1,10 @@
-"""PyTorch port of ``ops/riccati.py`` and the OCP-QP data classes vs the
-JAX modules, f64, on the random strictly convex QPs of
-``tests/test_riccati.py`` (N=20, nx=5, nu=3). Tolerance: 1e-10 absolute on
-every output of the solution surface (the recursion's small products and
-triangular solves round in another order than XLA's)."""
+"""The port's Riccati LQR solve (``ops/riccati_soa.py``, which the single
+scenario and the batched ``xla`` route share) vs the JAX single scenario's
+``ops/riccati.py``, f64, on the random strictly convex QPs of
+``tests/test_riccati.py`` (N=20, nx=5, nu=3), one QP as a batch of one
+(B=1) like the engine's single scenario. Tolerance: 1e-10 absolute on every
+output (the recursion's small products and triangular solves round in
+another order than XLA's)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +12,7 @@ import pytest
 import torch
 
 from srbd_nmpc_tpu.ops import riccati as jric
-from srbd_nmpc_tpu_torch.ocpqp.data import OcpQp, unconstrained_qp
-from srbd_nmpc_tpu_torch.ops import riccati
+from srbd_nmpc_tpu_torch.ops import riccati_soa
 from test_riccati import random_qp
 
 torch.set_num_threads(1)
@@ -19,103 +20,93 @@ FIELDS = ("A", "B", "b", "Q", "S", "R", "q", "r")
 TOL = 1e-10
 
 
-def _port_qp(qp):
-    return unconstrained_qp(*(np.array(getattr(qp, k)) for k in FIELDS))
+def _soa(qp, *qps):
+    """The QPs' fields stacked batch-last ([N, n, m, B]), as the engine
+    hands them to ``lqr_solve``."""
+    return [torch.stack([torch.as_tensor(np.array(getattr(p, k)))
+                         for p in (qp,) + qps], dim=-1) for k in FIELDS]
+
+
+def _bf(qp):
+    """One QP's fields with a leading batch axis of one ([1, N, n, m])."""
+    return [torch.as_tensor(np.array(getattr(qp, k)))[None] for k in FIELDS]
 
 
 def _x0(n=5, seed=5):
     return np.random.default_rng(seed).uniform(-1, 1, size=n)
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(refine=1), dict(sqrt=True),
+@pytest.mark.parametrize("kw", [dict(), dict(refine=1),
                                 dict(reg=1e-9, refine=2)])
 def test_lqr_solve_matches_jax(kw):
     qp = random_qp(seed=31)
     x0 = _x0()
     ref = jric.lqr_solve(qp, jnp.asarray(x0), **kw)
-    got = riccati.lqr_solve(_port_qp(qp), torch.as_tensor(x0), **kw)
-    for name in ("x", "u", "pi", "P", "p", "K", "k"):
-        np.testing.assert_allclose(getattr(got, name).numpy(),
+    got = riccati_soa.lqr_solve(*_soa(qp), torch.as_tensor(x0)[:, None], **kw)
+    for name, g in zip(("x", "u", "pi"), got):
+        np.testing.assert_allclose(g[..., 0].numpy(),
                                    np.asarray(getattr(ref, name)), atol=TOL,
                                    err_msg=name)
 
 
 def test_kkt_residuals_and_sweeps_match_jax():
+    """KKT residuals at a random point, the backward sweep (P, p, K, k) and
+    the forward rollout, against ``kkt_residuals``, ``lqr_backward`` and
+    ``lqr_forward``; the solve's own residuals vanish."""
     qp = random_qp(N=12, seed=32)
-    tq = _port_qp(qp)
+    A, B, b, Q, S, R, q, r = _bf(qp)
     x0 = _x0(seed=6)
     rng = np.random.default_rng(7)
     x, u, pi = (rng.normal(size=s) for s in ((13, 5), (12, 3), (13, 5)))
-    got = riccati.kkt_residuals(tq, *(torch.as_tensor(a) for a in (x, u, pi)))
+    got = riccati_soa.kkt_residuals(A, B, b, Q, S, R, q, r,
+                                    *(torch.as_tensor(a)[None]
+                                      for a in (x, u, pi)))
     ref = jric.kkt_residuals(qp, *(jnp.asarray(a) for a in (x, u, pi)))
-    for g, r in zip(got, ref):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL)
-    P, p, K, k = riccati.lqr_backward(tq)
-    for g, r in zip((P, p, K, k), jric.lqr_backward(qp)):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL)
-    xs, us = riccati.lqr_forward(tq, torch.as_tensor(x0), K, k)
-    for g, r in zip((xs, us), jric.lqr_forward(qp, jnp.asarray(x0),
-                                               jnp.asarray(K.numpy()),
-                                               jnp.asarray(k.numpy()))):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL)
-    sol = riccati.lqr_solve(tq, torch.as_tensor(x0))
-    for res in riccati.kkt_residuals(tq, sol.x, sol.u, sol.pi):
+    for g, rr in zip(got, ref):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(rr), atol=TOL)
+    fac = riccati_soa.factorize(A, B, Q, S, R)
+    xs, us, _, p, k = riccati_soa.solve_vectors(
+        fac, A, B, b, q, r, torch.as_tensor(x0)[None])
+    for g, rr in zip((fac.P, p, fac.K, k), jric.lqr_backward(qp)):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(rr), atol=TOL)
+    for g, rr in zip((xs, us), jric.lqr_forward(qp, jnp.asarray(x0),
+                                                jnp.asarray(fac.K[0].numpy()),
+                                                jnp.asarray(k[0].numpy()))):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(rr), atol=TOL)
+    sol = riccati_soa.lqr_solve(*_soa(qp), torch.as_tensor(x0)[:, None])
+    for res in riccati_soa.kkt_residuals(
+            A, B, b, Q, S, R, q, r, *(t.movedim(-1, 0) for t in sol)):
         assert float(res.abs().max()) < 1e-9
 
 
-def test_sqrt_factors_match_jax():
+def test_factors_match_jax():
+    """The factorization (P, K, L, H) against ``riccati_factorize``."""
     qp = random_qp(N=15, seed=77)
-    tq = _port_qp(qp)
-    args = (tq.A, tq.B, tq.Q, tq.S, tq.R)
-    for port, jax_fn in ((riccati.riccati_factorize, jric.riccati_factorize),
-                         (riccati.riccati_factorize_sqrt,
-                          jric.riccati_factorize_sqrt)):
-        got = port(*args)
-        ref = jax_fn(qp.A, qp.B, qp.Q, qp.S, qp.R)
-        for name in ("P", "K", "L", "H"):
-            np.testing.assert_allclose(getattr(got, name).numpy(),
-                                       np.asarray(getattr(ref, name)),
-                                       atol=1e-8 if name == "L" else TOL,
-                                       err_msg=name)
+    A, B, _, Q, S, R, _, _ = _bf(qp)
+    got = riccati_soa.factorize(A, B, Q, S, R)
+    ref = jric.riccati_factorize(qp.A, qp.B, qp.Q, qp.S, qp.R)
+    for name in ("P", "K", "L", "H"):
+        np.testing.assert_allclose(getattr(got, name)[0].numpy(),
+                                   np.asarray(getattr(ref, name)), atol=TOL,
+                                   err_msg=name)
 
 
 def test_batched_leading_axis_and_nan_on_indefinite():
-    """A leading batch axis solves each QP as alone; a G that is not
-    positive definite gives NaN factors (no exception, no host read), as
-    JAX's Cholesky does."""
+    """A batch solves each QP as alone; a G that is not positive definite
+    gives NaN (no exception, no host read), as JAX's Cholesky does."""
     qps = [random_qp(N=6, seed=s) for s in (1, 2)]
-    x0s = np.stack([_x0(seed=8), _x0(seed=9)])
-    stacked = OcpQp(*(torch.stack([torch.as_tensor(np.array(getattr(q, k)))
-                                   for q in qps]) for k in FIELDS))
-    both = riccati.lqr_solve(stacked, torch.as_tensor(x0s))
+    x0s = np.stack([_x0(seed=8), _x0(seed=9)], axis=-1)       # [nx, B]
+    both = riccati_soa.lqr_solve(*_soa(*qps), torch.as_tensor(x0s))
     for i, q in enumerate(qps):
-        one = riccati.lqr_solve(_port_qp(q), torch.as_tensor(x0s[i]))
-        np.testing.assert_allclose(both.u[i].numpy(), one.u.numpy(),
-                                   atol=1e-12)
-    bad = _port_qp(qps[0])
-    bad = OcpQp(**{k: getattr(bad, k) for k in FIELDS[:5]}, R=-bad.R, q=bad.q,
-                r=bad.r)
-    sol = riccati.lqr_solve(bad, torch.as_tensor(x0s[0]))
-    assert torch.isnan(sol.u).all()
+        one = riccati_soa.lqr_solve(*_soa(q), torch.as_tensor(x0s[:, i:i + 1]))
+        for a, b in zip(both, one):
+            np.testing.assert_allclose(a[..., i].numpy(), b[..., 0].numpy(),
+                                       atol=1e-12)
+    bad = _soa(qps[0])
+    bad[5] = -bad[5]                                          # R -> -R
+    x, u, _ = riccati_soa.lqr_solve(*bad, torch.as_tensor(x0s[:, :1]))
+    assert torch.isnan(u).all()
     ref = jric.lqr_solve(
-        type(qps[0])(**{k: jnp.asarray(getattr(bad, k).numpy())
-                        for k in FIELDS}), jnp.asarray(x0s[0]))
+        type(qps[0])(**{k: jnp.asarray(t[..., 0].numpy())
+                        for k, t in zip(FIELDS, bad)}), jnp.asarray(x0s[:, 0]))
     assert np.isnan(np.asarray(ref.u)).all()
-
-
-def test_ocpqp_dims_and_check():
-    qp = _port_qp(random_qp(N=4, seed=3))
-    d = qp.dims
-    assert (d.N, d.nx, d.nu, d.n_ineq_per_stage, d.has_constraints) == \
-        (4, 5, 3, 0, False)
-    boxed = OcpQp(**{k: getattr(qp, k) for k in FIELDS}, idxbu=(0, 2),
-                  lbu=torch.zeros(4, 2), ubu=torch.ones(4, 2))
-    assert boxed.dims.nbu == 2 and boxed.dims.has_constraints
-    boxed.check()
-    with pytest.raises(ValueError, match="lbu"):
-        OcpQp(**{k: getattr(qp, k) for k in FIELDS}, idxbu=(0,),
-              lbu=torch.zeros(4, 2)).check()
-    with pytest.raises(ValueError, match="idxbx"):
-        OcpQp(**{k: getattr(qp, k) for k in FIELDS}, idxbx=(9,)).check()
-    with pytest.raises(ValueError, match="OcpQp.b"):
-        unconstrained_qp(qp.A, qp.B, qp.b[:-1], qp.Q, qp.S, qp.R, qp.q, qp.r)

@@ -1,10 +1,11 @@
-"""PyTorch port of ``models/srbd.py``'s AoS model (continuous dynamics and
-Jacobians, RK4, shooting defect, both sensitivities, constraint values)
-vs the JAX module, f64, on random states with two leading batch axes.
-Tolerances: rtol 1e-12 for the closed-form functions (same formulas; only
-the rounding of small products may differ), 1e-10 for the exact
-sensitivities (``torch.func.jacfwd`` vs ``jax.jacfwd``: the same chain
-rule, differentiated by two tracers)."""
+"""PyTorch port of ``models/srbd.py``'s AoS model (continuous dynamics, RK4
+and the exact sensitivities of the RK4 map) and of the Euler
+sensitivities the solves use (``models/srbd_soa.euler_AB``) vs the JAX
+module, f64, on random states with two leading batch axes. Tolerances:
+rtol 1e-12 for the closed-form functions (same formulas; only the rounding
+of small products may differ), 1e-10 for the exact sensitivities
+(``torch.func.jacfwd`` vs ``jax.jacfwd``: the same chain rule,
+differentiated by two tracers)."""
 
 import dataclasses
 
@@ -15,7 +16,8 @@ import torch
 
 from srbd_nmpc_tpu.models import srbd as jsrbd
 from srbd_nmpc_tpu_torch import convert
-from srbd_nmpc_tpu_torch.models import srbd
+from srbd_nmpc_tpu_torch.models import srbd, srbd_soa
+from srbd_nmpc_tpu_torch.nmpc import engine
 
 torch.set_num_threads(1)
 
@@ -38,8 +40,7 @@ def _close(got, ref, rtol=1e-12):
                                atol=rtol * 1e-2)
 
 
-@pytest.mark.parametrize("name", ["continuous_dynamics", "continuous_jacobians",
-                                  "rk4_step"])
+@pytest.mark.parametrize("name", ["continuous_dynamics", "rk4_step"])
 def test_model_functions_match_jax(name):
     jp, tp, x, _, u = _inputs()
     got = getattr(srbd, name)(tp, torch.as_tensor(x), torch.as_tensor(u))
@@ -52,38 +53,37 @@ def test_model_functions_match_jax(name):
 @pytest.mark.parametrize("sensitivity,rtol", [("euler", 1e-12),
                                               ("exact", 1e-10)])
 def test_linearize_shooting_matches_jax(sensitivity, rtol):
-    """(A, B, b, f); the exact A, B are torch.func.jacfwd over rk4_step,
-    vmapped over both leading axes, against jax.jacfwd."""
+    """JAX's (A, B): the exact ones are ``srbd.rk4_jacobians``
+    (torch.func.jacfwd over rk4_step, vmapped over both leading axes), the
+    Euler ones ``srbd_soa.euler_AB`` in SoA layout."""
     jp, tp, x, xn, u = _inputs(1)
-    got = srbd.linearize_shooting(tp, torch.as_tensor(x), torch.as_tensor(xn),
-                                  torch.as_tensor(u), sensitivity)
+    tx, tu = torch.as_tensor(x), torch.as_tensor(u)
+    if sensitivity == "exact":
+        got = srbd.rk4_jacobians(tp, tx, tu)
+    else:
+        got = tuple(J.movedim(0, -1).movedim(0, -1)
+                    for J in srbd_soa.euler_AB(tp, tx.movedim(-1, 0),
+                                               tu.movedim(-1, 0)))
     ref = jsrbd.linearize_shooting(jp, jnp.asarray(x), jnp.asarray(xn),
                                    jnp.asarray(u), sensitivity)
     assert got[0].shape == (3, 4, 12, 12) and got[1].shape == (3, 4, 12, 12)
-    for g, r in zip(got, ref):
+    for g, r in zip(got, ref[:2]):
         _close(g, r, rtol)
 
 
 def test_exact_sensitivity_one_scenario_matches_jax():
-    """One leading (stage) axis, as the single-scenario solve calls it."""
+    """One leading (stage) axis, as one scenario's stages are; an unknown
+    sensitivity mode raises in the solve, as in JAX."""
     jp, tp, x, xn, u = _inputs(2)
-    got = srbd.linearize_shooting(tp, torch.as_tensor(x[0]),
-                                  torch.as_tensor(xn[0]), torch.as_tensor(u[0]),
-                                  "exact")
+    got = srbd.rk4_jacobians(tp, torch.as_tensor(x[0]), torch.as_tensor(u[0]))
     ref = jsrbd.linearize_shooting(jp, jnp.asarray(x[0]), jnp.asarray(xn[0]),
                                    jnp.asarray(u[0]), "exact")
-    for g, r in zip(got[:2], ref[:2]):
+    for g, r in zip(got, ref[:2]):
         _close(g, r, 1e-10)
+    cfg = engine.NmpcConfig(N=3, sensitivity="bogus")
     with pytest.raises(ValueError, match="sensitivity"):
-        srbd.linearize_shooting(tp, torch.as_tensor(x), torch.as_tensor(xn),
-                                torch.as_tensor(u), "bogus")
-
-
-def test_defect_and_constraint_values_match_jax():
-    jp, tp, x, xn, u = _inputs(3)
-    _close(srbd.shooting_defect(tp, torch.as_tensor(x), torch.as_tensor(xn),
-                                torch.as_tensor(u)),
-           jsrbd.shooting_defect(jp, jnp.asarray(x), jnp.asarray(xn),
-                                 jnp.asarray(u)))
-    _close(srbd.constraint_values(tp, torch.as_tensor(u)),
-           jsrbd.constraint_values(jp, jnp.asarray(u)))
+        engine.solve(tp, engine.NmpcWeights.create(
+            [1.0] * 12, 1e-4, [1.0] * 12, 3, torch.float64, device="cpu"),
+            cfg, engine.NmpcState.initial(3, torch.float64, device="cpu"),
+            torch.zeros(12, dtype=torch.float64),
+            torch.zeros((4, 12), dtype=torch.float64))
