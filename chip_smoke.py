@@ -3,7 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc``, checks each
-against its plain PyTorch version at the main path's shapes, then drives the
+against its plain PyTorch version at the main path's shapes (phase 3: the
+lane permutes K2a/K2b bitwise on the engine's shapes and the edge cases,
+timed on the device and per call beside ``index_select`` / ``index_copy``
+at every compaction crossing of the cold solve), then drives the
 port's main path (``parallel.sharded.solve_batch``, the default NmpcConfig:
 N=20, speculative fused SQP trips, compaction tiers (2, 8, 32)) on a cold and
 a warm B=131072 solve, and checks the results: convergence, compaction
@@ -42,6 +45,12 @@ Every phase prints one line and raises on failure (non-zero exit). The line
 before the last is the card's ``nvidia-smi`` name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA card the script
 exits non-zero before any result. Imports nothing of JAX.
+
+    python3 chip_smoke.py --k2-only [--root DIR]
+
+runs phases 1-3 alone (only ``permute.cu`` is built); with ``--root`` on
+the ``srbd_nmpc_tpu_torch`` of another checkout, e.g. an unpacked older
+commit, so that two versions of K2 compare on one card.
 """
 
 from __future__ import annotations
@@ -142,7 +151,7 @@ def phase_device():
     return name, smi
 
 
-def phase_build():
+def phase_build(sources=SOURCES, counters=True):
     from concurrent.futures import ThreadPoolExecutor
 
     from srbd_nmpc_tpu_torch.utils import build, opcount
@@ -150,19 +159,20 @@ def phase_build():
     t0 = time.perf_counter()
     # one nvcc per source, all started together, beside the g++ builds of
     # the operation counters
-    with ThreadPoolExecutor(len(SOURCES) + len(opcount.SOURCES)) as pool:
-        done = [pool.submit(build.build, s) for s in SOURCES]
-        done += [pool.submit(opcount.build_source, s) for s in opcount.SOURCES]
+    counted = opcount.SOURCES if counters else ()
+    with ThreadPoolExecutor(len(sources) + len(counted)) as pool:
+        done = [pool.submit(build.build, s) for s in sources]
+        done += [pool.submit(opcount.build_source, s) for s in counted]
         for f in done:
             f.result()
     spills = {}
-    for name in SOURCES:
+    for name in sources:
         build.load_kernel(name)
         lines = [ln.strip() for ln in build.build_log(name).splitlines()
                  if "spill" in ln or "registers" in ln]
         spills[name] = lines
     secs = time.perf_counter() - t0
-    print(f"[2 build] {len(SOURCES)} sources (and {len(opcount.SOURCES)} "
+    print(f"[2 build] {len(sources)} sources (and {len(counted)} "
           "operation counters) built in parallel and loaded in "
           f"{secs:.1f} s", flush=True)
     for name, lines in spills.items():
@@ -171,51 +181,192 @@ def phase_build():
     return secs
 
 
-def phase_permute(dev):
+# K2's shapes on the cold speculative path: the compaction crossings
+# B -> B/2 -> B/8 -> B/32 gather xa and dx [21,12,.], us and du [20,12,.]
+# and x0s [12,.]; the way back scatters xa and us. (leading shape,
+# launches per crossing)
+K2_CROSSINGS = ((B_MAIN, B_MAIN // 2), (B_MAIN // 2, B_MAIN // 8),
+                (B_MAIN // 8, B_MAIN // 32))
+K2_GATHERS = (((N_MAIN + 1, 12), 2), ((N_MAIN, 12), 2), ((12,), 1))
+K2_SCATTERS = (((N_MAIN + 1, 12), 1), ((N_MAIN, 12), 1))
+L2_BYTES = 50e6
+# float32 words a permute must carry bit for bit: -0, +-inf, NaNs with
+# payloads (as int32)
+SPECIAL_WORDS = np.array([0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001,
+                          0xFFBADBAD, 0x7F812345], np.uint32).view(np.int32)
+
+
+def _graph_ms(fn, reps: int = 100, per_graph: int = 20) -> float:
+    """Device milliseconds per call of ``fn()``: ``reps`` calls captured in
+    CUDA graphs of ``per_graph`` and replayed, so no host time lies between
+    the launches (CUDA events around the replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps // per_graph):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps // per_graph * per_graph)
+
+
+def _k2_data(gen, shape, dev):
+    """Normal float32 data from ``gen`` with SPECIAL_WORDS among it."""
+    t = torch.randn(shape, generator=gen, device=dev)
+    pos = torch.randint(0, t.numel(), (4 * len(SPECIAL_WORDS),),
+                        generator=gen, device=dev)
+    t.view(-1).view(torch.int32)[pos] = torch.as_tensor(
+        np.resize(SPECIAL_WORDS, pos.numel()), device=dev)
+    return t
+
+
+def _same_bits(x, y) -> bool:
+    return x.shape == y.shape and torch.equal(x.view(torch.int32),
+                                              y.view(torch.int32))
+
+
+def _k2_turns(kernel, library):
+    """(kernel, library) ms per call, device (CUDA graphs) and as called
+    (back-to-back eager calls), each the mean of two runs taken in turns:
+    library, kernel, kernel, library."""
+    lib1, ker1 = _graph_ms(library), _graph_ms(kernel)
+    ker2, lib2 = _graph_ms(kernel), _graph_ms(library)
+    dev_ms = ((ker1 + ker2) / 2, (lib1 + lib2) / 2)
+    lib1, ker1 = _cuda_ms(library, 100), _cuda_ms(kernel, 100)
+    ker2, lib2 = _cuda_ms(kernel, 100), _cuda_ms(library, 100)
+    return dev_ms, ((ker1 + ker2) / 2, (lib1 + lib2) / 2)
+
+
+def phase_permute(dev, strict=True):
+    """K2a/K2b bitwise against their plain versions (index_select /
+    index_copy) on the engine's shapes and the edge cases, with int32 and
+    int64 idx; their times at every shape the cold speculative path
+    launches them on, beside the library call; device kernels per call.
+    ``strict=False`` (an older tree's K2, for comparison) reports the
+    kernels per call instead of requiring one."""
     from srbd_nmpc_tpu_torch.ops import permute
 
     rng = np.random.default_rng(3)
-    shape = (N_MAIN + 1, 12, B_MAIN)
-    a = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
-    for Bc in (65536, 4096):
-        for clumpy in (False, True):
-            idx = torch.as_tensor(_sorted_idx(rng, B_MAIN, Bc, clumpy),
-                                  device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    main = (N_MAIN + 1, 12)
+    half = B_MAIN // 2
+    cases = [(f"{list(main) + [B_MAIN]} -> {Bc} {kind}", main, B_MAIN,
+              _sorted_idx(rng, B_MAIN, Bc, kind == "clumpy"))
+             for Bc in (half, B_MAIN // 32) for kind in ("uniform", "clumpy")]
+    cases += [(f"dense prefix {half}", main, B_MAIN, np.arange(half)),
+              ("Bc = B", main, B_MAIN, np.arange(B_MAIN)),
+              (f"x0s [12,{B_MAIN}] -> {half}", (12,), B_MAIN,
+               _sorted_idx(rng, B_MAIN, half, False)),
+              ("[7,500] -> 77", (7,), 500, _sorted_idx(rng, 500, 77, False)),
+              ("[3,12,4099] -> 1031", (3, 12), 4099,
+               _sorted_idx(rng, 4099, 1031, True))]
+    data = {}
+    for name, lead, B, idx_np in cases:
+        if (lead, B) not in data:
+            data[(lead, B)] = _k2_data(gen, lead + (B,), dev)
+        a = data[(lead, B)]
+        a_bits = a.clone()
+        src = _k2_data(gen, lead + (len(idx_np),), dev)
+        for dtype in (torch.int32, torch.int64):
+            idx = torch.as_tensor(idx_np, dtype=dtype, device=dev)
+            idx64 = idx.long()
             got = permute.take_lanes(a, idx)
-            ref = permute.take_lanes_ref(a, idx)
-            src = torch.as_tensor(rng.normal(size=shape[:-1] + (Bc,)),
-                                  dtype=torch.float32, device=dev)
             got_s = permute.set_lanes(a, src, idx)
-            ref_s = permute.set_lanes_ref(a, src, idx)
+            ok = (_same_bits(got, permute.take_lanes_ref(a, idx64))
+                  and _same_bits(got_s, permute.set_lanes_ref(a, src, idx64))
+                  and _same_bits(a, a_bits)
+                  and torch.equal(idx.cpu().long(), torch.as_tensor(idx_np)))
             torch.cuda.synchronize()
-            if not (torch.equal(got, ref) and torch.equal(got_s, ref_s)):
-                raise AssertionError(f"K2 not bitwise at Bc={Bc} clumpy={clumpy}")
-    # time at the first tier crossing of the main path: [21,12,B] -> B/2;
-    # the library calls are index_select / index_copy themselves
+            if not ok:
+                raise AssertionError(f"K2 not bitwise on {name} ({dtype})")
+        del a_bits, src
+    del data
+    print(f"[3 K2] take_lanes/set_lanes bitwise equal to plain (-0, inf, NaN "
+          f"payloads included), inputs untouched, int32 and int64 idx, on: "
+          + "; ".join(c[0] for c in cases), flush=True)
+
+    # times at every shape of the cold speculative path; library calls are
+    # index_select / index_copy with the engine's int64 idx
+    times, per_solve = {}, [0.0, 0.0]
+    for B, Bc in K2_CROSSINGS:
+        idx = torch.as_tensor(_sorted_idx(rng, B, Bc, False), device=dev)
+        rows = [("take_lanes", lead, n, B, Bc) for lead, n in K2_GATHERS]
+        rows += [("set_lanes", lead, n, B, Bc) for lead, n in K2_SCATTERS]
+        for name, lead, n, B_, Bc_ in rows:
+            a = torch.randn(lead + (B_,), generator=gen, device=dev)
+            if name == "take_lanes":
+                src = None
+                out = permute.take_lanes_ref(a, idx)
+                kern = lambda: permute.take_lanes(a, idx)      # noqa: E731
+                lib = lambda: a.index_select(-1, idx)           # noqa: E731
+                nbytes = 2 * _nbytes(out) + _nbytes(idx)
+                operands = _nbytes(a, out, idx)
+                label = f"gather {list(lead) + [B_]} -> {Bc_}"
+            else:
+                src = torch.randn(lead + (Bc_,), generator=gen, device=dev)
+                kern = lambda: permute.set_lanes(a, src, idx)  # noqa: E731
+                lib = lambda: a.index_copy(a.dim() - 1, idx, src)  # noqa: E731
+                nbytes = 2 * _nbytes(a) + _nbytes(idx)
+                operands = 2 * _nbytes(a) + _nbytes(src, idx)
+                label = f"scatter {Bc_} -> {list(lead) + [B_]}"
+            (k_dev, l_dev), (k_call, l_call) = _k2_turns(kern, lib)
+            bound = _bound(nbytes, 0)
+            times[(name, lead, B_, Bc_)] = (k_dev, l_dev, bound)
+            per_solve[0] += n * k_dev
+            per_solve[1] += n * l_dev
+            slower = k_dev > l_dev + max(0.05 * l_dev, 2e-3)
+            print(f"[3 K2] {label} (operands {operands / 1e6:.1f} MB, "
+                  f"{'within' if operands <= L2_BYTES else 'beyond'} the "
+                  f"50 MB L2): kernel {k_dev:.4f} ms on the device, "
+                  f"{k_call:.4f} per call; library {l_dev:.4f} / "
+                  f"{l_call:.4f}; bound {bound[0]:.4f} ms, "
+                  f"{100 * bound[0] / k_dev:.0f} % of it"
+                  + ("; SLOWER than the library" if slower else ""),
+                  flush=True)
+            del a, src
+    torch.cuda.empty_cache()
+    print(f"[3 K2] per cold speculative solve ({sum(n for _, n in K2_GATHERS)}"
+          f" gathers and {sum(n for _, n in K2_SCATTERS)} scatters at each of "
+          f"{len(K2_CROSSINGS)} crossings): kernels {per_solve[0]:.4f} ms, "
+          f"library calls {per_solve[1]:.4f} ms (device)", flush=True)
+
+    # device kernels of one call at the reference shape
+    a = torch.randn(main + (B_MAIN,), generator=gen, device=dev)
     idx = torch.as_tensor(_sorted_idx(rng, B_MAIN, B_MAIN // 2, False),
                           device=dev)
     src = permute.take_lanes_ref(a, idx)
-    t = {
-        "take_lanes": (_cuda_ms(lambda: permute.take_lanes(a, idx), 20),
-                       _cuda_ms(lambda: permute.take_lanes_ref(a, idx), 20),
-                       _cuda_ms(lambda: a.index_select(-1, idx), 20)),
-        "set_lanes": (_cuda_ms(lambda: permute.set_lanes(a, src, idx), 20),
-                      _cuda_ms(lambda: permute.set_lanes_ref(a, src, idx), 20),
-                      _cuda_ms(lambda: a.index_copy(2, idx, src), 20)),
-    }
-    # a gather reads the selected lanes and writes them; a scatter reads the
-    # destination's untouched lanes and the source, and writes every lane
-    # (no arithmetic)
-    bounds = {"take_lanes": _bound(2 * _nbytes(src) + _nbytes(idx), 0),
-              "set_lanes": _bound(2 * _nbytes(a) + _nbytes(idx), 0)}
-    print("[3 K2] take_lanes/set_lanes bitwise equal to plain on "
-          f"{list(shape)} at 65536 and 4096 lanes, uniform and clumpy; "
-          f"[21,12,131072]->65536: take {t['take_lanes'][0]:.4f} ms "
-          f"(plain {t['take_lanes'][1]:.4f}, index_select "
-          f"{t['take_lanes'][2]:.4f}), set {t['set_lanes'][0]:.4f} ms "
-          f"(plain {t['set_lanes'][1]:.4f}, index_copy "
-          f"{t['set_lanes'][2]:.4f})", flush=True)
-    return t, bounds
+    per_call = {
+        "take_lanes": _device_ms(lambda: permute.take_lanes(a, idx))[1],
+        "set_lanes": _device_ms(lambda: permute.set_lanes(a, src, idx))[1],
+        "index_select": _device_ms(lambda: a.index_select(-1, idx))[1],
+        "index_copy": _device_ms(lambda: a.index_copy(2, idx, src))[1]}
+    print(f"[3 K2] device kernels per call (torch.profiler, int64 idx): "
+          f"{per_call}", flush=True)
+    if strict and (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
+        raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
+    del a, idx, src
+    torch.cuda.empty_cache()
+    # the kernels line: the reference shape [21,12,131072] -> 65536, device
+    # ms; the plain versions are the library calls themselves
+    t, b = {}, {}
+    for name in ("take_lanes", "set_lanes"):
+        k_dev, l_dev, bound = times[(name, main, B_MAIN, B_MAIN // 2)]
+        t[name] = (k_dev, l_dev, l_dev)
+        b[name] = bound
+    return t, b
 
 
 def _k1_inputs(rng, N, B, dev, alpha_zero):
@@ -1352,9 +1503,26 @@ KERNEL_IDS = {"sqp_planes": "K1", "take_lanes": "K2a", "set_lanes": "K2b",
               "merit_alpha": "K7a", "merit": "K7b", "merit_nograd": "K7b_nograd"}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    import os
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k2-only", action="store_true",
+                    help="build permute.cu and run phases 1-3 only")
+    ap.add_argument("--root", default=None,
+                    help="with --k2-only: import srbd_nmpc_tpu_torch from "
+                         "this checkout (e.g. an unpacked older commit)")
+    args = ap.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     card, smi = phase_device()
     dev = torch.device("cuda")
+    if args.k2_only:
+        phase_build(("permute",), counters=False)
+        phase_permute(dev, strict=args.root is None)
+        print(smi)
+        return 0
     phase_build()
     k2_t, k2_b = phase_permute(dev)
     k1_err, k1_t, k1_plain, k1_b = phase_k1(dev)

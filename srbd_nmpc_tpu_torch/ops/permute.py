@@ -7,10 +7,11 @@ carry into and out of each tier with these: ``idx`` is strictly increasing
 
 - ``take_lanes_ref`` / ``set_lanes_ref``: plain PyTorch versions.
 - ``take_lanes`` / ``set_lanes``: CPU tensors go to the plain versions;
-  CUDA tensors launch ``csrc/permute.cu`` (float32 only) or raise.
+  CUDA tensors launch ``csrc/permute.cu`` (float32 data, an int32 or int64
+  ``idx`` as the caller holds it) or raise. One call is one device kernel.
 
 The TPU kernels' windowed one-hot matmul, its fallback and their width
-rules are TPU workarounds and are not carried over: the CUDA kernel takes
+rules are TPU workarounds and are not carried over: the CUDA kernels take
 any sorted unique ``idx`` and any widths. Both routes are bitwise.
 """
 
@@ -20,8 +21,15 @@ import ctypes
 
 import torch
 
-# CUDA threads per block of both K2 kernels
+# CUDA threads per block of both K2 kernels (at most the kernels' launch
+# bound, k2::MAX_THREADS) and output lanes per thread (k2::LANES)
 THREADS = 256
+LANES = 4
+# blocks per SM the row chunks aim at, so that every tier fills the card
+# (4, 8 and 16 measured on an H100: 8 gave the least K2 time per solve)
+BLOCKS_PER_SM = 8
+# gridDim.y limit
+MAX_ROW_BLOCKS = 65535
 
 # launches of the CUDA kernels since the last reset (read by chip_smoke.py)
 launches = {"take_lanes": 0, "set_lanes": 0}
@@ -34,24 +42,39 @@ def take_lanes_ref(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def set_lanes_ref(orig: torch.Tensor, src: torch.Tensor, idx: torch.Tensor
                   ) -> torch.Tensor:
-    """``out = orig; out[..., idx[p]] = src[..., p]``."""
-    return orig.index_copy(orig.dim() - 1, idx, src)
+    """``out = orig; out[..., idx[p]] = src[..., p]`` (``index_copy``
+    takes an int64 ``idx`` only)."""
+    return orig.index_copy(orig.dim() - 1, idx.long(), src)
+
+
+def rows_per_block(R: int, lanes: int, sms: int, threads: int = THREADS) -> int:
+    """Rows each block walks, for ``R`` rows of ``lanes`` output lanes: as
+    many as leave about ``BLOCKS_PER_SM`` blocks per SM (at least 1, and
+    few enough blocks along the rows for the grid's y limit)."""
+    nx = -(-lanes // (LANES * threads))
+    rpb = -(-R * nx // (BLOCKS_PER_SM * sms))
+    return max(1, rpb, -(-R // MAX_ROW_BLOCKS))
+
+
+_fns = None   # the two launch entries of csrc/permute.cu, bound at first use
 
 
 def _lib():
-    from srbd_nmpc_tpu_torch.utils.build import load_kernel
+    global _fns
+    if _fns is None:
+        from srbd_nmpc_tpu_torch.utils.build import load_kernel
 
-    lib = load_kernel("permute")
-    if lib.srbd_take_lanes_launch.argtypes is None:
-        lib.srbd_take_lanes_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
-            + [ctypes.c_int, ctypes.c_void_p])
-        lib.srbd_take_lanes_launch.restype = ctypes.c_int
-        lib.srbd_set_lanes_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
-            + [ctypes.c_int, ctypes.c_void_p])
-        lib.srbd_set_lanes_launch.restype = ctypes.c_int
-    return lib
+        lib = load_kernel("permute")
+        take, put = lib.srbd_take_lanes_launch, lib.srbd_set_lanes_launch
+        take.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+                         + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p])
+        put.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                        + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2
+                        + [ctypes.c_void_p])
+        take.restype = put.restype = ctypes.c_int
+        _fns = (take, put)
+    return _fns
 
 
 def _cuda_index(idx: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -59,7 +82,11 @@ def _cuda_index(idx: torch.Tensor, device: torch.device) -> torch.Tensor:
         raise ValueError(f"idx must be 1-D, got shape {tuple(idx.shape)}")
     if idx.device != device:
         raise ValueError(f"idx lies on {idx.device}, data on {device}")
-    return idx.to(torch.int32).contiguous()
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
+    if not idx.is_contiguous():
+        raise ValueError("idx must be contiguous")
+    return idx
 
 
 def _check(name: str, t: torch.Tensor) -> None:
@@ -68,20 +95,41 @@ def _check(name: str, t: torch.Tensor) -> None:
                         f"tensors, got {t.dtype} on {t.device}")
 
 
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+_sms = {}   # SMs of each card by device index
+
+
+def _launch_args(device: torch.device, R: int, lanes: int):
+    sms = _sms.get(device.index)
+    if sms is None:
+        sms = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return (rows_per_block(R, lanes, sms), THREADS,
+            torch.cuda.current_stream(device).cuda_stream)
+
+
 def take_lanes(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather lanes ``idx`` (sorted, unique) of the last axis of ``a``."""
     if a.device.type == "cpu":
         return take_lanes_ref(a, idx)
     _check("a", a)
-    idx32 = _cuda_index(idx, a.device)
-    B, Bc = a.shape[-1], idx32.shape[0]
+    idx = _cuda_index(idx, a.device)
+    B, Bc = a.shape[-1], idx.shape[0]
+    if Bc > B:
+        raise ValueError(f"{Bc} unique lanes cannot come from {B}")
     a2 = a.contiguous()
     R = a2.numel() // B if B else 0
     out = torch.empty(a.shape[:-1] + (Bc,), dtype=a.dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib().srbd_take_lanes_launch(a2.data_ptr(), idx32.data_ptr(),
-                                        out.data_ptr(), R, B, Bc, THREADS,
-                                        stream)
+    if R * Bc == 0:
+        return out
+    vec = Bc % LANES == 0 and _aligned(out)
+    rpb, threads, stream = _launch_args(a.device, R, Bc)
+    err = _lib()[0](
+        a2.data_ptr(), idx.data_ptr(), idx.element_size(), out.data_ptr(),
+        R, B, Bc, rpb, int(vec), threads, stream)
     if err != 0:
         raise RuntimeError(f"take_lanes kernel launch failed: CUDA error {err}")
     launches["take_lanes"] += 1
@@ -95,18 +143,23 @@ def set_lanes(orig: torch.Tensor, src: torch.Tensor, idx: torch.Tensor
         return set_lanes_ref(orig, src, idx)
     _check("orig", orig)
     _check("src", src)
-    idx32 = _cuda_index(idx, orig.device)
-    B, Bc = orig.shape[-1], idx32.shape[0]
+    idx = _cuda_index(idx, orig.device)
+    B, Bc = orig.shape[-1], idx.shape[0]
     if tuple(src.shape) != tuple(orig.shape[:-1]) + (Bc,):
         raise ValueError(f"src shape {tuple(src.shape)} does not match "
                          f"orig {tuple(orig.shape)} with {Bc} lanes")
+    if Bc > B:
+        raise ValueError(f"{Bc} unique lanes cannot go to {B}")
     o2, s2 = orig.contiguous(), src.contiguous()
     R = o2.numel() // B if B else 0
     out = torch.empty_like(o2)
-    stream = torch.cuda.current_stream(orig.device).cuda_stream
-    err = _lib().srbd_set_lanes_launch(o2.data_ptr(), s2.data_ptr(),
-                                       idx32.data_ptr(), out.data_ptr(),
-                                       R, B, Bc, THREADS, stream)
+    if R * B == 0:
+        return out
+    vec = B % LANES == 0 and _aligned(o2, out)
+    rpb, threads, stream = _launch_args(orig.device, R, B)
+    err = _lib()[1](
+        o2.data_ptr(), s2.data_ptr(), idx.data_ptr(), idx.element_size(),
+        out.data_ptr(), R, B, Bc, rpb, int(vec), threads, stream)
     if err != 0:
         raise RuntimeError(f"set_lanes kernel launch failed: CUDA error {err}")
     launches["set_lanes"] += 1

@@ -84,25 +84,107 @@ def test_k1_rejects_float64(dev):
         sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
 
 
-@pytest.mark.parametrize("Bc", [65536, 4096])
-@pytest.mark.parametrize("clumpy", [False, True])
-def test_k2_bitwise(dev, Bc, clumpy):
-    rng = np.random.default_rng(Bc + clumpy)
-    B = 131072
-    a = torch.as_tensor(rng.normal(size=(21, 12, B)), dtype=torch.float32,
-                        device=dev)
-    p = np.ones(B)
-    if clumpy:
-        p[: B // 3] = 8.0
-        p[-B // 5:] = 0.05
-    idx = torch.as_tensor(np.sort(rng.choice(B, Bc, replace=False,
-                                             p=p / p.sum())), device=dev)
-    src = torch.as_tensor(rng.normal(size=(21, 12, Bc)), dtype=torch.float32,
-                          device=dev)
-    assert torch.equal(permute.take_lanes(a, idx),
-                       permute.take_lanes_ref(a, idx))
-    assert torch.equal(permute.set_lanes(a, src, idx),
-                       permute.set_lanes_ref(a, src, idx))
+# K2 cases (leading shape, B, Bc, index pattern), as chip_smoke.py phase 3
+K2_CASES = [((21, 12), 131072, 65536, "uniform"),
+            ((21, 12), 131072, 65536, "clumpy"),
+            ((21, 12), 131072, 4096, "uniform"),
+            ((21, 12), 131072, 4096, "clumpy"),
+            ((21, 12), 131072, 65536, "dense"),
+            ((21, 12), 131072, 131072, "dense"),
+            ((12,), 131072, 65536, "uniform"),
+            ((7,), 500, 77, "uniform"),
+            ((3, 12), 4099, 1031, "clumpy"),
+            ((1,), 1000, 250, "uniform")]
+
+
+def _k2_inputs(dev, lead, B, Bc, pattern, seed=0):
+    """Data with -0, infinities and NaN payloads among it, a source for
+    the scatter and a sorted unique (int64) index list."""
+    rng = np.random.default_rng(seed)
+
+    def words(shape):
+        a = rng.normal(size=shape).astype(np.float32)
+        flat = a.reshape(-1).view(np.uint32)
+        flat[rng.choice(flat.size, 6, replace=False)] = np.array(
+            [0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001, 0xFFBADBAD,
+             0x7F812345], np.uint32)
+        return torch.as_tensor(a, device=dev)
+
+    if pattern == "dense":
+        idx = np.arange(Bc)
+    else:
+        p = np.ones(B)
+        if pattern == "clumpy":
+            p[: B // 3] = 8.0
+            p[-B // 5:] = 0.05
+        idx = np.sort(rng.choice(B, Bc, replace=False, p=p / p.sum()))
+    return words(lead + (B,)), words(lead + (Bc,)), torch.as_tensor(idx,
+                                                                   device=dev)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("lead,B,Bc,pattern", K2_CASES)
+def test_k2_bitwise(dev, lead, B, Bc, pattern, idx_dtype):
+    a, src, idx64 = _k2_inputs(dev, lead, B, Bc, pattern, seed=Bc)
+    idx = idx64.to(idx_dtype)
+    before = dict(permute.launches)
+    got = permute.take_lanes(a, idx)
+    got_s = permute.set_lanes(a, src, idx)
+    torch.cuda.synchronize()
+    assert permute.launches["take_lanes"] == before["take_lanes"] + 1
+    assert permute.launches["set_lanes"] == before["set_lanes"] + 1
+    assert torch.equal(_bits(got), _bits(permute.take_lanes_ref(a, idx64)))
+    assert torch.equal(_bits(got_s),
+                       _bits(permute.set_lanes_ref(a, src, idx64)))
+
+
+def test_k2_one_device_kernel_per_call(dev):
+    """With the engine's int64 idx, one take_lanes or set_lanes call runs
+    one device kernel: no cast, no copy launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a, src, idx = _k2_inputs(dev, (21, 12), 131072, 65536, "uniform")
+    for fn in (lambda: permute.take_lanes(a, idx),
+               lambda: permute.set_lanes(a, src, idx)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        assert n == 1
+
+
+def test_k2_leaves_inputs_untouched(dev):
+    a, src, idx = _k2_inputs(dev, (20, 12), 16384, 4096, "clumpy")
+    keep = [a.clone(), src.clone(), idx.clone()]
+    permute.take_lanes(a, idx)
+    permute.set_lanes(a, src, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(keep[0]))
+    assert torch.equal(_bits(src), _bits(keep[1]))
+    assert torch.equal(idx, keep[2])
+
+
+def test_k2_rejects_what_it_cannot_take(dev):
+    a, src, idx = _k2_inputs(dev, (3, 12), 4096, 1024, "uniform")
+    with pytest.raises(TypeError, match="float32"):
+        permute.take_lanes(a.double(), idx)
+    with pytest.raises(TypeError, match="float32"):
+        permute.set_lanes(a.double(), src.double(), idx)
+    with pytest.raises(ValueError, match="1-D"):
+        permute.take_lanes(a, idx[None])
+    with pytest.raises(ValueError, match="1-D"):
+        permute.set_lanes(a, src, idx[None])
+    with pytest.raises(ValueError, match="lies on"):
+        permute.take_lanes(a, idx.cpu())
+    with pytest.raises(ValueError, match="lies on"):
+        permute.set_lanes(a, src, idx.cpu())
 
 
 def test_compacted_solve_is_bitwise_and_launches_kernels(dev):

@@ -1,6 +1,9 @@
 """PyTorch port of the lane permutes (kernel K2): the plain versions vs the
-JAX ``permute_pallas`` kernels in interpret mode, bitwise."""
+JAX ``permute_pallas`` kernels in interpret mode, bitwise; and the CUDA
+source's gather and scatter bodies, built as host C++ and run over the
+kernels' grid, vs the plain versions, bitwise."""
 
+import ctypes
 import functools
 
 import jax.numpy as jnp
@@ -11,6 +14,7 @@ from jax.experimental import pallas as pl
 
 from srbd_nmpc_tpu.ops import permute_pallas as pp
 from srbd_nmpc_tpu_torch.ops import permute
+from srbd_nmpc_tpu_torch.utils import build
 
 torch.set_num_threads(1)
 
@@ -61,6 +65,118 @@ def test_set_lanes_bitwise_vs_jax_kernel(interpret_pallas, clumpy):
     got = permute.set_lanes(o, torch.as_tensor(src), torch.as_tensor(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(o.numpy(), orig)   # input left untouched
+
+
+@pytest.fixture(scope="module")
+def host_k2():
+    """``csrc/permute.cu``'s per-thread bodies built as host C++ (g++),
+    run over an emulated grid: ``take(a, idx, rpb, vec, threads)`` and
+    ``set(orig, src, idx, rpb, vec, threads)`` on numpy arrays."""
+    lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/permute.cu"))
+    take, put = lib.srbd_take_lanes_host, lib.srbd_set_lanes_host
+    take.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+                     + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2)
+    put.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2)
+    take.restype = put.restype = ctypes.c_int
+
+    def run_take(a, idx, rpb, vec, threads):
+        B, Bc = a.shape[-1], idx.shape[0]
+        R = a.size // B
+        out = np.full(a.shape[:-1] + (Bc,), np.nan, np.float32)
+        assert take(a.ctypes.data, idx.ctypes.data, idx.itemsize,
+                    out.ctypes.data, R, B, Bc, rpb, vec, threads) == 0
+        return out
+
+    def run_set(orig, src, idx, rpb, vec, threads):
+        B, Bc = orig.shape[-1], idx.shape[0]
+        R = orig.size // B
+        out = np.full_like(orig, np.nan)
+        assert put(orig.ctypes.data, src.ctypes.data, idx.ctypes.data,
+                   idx.itemsize, out.ctypes.data, R, B, Bc, rpb, vec,
+                   threads) == 0
+        return out
+
+    return run_take, run_set
+
+
+def _words(rng, shape):
+    """float32 data with -0, infinities and NaNs with payloads among it."""
+    a = rng.normal(size=shape).astype(np.float32)
+    flat = a.reshape(-1).view(np.uint32)
+    special = np.array([0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001,
+                        0xFFBADBAD, 0x7F812345], np.uint32)
+    pos = rng.choice(flat.size, size=min(flat.size, 4 * special.size),
+                     replace=False)
+    flat[pos] = np.resize(special, pos.size)
+    return a
+
+
+# (shape, Bc, pattern): phase 3's bitwise cases at small sizes
+HOST_CASES = [
+    ((5, 12, 2048), 1024, "uniform"),
+    ((5, 12, 2048), 64, "uniform"),
+    ((5, 12, 2048), 1024, "clumpy"),
+    ((5, 12, 2048), 512, "dense"),
+    ((5, 12, 2048), 2048, "all"),
+    ((12, 2048), 1024, "uniform"),
+    ((7, 500), 77, "uniform"),
+    ((3, 12, 4099), 1031, "clumpy"),
+    ((1, 1000), 250, "uniform"),
+    ((9, 64), 0, "uniform"),
+]
+
+
+def _case_idx(rng, B, Bc, pattern):
+    if pattern == "dense":
+        return np.arange(Bc)
+    if pattern == "all":
+        return np.arange(B)
+    return _sorted_idx(rng, B, Bc, pattern == "clumpy")
+
+
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("shape,Bc,pattern", HOST_CASES)
+def test_host_build_bitwise_vs_plain(host_k2, shape, Bc, pattern, idx_dtype):
+    """The CUDA source's gather and scatter bodies, built as host C++ and
+    run over the kernels' grid (the wrapper's rows per block at 132 SMs,
+    and 1 and 3 rows at 32 threads), bitwise equal to the plain versions;
+    the vector path wherever the width allows it."""
+    run_take, run_set = host_k2
+    rng = np.random.default_rng(shape[-1] + 7 * Bc + len(pattern))
+    B = shape[-1]
+    a = _words(rng, shape)
+    src = _words(rng, shape[:-1] + (Bc,))
+    idx = _case_idx(rng, B, Bc, pattern).astype(idx_dtype)
+    ti = torch.as_tensor(idx.astype(np.int64))
+    ref_t = permute.take_lanes_ref(torch.as_tensor(a), ti).numpy()
+    ref_s = permute.set_lanes_ref(torch.as_tensor(a), torch.as_tensor(src),
+                                  ti).numpy()
+    R = a.size // B
+    geoms = [(permute.rows_per_block(R, n, 132), permute.THREADS)
+             for n in (Bc, B)] + [(1, 32), (3, 32)]
+    for (rpb_t, threads), (rpb_s, _) in zip(geoms, geoms[1:] + geoms[:1]):
+        for vec in {0, int(Bc % 4 == 0)}:
+            if Bc:
+                got = run_take(a, idx, rpb_t, vec, threads)
+                np.testing.assert_array_equal(got.view(np.uint32),
+                                              ref_t.view(np.uint32))
+        for vec in {0, int(B % 4 == 0)}:
+            got = run_set(a, src, idx, rpb_s, vec, threads)
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          ref_s.view(np.uint32))
+
+
+@pytest.mark.parametrize("R,lanes", [(252, 65536), (240, 16384), (12, 4096),
+                                     (252, 131072), (1, 77), (200000, 8)])
+def test_rows_per_block_fills_the_card(R, lanes):
+    rpb = permute.rows_per_block(R, lanes, 132)
+    nx = -(-lanes // (permute.LANES * permute.THREADS))
+    ny = -(-R // rpb)
+    assert 1 <= rpb <= max(R, 1) and ny <= permute.MAX_ROW_BLOCKS
+    # about BLOCKS_PER_SM blocks per SM, or one row per block
+    assert rpb == 1 or nx * ny >= permute.BLOCKS_PER_SM * 132 // 2
+    assert nx * ny <= 2 * permute.BLOCKS_PER_SM * 132 or rpb == 1
 
 
 def test_dense_prefix_and_any_width():
