@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc``, checks each
 against its plain PyTorch version at the main path's shapes (phase 3: the
 lane permutes K2a/K2b bitwise on the engine's shapes and the edge cases,
-timed on the device and per call beside ``index_select`` / ``index_copy``
+timed per call and on the device beside ``index_select`` / ``index_copy``
 at every compaction crossing of the cold solve), then drives the
 port's main path (``parallel.sharded.solve_batch``, the default NmpcConfig:
 N=20, speculative fused SQP trips, compaction tiers (2, 8, 32)) on a cold and
@@ -35,7 +35,9 @@ The ``kernels`` line gives, for each of the 14 kernel bodies behind the 12
 TPU call sites, its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
 plain, and the one PyTorch call that computes the same function where there
-is one) at the main path's shapes, and its bound: the larger of the bytes it
+is one) at the main path's shapes, timed over eager calls as the path makes
+them (K2's entries add ``device_ms`` and ``library_device_ms``, the device
+alone, from CUDA graphs), and its bound: the larger of the bytes it
 must move over the HBM rate and its operations over the FP32 rate. The
 operations are the kernel's own arithmetic on this run's inputs
 (``utils.opcount``: its per-thread body built as host C++ with a counting
@@ -46,11 +48,12 @@ before the last is the card's ``nvidia-smi`` name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA card the script
 exits non-zero before any result. Imports nothing of JAX.
 
-    python3 chip_smoke.py --k2-only [--root DIR]
+    python3 chip_smoke.py --k2-only
 
-runs phases 1-3 alone (only ``permute.cu`` is built); with ``--root`` on
-the ``srbd_nmpc_tpu_torch`` of another checkout, e.g. an unpacked older
-commit, so that two versions of K2 compare on one card.
+runs phases 1-3 alone (only ``permute.cu`` is built) and reports the
+device kernels per K2 call instead of requiring one. It imports the
+``srbd_nmpc_tpu_torch`` beside the script, so a copy of the script in an
+unpacked older commit times that commit's K2 on the same card.
 """
 
 from __future__ import annotations
@@ -151,7 +154,7 @@ def phase_device():
     return name, smi
 
 
-def phase_build(sources=SOURCES, counters=True):
+def phase_build(sources=SOURCES):
     from concurrent.futures import ThreadPoolExecutor
 
     from srbd_nmpc_tpu_torch.utils import build, opcount
@@ -159,7 +162,7 @@ def phase_build(sources=SOURCES, counters=True):
     t0 = time.perf_counter()
     # one nvcc per source, all started together, beside the g++ builds of
     # the operation counters
-    counted = opcount.SOURCES if counters else ()
+    counted = [s for s in opcount.SOURCES if s in sources]
     with ThreadPoolExecutor(len(sources) + len(counted)) as pool:
         done = [pool.submit(build.build, s) for s in sources]
         done += [pool.submit(opcount.build_source, s) for s in counted]
@@ -238,24 +241,24 @@ def _same_bits(x, y) -> bool:
 
 
 def _k2_turns(kernel, library):
-    """(kernel, library) ms per call, device (CUDA graphs) and as called
-    (back-to-back eager calls), each the mean of two runs taken in turns:
-    library, kernel, kernel, library."""
-    lib1, ker1 = _graph_ms(library), _graph_ms(kernel)
-    ker2, lib2 = _graph_ms(kernel), _graph_ms(library)
-    dev_ms = ((ker1 + ker2) / 2, (lib1 + lib2) / 2)
+    """(kernel, library) ms per call as the engine calls them (back-to-back
+    eager calls, the yardstick of every kernel's ``ms``), and on the device
+    alone (CUDA graphs); each the mean of two runs taken in turns: library,
+    kernel, kernel, library."""
     lib1, ker1 = _cuda_ms(library, 100), _cuda_ms(kernel, 100)
     ker2, lib2 = _cuda_ms(kernel, 100), _cuda_ms(library, 100)
-    return dev_ms, ((ker1 + ker2) / 2, (lib1 + lib2) / 2)
+    call_ms = ((ker1 + ker2) / 2, (lib1 + lib2) / 2)
+    lib1, ker1 = _graph_ms(library), _graph_ms(kernel)
+    ker2, lib2 = _graph_ms(kernel), _graph_ms(library)
+    return call_ms, ((ker1 + ker2) / 2, (lib1 + lib2) / 2)
 
 
-def phase_permute(dev, strict=True):
+def phase_permute(dev):
     """K2a/K2b bitwise against their plain versions (index_select /
     index_copy) on the engine's shapes and the edge cases, with int32 and
     int64 idx; their times at every shape the cold speculative path
-    launches them on, beside the library call; device kernels per call.
-    ``strict=False`` (an older tree's K2, for comparison) reports the
-    kernels per call instead of requiring one."""
+    launches them on, beside the library call; device kernels per call
+    (returned, for the caller to hold to one)."""
     from srbd_nmpc_tpu_torch.ops import permute
 
     rng = np.random.default_rng(3)
@@ -300,7 +303,7 @@ def phase_permute(dev, strict=True):
 
     # times at every shape of the cold speculative path; library calls are
     # index_select / index_copy with the engine's int64 idx
-    times, per_solve = {}, [0.0, 0.0]
+    times, per_solve = {}, np.zeros(4)   # kernel, library: call, device
     for B, Bc in K2_CROSSINGS:
         idx = torch.as_tensor(_sorted_idx(rng, B, Bc, False), device=dev)
         rows = [("take_lanes", lead, n, B, Bc) for lead, n in K2_GATHERS]
@@ -322,26 +325,31 @@ def phase_permute(dev, strict=True):
                 nbytes = 2 * _nbytes(a) + _nbytes(idx)
                 operands = 2 * _nbytes(a) + _nbytes(src, idx)
                 label = f"scatter {Bc_} -> {list(lead) + [B_]}"
-            (k_dev, l_dev), (k_call, l_call) = _k2_turns(kern, lib)
+            (k_call, l_call), (k_dev, l_dev) = _k2_turns(kern, lib)
             bound = _bound(nbytes, 0)
-            times[(name, lead, B_, Bc_)] = (k_dev, l_dev, bound)
-            per_solve[0] += n * k_dev
-            per_solve[1] += n * l_dev
-            slower = k_dev > l_dev + max(0.05 * l_dev, 2e-3)
+            times[(name, lead, B_, Bc_)] = (k_call, l_call, k_dev, l_dev,
+                                            bound)
+            per_solve += n * np.array([k_call, l_call, k_dev, l_dev])
+            # slower than the library by more than 5 % or 2 us
+            slower = [what for what, k, l in (("per call", k_call, l_call),
+                                              ("on the device", k_dev, l_dev))
+                      if k > l + max(0.05 * l, 2e-3)]
             print(f"[3 K2] {label} (operands {operands / 1e6:.1f} MB, "
                   f"{'within' if operands <= L2_BYTES else 'beyond'} the "
-                  f"50 MB L2): kernel {k_dev:.4f} ms on the device, "
-                  f"{k_call:.4f} per call; library {l_dev:.4f} / "
-                  f"{l_call:.4f}; bound {bound[0]:.4f} ms, "
-                  f"{100 * bound[0] / k_dev:.0f} % of it"
-                  + ("; SLOWER than the library" if slower else ""),
+                  f"50 MB L2): kernel {k_call:.4f} ms per call, "
+                  f"{k_dev:.4f} on the device; library {l_call:.4f} / "
+                  f"{l_dev:.4f}; bound {bound[0]:.4f} ms, "
+                  f"{100 * bound[0] / k_dev:.0f} % of it on the device"
+                  + "".join(f"; SLOWER than the library {w}" for w in slower),
                   flush=True)
             del a, src
     torch.cuda.empty_cache()
     print(f"[3 K2] per cold speculative solve ({sum(n for _, n in K2_GATHERS)}"
           f" gathers and {sum(n for _, n in K2_SCATTERS)} scatters at each of "
-          f"{len(K2_CROSSINGS)} crossings): kernels {per_solve[0]:.4f} ms, "
-          f"library calls {per_solve[1]:.4f} ms (device)", flush=True)
+          f"{len(K2_CROSSINGS)} crossings): per call kernels "
+          f"{per_solve[0]:.4f} ms, library calls {per_solve[1]:.4f} ms; on "
+          f"the device {per_solve[2]:.4f} / {per_solve[3]:.4f} ms",
+          flush=True)
 
     # device kernels of one call at the reference shape
     a = torch.randn(main + (B_MAIN,), generator=gen, device=dev)
@@ -355,18 +363,13 @@ def phase_permute(dev, strict=True):
         "index_copy": _device_ms(lambda: a.index_copy(2, idx, src))[1]}
     print(f"[3 K2] device kernels per call (torch.profiler, int64 idx): "
           f"{per_call}", flush=True)
-    if strict and (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
-        raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
     del a, idx, src
     torch.cuda.empty_cache()
-    # the kernels line: the reference shape [21,12,131072] -> 65536, device
-    # ms; the plain versions are the library calls themselves
-    t, b = {}, {}
-    for name in ("take_lanes", "set_lanes"):
-        k_dev, l_dev, bound = times[(name, main, B_MAIN, B_MAIN // 2)]
-        t[name] = (k_dev, l_dev, l_dev)
-        b[name] = bound
-    return t, b
+    # the kernels line: the reference shape [21,12,131072] -> 65536; ms per
+    # call and the device times beside them; the plain versions are the
+    # library calls themselves
+    return {name: times[(name, main, B_MAIN, B_MAIN // 2)]
+            for name in ("take_lanes", "set_lanes")}, per_call
 
 
 def _k1_inputs(rng, N, B, dev, alpha_zero):
@@ -1485,13 +1488,13 @@ def _device_ms(fn):
 
 
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
-           bound, library_ms=None):
+           bound, library_ms=None, **extra):
     return {"name": name, "id": KERNEL_IDS[name], "route": "cuda",
             "source": f"srbd_nmpc_tpu_torch/csrc/{source}",
             "replaces": f"srbd_nmpc_tpu/{replaces}", "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
 
 
 # the TPU kernels' ids (PERF.md's table) by the port's counter names
@@ -1505,26 +1508,22 @@ KERNEL_IDS = {"sqp_planes": "K1", "take_lanes": "K2a", "set_lanes": "K2b",
 
 def main(argv=None) -> int:
     import argparse
-    import os
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k2-only", action="store_true",
                     help="build permute.cu and run phases 1-3 only")
-    ap.add_argument("--root", default=None,
-                    help="with --k2-only: import srbd_nmpc_tpu_torch from "
-                         "this checkout (e.g. an unpacked older commit)")
     args = ap.parse_args(argv)
-    if args.root:
-        sys.path.insert(0, os.path.abspath(args.root))
     card, smi = phase_device()
     dev = torch.device("cuda")
     if args.k2_only:
-        phase_build(("permute",), counters=False)
-        phase_permute(dev, strict=args.root is None)
+        phase_build(("permute",))
+        phase_permute(dev)
         print(smi)
         return 0
     phase_build()
-    k2_t, k2_b = phase_permute(dev)
+    k2, per_call = phase_permute(dev)
+    if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
+        raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
     k1_err, k1_t, k1_plain, k1_b = phase_k1(dev)
     st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
@@ -1546,16 +1545,15 @@ def main(argv=None) -> int:
     per_stage_q = sync["lqr_per_stage_q"]["launches"]
     dense_spec = dense["spec"]["launches"]
     dense_sync = dense["sync"]["launches"]
-    kernels = [
-        _entry("sqp_planes", "sqp_planes.cu", "ops/sqp_planes.py:301",
-               launches["sqp_planes"], k1_err, k1_t[B_MAIN], k1_plain, k1_b),
-        _entry("take_lanes", "permute.cu", "ops/permute_pallas.py:48",
-               launches["take_lanes"], 0.0, *k2_t["take_lanes"][:2],
-               k2_b["take_lanes"], k2_t["take_lanes"][2]),
-        _entry("set_lanes", "permute.cu", "ops/permute_pallas.py:149",
-               launches["set_lanes"], 0.0, *k2_t["set_lanes"][:2],
-               k2_b["set_lanes"], k2_t["set_lanes"][2]),
-    ]
+    kernels = [_entry("sqp_planes", "sqp_planes.cu", "ops/sqp_planes.py:301",
+                      launches["sqp_planes"], k1_err, k1_t[B_MAIN], k1_plain,
+                      k1_b)]
+    for name, replaces in (("take_lanes", "ops/permute_pallas.py:48"),
+                           ("set_lanes", "ops/permute_pallas.py:149")):
+        k_call, l_call, k_dev, l_dev, bound = k2[name]
+        kernels.append(_entry(name, "permute.cu", replaces, launches[name],
+                              0.0, k_call, l_call, bound, l_call,
+                              device_ms=k_dev, library_device_ms=l_dev))
     for name, source, replaces, n, err, t, b in (
             ("sqp_onepass_cand", "sqp_onepass.cu", "ops/sqp_pallas.py:574",
              dense_spec["sqp_onepass_cand"], d_err, d_t, d_b),

@@ -26,7 +26,6 @@ import torch
 THREADS = 256
 LANES = 4
 # blocks per SM the row chunks aim at, so that every tier fills the card
-# (4, 8 and 16 measured on an H100: 8 gave the least K2 time per solve)
 BLOCKS_PER_SM = 8
 # gridDim.y limit
 MAX_ROW_BLOCKS = 65535
@@ -77,56 +76,56 @@ def _lib():
     return _fns
 
 
-def _cuda_index(idx: torch.Tensor, device: torch.device) -> torch.Tensor:
+def _cuda_index(idx: torch.Tensor, dev: int) -> None:
     if idx.dim() != 1:
         raise ValueError(f"idx must be 1-D, got shape {tuple(idx.shape)}")
-    if idx.device != device:
-        raise ValueError(f"idx lies on {idx.device}, data on {device}")
+    if not idx.is_cuda or idx.get_device() != dev:
+        raise ValueError(f"idx lies on {idx.device}, data on cuda:{dev}")
     if idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
     if not idx.is_contiguous():
         raise ValueError("idx must be contiguous")
-    return idx
 
 
 def _check(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda" or t.dtype != torch.float32:
+    if not t.is_cuda or t.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA permute kernels take float32 CUDA "
                         f"tensors, got {t.dtype} on {t.device}")
-
-
-def _aligned(*ts: torch.Tensor) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 _sms = {}   # SMs of each card by device index
 
 
-def _launch_args(device: torch.device, R: int, lanes: int):
-    sms = _sms.get(device.index)
+def _launch_args(dev: int, R: int, lanes: int):
+    """(rows per block, threads, raw current stream) of a launch on card
+    ``dev``. The host's time is most of a call at the small tiers, so
+    this reads the raw stream pointer instead of building a
+    ``torch.cuda.Stream`` object on every call."""
+    sms = _sms.get(dev)
     if sms is None:
-        sms = _sms[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
+        sms = _sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
     return (rows_per_block(R, lanes, sms), THREADS,
-            torch.cuda.current_stream(device).cuda_stream)
+            torch._C._cuda_getCurrentRawStream(dev))
 
 
 def take_lanes(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather lanes ``idx`` (sorted, unique) of the last axis of ``a``."""
-    if a.device.type == "cpu":
+    if a.is_cpu:
         return take_lanes_ref(a, idx)
     _check("a", a)
-    idx = _cuda_index(idx, a.device)
+    dev = a.get_device()
+    _cuda_index(idx, dev)
     B, Bc = a.shape[-1], idx.shape[0]
     if Bc > B:
         raise ValueError(f"{Bc} unique lanes cannot come from {B}")
     a2 = a.contiguous()
     R = a2.numel() // B if B else 0
-    out = torch.empty(a.shape[:-1] + (Bc,), dtype=a.dtype, device=a.device)
+    out = a2.new_empty(a.shape[:-1] + (Bc,))
     if R * Bc == 0:
         return out
-    vec = Bc % LANES == 0 and _aligned(out)
-    rpb, threads, stream = _launch_args(a.device, R, Bc)
+    vec = Bc % LANES == 0 and out.data_ptr() % 16 == 0
+    rpb, threads, stream = _launch_args(dev, R, Bc)
     err = _lib()[0](
         a2.data_ptr(), idx.data_ptr(), idx.element_size(), out.data_ptr(),
         R, B, Bc, rpb, int(vec), threads, stream)
@@ -139,13 +138,14 @@ def take_lanes(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def set_lanes(orig: torch.Tensor, src: torch.Tensor, idx: torch.Tensor
               ) -> torch.Tensor:
     """``orig`` with lanes ``idx`` (sorted, unique) replaced by ``src``."""
-    if orig.device.type == "cpu":
+    if orig.is_cpu:
         return set_lanes_ref(orig, src, idx)
     _check("orig", orig)
     _check("src", src)
-    idx = _cuda_index(idx, orig.device)
+    dev = orig.get_device()
+    _cuda_index(idx, dev)
     B, Bc = orig.shape[-1], idx.shape[0]
-    if tuple(src.shape) != tuple(orig.shape[:-1]) + (Bc,):
+    if src.shape[:-1] != orig.shape[:-1] or src.shape[-1] != Bc:
         raise ValueError(f"src shape {tuple(src.shape)} does not match "
                          f"orig {tuple(orig.shape)} with {Bc} lanes")
     if Bc > B:
@@ -155,8 +155,9 @@ def set_lanes(orig: torch.Tensor, src: torch.Tensor, idx: torch.Tensor
     out = torch.empty_like(o2)
     if R * B == 0:
         return out
-    vec = B % LANES == 0 and _aligned(o2, out)
-    rpb, threads, stream = _launch_args(orig.device, R, B)
+    vec = (B % LANES == 0 and o2.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
+    rpb, threads, stream = _launch_args(dev, R, B)
     err = _lib()[1](
         o2.data_ptr(), s2.data_ptr(), idx.data_ptr(), idx.element_size(),
         out.data_ptr(), R, B, Bc, rpb, int(vec), threads, stream)
