@@ -2,8 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc``, checks each
-against its plain PyTorch version at the main path's shapes (phase 3: the
+Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc`` (phase 2
+prints K1's ptxas registers and spills for each of its three stage bodies),
+checks each against its plain PyTorch version at the main path's shapes
+(phase 4: K1's gains, rank-6 and factor bodies, each timed at the four
+widths the main path launches; phase 3: the
 lane permutes K2a/K2b bitwise on the engine's shapes and the edge cases,
 timed per call and on the device beside ``index_select`` / ``index_copy``
 at every compaction crossing of the cold solve), then drives the
@@ -28,10 +31,13 @@ workload: a batch of one on the plain ``xla`` route) on the card in f64
 against the CPU and the f64 oracle, in f32 against the CPU and the oracle,
 and with exact sensitivities, and times its cold and warm solves; phase 16b
 runs the batched exact-sensitivity (``xla``) route at B=4096 against the
-CPU. Each path's launch counts are set to 0 just before it is driven and
-read just after.
+CPU; phase 17 runs the cold B=131072 problem with ``park_factor=True`` (K1's
+factor body) on the speculative loop and the synchronous ``fused`` route.
+Each path's launch counts are set to 0 just before it is driven and read
+just after; K1's rank-6 body, which no engine route takes (as in JAX), is
+driven by direct calls of the op in phase 4.
 
-The ``kernels`` line gives, for each of the 14 kernel bodies behind the 12
+The ``kernels`` line gives, for each of the 16 kernel bodies behind the 12
 TPU call sites, its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
 plain, and the one PyTorch call that computes the same function where there
@@ -79,6 +85,13 @@ SYNC_ROUTES = {"pallas": dict(qp_kernel="pallas"),
 # the dense one-pass route on both loops
 DENSE_ROUTES = {"spec": dict(planes=False),
                 "sync": dict(planes=False, qp_kernel="fused", speculative=False)}
+# K1's stage bodies by the port's counter names, and park_factor on the two
+# loops that run K1
+K1_BODIES = {"sqp_planes": {}, "sqp_planes_rank6": dict(rank6=True),
+             "sqp_planes_factor": dict(factor=True)}
+K1_WIDTHS = (B_MAIN, B_MAIN // 2, B_MAIN // 8, B_MAIN // 32)
+FACTOR_ROUTES = {"spec": dict(park_factor=True),
+                 "sync": dict(SYNC_ROUTES["fused"], park_factor=True)}
 SYNC_CONV_FRAC = 0.005
 SYNC_ITER_TOL = 0.1
 PARITY_FLIP_FRAC = 0.005
@@ -181,7 +194,12 @@ def phase_build(sources=SOURCES):
     for name, lines in spills.items():
         for ln in lines:
             print(f"[2 build] {name}: {ln}", flush=True)
-    return secs
+    k1 = _k1_ptxas() if "sqp_planes" in sources else {}
+    if k1:
+        print("[2 build] K1 ptxas by stage body: " + "; ".join(
+            f"{n} {r} registers, {st} B spill stores, {ld} B spill loads, "
+            f"{sk} B stack" for n, (r, st, ld, sk) in k1.items()), flush=True)
+    return secs, k1
 
 
 # K2's shapes on the cold speculative path: the compaction crossings
@@ -401,54 +419,122 @@ def _k1_inputs(rng, N, B, dev, alpha_zero):
 
 
 def phase_k1(dev):
+    """K1's three stage bodies against their plain versions at N=20,
+    B=4096 (alpha 0 and random alpha), and against the plain versions in
+    f64 (printed); the rank-6 body's path (direct calls
+    of the op, as in JAX no engine route takes it) with its counts; each
+    body's ms per launch at the main path's widths (in turns, in this
+    call), its plain ms and bound at full width."""
     from srbd_nmpc_tpu_torch.ops import sqp_planes
     from srbd_nmpc_tpu_torch.utils import opcount
     from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
 
     rng = np.random.default_rng(0)
-    worst = {"dx": 0.0, "du": 0.0, "dphi": 0.0, "theta": 0.0, "phi": 0.0}
-    max_abs = 0.0
-    for alpha_zero in (True, False):
-        args, reg = _k1_inputs(rng, N_MAIN, 4096, dev, alpha_zero)
-        got = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=reg)
-        ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg)
-        torch.cuda.synchronize()
-        for i, key in enumerate(("dx", "du", "dphi")):
-            g, r = got[i].cpu().numpy(), ref[i].cpu().numpy()
-            if not np.all(np.isfinite(g)):
-                raise AssertionError(f"K1 {key} not finite")
-            worst[key] = max(worst[key], parity_metric(g, r))
-            max_abs = max(max_abs, float(np.max(np.abs(g - r))))
-        for i, key in ((0, "theta"), (1, "phi")):
-            g = got[3][i].cpu().numpy().astype(np.float64)
-            r = ref[3][i].cpu().numpy().astype(np.float64)
-            worst[key] = max(worst[key], float(np.max(np.abs(g - r)
-                                                      / np.abs(r))))
-    print("[4 K1] kernel vs plain at N=20, B=4096, alpha=0 and random alpha: "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f" (limit {REL_TOL:g}); max |diff| {max_abs:.3e}", flush=True)
-    if not all(v < REL_TOL for v in worst.values()):
-        raise AssertionError(f"K1 disagrees with its plain version: {worst}")
+    cases = [_k1_inputs(rng, N_MAIN, 4096, dev, az) for az in (True, False)]
+    # the rank-6 body's path: the benchmark weights are leg-block-diagonal,
+    # so each call must run the 6x6 stage
+    torch.cuda.synchronize()
+    _reset_counts()
+    r6_out = [sqp_planes.sqp_qp_solve_onepass_planes(*a, reg=reg, rank6=True)
+              for a, reg in cases]
+    torch.cuda.synchronize()
+    r6_launches = {k: v for k, v in _counts().items() if v}
+    print(f"[4 K1] rank-6 path ({len(cases)} direct calls, rank6=True, "
+          f"B=4096): launches {r6_launches}", flush=True)
+    if r6_launches != {"sqp_planes_rank6": len(cases)}:
+        raise AssertionError(f"rank6=True launches {r6_launches}")
 
-    # times at the main path's widths: full width and the three tiers
-    times = {}
-    for B in (B_MAIN, B_MAIN // 2, B_MAIN // 8, B_MAIN // 32):
+    worst, max_abs, vs64 = {}, {}, {}
+    for name, flags in K1_BODIES.items():
+        w = {"dx": 0.0, "du": 0.0, "dphi": 0.0, "theta": 0.0, "phi": 0.0}
+        max_abs[name] = 0.0
+        vs64[name] = {"dx": 0.0, "du": 0.0}
+        for i, (args, reg) in enumerate(cases):
+            got = (r6_out[i] if name == "sqp_planes_rank6" else
+                   sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=reg,
+                                                          **flags))
+            ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg,
+                                                             **flags)
+            # the f32 kernel against the plain version in f64 on the same
+            # (f32-rounded) inputs: how much each stage body loses to f32
+            ref64 = sqp_planes.sqp_qp_solve_onepass_planes_ref(
+                *_f64(args), reg=reg, **flags)
+            for j, key in enumerate(("dx", "du")):
+                vs64[name][key] = max(vs64[name][key], parity_metric(
+                    got[j].cpu().numpy(), ref64[j].cpu().numpy()))
+            del ref64
+            torch.cuda.synchronize()
+            for j, key in enumerate(("dx", "du", "dphi")):
+                g, r = got[j].cpu().numpy(), ref[j].cpu().numpy()
+                if not np.all(np.isfinite(g)):
+                    raise AssertionError(f"{name} {key} not finite")
+                w[key] = max(w[key], parity_metric(g, r))
+                max_abs[name] = max(max_abs[name],
+                                    float(np.max(np.abs(g - r))))
+            for j, key in ((0, "theta"), (1, "phi")):
+                g = got[3][j].cpu().numpy().astype(np.float64)
+                r = ref[3][j].cpu().numpy().astype(np.float64)
+                w[key] = max(w[key], float(np.max(np.abs(g - r)
+                                                  / np.abs(r))))
+        worst[name] = w
+        print(f"[4 K1] {KERNEL_IDS[name]} kernel vs plain at N=20, B=4096, "
+              "alpha=0 and random alpha: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in w.items())
+              + f" (limit {REL_TOL:g}); max |diff| {max_abs[name]:.3e}; vs "
+              "the plain version in f64 (printed, not held): " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in vs64[name].items()), flush=True)
+    del cases, r6_out
+    bad = {n: w for n, w in worst.items()
+           if not all(v < REL_TOL for v in w.values())}
+    if bad:
+        raise AssertionError(f"K1 disagrees with its plain version: {bad}")
+
+    # times at the main path's widths: full width and the three tiers, the
+    # bodies on the same inputs in turns (forward, then backward; the mean
+    # of the two runs of 10 launches each)
+    times = {name: {} for name in K1_BODIES}
+    order = list(K1_BODIES)
+    for B in K1_WIDTHS:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
-        times[B] = _cuda_ms(
-            lambda: sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=reg), 5)
+        for name in order + order[::-1]:
+            ms = _cuda_ms(lambda: sqp_planes.sqp_qp_solve_onepass_planes(
+                *args, reg=reg, **K1_BODIES[name]), 10)
+            times[name][B] = times[name].get(B, 0.0) + ms / 2
+        del args
     args, reg = _k1_inputs(rng, N_MAIN, B_MAIN, dev, False)
-    plain_ms = _cuda_ms(
-        lambda: sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg), 1)
-    out = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=reg)
-    bound = _bound(_nbytes(args[6:13], out),
-                   opcount.count_sqp_planes(*args, reg=reg))
-    del args, out
-    torch.cuda.empty_cache()
-    print("[4 K1] ms per launch: " + ", ".join(
-        f"B={B} {ms:.3f}" for B, ms in times.items())
-        + f"; plain at B={B_MAIN}: {plain_ms:.3f} ms; bound {bound[0]:.3f} ms "
-        f"({bound[1]})", flush=True)
-    return max_abs, times, plain_ms, bound
+    plain_ms, bounds = {}, {}
+    for name, flags in K1_BODIES.items():
+        plain_ms[name] = _cuda_ms(
+            lambda: sqp_planes.sqp_qp_solve_onepass_planes_ref(
+                *args, reg=reg, **flags), 1)
+        out = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=reg, **flags)
+        bounds[name] = _bound(_nbytes(args[6:13], out),
+                              opcount.count_sqp_planes(*args, reg=reg,
+                                                       **flags))
+        del out
+        torch.cuda.empty_cache()
+    del args
+    gains = times["sqp_planes"]
+    for name in K1_BODIES:
+        print(f"[4 K1] {KERNEL_IDS[name]} ms per launch: " + ", ".join(
+            f"B={B} {ms:.3f} ({ms / gains[B]:.3f}x gains)"
+            for B, ms in times[name].items())
+            + f"; plain at B={B_MAIN}: {plain_ms[name]:.3f} ms; bound "
+            f"{bounds[name][0]:.3f} ms ({bounds[name][1]})", flush=True)
+    return max_abs, times, plain_ms, bounds, r6_launches
+
+
+def _f64(args):
+    """K1's arguments with every tensor (the model parameters included) in
+    float64."""
+    import dataclasses
+
+    params = args[0]
+    p64 = dataclasses.replace(params, **{
+        f.name: getattr(params, f.name).double()
+        for f in dataclasses.fields(params)})
+    return (p64,) + tuple(a.double() if isinstance(a, torch.Tensor) else a
+                          for a in args[1:])
 
 
 def _cold_problem(B, dev, seed=0, compact=True):
@@ -477,12 +563,12 @@ def phase_cold(dev, card):
 
     prob = _cold_problem(B_MAIN, dev)
     torch.cuda.synchronize()
-    sqp_planes.launches = 0
-    for k in permute.launches:
-        permute.launches[k] = 0
+    for d in (sqp_planes.launches, permute.launches):
+        for k in d:
+            d[k] = 0
     st, info, summ = sharded.solve_batch(*prob)
     torch.cuda.synchronize()
-    launches = {"sqp_planes": sqp_planes.launches, **permute.launches}
+    launches = {"sqp_planes": sqp_planes.launches["gains"], **permute.launches}
 
     n_conv = int(summ.n_converged)
     conv = info.converged
@@ -600,10 +686,9 @@ def _reset_counts():
     from srbd_nmpc_tpu_torch.ops import (permute, riccati_kernel, sqp_kernel,
                                          sqp_planes)
 
-    sqp_planes.launches = 0
     srbd_linearize.launches = 0
-    for d in (permute.launches, riccati_kernel.launches, sqp_kernel.launches,
-              merit_kernel.launches):
+    for d in (sqp_planes.launches, permute.launches, riccati_kernel.launches,
+              sqp_kernel.launches, merit_kernel.launches):
         for k in d:
             d[k] = 0
 
@@ -613,7 +698,9 @@ def _counts():
     from srbd_nmpc_tpu_torch.ops import (permute, riccati_kernel, sqp_kernel,
                                          sqp_planes)
 
-    return {"sqp_planes": sqp_planes.launches, **permute.launches,
+    k1 = sqp_planes.launches
+    return {"sqp_planes": k1["gains"], "sqp_planes_rank6": k1["rank6"],
+            "sqp_planes_factor": k1["factor"], **permute.launches,
             "linearize": srbd_linearize.launches, **riccati_kernel.launches,
             **merit_kernel.launches, **sqp_kernel.launches}
 
@@ -865,7 +952,8 @@ def phase_parity(dev):
     routes = {"fused+spec": dict(), "fused": SYNC_ROUTES["fused"],
               "pallas": SYNC_ROUTES["pallas"],
               "fused+spec+dense": DENSE_ROUTES["spec"],
-              "fused+dense": DENSE_ROUTES["sync"]}
+              "fused+dense": DENSE_ROUTES["sync"],
+              "fused+spec+factor": FACTOR_ROUTES["spec"]}
     st_x, in_x, _ = sharded.solve_batch(
         *_route_problem(dev, B, dict(qp_kernel="xla"), seed=7))
     u_x = st_x.u.cpu().numpy()
@@ -1468,6 +1556,78 @@ def phase_exact_batched(dev, card):
     return dict(n_conv=n_conv, ms=ms)
 
 
+def _k1_ptxas():
+    """(registers, spill stores, spill loads, stack bytes) of each K1
+    instantiation, by the port's counter name (template argument 0, 1, 2:
+    gains, rank-6, factor)."""
+    import re
+
+    names = {"0": "sqp_planes", "1": "sqp_planes_rank6",
+             "2": "sqp_planes_factor"}
+    out = {}
+    for mangled, regs, stores, loads, stack in _ptxas("sqp_planes",
+                                                      "sqp_planes_kernel"):
+        m = re.search(r"ILi(\d)E", mangled)
+        out[names[m.group(1)]] = (regs, stores, loads, stack)
+    if sorted(out) != sorted(K1_BODIES):
+        raise AssertionError(f"K1 instantiations in the ptxas report: {out}")
+    return out
+
+
+def phase_factor(dev, card, spec):
+    """Cold B=131072 solves with ``park_factor=True`` (K1's factor body) on
+    the speculative loop and the synchronous ``fused`` route, read against
+    the speculative path's default cold solve (phase 5)."""
+    from srbd_nmpc_tpu_torch.parallel import sharded
+
+    n_spec, it_spec = spec
+    out = {}
+    for loop, kw in FACTOR_ROUTES.items():
+        prob = _route_problem(dev, B_MAIN, kw)
+        torch.cuda.synchronize()
+        _reset_counts()
+        st, info, summ = sharded.solve_batch(*prob)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _counts().items() if v}
+        n_conv, mean_it = int(summ.n_converged), float(summ.mean_iters)
+        loops = int(info.sqp_iters.max())
+        trips = int(info.ls_trips[0])
+        u_ok = bool(torch.isfinite(st.u[info.converged]).all())
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sharded.solve_batch(*prob)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50 = float(np.percentile(times, 50))
+        d_conv, d_it = n_conv - n_spec, mean_it - it_spec
+        what = ("trips (bootstrap included)" if loop == "spec"
+                else "line-search trips")
+        print(f"[17 factor] {loop} ({kw}) B={B_MAIN}: converged "
+              f"{n_conv}/{B_MAIN} ({d_conv:+d} vs phase 5), mean SQP "
+              f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
+              f"{what} {trips}, launches {launches}; p50 {p50:.3f} ms per "
+              f"solve, {B_MAIN / p50 * 1e3:.1f} solves/s (times "
+              f"{[round(t, 3) for t in times]}) on {card}", flush=True)
+        # one factor-body launch per trip (speculative) or per SQP loop
+        want = trips if loop == "spec" else loops
+        k1 = {k: v for k, v in launches.items() if k.startswith("sqp_planes")}
+        if k1 != {"sqp_planes_factor": want}:
+            raise AssertionError(f"park_factor {loop}: K1 launches {k1}, "
+                                 f"expected {want} of the factor body")
+        if not u_ok:
+            raise AssertionError(f"park_factor {loop}: a converged solution "
+                                 "is not finite")
+        if abs(d_conv) > SYNC_CONV_FRAC * B_MAIN or abs(d_it) > SYNC_ITER_TOL:
+            raise AssertionError(f"park_factor {loop}: converged {d_conv:+d}, "
+                                 f"mean iterations {d_it:+.4f} vs phase 5")
+        out[loop] = dict(launches=launches, n_conv=n_conv, mean_it=mean_it,
+                         loops=loops, trips=trips, p50=p50)
+        del prob, st, info
+        torch.cuda.empty_cache()
+    return out
+
+
 def _device_ms(fn):
     """Device ms by kernel name of one ``fn()`` under torch.profiler, and
     the number of device kernels it ran. Kernels run on one stream, so
@@ -1498,7 +1658,9 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 
 
 # the TPU kernels' ids (PERF.md's table) by the port's counter names
-KERNEL_IDS = {"sqp_planes": "K1", "take_lanes": "K2a", "set_lanes": "K2b",
+KERNEL_IDS = {"sqp_planes": "K1", "sqp_planes_rank6": "K1_rank6",
+              "sqp_planes_factor": "K1_factor",
+              "take_lanes": "K2a", "set_lanes": "K2b",
               "sqp_onepass_cand": "K3a", "sqp_onepass": "K3b",
               "sqp_twopass_bwd": "K4a", "sqp_twopass_fwd": "K4b",
               "linearize": "K5", "riccati_bwd_constq": "K6a",
@@ -1520,11 +1682,11 @@ def main(argv=None) -> int:
         phase_permute(dev)
         print(smi)
         return 0
-    phase_build()
+    _, k1_regs = phase_build()
     k2, per_call = phase_permute(dev)
     if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
         raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
-    k1_err, k1_t, k1_plain, k1_b = phase_k1(dev)
+    k1_err, k1_t, k1_plain, k1_b, r6_launches = phase_k1(dev)
     st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
     phase_compaction(dev)
@@ -1540,14 +1702,26 @@ def main(argv=None) -> int:
     k7b_err, k7b_t, k7b_b, k7b_launches = phase_k7b(dev)
     phase_single(dev, f"{smi}")
     phase_exact_batched(dev, f"{smi}")
+    factor = phase_factor(dev, f"{smi}", spec)
 
     pallas = sync["pallas"]["launches"]
     per_stage_q = sync["lqr_per_stage_q"]["launches"]
     dense_spec = dense["spec"]["launches"]
     dense_sync = dense["sync"]["launches"]
-    kernels = [_entry("sqp_planes", "sqp_planes.cu", "ops/sqp_planes.py:301",
-                      launches["sqp_planes"], k1_err, k1_t[B_MAIN], k1_plain,
-                      k1_b)]
+    k1_launches = {"sqp_planes": launches["sqp_planes"],
+                   "sqp_planes_rank6": r6_launches["sqp_planes_rank6"],
+                   "sqp_planes_factor":
+                       factor["spec"]["launches"]["sqp_planes_factor"]}
+    kernels = []
+    for name, replaces in (("sqp_planes", "ops/sqp_planes.py:301"),
+                           ("sqp_planes_rank6", "ops/sqp_planes.py:77"),
+                           ("sqp_planes_factor", "ops/sqp_planes.py:373")):
+        regs, stores, loads, _ = k1_regs[name]
+        kernels.append(_entry(
+            name, "sqp_planes.cu", replaces, k1_launches[name], k1_err[name],
+            k1_t[name][B_MAIN], k1_plain[name], k1_b[name],
+            ms_by_width={str(B): t for B, t in k1_t[name].items()},
+            registers=regs, spill_stores=stores, spill_loads=loads))
     for name, replaces in (("take_lanes", "ops/permute_pallas.py:48"),
                            ("set_lanes", "ops/permute_pallas.py:149")):
         k_call, l_call, k_dev, l_dev, bound = k2[name]

@@ -1,29 +1,46 @@
 // K1 · fused SQP trip at a candidate point, one thread per scenario.
 //
 // Replaces the TPU kernel srbd_nmpc_tpu/ops/sqp_planes.py::_onepass_planes_kernel
-// (its plane phase _planes_phase and the stage body
-// sqp_pallas._riccati_stage_structured, K/kv form). Contract: the plain
-// PyTorch version srbd_nmpc_tpu_torch/ops/sqp_planes.py::
-// sqp_qp_solve_onepass_planes_ref.
+// (its plane phase _planes_phase and its three backward stage bodies). One
+// instantiation per body; the C entry srbd_sqp_planes_launch takes the body
+// as its first argument:
+//
+//   Body::kGains   the stage sqp_pallas._riccati_stage_structured in its K/kv
+//                  form (the default);
+//   Body::kRank6   _riccati_stage_rank6, selected by rank6=True
+//                  (sqp_planes.py:362-367);
+//   Body::kFactor  the structured stage parking its factor, selected by
+//                  factor=True (sqp_planes.py:373-389, the epilogue :408-416).
+//
+// Contract: the plain PyTorch version srbd_nmpc_tpu_torch/ops/sqp_planes.py::
+// sqp_qp_solve_onepass_planes_ref with the same rank6 / factor flags.
 //
 // What bounds it on the H100: each scenario is a long sequential recursion
 // (N stages of linearization, then N dependent Riccati stages, then an N-step
 // rollout) over about 20 KB of per-scenario state. It is latency- and
-// register-bound per thread, not bandwidth- or FLOP-bound: the Riccati stage
+// register-bound per thread, not bandwidth- or FLOP-bound: the 12x12 stage
 // alone keeps P (144), the Cholesky factor (78) and the 13-column forward
-// substitution (156) live, past the 255-register cap.
+// substitution (156) live, past the 255-register cap. The rank-6 body trades
+// them for four 6x6 factorizations and 6x13 solves (P, the 6x12 row block
+// Y of P A and the 6x13 right-hand side live at once); the factor body drops
+// the 13-column back substitution from each stage and adds a 12-step one per
+// rollout stage, a serial chain inside the serial rollout.
 //
 // What this simple design does about it: one thread walks one scenario through
 // three passes; nothing crosses lanes, so a compacted launch gives bitwise the
 // same per-lane result as a full-width one. Pass 1 linearizes every stage,
 // accumulates the merit and parks an 87-channel pack per stage in global
 // scratch [N, 87, B]; pass 2 runs the backward Riccati and parks K [N,12,12,B],
-// kv [N,12,B]; pass 3 rolls forward and forms dphi. All global arrays are
-// indexed (row * B + lane), so consecutive threads touch consecutive
-// addresses. Small-matrix loops have compile-time bounds so arrays stay
-// addressable by constants; whatever does not fit in registers spills to local
-// memory, which is accepted here. Structural zeros of the SRBD Jacobians are
-// never multiplied: the nonzero terms are written out.
+// kv [N,12,B] (the factor body: Yh [N,12,12,B], yv [N,12,B], the lower
+// triangle of L [N,78,B] and dinv [N,12,B]); pass 3 rolls forward and forms
+// dphi. All global arrays are indexed (row * B + lane), so consecutive
+// threads touch consecutive addresses. Small-matrix loops have compile-time
+// bounds so arrays stay addressable by constants; whatever does not fit in
+// registers spills to local memory, which is accepted here. Structural zeros
+// of the SRBD Jacobians are never multiplied: the nonzero terms are written
+// out (in the rank-6 stage, the products with the W' blocks, wt_mul, in the
+// dense product's order, so that it still rounds as the plain version does;
+// its Cholesky solves of those blocks run dense).
 //
 // Full-precision math only (sinf/cosf/sqrtf/logf/rsqrtf; never fast-math):
 // the SO(3) chain runs down to the f32 angle clamp 1e-4. Built with
@@ -33,8 +50,9 @@
 // differences alone move du by ~1e-4 relative.
 //
 // The per-scenario body is a template on the scalar type and also compiles as
-// host C++ (without __CUDACC__) so its arithmetic can be checked on a CPU in
-// double precision against the plain PyTorch version.
+// host C++ (without __CUDACC__) so its arithmetic can be checked on a CPU
+// against the plain PyTorch version: in double precision, and in single
+// precision (-DSRBD_HOST_F32) for the rounding of its plane phase.
 
 #include "srbd_dev.cuh"
 
@@ -226,14 +244,375 @@ HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
 }
 
 // ---------------------------------------------------------------------------
-// one scenario, three passes
+// Dense small-matrix algebra in the plain version's operation order
+// (ops/smallmat.py): every sum runs left to right over the inner index.
+// ---------------------------------------------------------------------------
+
+// C = A B
+template <typename T, int n, int kk, int m>
+HD void mm(const T (&A)[n][kk], const T (&B)[kk][m], T (&C)[n][m]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int j = 0; j < m; ++j) {
+      T acc = A[i][0] * B[0][j];
+#pragma unroll
+      for (int k = 1; k < kk; ++k) acc = acc + A[i][k] * B[k][j];
+      C[i][j] = acc;
+    }
+}
+
+// C = A' B
+template <typename T, int kk, int n, int m>
+HD void mtm(const T (&A)[kk][n], const T (&B)[kk][m], T (&C)[n][m]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int j = 0; j < m; ++j) {
+      T acc = A[0][i] * B[0][j];
+#pragma unroll
+      for (int k = 1; k < kk; ++k) acc = acc + A[k][i] * B[k][j];
+      C[i][j] = acc;
+    }
+}
+
+// y = A v
+template <typename T, int n, int kk>
+HD void mv(const T (&A)[n][kk], const T* v, T* y) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    T acc = A[i][0] * v[0];
+#pragma unroll
+    for (int k = 1; k < kk; ++k) acc = acc + A[i][k] * v[k];
+    y[i] = acc;
+  }
+}
+
+// Right-looking Cholesky of the SPD matrix in the lower triangle of S, in
+// place: S becomes L (zeros above the diagonal), dinv = rsqrt(pivot)
+template <typename T, int n>
+HD void cholesky(T (&S)[n][n], T (&dinv)[n]) {
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    const T di = k_rsqrt(S[j][j]);
+    dinv[j] = di;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      if (i < j) S[i][j] = T(0);
+      else S[i][j] = S[i][j] * di;
+    }
+#pragma unroll
+    for (int c = 0; c < n; ++c)
+#pragma unroll
+      for (int i = 0; i < n; ++i)
+        if (c > j && i >= c) S[i][c] = S[i][c] - S[i][j] * S[c][j];
+  }
+}
+
+// (L L') X = R for R [n][m], in place: L^-1 forward, then L'^-1 backward
+template <typename T, int n, int m>
+HD void chol_solve(const T (&L)[n][n], const T (&dinv)[n], T (&X)[n][m]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int c = 0; c < m; ++c) X[i][c] = X[i][c] * dinv[i];
+#pragma unroll
+    for (int r = 0; r < n; ++r)
+      if (r > i) {
+#pragma unroll
+        for (int c = 0; c < m; ++c) X[r][c] = X[r][c] - L[r][i] * X[i][c];
+      }
+  }
+#pragma unroll
+  for (int i = n - 1; i >= 0; --i) {
+#pragma unroll
+    for (int c = 0; c < m; ++c) X[i][c] = X[i][c] * dinv[i];
+#pragma unroll
+    for (int r = 0; r < n; ++r)
+      if (r < i) {
+#pragma unroll
+        for (int c = 0; c < m; ++c) X[r][c] = X[r][c] - L[i][r] * X[i][c];
+      }
+  }
+}
+
+// (L L') x = r for a vector, in place
+template <typename T, int n>
+HD void chol_solve_vec(const T (&L)[n][n], const T (&dinv)[n], T (&x)[n]) {
+  T X[n][1];
+#pragma unroll
+  for (int i = 0; i < n; ++i) X[i][0] = x[i];
+  chol_solve(L, dinv, X);
+#pragma unroll
+  for (int i = 0; i < n; ++i) x[i] = X[i][0];
+}
+
+// the state rows 3:6 and 9:12, where the control Jacobian is nonzero
+HD constexpr int sel(int a) { return a < 3 ? 3 + a : 6 + a; }
+
+// C' E for a W' block C = [[S', I/m], [I, 0]], S = skew(s): row i < 3 of
+// C' is (S[i][0..2], e_i'), row 3 + i is e_i' / m. Only the terms that are
+// not structurally zero or one are formed, in the dense product's order
+// (k ascending), so for finite E each sum rounds as mtm(C, E) does: a
+// product with a zero entry adds a signed zero, one with a one is exact.
+template <typename T, int m>
+HD void wt_mul(const T* s, T m_inv, const T (&E)[6][m], T (&C)[6][m]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int k0 = i == 0 ? 1 : 0, k1 = i == 2 ? 1 : 2;  // {0, 1, 2} \ {i}
+#pragma unroll
+    for (int j = 0; j < m; ++j) {
+      T acc = skew_at(s, i, k0) * E[k0][j];
+      acc = acc + skew_at(s, i, k1) * E[k1][j];
+      C[i][j] = acc + E[3 + i][j];
+      C[3 + i][j] = m_inv * E[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The rank-6 backward Riccati stage (sqp_planes.py::_riccati_stage_rank6,
+// the port's plain version in ops/sqp_planes.py, op for op). B = dt S W with
+// W = [[Sr, I, Sl, I], [I/m, 0, I/m, 0]] on the state rows sel(0..5); with
+// R^ = Reff + reg I leg-block-diagonal (R1h, R2h), T = W R^-1 W' = Lt Lt',
+// Ms = I + dt^2 Lt' Pss Lt = Lm Lm', G^-1 W' = R^-1 W' (I + dt^2 Pss T)^-1.
+// Same inputs as riccati_stage_structured (R must be leg-block-diagonal:
+// the host decides); updates (P, p) in place and writes the gains K, kv.
 // ---------------------------------------------------------------------------
 template <typename T>
+HD void riccati_stage_rank6(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF,
+                            const T* sr, const T* sl, const T* bv, const T* q,
+                            const T* rf, const T* ddb, const T* Ac1, const T* Ac2,
+                            const T* Rw, const T* Qw, T dt, T m_inv, T reg,
+                            T (&P)[12][12], T* p, T (&K)[12][12], T* kv) {
+  const T dt2 = dt * dt;
+  T Pbp[12];
+  stage_pbp(P, bv, p, Pbp);
+  T V[12][12];
+  stage_jxt_p(P, D1, D2, sF, V);
+
+  // Y = rows sel of P A = P + dt V'; ys = rows sel of Pb_p; Pss
+  T Y[6][12], ys[6], Pss[6][6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) Y[a][j] = P[sel(a)][j] + dt * V[j][sel(a)];
+    ys[a] = Pbp[sel(a)];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) Pss[a][c] = P[sel(a)][sel(c)];
+  }
+
+  // W' blocks C1 = [[Sr', I/m], [I, 0]], C2 = [[Sl', I/m], [I, 0]]
+  T C1[6][6], C2[6][6];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      C1[k][c] = skew_at(sr, c, k);
+      C2[k][c] = skew_at(sl, c, k);
+      C1[k][3 + c] = C2[k][3 + c] = (k == c) ? m_inv : T(0);
+      C1[3 + k][c] = C2[3 + k][c] = (k == c) ? T(1) : T(0);
+      C1[3 + k][3 + c] = C2[3 + k][3 + c] = T(0);
+    }
+
+  // R1h, R2h: R's diagonal leg blocks + Ac' diag(ddb) Ac + reg I, factored
+  T L1[6][6], L2[6][6], d1[6], d2[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if (j > i) continue;
+      T c1 = Ac1[i] * (Ac1[j] * ddb[0]);
+      T c2 = Ac2[i] * (Ac2[j] * ddb[12]);
+#pragma unroll
+      for (int g = 1; g < 12; ++g) {
+        c1 = c1 + Ac1[6 * g + i] * (Ac1[6 * g + j] * ddb[g]);
+        c2 = c2 + Ac2[6 * g + i] * (Ac2[6 * g + j] * ddb[12 + g]);
+      }
+      L1[i][j] = Rw[12 * i + j] + c1;
+      L2[i][j] = Rw[12 * (6 + i) + 6 + j] + c2;
+      if (i == j) {
+        L1[i][j] = L1[i][j] + reg;
+        L2[i][j] = L2[i][j] + reg;
+      }
+    }
+  cholesky(L1, d1);
+  cholesky(L2, d2);
+
+  // E = R^-1 W' (two blocks), T = W R^-1 W' = C1' E1 + C2' E2
+  T E1[6][6], E2[6][6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      E1[i][j] = C1[i][j];
+      E2[i][j] = C2[i][j];
+    }
+  chol_solve(L1, d1, E1);
+  chol_solve(L2, d2, E2);
+  T Tm[6][6], Lt[6][6], dt6[6];
+  {
+    T A[6][6];
+    wt_mul(sr, m_inv, E1, Tm);
+    wt_mul(sl, m_inv, E2, A);
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        Tm[i][j] = Tm[i][j] + A[i][j];
+        Lt[i][j] = Tm[i][j];
+      }
+  }
+  cholesky(Lt, dt6);
+
+  // Ms = I + dt^2 Lt' Pss Lt, factored
+  T Lm[6][6], dm[6];
+  {
+    T PssLt[6][6], A[6][6];
+    mm(Pss, Lt, PssLt);
+    mtm(Lt, PssLt, A);
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) Lm[i][j] = (i == j) ? dt2 * A[i][j] + T(1) : dt2 * A[i][j];
+  }
+  cholesky(Lm, dm);
+
+  // r~ = R^-1 reff, w_r = W r~, zvec = dt ys - dt^2 Pss w_r
+  T rt1[6], rt2[6], wr[6], zv[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    rt1[i] = rf[i];
+    rt2[i] = rf[6 + i];
+  }
+  chol_solve_vec(L1, d1, rt1);
+  chol_solve_vec(L2, d2, rt2);
+  {
+    T r1[6][1], r2[6][1], a1[6][1], a2[6][1], a[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      r1[i][0] = rt1[i];
+      r2[i][0] = rt2[i];
+    }
+    wt_mul(sr, m_inv, r1, a1);
+    wt_mul(sl, m_inv, r2, a2);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) wr[i] = a1[i][0] + a2[i][0];
+    mv(Pss, wr, a);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) zv[i] = dt * ys[i] - dt2 * a[i];
+  }
+
+  // X = M6^-1 [Y | zvec] = RHS - dt^2 Pss Lt w, w = Ms^-1 Lt' RHS
+  T X[6][13];
+  {
+    T W[6][13], LW[6][13], PLW[6][13];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int j = 0; j < 12; ++j) X[i][j] = Y[i][j];
+      X[i][12] = zv[i];
+    }
+    mtm(Lt, X, W);
+    chol_solve(Lm, dm, W);
+    mm(Lt, W, LW);
+    mm(Pss, LW, PLW);
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int c = 0; c < 13; ++c) X[i][c] = X[i][c] - dt2 * PLW[i][c];
+  }
+
+  // K = -dt [E1 Yh; E2 Yh], kv = -[rt1 + E1 zh; rt2 + E2 zh]
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      T a = E1[i][0] * X[0][j], b = E2[i][0] * X[0][j];
+#pragma unroll
+      for (int k = 1; k < 6; ++k) {
+        a = a + E1[i][k] * X[k][j];
+        b = b + E2[i][k] * X[k][j];
+      }
+      K[i][j] = -dt * a;
+      K[6 + i][j] = -dt * b;
+    }
+    T a = E1[i][0] * X[0][12], b = E2[i][0] * X[0][12];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) {
+      a = a + E1[i][k] * X[k][12];
+      b = b + E2[i][k] * X[k][12];
+    }
+    kv[i] = -(rt1[i] + a);
+    kv[6 + i] = -(rt2[i] + b);
+  }
+
+  // H'K = dt Y'(W K), W K = -dt T Yh; H'kv = dt Y'(W kv), W kv = -(w_r + T zh)
+  T WK[6][12], Wkv[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      T acc = Tm[i][0] * X[0][j];
+#pragma unroll
+      for (int k = 1; k < 6; ++k) acc = acc + Tm[i][k] * X[k][j];
+      WK[i][j] = -dt * acc;
+    }
+    T acc = Tm[i][0] * X[0][12];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) acc = acc + Tm[i][k] * X[k][12];
+    Wkv[i] = -(wr[i] + acc);
+  }
+
+  // P_new = Qw + P + dt (M + V) + dt^2 Jx' M + H'K, symmetrized, M = V';
+  // in place: entries (i, j) and (j, i) read only P[i][j] and P[j][i]
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      if (j < i) continue;
+      T hij = Y[0][i] * WK[0][j], hji = Y[0][j] * WK[0][i];
+#pragma unroll
+      for (int r = 1; r < 6; ++r) {
+        hij = hij + Y[r][i] * WK[r][j];
+        hji = hji + Y[r][j] * WK[r][i];
+      }
+      const T mvv = dt * (V[j][i] + V[i][j]);
+      const T xij = (((Qw[12 * i + j] + P[i][j]) + mvv)
+                     + dt2 * jxt_m(V, D1, D2, sF, i, j)) + dt * hij;
+      const T xji = (((Qw[12 * j + i] + P[j][i]) + mvv)
+                     + dt2 * jxt_m(V, D1, D2, sF, j, i)) + dt * hji;
+      const T s = T(0.5) * (xij + xji);
+      P[i][j] = s;
+      P[j][i] = s;
+    }
+  }
+  // p_new = q + Pb_p + dt Jx' Pb_p + H'kv
+  T jv[12];
+  stage_jxt_v(D1, D2, sF, Pbp, jv);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    T acc = Y[0][i] * Wkv[0];
+#pragma unroll
+    for (int r = 1; r < 6; ++r) acc = acc + Y[r][i] * Wkv[r];
+    p[i] = ((q[i] + Pbp[i]) + dt * jv[i]) + dt * acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// one scenario, three passes
+// ---------------------------------------------------------------------------
+enum Body { kGains = 0, kRank6 = 1, kFactor = 2 };
+
+// park0/park1: K [N,12,12,B] and kv [N,12,B]; the factor body parks Yh and
+// yv there, and the lower triangle of L [N,78,B] and dinv [N,12,B] in
+// park2/park3 (unused by the other bodies)
+template <typename T, int kBody>
 HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dxc,
                  const T* duc, const T* alpha, const T* dx0, T* dx_out, T* du_out,
                  T* dphi_out, T* theta_out, T* phi_out, T* maxdef_out,
-                 T* mincon_out, T* pack, T* Kp, T* kvp, int N, int B, int b,
-                 T mu_b, T theta_b, T reg) {
+                 T* mincon_out, T* pack, T* park0, T* park1, T* park2, T* park3,
+                 int N, int B, int b, T mu_b, T theta_b, T reg) {
 #define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
   const T dt = kc[K_DT];
   const T m_inv = T(1) / kc[K_MASS];
@@ -388,16 +767,42 @@ HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dx
 #pragma unroll
     for (int g = 0; g < 24; ++g) ddb[g] = PK(P_DDB + g);
 
-    // structured Riccati stage (srbd_dev.cuh); [K | kv] = -Y, parked in
-    // global scratch
-    T Y[12][13];
-    riccati_stage_structured(D1, D2, sF, sr, sl, bv, q, rf, ddb, Ac1, Ac2, Rw, Qw, dt,
-                             m_inv, reg, P, p, Y);
+    if constexpr (kBody == kGains) {
+      // structured Riccati stage (srbd_dev.cuh); [K | kv] = -Y, parked in
+      // global scratch
+      T Y[12][13];
+      riccati_stage_structured(D1, D2, sF, sr, sl, bv, q, rf, ddb, Ac1, Ac2, Rw, Qw, dt,
+                               m_inv, reg, P, p, Y);
 #pragma unroll
-    for (int i = 0; i < 12; ++i) {
+      for (int i = 0; i < 12; ++i) {
 #pragma unroll
-      for (int j = 0; j < 12; ++j) AT(Kp, (k * 12 + i) * 12 + j) = -Y[i][j];
-      AT(kvp, k * 12 + i) = -Y[i][12];
+        for (int j = 0; j < 12; ++j) AT(park0, (k * 12 + i) * 12 + j) = -Y[i][j];
+        AT(park1, k * 12 + i) = -Y[i][12];
+      }
+    } else if constexpr (kBody == kRank6) {
+      T K[12][12], kv[12];
+      riccati_stage_rank6(D1, D2, sF, sr, sl, bv, q, rf, ddb, Ac1, Ac2, Rw, Qw, dt, m_inv,
+                          reg, P, p, K, kv);
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+#pragma unroll
+        for (int j = 0; j < 12; ++j) AT(park0, (k * 12 + i) * 12 + j) = K[i][j];
+        AT(park1, k * 12 + i) = kv[i];
+      }
+    } else {
+      // the stage without its back substitution: park [Yh | yv], L, dinv
+      T Y[12][13], Lt[78], dinv[12];
+      riccati_stage_structured<T, false>(D1, D2, sF, sr, sl, bv, q, rf, ddb, Ac1, Ac2,
+                                         Rw, Qw, dt, m_inv, reg, P, p, Y, Lt, dinv);
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+#pragma unroll
+        for (int j = 0; j < 12; ++j) AT(park0, (k * 12 + i) * 12 + j) = Y[i][j];
+        AT(park1, k * 12 + i) = Y[i][12];
+        AT(park3, k * 12 + i) = dinv[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 78; ++i) AT(park2, k * 78 + i) = Lt[i];
     }
   }
 
@@ -408,13 +813,26 @@ HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dx
   T tot = 0;
   for (int k = 0; k < N; ++k) {
     const T* pk = pack + (size_t)k * P_C * B;
+    // du = K dx + kv; the factor body: t = Yh dx + yv, du = -L'^-1 t
     T du[12];
 #pragma unroll
     for (int i = 0; i < 12; ++i) {
-      T acc = AT(Kp, (k * 12 + i) * 12) * dx[0];
+      T acc = AT(park0, (k * 12 + i) * 12) * dx[0];
 #pragma unroll
-      for (int j = 1; j < 12; ++j) acc = acc + AT(Kp, (k * 12 + i) * 12 + j) * dx[j];
-      du[i] = acc + AT(kvp, k * 12 + i);
+      for (int j = 1; j < 12; ++j) acc = acc + AT(park0, (k * 12 + i) * 12 + j) * dx[j];
+      du[i] = acc + AT(park1, k * 12 + i);
+    }
+    if constexpr (kBody == kFactor) {
+#pragma unroll
+      for (int i = 11; i >= 0; --i) {
+        const T xi = du[i] * AT(park3, k * 12 + i);
+        du[i] = xi;
+#pragma unroll
+        for (int r = 0; r < 12; ++r)
+          if (r < i) du[r] = du[r] - AT(park2, k * 78 + i * (i + 1) / 2 + r) * xi;
+      }
+#pragma unroll
+      for (int i = 0; i < 12; ++i) du[i] = -du[i];
     }
     T sF[3], sr[3], sl[3];
 #pragma unroll
@@ -470,54 +888,80 @@ HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dx
 
 #ifdef __CUDACC__
 
+template <int kBody>
 __global__ void sqp_planes_kernel(const float* __restrict__ consts, const float* xa,
                                   const float* us, const float* xr, const float* dxc,
                                   const float* duc, const float* alpha, const float* dx0,
                                   float* dx_out, float* du_out, float* dphi, float* theta,
                                   float* phi, float* maxdef, float* mincon, float* pack,
-                                  float* Kp, float* kvp, int N, int B, float mu_b,
-                                  float theta_b, float reg) {
+                                  float* park0, float* park1, float* park2, float* park3,
+                                  int N, int B, float mu_b, float theta_b, float reg) {
   __shared__ float kc[k1::K_LEN];
   for (int i = threadIdx.x; i < k1::K_LEN; i += blockDim.x) kc[i] = consts[i];
   __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  k1::scenario<float>(kc, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi, theta,
-                      phi, maxdef, mincon, pack, Kp, kvp, N, B, b, mu_b, theta_b, reg);
+  k1::scenario<float, kBody>(kc, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi,
+                             theta, phi, maxdef, mincon, pack, park0, park1, park2, park3,
+                             N, B, b, mu_b, theta_b, reg);
 }
 
-extern "C" int srbd_sqp_planes_launch(const float* consts, const float* xa, const float* us,
-                                      const float* xr, const float* dxc, const float* duc,
-                                      const float* alpha, const float* dx0, float* dx_out,
-                                      float* du_out, float* dphi, float* theta, float* phi,
-                                      float* maxdef, float* mincon, float* pack, float* Kp,
-                                      float* kvp, int N, int B, float mu_b, float theta_b,
-                                      float reg, int threads, void* stream) {
+// body: 0 gains, 1 rank-6 (R must be leg-block-diagonal), 2 factor (k1::Body).
+// park0/park1: K [N,12,12,B] and kv [N,12,B], or for the factor body Yh
+// [N,12,12,B] and yv [N,12,B], with the lower triangle of L [N,78,B] in
+// park2 and dinv [N,12,B] in park3 (null for the other bodies)
+extern "C" int srbd_sqp_planes_launch(int body, const float* consts, const float* xa,
+                                      const float* us, const float* xr, const float* dxc,
+                                      const float* duc, const float* alpha,
+                                      const float* dx0, float* dx_out, float* du_out,
+                                      float* dphi, float* theta, float* phi, float* maxdef,
+                                      float* mincon, float* pack, float* park0,
+                                      float* park1, float* park2, float* park3, int N,
+                                      int B, float mu_b, float theta_b, float reg,
+                                      int threads, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   const int blocks = (B + threads - 1) / threads;
-  sqp_planes_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi, theta, phi, maxdef,
-      mincon, pack, Kp, kvp, N, B, mu_b, theta_b, reg);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define K1_ARGS                                                                       \
+  consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi, theta, phi, maxdef, \
+      mincon, pack, park0, park1, park2, park3, N, B, mu_b, theta_b, reg
+  switch (body) {
+    case k1::kGains: sqp_planes_kernel<k1::kGains><<<blocks, threads, 0, st>>>(K1_ARGS); break;
+    case k1::kRank6: sqp_planes_kernel<k1::kRank6><<<blocks, threads, 0, st>>>(K1_ARGS); break;
+    case k1::kFactor: sqp_planes_kernel<k1::kFactor><<<blocks, threads, 0, st>>>(K1_ARGS); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K1_ARGS
   return (int)cudaGetLastError();
 }
 
-#else  // host build: the same per-scenario body over every lane, in f64
+#else  // host build: the same per-scenario bodies over every lane
 
-using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
+// host_t: double; float under -DSRBD_HOST_F32 (the kernel's own precision),
+// the op counter under -DSRBD_OPCOUNT
+using srbd_dev::host_t;
 
-extern "C" int srbd_sqp_planes_host_f64(const host_t* consts, const host_t* xa,
-                                        const host_t* us, const host_t* xr,
-                                        const host_t* dxc, const host_t* duc,
-                                        const host_t* alpha, const host_t* dx0,
-                                        host_t* dx_out, host_t* du_out, host_t* dphi,
-                                        host_t* theta, host_t* phi, host_t* maxdef,
-                                        host_t* mincon, host_t* pack, host_t* Kp,
-                                        host_t* kvp, int N, int B, double mu_b,
-                                        double theta_b, double reg) {
-  for (int b = 0; b < B; ++b)
-    k1::scenario<host_t>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi,
-                         theta, phi, maxdef, mincon, pack, Kp, kvp, N, B, b, mu_b, theta_b,
-                         reg);
+// the arguments of srbd_sqp_planes_launch, on the host
+extern "C" int srbd_sqp_planes_host(int body, const host_t* consts, const host_t* xa,
+                                    const host_t* us, const host_t* xr, const host_t* dxc,
+                                    const host_t* duc, const host_t* alpha,
+                                    const host_t* dx0, host_t* dx_out, host_t* du_out,
+                                    host_t* dphi, host_t* theta, host_t* phi,
+                                    host_t* maxdef, host_t* mincon, host_t* pack,
+                                    host_t* park0, host_t* park1, host_t* park2,
+                                    host_t* park3, int N, int B, double mu_b,
+                                    double theta_b, double reg) {
+  if (body < k1::kGains || body > k1::kFactor) return 1;
+  const host_t mu(mu_b), th(theta_b), rg(reg);
+  for (int b = 0; b < B; ++b) {
+#define K1_ARGS                                                                       \
+  consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi, theta, phi, maxdef, \
+      mincon, pack, park0, park1, park2, park3, N, B, b, mu, th, rg
+    if (body == k1::kGains) k1::scenario<host_t, k1::kGains>(K1_ARGS);
+    else if (body == k1::kRank6) k1::scenario<host_t, k1::kRank6>(K1_ARGS);
+    else k1::scenario<host_t, k1::kFactor>(K1_ARGS);
+#undef K1_ARGS
+  }
   return 0;
 }
 

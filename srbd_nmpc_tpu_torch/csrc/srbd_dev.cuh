@@ -3,8 +3,8 @@
 // the evaluation order of srbd_nmpc_tpu_torch/models/srbd_soa.py (its SO(3)
 // chain, Jacobian blocks, dense Jacobian entries and four-call RK4), and the
 // stage bodies of the fused SQP trips (ops/sqp_stage.py): the structured
-// Riccati stage (K1, K3), the backward-order merit (K3, K4a) and the
-// closed-loop rollout (K3, K4b).
+// Riccati stage (K1's gains and factor bodies, K3), the backward-order merit
+// (K3, K4a) and the closed-loop rollout (K3, K4b).
 //
 // Every function is __host__ __device__ and a template on the scalar type, so
 // each kernel's per-thread body also compiles as host C++ (without __CUDACC__)
@@ -83,6 +83,8 @@ extern "C" long long srbd_opcount_take() {
   return n;
 }
 using host_t = OpCount;
+#elif defined(SRBD_HOST_F32)
+using host_t = float;  // a host build in the kernels' own precision
 #else
 using host_t = double;
 #endif
@@ -488,19 +490,9 @@ HD T jxt_m(const T (&V)[12][12], const T (&D1)[3][3], const T (&D2)[3][3], const
   return o[i - 6];
 }
 
-// One stage k of the structured backward Riccati recursion, from the stage's
-// Jacobian blocks (D1, D2 and the generators sF, sr, sl), defect bv, tracking
-// gradient q, r_eff rf and barrier curvature ddb [24], with the leg blocks
-// Ac1, Ac2 [12, 6] and R, Q (row-major) of the constants block. Updates (P, p)
-// to stage k in place and leaves X in Y, where [K | kv] = -X.
+// Pb_p = P b + p
 template <typename T>
-HD void riccati_stage_structured(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF,
-                                 const T* sr, const T* sl, const T* bv, const T* q,
-                                 const T* rf, const T* ddb, const T* Ac1, const T* Ac2,
-                                 const T* Rw, const T* Qw, T dt, T m_inv, T reg,
-                                 T (&P)[12][12], T* p, T (&Y)[12][13]) {
-  // Pb_p = P b + p
-  T Pbp[12];
+HD void stage_pbp(const T (&P)[12][12], const T* bv, const T* p, T* Pbp) {
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
     T acc = P[i][0] * bv[0];
@@ -508,9 +500,12 @@ HD void riccati_stage_structured(const T (&D1)[3][3], const T (&D2)[3][3], const
     for (int j = 1; j < 12; ++j) acc = acc + P[i][j] * bv[j];
     Pbp[i] = acc + p[i];
   }
+}
 
-  // V = Jx' P (rows: D1' P0 | D2' P0 | SF' P1 | P2)
-  T V[12][12];
+// V = Jx' P (rows: D1' P0 | D2' P0 | SF' P1 | P2)
+template <typename T>
+HD void stage_jxt_p(const T (&P)[12][12], const T (&D1)[3][3], const T (&D2)[3][3],
+                    const T* sF, T (&V)[12][12]) {
 #pragma unroll
   for (int j = 0; j < 12; ++j) {
 #pragma unroll
@@ -525,6 +520,45 @@ HD void riccati_stage_structured(const T (&D1)[3][3], const T (&D2)[3][3], const
     V[7][j] = s[1];
     V[8][j] = s[2];
   }
+}
+
+// jv = Jx' v
+template <typename T>
+HD void stage_jxt_v(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF, const T* v,
+                    T* jv) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    jv[i] = D1[0][i] * v[0] + D1[1][i] * v[1] + D1[2][i] * v[2];
+    jv[3 + i] = D2[0][i] * v[0] + D2[1][i] * v[1] + D2[2][i] * v[2];
+    jv[9 + i] = v[6 + i];
+  }
+  T s[3];
+  skewT_mul(sF, v[3], v[4], v[5], s);
+  jv[6] = s[0];
+  jv[7] = s[1];
+  jv[8] = s[2];
+}
+
+// One stage k of the structured backward Riccati recursion, from the stage's
+// Jacobian blocks (D1, D2 and the generators sF, sr, sl), defect bv, tracking
+// gradient q, r_eff rf and barrier curvature ddb [24], with the leg blocks
+// Ac1, Ac2 [12, 6] and R, Q (row-major) of the constants block. Updates (P, p)
+// to stage k in place. kGains (K1's gains body, K3): leaves X in Y, where
+// [K | kv] = -X. Otherwise (K1's factor body, sqp_stage's return_factor form)
+// skips the back substitution: leaves the forward-substituted half
+// [Yh | yv] = L^-1 [H | rv] in Y, the lower triangle of the Cholesky factor L
+// row by row in Lt [78] and 1 / diag(L) in dinv_out [12].
+template <typename T, bool kGains = true>
+HD void riccati_stage_structured(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF,
+                                 const T* sr, const T* sl, const T* bv, const T* q,
+                                 const T* rf, const T* ddb, const T* Ac1, const T* Ac2,
+                                 const T* Rw, const T* Qw, T dt, T m_inv, T reg,
+                                 T (&P)[12][12], T* p, T (&Y)[12][13], T* Lt = nullptr,
+                                 T* dinv_out = nullptr) {
+  T Pbp[12];
+  stage_pbp(P, bv, p, Pbp);
+  T V[12][12];
+  stage_jxt_p(P, D1, D2, sF, V);
 
   // Y13 = [H | rv]: H = dt Ju'(P A), A = I + dt Jx, P A = P + dt V'
   //   Ju' Mat rows: [Sr' M1 + M3/m | M1 | Sl' M1 + M3/m | M1]
@@ -657,17 +691,7 @@ HD void riccati_stage_structured(const T (&D1)[3][3], const T (&D2)[3][3], const
   }
   {
     T jv[12];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      jv[i] = D1[0][i] * Pbp[0] + D1[1][i] * Pbp[1] + D1[2][i] * Pbp[2];
-      jv[3 + i] = D2[0][i] * Pbp[0] + D2[1][i] * Pbp[1] + D2[2][i] * Pbp[2];
-      jv[9 + i] = Pbp[6 + i];
-    }
-    T s[3];
-    skewT_mul(sF, Pbp[3], Pbp[4], Pbp[5], s);
-    jv[6] = s[0];
-    jv[7] = s[1];
-    jv[8] = s[2];
+    stage_jxt_v(D1, D2, sF, Pbp, jv);
 #pragma unroll
     for (int i = 0; i < 12; ++i) {
       T yy = Y[0][i] * Y[0][12];
@@ -677,17 +701,26 @@ HD void riccati_stage_structured(const T (&D1)[3][3], const T (&D2)[3][3], const
     }
   }
 
-  // back substitution L' X = Y
+  if constexpr (kGains) {
+    // back substitution L' X = Y
 #pragma unroll
-  for (int i = 11; i >= 0; --i) {
+    for (int i = 11; i >= 0; --i) {
 #pragma unroll
-    for (int c = 0; c < 13; ++c) Y[i][c] = Y[i][c] * dinv[i];
+      for (int c = 0; c < 13; ++c) Y[i][c] = Y[i][c] * dinv[i];
 #pragma unroll
-    for (int r = 0; r < 12; ++r)
-      if (r < i) {
+      for (int r = 0; r < 12; ++r)
+        if (r < i) {
 #pragma unroll
-        for (int c = 0; c < 13; ++c) Y[r][c] = Y[r][c] - L[i][r] * Y[i][c];
-      }
+          for (int c = 0; c < 13; ++c) Y[r][c] = Y[r][c] - L[i][r] * Y[i][c];
+        }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) Lt[i * (i + 1) / 2 + j] = L[i][j];
+      dinv_out[i] = dinv[i];
+    }
   }
 }
 

@@ -1,6 +1,8 @@
 """SRBD dynamics and Jacobian blocks as entry-wise algebra over stage planes.
 
-Counterpart of ``srbd_nmpc_tpu/models/srbd_planes.py``. Every per-stage
+Counterpart of ``srbd_nmpc_tpu/models/srbd_planes.py`` (one association
+differs: ``linearize_stage`` applies the SO(3) derivative term to w as
+K1's kernel does, so that K1 rounds as this plain version). Every per-stage
 scalar is a plane ``[N, B]`` (all stages of all scenarios), 3-vectors and
 3x3 matrices are Python tuples of planes, and entries may also be Python
 float constants: ``_mul``/``_add`` fold structural zeros and ones before
@@ -133,7 +135,7 @@ def _safe_theta(r):
 
 
 def so3_chain(r):
-    """R, Jl, Jlt, djlt (tuple of 3 matrices: d Jl^-1 / d r_a)."""
+    """R, Jl, Jlt, djl (tuple of 3 matrices: d Jl / d r_a)."""
     t = _safe_theta(r)
     st, ct = torch.sin(t), torch.cos(t)
     t2 = t * t
@@ -162,14 +164,11 @@ def so3_chain(r):
     c1 = (t - st) / t3
     c2 = (1.0 - ct) / t2
 
-    djlt = []
-    for a in range(3):
-        Ea = _E[a]
-        djl_a = m3_add(
-            m3_scale(c1, m3_add(m3(Ea, W), m3(W, Ea))),
-            m3_add(m3_scale(c2, Ea), m3_scale(r[a], base)))
-        djlt.append(m3_scale(-1.0, m3(Jlt, m3(djl_a, Jlt))))
-    return R, Jl, Jlt, tuple(djlt)
+    djl = tuple(
+        m3_add(m3_scale(c1, m3_add(m3(_E[a], W), m3(W, _E[a]))),
+               m3_add(m3_scale(c2, _E[a]), m3_scale(r[a], base)))
+        for a in range(3))
+    return R, Jl, Jlt, djl
 
 
 def _chain_lite(r):
@@ -220,18 +219,31 @@ def _axpy(a, x, y):
     return tuple(_add(yi, _mul(a, xi)) for xi, yi in zip(x, y))
 
 
+def djlt_apply(Jlt, djl_a, w, Jw):
+    """(d Jl^-1 / d r_a) w = -Jl^-1 (d Jl / d r_a) Jl^-1 w, with Jw = Jlt w,
+    formed from the right: -(Jlt (djl_a Jw)), K1's CUDA association. JAX
+    forms the matrix -(Jlt djl_a Jlt) first: the same to rounding, but in
+    float32 on an H100 K1's rank-6 body then differed from this plain
+    version by 1.6e-4 (parity metric) after the Riccati solve; with K1's
+    association the two agree bitwise there. The host build of K1 in
+    float32 shows the cause (tests/test_torch_sqp_planes.py::
+    test_f32_host_build_rounds_d1_as_plain)."""
+    return tuple(_mul(-1.0, z) for z in m3v(Jlt, m3v(djl_a, Jw)))
+
+
 def linearize_stage(mass, dt, Iinv, pf0, pf1, x, u):
     """(D1, D2, sF, sr, sl, x_next): the Euler Jacobian blocks (D1, D2 as
     3x3 entry matrices; SF/Sr/Sl as the vectors that generate those
     skews) and the RK4 step, sharing one so3 chain, R I^-1 R' and w."""
     l, p, v = x[3:6], x[6:9], x[9:12]
-    R, Jl, Jlt, djlt = so3_chain(x[0:3])
+    R, Jl, Jlt, djl = so3_chain(x[0:3])
 
     RIRt = m3(m3(R, Iinv), m3T(R))
     w = m3v(RIRt, l)
+    Jw = m3v(Jlt, w)
 
     # D1[i][a] = (djlt_a w)[i] + (Jlt (RIRt skew(l) - skew(w)) Jl)[i][a]
-    djlt_w = tuple(m3v(djlt[a], w) for a in range(3))
+    djlt_w = tuple(djlt_apply(Jlt, djl[a], w, Jw) for a in range(3))
     core = m3(Jlt, m3(m3_add(m3(RIRt, skew(l)), m3_scale(-1.0, skew(w))), Jl))
     D1 = tuple(tuple(_add(djlt_w[a][i], core[i][a]) for a in range(3))
                for i in range(3))
@@ -248,7 +260,7 @@ def linearize_stage(mass, dt, Iinv, pf0, pf1, x, u):
     v_dot = (_mul(inv_m, _add(f01[0], f02[0])),
              _mul(inv_m, _add(f01[1], f02[1])),
              _add(_mul(inv_m, _add(f01[2], f02[2])), GRAVITY))
-    k1 = tuple(m3v(Jlt, w)) + tuple(l_dot) + tuple(v) + tuple(v_dot)
+    k1 = tuple(Jw) + tuple(l_dot) + tuple(v) + tuple(v_dot)
 
     k2 = dynamics(mass, Iinv, pf0, pf1, _axpy(0.5 * dt, k1, x), u)
     k3 = dynamics(mass, Iinv, pf0, pf1, _axpy(0.5 * dt, k2, x), u)

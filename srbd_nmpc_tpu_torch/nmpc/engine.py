@@ -18,8 +18,9 @@ the JAX engine.
   launches ONE fused SQP trip at every live scenario's next line-search
   candidate ``x + alpha dx``: its merit decides the filter acceptance, and
   on acceptance its QP solution is the next iteration's direction. The
-  trip is ``ops.sqp_planes`` (kernel K1) with ``planes=True``, and the
-  dense ``ops.sqp_kernel`` trip (K3a, bootstrapped by K3b) with
+  trip is ``ops.sqp_planes`` (kernel K1; its factor-parking body with
+  ``park_factor=True``) with ``planes=True``, and the dense
+  ``ops.sqp_kernel`` trip (K3a, bootstrapped by K3b) with
   ``planes=False``. As the live set shrinks, the carry is compacted into
   narrower tiers with the sorted lane permutes of ``ops.permute`` (K2).
 - ``_solve_batched_soa`` (every other batched configuration): each SQP
@@ -30,8 +31,8 @@ the JAX engine.
   ``ops.riccati_soa`` with iterative refinement); the line search's merit
   is K7a (``models.merit_kernel``) on the first two and plain on ``xla``.
   ``sensitivity="exact"`` takes the ``xla`` route.
-- ``_merit_fast`` on a batch with a shared reference runs kernel K7b
-  (``models.merit_kernel.merit``).
+- ``_merit_fast`` on a float32 batch with a shared reference runs kernel
+  K7b (``models.merit_kernel.merit``).
 
 Public layout is the JAX engine's: states are ``x [B, N+1, 12]``,
 ``u [B, N, 12]``, ``alpha [B]``; inside the solve the trajectories are
@@ -102,6 +103,8 @@ class NmpcConfig:
     planes: bool = True
     compact: bool = True
     compact_tiers: tuple = (2, 8, 32)
+    # K1's factor-parking body (ops.sqp_planes factor=True) on the planes
+    # trips of both loops; no effect with planes=False, as in JAX
     park_factor: bool = False
 
     conv_dphi: float = -1e-3
@@ -271,8 +274,6 @@ def _check_slice(cfg: NmpcConfig, state: NmpcState) -> None:
              "N >= pscan_min_N)", "Queue 1 item 6")
     if state.x.dim() == 2:
         return   # the single scenario runs no kernel: any dtype and device
-    if _qp_route(cfg) == "fused" and cfg.park_factor:
-        todo("park_factor=True", "Queue 2, K1 variants")
     if (state.x.device.type == "cuda" and state.x.dtype != torch.float32
             and _qp_route(cfg) != "xla"):
         todo(f"{state.x.dtype} on CUDA (the kernels are float32)",
@@ -448,12 +449,15 @@ def merit(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
     return theta, phi, defects, con, Jphi_x, Jphi_u
 
 
-def _pallas_eligible(cfg: NmpcConfig, batch: int) -> bool:
+def _pallas_eligible(cfg: NmpcConfig, batch: int, dtype: torch.dtype) -> bool:
     """Whether a batched merit takes kernel K7b: ``qp_kernel="pallas"``, or
-    ``"auto"`` at a width that is a multiple of ``pallas_block`` (the port
-    reads ``"auto"`` so on every device, as ``_qp_route`` does)."""
+    ``"auto"`` on a float32 batch at a width that is a multiple of
+    ``pallas_block`` (the port reads ``"auto"`` so on every device, as
+    ``_qp_route`` does; a float64 batch takes the plain merit there, as the
+    JAX engine does off the TPU, since the kernel is float32)."""
     return cfg.qp_kernel == "pallas" or (
-        cfg.qp_kernel == "auto" and batch % cfg.pallas_block == 0)
+        cfg.qp_kernel == "auto" and dtype == torch.float32
+        and batch % cfg.pallas_block == 0)
 
 
 def _merit_fast(params: srbd.SRBDParams, weights: NmpcWeights,
@@ -464,7 +468,8 @@ def _merit_fast(params: srbd.SRBDParams, weights: NmpcWeights,
     ``x_ref [N+1, nx]`` takes kernel K7b when ``_pallas_eligible`` (its
     variant with or without gradients, as ``with_grad`` asks); everything
     else takes the plain ``merit``."""
-    if x.dim() == 3 and x_ref.dim() == 2 and _pallas_eligible(cfg, x.shape[0]):
+    if (x.dim() == 3 and x_ref.dim() == 2
+            and _pallas_eligible(cfg, x.shape[0], x.dtype)):
         Bn = x.shape[0]
         Ac, bc = srbd.constraint_matrix(params)
         xs = x.permute(1, 2, 0).contiguous()
@@ -568,7 +573,8 @@ def _sqp_step_soa(params, weights, cfg, xa, us, alpha, x0s, xra, active,
             dx, du, dphi, aux = sqp_planes.sqp_qp_solve_onepass_planes(
                 *head, torch.zeros_like(xa), torch.zeros_like(us),
                 torch.zeros(Bn, dtype=xa.dtype, device=xa.device), x0s,
-                cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg, consts=consts)
+                cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg,
+                factor=cfg.park_factor, consts=consts)
         else:
             dx, du, dphi, aux = sqp_kernel.sqp_qp_solve_onepass(
                 *head, dx0s, cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg,
@@ -753,17 +759,19 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
 
     if cfg.planes:
         # one plane-phase kernel (K1) serves the bootstrap (alpha = 0) and
-        # the candidate trips
+        # the candidate trips; park_factor picks its factor-parking body
         def _boot(xa, us):
             return sqp_planes.sqp_qp_solve_onepass_planes(
                 *head, xa, us, xra, torch.zeros_like(xa), torch.zeros_like(us),
                 torch.zeros(Bn, dtype=dtype, device=dev), x0s,
-                cfg.mu_barrier, cfg.theta_barrier, **kw)
+                cfg.mu_barrier, cfg.theta_barrier, factor=cfg.park_factor,
+                **kw)
 
         def _cand_at(xa, us, dx_p, du_p, alpha_cand, xra_, x0s_):
             return sqp_planes.sqp_qp_solve_onepass_planes(
                 *head, xa, us, xra_, dx_p, du_p, alpha_cand, x0s_,
-                cfg.mu_barrier, cfg.theta_barrier, **kw)
+                cfg.mu_barrier, cfg.theta_barrier, factor=cfg.park_factor,
+                **kw)
     else:
         # dense one-pass trips: K3b at the iterate, K3a at the candidates
         def _boot(xa, us):

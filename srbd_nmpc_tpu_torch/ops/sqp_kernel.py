@@ -231,8 +231,8 @@ def _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     fn = _fn("sqp_onepass", "srbd_sqp_onepass_launch", 21,
              [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
-    _check(fn(consts.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
-              opt(dxc), opt(duc), opt(alpha), dx.data_ptr(),
+    _check(fn(consts.block.data_ptr(), xa.data_ptr(), us.data_ptr(),
+              xra.data_ptr(), opt(dxc), opt(duc), opt(alpha), dx.data_ptr(),
               dx[1:].data_ptr(), du.data_ptr(),
               *(out5[i].data_ptr() for i in range(5)),
               Acl.data_ptr(), K.data_ptr(),

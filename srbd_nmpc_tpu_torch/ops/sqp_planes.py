@@ -2,8 +2,10 @@
 structured backward Riccati, forward rollout and directional derivative.
 
 Counterpart of ``srbd_nmpc_tpu/ops/sqp_planes.py`` (kernel
-``_onepass_planes_kernel`` with ``_planes_phase`` and the stage body
-``sqp_pallas._riccati_stage_structured``), the kernel K1 of the port.
+``_onepass_planes_kernel`` with ``_planes_phase`` and its three stage
+bodies: ``sqp_pallas._riccati_stage_structured`` parking the gains, the
+same stage parking its factor (``factor=True``), and
+``_riccati_stage_rank6`` (``rank6=True``)), the kernel K1 of the port.
 
 - ``sqp_qp_solve_onepass_planes_ref``: the plain PyTorch version, any
   device and dtype. Per-scenario arithmetic never crosses lanes, and every
@@ -11,7 +13,8 @@ Counterpart of ``srbd_nmpc_tpu/ops/sqp_planes.py`` (kernel
   does not depend on the batch width.
 - ``sqp_qp_solve_onepass_planes``: the public entry. CPU tensors go to the
   plain version; CUDA tensors launch the hand-written kernel
-  ``csrc/sqp_planes.cu`` (f32 only) or raise.
+  ``csrc/sqp_planes.cu`` (f32 only; one instantiation per stage body) or
+  raise.
 
 The candidate fold ``x + alpha dx`` is applied on load, so one function
 serves the bootstrap (alpha = 0) and every speculative line-search trip.
@@ -29,9 +32,11 @@ from srbd_nmpc_tpu_torch.models import srbd_soa
 from srbd_nmpc_tpu_torch.models.srbd import NG, NU, NX, SRBDParams
 from srbd_nmpc_tpu_torch.ops import smallmat as sm
 from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
-from srbd_nmpc_tpu_torch.ops.sqp_stage import (_riccati_stage_structured,
+from srbd_nmpc_tpu_torch.ops.sqp_stage import (_jxt, _jxtv,
+                                               _riccati_stage_structured,
                                                _split_leg_blocks,
-                                               kernel_constants)
+                                               kernel_constants,
+                                               r_leg_diagonal)
 from srbd_nmpc_tpu_torch.utils.build import check_cuda_f32, load_kernel
 
 # pack channel layout (C rows per stage), as in the JAX kernel
@@ -50,8 +55,9 @@ _C = 87
 # which only sets the granularity of the compaction tiers)
 THREADS = 128
 
-# launches of the CUDA kernel since the last reset (read by chip_smoke.py)
-launches = 0
+# launches of each stage body's CUDA kernel since the last reset (read by
+# chip_smoke.py)
+launches = {"gains": 0, "rank6": 0, "factor": 0}
 
 
 def _planes_phase(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc, xa, us, xra, dxc,
@@ -130,14 +136,109 @@ def _planes_phase(params, Q_w, Qf_w, R_w, Ac1, Ac2, bc, xa, us, xra, dxc,
     return (theta, phi, maxdef, mincon), pack, Qf_b, qN
 
 
+def _riccati_stage_rank6(dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, R1h, R2h,
+                         reff, q, b, P, p):
+    """The structured backward-Riccati stage through rank(B) = 6 (JAX
+    ``sqp_planes._riccati_stage_rank6``, the same operations in the same
+    order). The control Jacobian has six nonzero rows (row-blocks 1 and 3:
+    W = [[Sr, I, Sl, I], [I/m, 0, I/m, 0]]), so with R^ = Reff + reg I
+    leg-block-diagonal (R1h, R2h [6, 6, B]) and Pss the [6, 6] block of P
+    on those rows, G^-1 W' = R^-1 W' M6^-1 with M6 = I + dt^2 Pss T,
+    T = W R^-1 W'. M6 is solved symmetrically: T = Lt Lt',
+    w = (I + dt^2 Lt' Pss Lt)^-1 Lt' y, x = y - dt^2 Pss Lt w. Four SPD 6x6
+    factorizations (R1h, R2h, T, Ms) replace the 12x12 Cholesky and its
+    13-column solve. Returns (P_new, p_new, K, kv)."""
+    dtype, dev = P.dtype, P.device
+    Bt = P.shape[-1]
+    dt2 = dt * dt
+
+    V = _jxt(D1, D2, SF, P)                            # Jx' P
+    M = V.transpose(0, 1)                              # P Jx  (P = P')
+    PA = P + dt * M
+
+    def srows(X):
+        return torch.cat([X[3:6], X[9:12]], dim=0)
+
+    Y = srows(PA)                                      # [6, 12, B]
+    Pb_p = sm.mv(P, b) + p
+    ys = srows(Pb_p)                                   # [6, B]
+    Ps = srows(P)
+    Pss = torch.cat([Ps[:, 3:6], Ps[:, 9:12]], dim=1)  # [6, 6, B]
+
+    # W' column blocks: C1 = [[Sr', I/m], [I, 0]], C2 = [[Sl', I/m], [I, 0]]
+    z3 = torch.zeros((3, 3, Bt), dtype=dtype, device=dev)
+    I3 = torch.eye(3, dtype=dtype, device=dev)[:, :, None].expand(3, 3, Bt)
+    Im3 = m_inv * I3
+    C1 = torch.cat([torch.cat([Sr.transpose(0, 1), Im3], dim=1),
+                    torch.cat([I3, z3], dim=1)], dim=0)
+    C2 = torch.cat([torch.cat([Sl.transpose(0, 1), Im3], dim=1),
+                    torch.cat([I3, z3], dim=1)], dim=0)
+
+    L1, d1 = sm.cholesky(R1h)
+    L2, d2 = sm.cholesky(R2h)
+    E1 = sm.chol_solve(L1, d1, C1)                     # R^-1 W' top
+    E2 = sm.chol_solve(L2, d2, C2)                     # R^-1 W' bottom
+    T = sm.mtm(C1, E1) + sm.mtm(C2, E2)                # W R^-1 W'  [6, 6]
+    Lt, _ = sm.cholesky(T)
+    PssLt = sm.mm(Pss, Lt)
+    Ms = sm.add_diag(dt2 * sm.mtm(Lt, PssLt), 1.0)     # I + dt^2 Lt'Pss Lt
+    Lm, dm = sm.cholesky(Ms)
+
+    # r~ = R^-1 reff (block-diagonal solve), w_r = W r~
+    rt1 = sm.chol_solve_vec(L1, d1, reff[0:6])
+    rt2 = sm.chol_solve_vec(L2, d2, reff[6:12])
+    w_r = sm.mtv(C1, rt1) + sm.mtv(C2, rt2)
+    zvec = dt * ys - dt2 * sm.mv(Pss, w_r)
+
+    # M6^-1 applied to [Y | zvec] through the symmetric inner system
+    RHS = torch.cat([Y, zvec[:, None]], dim=1)         # [6, 13, B]
+    w = sm.chol_solve(Lm, dm, sm.mtm(Lt, RHS))
+    X = RHS - dt2 * sm.mm(Pss, sm.mm(Lt, w))
+    Yh = X[:, 0:12]                                    # M6^-1 Y
+    zh = X[:, 12]
+
+    # K = -dt R^-1 W' Yh; kv = -(r~ + R^-1 W' zh)
+    K = -dt * torch.cat([sm.mm(E1, Yh), sm.mm(E2, Yh)], dim=0)
+    kv = -torch.cat([rt1 + sm.mv(E1, zh), rt2 + sm.mv(E2, zh)], dim=0)
+
+    # H'K = dt Y'(W K) with W K = -dt T Yh; H'kv = dt Y'(W kv),
+    # W kv = -(w_r + T zh)
+    WK = -dt * sm.mm(T, Yh)
+    HtK = dt * sm.mtm(Y, WK)
+    Wkv = -(w_r + sm.mv(T, zh))
+    Htkv = dt * sm.mtv(Y, Wkv)
+
+    P_new = Qw_b + P + dt * (M + V) + dt2 * _jxt(D1, D2, SF, M) + HtK
+    P_new = 0.5 * (P_new + P_new.transpose(0, 1))
+    p_new = q + Pb_p + dt * _jxtv(D1, D2, SF, Pb_p) + Htkv
+    return P_new, p_new, K, kv
+
+
+def _body(rank6: bool, factor: bool, rank6_ok) -> str:
+    """The stage body a call runs: ``"gains"`` (the 12x12 stage, parking
+    K and kv), ``"rank6"`` or ``"factor"``. ``rank6_ok()`` says whether R_w
+    is leg-block-diagonal: where it is not, ``rank6`` runs the 12x12 stage,
+    silently, as the JAX kernel does."""
+    if factor and rank6:
+        raise ValueError("factor=True is not implemented for the rank-6 "
+                         "stage (rank6=True)")
+    if factor:
+        return "factor"
+    return "rank6" if rank6 and rank6_ok() else "gains"
+
+
 def sqp_qp_solve_onepass_planes_ref(
     params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     alpha, x0s, mu_b: float, theta_b: float, reg: float = 0.0,
+    rank6: bool = False, factor: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Plain PyTorch version of K1: the fused SQP QP solve at the candidate
     (xa + alpha dxc, us + alpha duc). Shapes: xa/xra/dxc [N+1, 12, B],
     us/duc [N, 12, B], alpha [B], x0s [12, B]. Returns
-    (dx [N+1,12,B], du [N,12,B], dphi [B], (theta, phi, maxdef, mincon))."""
+    (dx [N+1,12,B], du [N,12,B], dphi [B], (theta, phi, maxdef, mincon)).
+    ``rank6`` and ``factor`` pick the stage body as
+    ``sqp_qp_solve_onepass_planes`` says."""
+    body = _body(rank6, factor, lambda: r_leg_diagonal(R_w))
     N = us.shape[0]
     Bt = xa.shape[-1]
     Ac1, Ac2 = _split_leg_blocks(Ac)
@@ -162,17 +263,28 @@ def sqp_qp_solve_onepass_planes_ref(
 
     Ac1_b, Ac2_b, Rw_b, Qw_b = widen(Ac1), widen(Ac2), widen(R_w), widen(Q_w)
     z66 = torch.zeros((6, 6, Bt), dtype=xa.dtype, device=xa.device)
-    Ks, kvs = [None] * N, [None] * N
+    # per stage: (K, kv), or (L, dinv, Yh, yv) for the factor body
+    parks = [None] * N
     for k in reversed(range(N)):
         D1, D2, sF, sr, sl, b, q, reff, ddb = stage(pack[:, k])
+        SF, Sr, Sl = srbd_soa.skew(sF), srbd_soa.skew(sr), srbd_soa.skew(sl)
         C11 = sm.mtm(Ac1_b, Ac1_b * ddb[0:12, None])
         C22 = sm.mtm(Ac2_b, Ac2_b * ddb[12:24, None])
+        if body == "rank6":
+            R1h = sm.add_diag(Rw_b[0:6, 0:6] + C11, reg)
+            R2h = sm.add_diag(Rw_b[6:12, 6:12] + C22, reg)
+            P, p, K, kv = _riccati_stage_rank6(
+                dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, R1h, R2h, reff, q, b,
+                P, p)
+            parks[k] = (K, kv)
+            continue
         Reff = Rw_b + torch.cat([torch.cat([C11, z66], dim=1),
                                  torch.cat([z66, C22], dim=1)], dim=0)
-        P, p, _, Ks[k], _, kvs[k] = _riccati_stage_structured(
-            dt, m_inv, D1, D2, srbd_soa.skew(sF), srbd_soa.skew(sr),
-            srbd_soa.skew(sl), Qw_b, Reff, reff, q, b, P, p, reg,
-            with_acl=False)
+        out = _riccati_stage_structured(
+            dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, Reff, reff, q, b, P, p, reg,
+            with_acl=False, return_factor=body == "factor")
+        P, p = out[0], out[1]
+        parks[k] = out[2:] if body == "factor" else (out[3], out[5])
 
     # forward rollout: dx_{k+1} = dx + dt (Jx dx + Ju du) + b, block-wise
     dx = dx0
@@ -180,7 +292,13 @@ def sqp_qp_solve_onepass_planes_ref(
     tot = None
     for k in range(N):
         D1, D2, sF, sr, sl, b, q, reff, _ = stage(pack[:, k])
-        du = sm.mv(Ks[k], dx) + kvs[k]
+        if body == "factor":
+            L, dinv, Yh, yv = parks[k]
+            t = sm.mv(Yh, dx) + yv
+            du = -sm.bwd_subst(L, dinv, t[:, None]).squeeze(1)
+        else:
+            K, kv = parks[k]
+            du = sm.mv(K, dx) + kv
         d0, d1, d2, d3 = dx[0:3], dx[3:6], dx[6:9], dx[9:12]
         u0, u1, u2, u3 = du[0:3], du[3:6], du[6:9], du[9:12]
         dxn = dx + b + dt * torch.cat([
@@ -198,11 +316,24 @@ def sqp_qp_solve_onepass_planes_ref(
     return torch.stack(dxs), torch.stack(dus), dphi, aux
 
 
+# the stage bodies, in the order of the C entries' ``body`` argument
+BODIES = ("gains", "rank6", "factor")
+
+
+def park_shapes(body: str, N: int, B: int):
+    """Shapes of the kernel's four park arrays for ``body``: K [N,12,12,B]
+    and kv [N,12,B]; for the factor body Yh and yv in their place, the
+    lower triangle of L [N,78,B] and dinv [N,12,B] (None: not used)."""
+    if body == "factor":
+        return ((N, NU, NX, B), (N, NU, B), (N, NU * (NU + 1) // 2, B),
+                (N, NU, B))
+    return ((N, NU, NX, B), (N, NU, B), None, None)
+
+
 def _lib():
-    lib = load_kernel("sqp_planes")
-    fn = lib.srbd_sqp_planes_launch
+    fn = load_kernel("sqp_planes").srbd_sqp_planes_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 18
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 20
                        + [ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -210,8 +341,7 @@ def _lib():
 
 
 def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                alpha, x0s, mu_b, theta_b, reg, consts):
-    global launches
+                alpha, x0s, mu_b, theta_b, reg, rank6, factor, consts):
     N = us.shape[0]
     Bt = xa.shape[-1]
     for name, t, shape in (("xa", xa, (N + 1, NX, Bt)),
@@ -224,32 +354,35 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
         check_cuda_f32(name, t, shape)
     if consts is None:
         consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc)
+    body = _body(rank6, factor, lambda: consts.rank6)
     xa, us, xra, dxc, duc, alpha, x0s = (
         t.contiguous() for t in (xa, us, xra, dxc, duc, alpha, x0s))
 
     dev = xa.device
-    f32 = torch.float32
-    dx = torch.empty((N + 1, NX, Bt), dtype=f32, device=dev)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dx = empty(N + 1, NX, Bt)
     dx[0] = x0s - (xa[0] + alpha[None, :] * dxc[0])
-    du = torch.empty((N, NU, Bt), dtype=f32, device=dev)
-    out5 = torch.empty((5, Bt), dtype=f32, device=dev)  # dphi, th, ph, md, mc
-    pack = torch.empty((N, _C, Bt), dtype=f32, device=dev)
-    K = torch.empty((N, NU, NX, Bt), dtype=f32, device=dev)
-    kv = torch.empty((N, NU, Bt), dtype=f32, device=dev)
+    du = empty(N, NU, Bt)
+    out5 = empty(5, Bt)                       # dphi, theta, phi, md, mc
+    pack = empty(N, _C, Bt)
+    parks = [empty(*s) if s else None for s in park_shapes(body, N, Bt)]
 
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(consts.data_ptr(), xa.data_ptr(), us.data_ptr(),
-                 xra.data_ptr(), dxc.data_ptr(), duc.data_ptr(),
-                 alpha.data_ptr(), dx.data_ptr(),
+    err = _lib()(BODIES.index(body), consts.block.data_ptr(),
+                 xa.data_ptr(), us.data_ptr(), xra.data_ptr(), dxc.data_ptr(),
+                 duc.data_ptr(), alpha.data_ptr(), dx.data_ptr(),
                  dx[1:].data_ptr(), du.data_ptr(),
-                 out5[0].data_ptr(), out5[1].data_ptr(), out5[2].data_ptr(),
-                 out5[3].data_ptr(), out5[4].data_ptr(),
-                 pack.data_ptr(), K.data_ptr(), kv.data_ptr(),
-                 N, Bt, float(mu_b), float(theta_b), float(reg),
-                 THREADS, stream)
+                 *(out5[i].data_ptr() for i in range(5)), pack.data_ptr(),
+                 *(t.data_ptr() if t is not None else None for t in parks),
+                 N, Bt, float(mu_b), float(theta_b), float(reg), THREADS,
+                 stream)
     if err != 0:
-        raise RuntimeError(f"sqp_planes kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"sqp_planes kernel ({body}) launch failed: CUDA "
+                           f"error {err}")
+    launches[body] += 1
     return dx, du, out5[0], (out5[1], out5[2], out5[3], out5[4])
 
 
@@ -262,17 +395,30 @@ def sqp_qp_solve_onepass_planes(
     the contract of the JAX ``sqp_qp_solve_onepass_planes``. CPU tensors
     run the plain version; CUDA tensors run the CUDA kernel (f32) or
     raise. Requires ``Ac`` leg-block-diagonal (checked). ``consts``: the
-    kernel's constants block from ``sqp_stage.kernel_constants`` (built,
-    with its check, on each CUDA call when not given)."""
-    if rank6 or factor:
-        raise NotImplementedError(
-            "the rank6 / factor variants of the fused SQP trip are not "
-            "ported yet (ROADMAP.md Queue 2, K1 variants)")
+    kernel's constants from ``sqp_stage.kernel_constants`` (built, with its
+    checks, on each CUDA call when not given).
+
+    The stage body (JAX's three, one kernel instantiation each):
+
+    - default: the 12x12 structured stage, parking the gains (K, kv);
+    - ``rank6``: the rank-6 stage (``_riccati_stage_rank6``). It needs R_w
+      leg-block-diagonal; where it is not, the 12x12 stage runs, silently,
+      as in JAX (on CUDA ``consts.rank6`` decides, with no read-back; the
+      launch counter says which body ran);
+    - ``factor``: the 12x12 stage parking its factor (L, dinv) and
+      forward-substituted half (Yh, yv); the rollout forms
+      du = -L'^-1 (Yh dx + yv) per stage.
+
+    ``factor`` with ``rank6`` raises ``ValueError``, as in JAX. JAX's
+    ``factor`` limit on its lane block (``block <= 128``) guards the TPU's
+    VMEM and has no counterpart: the CUDA kernel parks in global memory,
+    and its block size is the fixed ``THREADS``."""
     if xa.device.type == "cuda":
         return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
-                           duc, alpha, x0s, mu_b, theta_b, reg, consts)
+                           duc, alpha, x0s, mu_b, theta_b, reg, rank6, factor,
+                           consts)
     if xa.device.type != "cpu":
         raise TypeError(f"unsupported device {xa.device}")
     return sqp_qp_solve_onepass_planes_ref(
         params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc, alpha, x0s,
-        mu_b, theta_b, reg)
+        mu_b, theta_b, reg, rank6=rank6, factor=factor)

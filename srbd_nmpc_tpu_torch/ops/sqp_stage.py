@@ -11,12 +11,13 @@ of ``_forward_epilogue`` / ``_forward_phase``), in batch-last layout
 The SRBD Jacobians are sparse: with A = I + dt Jx and B = dt Ju, Jx has
 four nonzero 3x3 blocks [D1 D2 0 0; 0 0 SF 0; 0 0 0 I; 0 0 0 0] and Ju
 two nonzero row-blocks [0; Sr I Sl I; 0; I/m 0 I/m 0]. Every product
-with A or B is written as the row recipes ``JxT``/``JuT`` below, and P
+with A or B is written as the row recipes ``_jxt``/``JuT`` below, and P
 is kept exactly symmetric, so P Jx = (Jx' P)'.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
@@ -40,13 +41,35 @@ def _rb(M: torch.Tensor, i: int) -> torch.Tensor:
     return M[3 * i:3 * i + 3]
 
 
-def _split_leg_blocks(Ac: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _jxt(D1, D2, SF, Mat):
+    """Jx' Mat rows: [D1' M0 | D2' M0 | SF' M1 | M2]."""
+    M0, M1, M2 = _rb(Mat, 0), _rb(Mat, 1), _rb(Mat, 2)
+    return torch.cat([sm.mtm(D1, M0), sm.mtm(D2, M0), sm.mtm(SF, M1), M2],
+                     dim=0)
+
+
+def _jxtv(D1, D2, SF, v):
+    """Jx' v."""
+    v0, v1, v2 = _rb(v, 0), _rb(v, 1), _rb(v, 2)
+    return torch.cat([sm.mtv(D1, v0), sm.mtv(D2, v0), sm.mtv(SF, v1), v2],
+                     dim=0)
+
+
+def _offdiag(M: torch.Tensor) -> torch.Tensor:
+    """max |M| over the two off-diagonal leg blocks of Ac [24, 12] or
+    R [12, 12] (a 0-d tensor on M's device)."""
+    r, c = M.shape[0] // 2, M.shape[1] // 2
+    return torch.maximum(M[:r, c:].abs().max(), M[r:, :c].abs().max())
+
+
+def _split_leg_blocks(Ac: torch.Tensor, off: Optional[float] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split the leg-block-diagonal constraint matrix Ac [24, 12] into its
     two nonzero [12, 6] diagonal blocks. The structured stage discards the
     off-diagonal blocks, so they must be zero: checked here (one read-back
-    on a CUDA tensor)."""
-    off = float(torch.maximum(Ac[0:12, 6:12].abs().max(),
-                              Ac[12:24, 0:6].abs().max()))
+    on a CUDA tensor, unless the caller passes ``off``, their max |Ac|)."""
+    if off is None:
+        off = float(_offdiag(Ac))
     if off > 0:
         raise ValueError(
             "structured SQP kernels require a leg-block-diagonal constraint "
@@ -54,13 +77,33 @@ def _split_leg_blocks(Ac: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return Ac[0:12, 0:6], Ac[12:24, 6:12]
 
 
+def r_leg_diagonal(R_w: torch.Tensor) -> bool:
+    """Whether R_w has zero off-diagonal leg blocks, the condition of K1's
+    rank-6 stage (JAX ``sqp_planes.py:527-530``; a NaN block counts as
+    zero there too)."""
+    return not float(_offdiag(R_w)) > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConstants:
+    """K1's and K3's constants block and what K1 decides from it on the
+    host: ``block`` float32 [K_LEN] at the ``K_*`` offsets; ``rank6``
+    whether R_w is leg-block-diagonal, so that a rank-6 launch runs the 6x6
+    stage (else the 12x12 one, as the JAX kernel falls back)."""
+
+    block: torch.Tensor
+    rank6: bool
+
+
 def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc
-                     ) -> torch.Tensor:
-    """The float32 constants block of K1 and K3, at the ``K_*`` offsets, on
-    the device of ``Ac``. Checks that ``Ac`` is leg-block-diagonal: build it
-    once per solve and hand it to the kernel wrappers (``consts=``), so the
-    check's read-back is not paid per launch."""
-    Ac1, Ac2 = _split_leg_blocks(Ac)
+                     ) -> KernelConstants:
+    """The constants block of K1 and K3 on the device of ``Ac``. Checks
+    that ``Ac`` is leg-block-diagonal and whether ``R_w`` is (one read-back
+    for both): build it once per solve and hand it to the kernel wrappers
+    (``consts=``), so the read-back is not paid per launch."""
+    ac_off, r_off = torch.stack([_offdiag(Ac).double(),
+                                 _offdiag(R_w).double()]).tolist()
+    Ac1, Ac2 = _split_leg_blocks(Ac, ac_off)
     parts = [params.mass.reshape(1), params.dt.reshape(1),
              params.inertia_inv.reshape(9), params.foot_pos.reshape(6),
              Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
@@ -68,12 +111,13 @@ def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc
     k = torch.cat([t.to(device=Ac.device, dtype=torch.float32)
                    for t in parts]).contiguous()
     assert k.numel() == K_LEN
-    return k
+    return KernelConstants(block=k, rank6=not r_off > 0)
 
 
 def _riccati_stage_structured(dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, Reff,
                               reff, q, b, P, p, reg: float,
-                              with_acl: bool = True):
+                              with_acl: bool = True,
+                              return_factor: bool = False):
     """One structured backward-Riccati stage. Returns (P_new, p_new, Acl,
     K, bcl, kv); with ``with_acl=False`` Acl and bcl are None (K1 rolls
     forward from the structured blocks instead).
@@ -81,7 +125,12 @@ def _riccati_stage_structured(dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, Reff,
     G = Reff + B'P B + reg I is factored once (12x12 Cholesky); one 13-rhs
     forward substitution Y = L^-1 [H | rv] gives the Schur downdates
     (H'G^-1 H = Y'Y, via ``gram``), so P_new/p_new never wait on the
-    backward substitution that yields the gains [K | kv]."""
+    backward substitution that yields the gains [K | kv].
+
+    ``return_factor``: the factor-parking form (K1 with ``factor=True``)
+    returns (P_new, p_new, L, dinv, Yh, yv) before the backward
+    substitution; the caller forms du = -L'^-1 (Yh dx + yv) in its
+    rollout."""
     dtype, dev = P.dtype, P.device
     Bt = P.shape[-1]
 
@@ -98,17 +147,7 @@ def _riccati_stage_structured(dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, Reff,
         c = sm.mtv(Sl, v1) + m_inv * v3
         return torch.cat([a, v1, c, v1], dim=0)
 
-    def JxT(Mat):
-        M0, M1, M2 = _rb(Mat, 0), _rb(Mat, 1), _rb(Mat, 2)
-        return torch.cat([sm.mtm(D1, M0), sm.mtm(D2, M0),
-                          sm.mtm(SF, M1), M2], dim=0)
-
-    def JxTv(v):
-        v0, v1, v2 = _rb(v, 0), _rb(v, 1), _rb(v, 2)
-        return torch.cat([sm.mtv(D1, v0), sm.mtv(D2, v0),
-                          sm.mtv(SF, v1), v2], dim=0)
-
-    V = JxT(P)                                         # Jx' P
+    V = _jxt(D1, D2, SF, P)                            # Jx' P
     U = JuT(P)                                         # Ju' P
     M = V.transpose(0, 1)                              # P Jx  (P = P')
     PA = P + dt * M
@@ -123,9 +162,12 @@ def _riccati_stage_structured(dt, m_inv, D1, D2, SF, Sr, Sl, Qw_b, Reff,
     Yh = Y13[:, 0:12]                                  # L^-1 H
     yv = Y13[:, 12]
 
-    P_new = (Qw_b + P + dt * (M + V) + (dt * dt) * JxT(M) - sm.gram(Yh))
+    P_new = (Qw_b + P + dt * (M + V) + (dt * dt) * _jxt(D1, D2, SF, M)
+             - sm.gram(Yh))
     P_new = 0.5 * (P_new + P_new.transpose(0, 1))
-    p_new = q + Pb_p + dt * JxTv(Pb_p) - sm.mtv(Yh, yv)
+    p_new = q + Pb_p + dt * _jxtv(D1, D2, SF, Pb_p) - sm.mtv(Yh, yv)
+    if return_factor:
+        return P_new, p_new, L, dinv, Yh, yv
 
     KV = -sm.bwd_subst(L, dinv, Y13)
     K, kv = KV[:, 0:12], KV[:, 12]

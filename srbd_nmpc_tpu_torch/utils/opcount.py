@@ -70,40 +70,48 @@ def _empty(*shape) -> torch.Tensor:
     return torch.empty(shape, dtype=F64)
 
 
-def _run(source: str, entry: str, tensors, tail, B: int, n: int) -> float:
-    """Run ``entry`` of the counting build on ``n`` lanes (``tail``: its
+def _run(source: str, entry: str, tensors, tail, B: int, n: int,
+         head=()) -> float:
+    """Run ``entry`` of the counting build on ``n`` lanes (``tensors``:
+    None passes a null pointer; ``head``: leading C ints; ``tail``: its
     trailing arguments, Python ints as C ints, floats as doubles);
     operations for ``B`` lanes."""
     lib = _lib(source)
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [
-        ctypes.c_int if isinstance(v, int) else ctypes.c_double for v in tail]
+    fn.argtypes = [ctypes.c_int] * len(head) + [ctypes.c_void_p] * len(
+        tensors) + [ctypes.c_int if isinstance(v, int) else ctypes.c_double
+                    for v in tail]
     fn.restype = ctypes.c_int
     lib.srbd_opcount_take()
-    if fn(*(t.data_ptr() for t in tensors), *tail) != 0:
+    if fn(*head, *(None if t is None else t.data_ptr() for t in tensors),
+          *tail) != 0:
         raise RuntimeError(f"{entry} failed")
     return lib.srbd_opcount_take() * B / n
 
 
 def count_sqp_planes(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                     alpha, x0s, mu_b, theta_b, reg=0.0, lanes=LANES):
-    """K1 (``sqp_planes.sqp_qp_solve_onepass_planes``)."""
+                     alpha, x0s, mu_b, theta_b, reg=0.0, rank6=False,
+                     factor=False, lanes=LANES):
+    """K1 (``sqp_planes.sqp_qp_solve_onepass_planes``), the stage body that
+    ``rank6`` / ``factor`` pick, as the wrapper picks it."""
     N, B = us.shape[0], xa.shape[-1]
     idx = _lanes(B, lanes)
     n = len(idx)
     xa, us, xra, dxc, duc, alpha, x0s = _host(idx, xa, us, xra, dxc, duc,
                                               alpha, x0s)
-    consts = _consts(sqp_stage.kernel_constants(params, Q_w, Qf_w, R_w, Ac,
-                                                bc))
+    kc = sqp_stage.kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc)
+    body = sqp_planes._body(rank6, factor, lambda: kc.rank6)
     dx = _empty(N + 1, 12, n)
     dx[0] = x0s - (xa[0] + alpha[None] * dxc[0])
     du, out5 = _empty(N, 12, n), _empty(5, n)
-    pack, K, kv = (_empty(N, sqp_planes._C, n), _empty(N, 12, 12, n),
-                   _empty(N, 12, n))
-    return _run("sqp_planes", "srbd_sqp_planes_host_f64",
-                (consts, xa, us, xra, dxc, duc, alpha, dx, dx[1:], du, *out5,
-                 pack, K, kv),
-                (N, n, float(mu_b), float(theta_b), float(reg)), B, n)
+    pack = _empty(N, sqp_planes._C, n)
+    parks = [_empty(*s) if s else None
+             for s in sqp_planes.park_shapes(body, N, n)]
+    return _run("sqp_planes", "srbd_sqp_planes_host",
+                (_consts(kc.block), xa, us, xra, dxc, duc, alpha, dx, dx[1:],
+                 du, *out5, pack, *parks),
+                (N, n, float(mu_b), float(theta_b), float(reg)), B, n,
+                head=(sqp_planes.BODIES.index(body),))
 
 
 def _onepass(cand, params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
@@ -114,7 +122,7 @@ def _onepass(cand, params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     xa, us, xra, dxc, duc, alpha, dx0 = _host(idx, xa, us, xra, dxc, duc,
                                               alpha, dx0)
     consts = _consts(sqp_stage.kernel_constants(params, Q_w, Qf_w, R_w, Ac,
-                                                bc))
+                                                bc).block)
     dx = _empty(N + 1, 12, n)
     dx[0] = dx0
     du, out5 = _empty(N, 12, n), _empty(5, n)

@@ -4,7 +4,9 @@ The configuration is the compaction one of
 tests/test_sqp_planes.py::test_engine_compaction_is_bitwise_identical:
 N=5, sqp_max_iter=12, pallas_block=2, B=32 with mixed perturbation scales,
 so the tiers 16 and 4 engage and iteration counts differ per scenario.
-The JAX reference solve (interpret mode) runs once per module."""
+The JAX reference solves (interpret mode) run once per module: the default
+configuration, and ``park_factor=True`` (K1's factor-parking body) on the
+speculative loop and on the synchronous ``fused`` route."""
 
 import dataclasses
 import functools
@@ -52,14 +54,13 @@ def _port_problem():
     return params, weights, cfg, states, torch.as_tensor(_x0s()), x_ref
 
 
-@pytest.fixture(scope="module")
-def jax_solve():
+def _jax_solve(**kw):
     orig = pl.pallas_call
     pl.pallas_call = functools.partial(orig, interpret=True)
     try:
         dtype = jnp.float64
         cfg = jengine.NmpcConfig(N=5, sqp_max_iter=12, pallas_block=2,
-                                 qp_kernel="fused")
+                                 qp_kernel="fused", **kw)
         params = jsrbd.SRBDParams.create(dt=0.015, dtype=dtype)
         weights = jengine.NmpcWeights.create(Q_DIAG, 1e-4, QF_DIAG, cfg.N,
                                              dtype)
@@ -76,6 +77,25 @@ def jax_solve():
 
 
 @pytest.fixture(scope="module")
+def jax_solve():
+    return _jax_solve()
+
+
+# park_factor=True on the two loops that run K1
+FACTOR_LOOPS = {"spec": dict(park_factor=True),
+                "sync": dict(park_factor=True, speculative=False)}
+
+
+@pytest.fixture(scope="module", params=sorted(FACTOR_LOOPS))
+def factor_solves(request):
+    kw = FACTOR_LOOPS[request.param]
+    params, weights, cfg, states, x0s, x_ref = _port_problem()
+    port = engine.solve(params, weights, dataclasses.replace(cfg, **kw),
+                        states, x0s, x_ref)
+    return request.param, _jax_solve(**kw), port
+
+
+@pytest.fixture(scope="module")
 def port_solves():
     prob = _port_problem()
     params, weights, cfg, states, x0s, x_ref = prob
@@ -88,9 +108,8 @@ def port_solves():
     return out
 
 
-def test_solve_matches_jax(jax_solve, port_solves):
-    st_j, info_j = jax_solve
-    st, info = port_solves["compact"]
+def _assert_same_solve(port, ref):
+    (st, info), (st_j, info_j) = port, ref
     np.testing.assert_allclose(st.u.numpy(), np.asarray(st_j.u), rtol=1e-9,
                                atol=1e-9)
     np.testing.assert_allclose(st.x.numpy(), np.asarray(st_j.x), rtol=1e-9,
@@ -105,6 +124,75 @@ def test_solve_matches_jax(jax_solve, port_solves):
                                    rtol=1e-8, atol=1e-12)
     # the solve had a straggler tail for the tiers to compact
     assert int(info.sqp_iters.max()) > int(info.sqp_iters.min())
+
+
+def test_solve_matches_jax(jax_solve, port_solves):
+    _assert_same_solve(port_solves["compact"], jax_solve)
+
+
+def test_park_factor_solve_matches_jax(factor_solves):
+    """``park_factor=True`` (K1's factor-parking body) on the speculative
+    loop and on the synchronous ``fused`` route against the JAX engine with
+    the same flag."""
+    _, ref, port = factor_solves
+    _assert_same_solve(port, ref)
+
+
+def test_park_factor_compaction_is_bitwise_identical(port_solves):
+    """The factor body keeps compaction bitwise, and it solves the default
+    body's problem (same iterations; u to rounding)."""
+    params, weights, cfg, states, x0s, x_ref = _port_problem()
+    cfg = dataclasses.replace(cfg, park_factor=True)
+    st_c, info_c = engine.solve(params, weights, cfg, states, x0s, x_ref)
+    st_f, info_f = engine.solve(params, weights,
+                                dataclasses.replace(cfg, compact=False),
+                                states, x0s, x_ref)
+    assert torch.equal(st_c.u, st_f.u) and torch.equal(st_c.x, st_f.x)
+    for name in ("sqp_iters", "status", "theta", "ls_trips"):
+        assert torch.equal(getattr(info_c, name), getattr(info_f, name))
+    st_g, info_g = port_solves["compact"]
+    assert torch.equal(info_c.sqp_iters, info_g.sqp_iters)
+    np.testing.assert_allclose(st_c.u.numpy(), st_g.u.numpy(), rtol=1e-9,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("speculative", [True, False])
+def test_park_factor_has_no_effect_without_planes(speculative):
+    """As in JAX, ``park_factor`` only picks K1's body: the dense route
+    (``planes=False``) solves bitwise as without it, on both loops."""
+    params, weights, cfg, states, x0s, x_ref = _port_problem()
+    cfg = dataclasses.replace(cfg, planes=False, speculative=speculative)
+    st, info = engine.solve(params, weights, cfg, states, x0s, x_ref)
+    st_p, info_p = engine.solve(params, weights, dataclasses.replace(
+        cfg, park_factor=True), states, x0s, x_ref)
+    assert torch.equal(st.u, st_p.u) and torch.equal(st.x, st_p.x)
+    for name in ("sqp_iters", "status", "theta", "ls_trips"):
+        assert torch.equal(getattr(info, name), getattr(info_p, name))
+
+
+def test_merit_fast_takes_the_plain_merit_for_float64(monkeypatch):
+    """Under ``qp_kernel="auto"`` a float64 batch takes the plain merit
+    (K7b is float32; JAX takes its plain merit off the TPU), a float32
+    batch K7b's branch; ``"pallas"`` takes K7b's branch for both."""
+    from srbd_nmpc_tpu_torch.models import merit_kernel
+
+    params, weights, cfg, states, _, x_ref = _port_problem()
+    calls = []
+    k7b = merit_kernel.merit
+    monkeypatch.setattr(merit_kernel, "merit",
+                        lambda *a, **k: calls.append(1) or k7b(*a, **k))
+    for qp_kernel, dtype, n in (("auto", F64, 0), ("auto", torch.float32, 1),
+                                ("pallas", F64, 1)):
+        del calls[:]
+        c = dataclasses.replace(cfg, qp_kernel=qp_kernel)
+        assert engine._pallas_eligible(c, B, dtype) == bool(n)
+        out = engine._merit_fast(params, weights, c, states.x.to(dtype),
+                                 states.u.to(dtype), x_ref, with_grad=True)
+        assert len(calls) == n
+        ref = engine.merit(params, weights, c, states.x, states.u, x_ref,
+                           with_grad=True)
+        np.testing.assert_allclose(out[1].double().numpy(), ref[1].numpy(),
+                                   rtol=1e-5 if n and dtype != F64 else 1e-12)
 
 
 def test_compaction_is_bitwise_identical(port_solves):
@@ -196,16 +284,14 @@ def test_accept_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(qp_kernel="pscan"),
-    dict(speculative=False, park_factor=True),
-    dict(park_factor=True), dict(rank4=True),
+    dict(qp_kernel="pscan"), dict(rank4=True),
     dict(unbatched=True, qp_kernel="pscan"), dict(pscan_min_N=2),
     dict(unbatched=True, pscan_min_N=2),
 ])
 def test_configurations_outside_the_slice_raise(kw):
     """Still outside the port: the associative-scan Riccati (batched and
-    for one scenario, where the JAX unbatched step takes lqr_solve_pscan),
-    park_factor, and states of a rank other than 2 and 3."""
+    for one scenario, where the JAX unbatched step takes lqr_solve_pscan)
+    and states of a rank other than 2 and 3."""
     params, weights, cfg, states, x0s, x_ref = _port_problem()
     kw = dict(kw)
     if kw.pop("unbatched", False):

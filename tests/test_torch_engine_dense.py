@@ -73,7 +73,7 @@ def _jax_problem(**kw):
 
 
 def _counts():
-    return (dict(sqp_kernel.launches), sqp_planes.launches,
+    return (dict(sqp_kernel.launches), dict(sqp_planes.launches),
             dict(merit_kernel.launches), dict(permute.launches))
 
 

@@ -200,10 +200,10 @@ def test_sqp_step_and_linearize_match_jax():
 @pytest.mark.parametrize("batched", [False, True])
 @pytest.mark.parametrize("qp_kernel", ["auto", "xla"])
 def test_merit_fast_and_merit_match_jax(batched, qp_kernel):
-    """``merit`` and ``_merit_fast`` (with and without gradients). A batch
-    with ``qp_kernel="auto"`` takes K7b's branch (its plain version on the
-    CPU), ``"xla"`` the plain merit; JAX takes its plain merit on the
-    CPU either way."""
+    """``merit`` and ``_merit_fast`` (with and without gradients). This
+    float64 batch takes the plain merit under either setting (K7b's branch
+    takes float32 batches under ``qp_kernel="auto"``); JAX takes its plain
+    merit on the CPU either way."""
     rng = np.random.default_rng(5)
     N, B = 20, 8
     shape = (B,) if batched else ()
@@ -230,7 +230,9 @@ def test_merit_fast_and_merit_match_jax(batched, qp_kernel):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
                                        atol=1e-12)
     assert merit_kernel.launches == before   # CPU: no kernel launch
-    assert engine._pallas_eligible(cfg, B) == (qp_kernel == "auto")
+    assert engine._pallas_eligible(cfg, B, torch.float32) == (
+        qp_kernel == "auto")
+    assert not engine._pallas_eligible(cfg, B, F64)
 
 
 def test_batched_exact_route_matches_jax(jax_solves):

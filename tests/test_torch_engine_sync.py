@@ -106,7 +106,8 @@ def test_route_matches_jax(route_solves):
 
 
 def test_routes_run_on_cpu_without_launching_kernels():
-    counts = lambda: (sqp_planes.launches, srbd_linearize.launches,  # noqa
+    counts = lambda: (dict(sqp_planes.launches),  # noqa: E731
+                      srbd_linearize.launches,
                       dict(merit_kernel.launches),
                       dict(riccati_kernel.launches))
     before = counts()

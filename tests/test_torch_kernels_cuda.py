@@ -1,17 +1,22 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 fused SQP trip, K2 lane permutes, K3a/K3b dense one-pass trips, K4 the
+(K1 fused SQP trip with its three stage bodies, K2 lane permutes, K3a/K3b dense one-pass trips, K4 the
 two-pass solve, K5 stage linearization, K6 Riccati backward and forward
 passes, K7a line-search merit, K7b merit with and without gradients), at
 the main path's widths; one synchronous ``pallas`` solve that launches K5,
-K6 and K7a, the dense route's solves on both loops, the batched merit
-``engine._merit_fast`` through K7b, and the single-scenario solve on the
-card against the CPU.
+K6 and K7a, the dense route's solves on both loops, the ``park_factor``
+solve through K1's factor body, the batched merit ``engine._merit_fast``
+through K7b (and past it for a float64 batch), and the single-scenario
+solve on the card against the CPU.
 
 Needs a CUDA card and nvcc: on a machine without a card every test skips.
 Run on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -60,20 +65,46 @@ def _k1_args(dev, N, B, alpha_zero, seed=0):
             dxc, duc, alpha, x0s, cfg.mu_barrier, cfg.theta_barrier)
 
 
+K1_BODIES = {"gains": {}, "rank6": dict(rank6=True),
+             "factor": dict(factor=True)}
+
+
 @pytest.mark.parametrize("alpha_zero", [True, False])
-def test_k1_matches_plain(dev, alpha_zero):
+@pytest.mark.parametrize("body", sorted(K1_BODIES))
+def test_k1_matches_plain(dev, body, alpha_zero):
+    """Each stage body against its plain version; the benchmark weights
+    are leg-block-diagonal, so rank6=True runs the rank-6 body."""
     args = _k1_args(dev, 20, 4096, alpha_zero)
-    before = sqp_planes.launches
-    got = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
+    flags = K1_BODIES[body]
+    before = dict(sqp_planes.launches)
+    got = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9, **flags)
     torch.cuda.synchronize()
-    assert sqp_planes.launches == before + 1
-    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9)
+    assert sqp_planes.launches == {**before, body: before[body] + 1}
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9,
+                                                     **flags)
     for g, r in zip(got[:3], ref[:3]):
         assert torch.isfinite(g).all()
         assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
     for g, r in zip(got[3][:2], ref[3][:2]):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=1e-4)
+
+
+def test_k1_rank6_on_dense_R_runs_the_12x12_body(dev):
+    """R coupling the legs: rank6=True runs the gains body, as in JAX,
+    decided from the constants block without a read-back of R."""
+    args = list(_k1_args(dev, 20, 1024, False))
+    args[3] = args[3] + 1e-6
+    before = dict(sqp_planes.launches)
+    got = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9, rank6=True)
+    torch.cuda.synchronize()
+    assert sqp_planes.launches == {**before, "gains": before["gains"] + 1}
+    ref = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
+    for g, r in zip((*got[:3], *got[3]), (*ref[:3], *ref[3])):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="rank-6"):
+        sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9, rank6=True,
+                                               factor=True)
 
 
 def test_k1_rejects_float64(dev):
@@ -142,22 +173,71 @@ def test_k2_bitwise(dev, lead, B, Bc, pattern, idx_dtype):
                        _bits(permute.set_lanes_ref(a, src, idx64)))
 
 
+def _k2_calls(dev):
+    """One take_lanes and one set_lanes call with the engine's int64 idx."""
+    a, src, idx = _k2_inputs(dev, (21, 12), 131072, 65536, "uniform")
+    return [lambda: permute.take_lanes(a, idx),
+            lambda: permute.set_lanes(a, src, idx)]
+
+
+def _k1_calls(dev):
+    """One call of each K1 stage body (gains, rank-6, factor)."""
+    args = _k1_args(dev, 20, 1024, False)
+    return [lambda f=f: sqp_planes.sqp_qp_solve_onepass_planes(
+        *args, reg=1e-9, **f) for f in K1_BODIES.values()]
+
+
+_PROFILE = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, {tests!r})
+import test_torch_kernels_cuda as t
+calls = t.{calls}(torch.device("cuda"))
+for call in calls:
+    call()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+print(json.dumps({{e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}}))
+"""
+
+
+def _device_kernels(calls: str) -> dict:
+    """Device kernels (name: launches) of the calls that ``calls`` (the
+    name of a function of this module) builds, each run once after a
+    warm-up, under one torch.profiler session in a fresh process: no
+    state of another session in this process can reach the count."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROFILE.format(tests=tests, calls=calls)],
+        cwd=os.path.dirname(tests), capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def test_k2_one_device_kernel_per_call(dev):
     """With the engine's int64 idx, one take_lanes or set_lanes call runs
     one device kernel: no cast, no copy launch."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels = _device_kernels("_k2_calls")
+    assert sum(kernels.values()) == 2
+    for name in ("take_lanes_kernel", "set_lanes_kernel"):
+        assert sum(n for k, n in kernels.items() if name in k) == 1
 
-    a, src, idx = _k2_inputs(dev, (21, 12), 131072, 65536, "uniform")
-    for fn in (lambda: permute.take_lanes(a, idx),
-               lambda: permute.set_lanes(a, src, idx)):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-        assert n == 1
+
+def test_k1_one_kernel_per_call(dev):
+    """One call of each stage body launches one K1 kernel, the
+    instantiation of its body (template argument 0 gains, 1 rank6, 2
+    factor)."""
+    kernels = _device_kernels("_k1_calls")
+    k1 = {k: n for k, n in kernels.items() if "sqp_planes_kernel" in k}
+    assert sorted(k1.values()) == [1, 1, 1]
+    for tag in range(3):
+        assert sum(f"<{tag}>" in k or f"ILi{tag}E" in k for k in k1) == 1
 
 
 def test_k2_leaves_inputs_untouched(dev):
@@ -395,7 +475,7 @@ def test_dense_solve_launches_kernels(dev, speculative):
                           dtype=torch.float32, device=dev)
     states = sharded.broadcast_state(engine.NmpcState.initial(cfg.N, device=dev), B)
     before = (dict(sqp_kernel.launches), merit_kernel.launches["merit_alpha"],
-              sqp_planes.launches)
+              dict(sqp_planes.launches))
     st, info, summ = sharded.solve_batch(params, weights, cfg, states, x0s, x_ref)
     k3 = {k: v - before[0][k] for k, v in sqp_kernel.launches.items()}
     assert sqp_planes.launches == before[2]
@@ -446,6 +526,60 @@ def test_k7b_matches_plain(dev, with_grad):
     with pytest.raises(TypeError, match="float32"):
         merit_kernel.merit(*args[:6], x.double(), u.double(), xr.double(),
                            *args[9:], with_grad=with_grad)
+
+
+@pytest.mark.parametrize("speculative", [True, False])
+def test_park_factor_solve_launches_the_factor_body(dev, speculative):
+    """park_factor=True on both loops runs K1's factor body on every K1
+    trip and converges like the default; the speculative solve's
+    compaction stays bitwise."""
+    B = 8192
+    params, weights, cfg = build_from_options(MpcOptions.default(), device=dev)
+    cfg = dataclasses.replace(cfg, park_factor=True, speculative=speculative)
+    x0, x_ref = engine.make_benchmark_problem(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(x0.cpu().numpy()[None]
+                          + 0.01 * rng.normal(size=(B, 12)),
+                          dtype=torch.float32, device=dev)
+    states = sharded.broadcast_state(engine.NmpcState.initial(cfg.N, device=dev), B)
+    before = dict(sqp_planes.launches)
+    st, info, summ = sharded.solve_batch(params, weights, cfg, states, x0s, x_ref)
+    k1 = {k: v - before[k] for k, v in sqp_planes.launches.items()}
+    if speculative:
+        assert k1 == {"gains": 0, "rank6": 0,
+                      "factor": int(info.ls_trips[0])}
+        st_f, in_f, _ = sharded.solve_batch(
+            params, weights, dataclasses.replace(cfg, compact=False), states,
+            x0s, x_ref)
+        assert torch.equal(st.u, st_f.u) and torch.equal(st.x, st_f.x)
+        assert torch.equal(info.sqp_iters, in_f.sqp_iters)
+        assert torch.equal(info.status, in_f.status)
+    else:
+        assert k1 == {"gains": 0, "rank6": 0,
+                      "factor": int(info.sqp_iters.max())}
+    assert int(summ.n_converged) >= 0.95 * B
+    assert torch.isfinite(st.u[info.converged]).all()
+
+
+def test_merit_fast_takes_the_plain_merit_for_float64(dev):
+    """Under ``qp_kernel="auto"`` a float64 CUDA batch takes the plain merit
+    (K7b is float32) and launches no kernel."""
+    params, weights, cfg = build_from_options(MpcOptions.default(),
+                                              dtype=torch.float64, device=dev)
+    _, x_ref = engine.make_benchmark_problem(cfg, torch.float64, device=dev)
+    assert cfg.qp_kernel == "auto"
+    st = sharded.broadcast_state(
+        engine.NmpcState.initial(cfg.N, torch.float64, device=dev), 1024)
+    before = dict(merit_kernel.launches)
+    for g in (True, False):
+        out = engine._merit_fast(params, weights, cfg, st.x, st.u, x_ref,
+                                 with_grad=g)
+        ref = engine.merit(params, weights, cfg, st.x, st.u, x_ref,
+                           with_grad=g)
+        torch.cuda.synchronize()
+        assert len(out) == (6 if g else 4)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert merit_kernel.launches == before
 
 
 def test_merit_fast_launches_k7b(dev):

@@ -101,9 +101,11 @@ def _lane(t, B):
 def _count_args(kernel):
     """(count function, arguments at one lane, keyword arguments)."""
     rng = np.random.default_rng(2)
-    if kernel == "sqp_planes":
+    if kernel.startswith("sqp_planes"):
         args, reg = smoke._k1_inputs(rng, smoke.N_MAIN, 1, "cpu", False)
-        return opcount.count_sqp_planes, args, dict(reg=reg)
+        body = {"sqp_planes_rank6": dict(rank6=True),
+                "sqp_planes_factor": dict(factor=True)}.get(kernel, {})
+        return opcount.count_sqp_planes, args, dict(reg=reg, **body)
     if kernel.startswith("sqp_"):
         cand, one, bwd, reg = smoke._k3_args(rng, 1, "cpu")
         fwd = (*sqp_kernel.sqp_qp_backward_ref(*bwd, reg=reg)[:7], one[9])
@@ -133,7 +135,8 @@ def _count_args(kernel):
 
 
 @pytest.mark.parametrize("kernel", [
-    "sqp_planes", "sqp_onepass_cand", "sqp_onepass", "sqp_twopass_bwd",
+    "sqp_planes", "sqp_planes_rank6", "sqp_planes_factor",
+    "sqp_onepass_cand", "sqp_onepass", "sqp_twopass_bwd",
     "sqp_twopass_fwd", "linearize", "riccati_bwd_constq", "riccati_bwd",
     "riccati_fwd", "merit_alpha", "merit", "merit_nograd"])
 def test_sampled_count_scales_to_the_batch(kernel):
@@ -162,3 +165,16 @@ def test_k7b_gradients_count_the_gradient_rows():
     above = int((con > theta_b).sum())
     assert grad - nograd == (576 * smoke.N_MAIN + above
                              + 5 * (con.size - above))
+
+
+def test_k1_factor_count_trades_the_back_substitution():
+    """K1's factor body drops the stage's 13-column back substitution (row
+    i: 13 scalings and 13 (i) multiply-subtracts, 1872 operations over the
+    12 rows) and adds a one-column one to each rollout stage (144); the
+    rest is the gains body's: -1728 per stage and lane. The rank-6 body
+    counts differently from both."""
+    fn, args, kw = _count_args("sqp_planes")
+    gains = fn(*args, **kw)
+    factor = fn(*args, **kw, factor=True)
+    assert factor - gains == -1728 * smoke.N_MAIN
+    assert fn(*args, **kw, rank6=True) not in (gains, factor)

@@ -1,12 +1,15 @@
-"""PyTorch port of the fused SQP trip (kernel K1): the plain version vs the
-JAX ``sqp_qp_solve_onepass_planes`` in interpret mode, f64; and the CUDA
-source's per-scenario arithmetic, built as host C++ in f64, vs the plain
-version.
+"""PyTorch port of the fused SQP trip (kernel K1) and its three stage
+bodies (the gains form, ``rank6=True``, ``factor=True``): the plain version
+vs the JAX ``sqp_qp_solve_onepass_planes`` in interpret mode, f64; and the
+CUDA source's per-scenario arithmetic, built as host C++ in f64, vs the
+plain version.
 
-One JAX call per horizon covers both cases: lanes are independent (no op
-crosses scenarios), so lanes 0-7 carry the bootstrap case (alpha = 0,
+One JAX call per horizon and body covers both cases: lanes are independent
+(no op crosses scenarios), so lanes 0-7 carry the bootstrap case (alpha = 0,
 zero dxc/duc) and lanes 8-15 the candidate case (random alpha in
-[0.25, 0.75]), each an 8-scenario batch of its own."""
+[0.25, 0.75]), each an 8-scenario batch of its own. The rank-6 body is
+held to JAX's rank-6 body, not to the gains body: the two differ in
+rounding (``tests/test_sqp_planes.py::test_rank6_matches_dense_stage``)."""
 
 import ctypes
 import dataclasses
@@ -30,6 +33,8 @@ torch.set_num_threads(1)
 F64 = torch.float64
 MU_B, THETA_B, REG = 0.1, 5.0, 1e-9
 CASES = {"alpha0": slice(0, 8), "alpha": slice(8, 16)}
+# the stage bodies besides the default one, by their flag
+BODIES = {"rank6": dict(rank6=True), "factor": dict(factor=True)}
 
 
 @pytest.fixture()
@@ -82,26 +87,34 @@ def _port_args(params, weights, arr, lanes=slice(None)):
     return (tp, tw.Q, tw.Qf, tw.R, Ac, bc, *data, MU_B, THETA_B)
 
 
-@pytest.fixture(scope="module")
-def jax_refs():
-    """One interpret-mode JAX call per horizon, 16 lanes each."""
+def _jax_call(params, weights, arr, R=None, **flags):
     from srbd_nmpc_tpu.ops import sqp_planes as jsp
 
+    Ac, bc = jsrbd.constraint_matrix(params)
     orig = pl.pallas_call
     pl.pallas_call = functools.partial(orig, interpret=True)
     try:
-        out = {}
-        for N in (5, 20):
-            params, weights, arr = _problem(N)
-            Ac, bc = jsrbd.constraint_matrix(params)
-            res = jsp.sqp_qp_solve_onepass_planes(
-                params, weights.Q, weights.Qf, weights.R, Ac, bc,
-                *(jnp.asarray(arr[k]) for k in _ORDER), MU_B, THETA_B,
-                reg=REG, block=16)
-            out[N] = (params, weights, arr, jax_np(res))
-        return out
+        res = jsp.sqp_qp_solve_onepass_planes(
+            params, weights.Q, weights.Qf, weights.R if R is None else R, Ac,
+            bc, *(jnp.asarray(arr[k]) for k in _ORDER), MU_B, THETA_B,
+            reg=REG, block=16, **flags)
     finally:
         pl.pallas_call = orig
+    return jax_np(res)
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """One interpret-mode JAX call per horizon and body, 16 lanes each:
+    ``out[N]`` the default body, ``out[(body, N)]`` the others."""
+    out = {}
+    for N in (5, 20):
+        params, weights, arr = _problem(N)
+        out[N] = (params, weights, arr, _jax_call(params, weights, arr))
+        for body, flags in BODIES.items():
+            out[(body, N)] = (params, weights, arr,
+                              _jax_call(params, weights, arr, **flags))
+    return out
 
 
 def jax_np(res):
@@ -110,24 +123,71 @@ def jax_np(res):
             tuple(np.asarray(a) for a in aux))
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("N", [5, 20])
-def test_plain_matches_jax_kernel(jax_refs, N, case):
-    params, weights, arr, ref = jax_refs[N]
-    lanes = CASES[case]
-    before = sqp_planes.launches
-    dx, du, dphi, aux = sqp_planes.sqp_qp_solve_onepass_planes(
-        *_port_args(params, weights, arr, lanes), reg=REG)
-    assert sqp_planes.launches == before   # CPU tensors: the plain version
+def _assert_matches_jax(got, ref, lanes):
+    dx, du, dphi, aux = got
     np.testing.assert_allclose(dx.numpy(), ref[0][..., lanes],
                                rtol=1e-9, atol=1e-11)
     np.testing.assert_allclose(du.numpy(), ref[1][..., lanes],
                                rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose(dphi.numpy(), ref[2][lanes],
                                rtol=1e-9, atol=1e-9)
-    for got, r in zip(aux, ref[3]):
-        np.testing.assert_allclose(got.numpy(), r[lanes], rtol=1e-9,
+    for g, r in zip(aux, ref[3]):
+        np.testing.assert_allclose(g.numpy(), r[lanes], rtol=1e-9,
                                    atol=1e-11)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("N", [5, 20])
+def test_plain_matches_jax_kernel(jax_refs, N, case):
+    params, weights, arr, ref = jax_refs[N]
+    lanes = CASES[case]
+    before = dict(sqp_planes.launches)
+    got = sqp_planes.sqp_qp_solve_onepass_planes(
+        *_port_args(params, weights, arr, lanes), reg=REG)
+    assert sqp_planes.launches == before   # CPU tensors: the plain version
+    _assert_matches_jax(got, ref, lanes)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("N", [5, 20])
+@pytest.mark.parametrize("body", sorted(BODIES))
+def test_plain_body_matches_jax_kernel(jax_refs, body, N, case):
+    """The rank-6 and factor bodies against JAX's own (``rank6=True``,
+    ``factor=True``) at the default body's tolerances."""
+    params, weights, arr, ref = jax_refs[(body, N)]
+    lanes = CASES[case]
+    before = dict(sqp_planes.launches)
+    got = sqp_planes.sqp_qp_solve_onepass_planes(
+        *_port_args(params, weights, arr, lanes), reg=REG, **BODIES[body])
+    assert sqp_planes.launches == before   # CPU tensors: the plain version
+    _assert_matches_jax(got, ref, lanes)
+
+
+def test_rank6_on_dense_R_runs_the_12x12_stage():
+    """rank6=True with R coupling the legs falls back to the 12x12 stage,
+    silently, as in JAX: the result matches JAX's rank6=True call and is
+    bitwise the default body's."""
+    params, weights, arr = _problem(5, seed=9)
+    R = np.asarray(weights.R) + 1e-6 * np.ones((12, 12))
+    ref = _jax_call(params, weights, arr, R=jnp.asarray(R), rank6=True)
+    args = list(_port_args(params, weights, arr))
+    args[3] = torch.as_tensor(R)
+    assert not sqp_stage.r_leg_diagonal(args[3])
+    assert sqp_stage.r_leg_diagonal(_port_args(params, weights, arr)[3])
+    got = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=REG, rank6=True)
+    _assert_matches_jax(got, ref, slice(None))
+    gains = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=REG)
+    for g, r in zip((*got[:3], *got[3]), (*gains[:3], *gains[3])):
+        assert torch.equal(g, r)
+
+
+def test_factor_with_rank6_raises():
+    params, weights, arr = _problem(5)
+    for fn in (sqp_planes.sqp_qp_solve_onepass_planes,
+               sqp_planes.sqp_qp_solve_onepass_planes_ref):
+        with pytest.raises(ValueError, match="rank-6"):
+            fn(*_port_args(params, weights, arr), reg=REG, factor=True,
+               rank6=True)
 
 
 def test_non_leg_block_diagonal_constraints_raise():
@@ -140,51 +200,56 @@ def test_non_leg_block_diagonal_constraints_raise():
         sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=REG)
 
 
-@pytest.mark.parametrize("flag", ["rank6", "factor"])
-def test_variants_not_ported_raise(flag):
-    params, weights, arr = _problem(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sqp_planes.sqp_qp_solve_onepass_planes(
-            *_port_args(params, weights, arr), reg=REG, **{flag: True})
-
-
-@pytest.mark.parametrize("N", [5, 20])
-def test_cuda_source_host_build_matches_plain(N):
-    """The kernel's per-scenario body (csrc/sqp_planes.cu) compiled as host
-    C++ in double precision reproduces the plain version: it checks the
-    hand-written arithmetic of K1 without a card (the CUDA launch itself
-    is checked on the card by test_torch_kernels_cuda.py)."""
+def _host_kernel(args, body="gains", f32=False):
+    """The kernel's per-scenario body (csrc/sqp_planes.cu) for ``body``,
+    built as host C++ (in double precision, or in float32 with ``f32``) and
+    run on every lane of K1's arguments ``args``: (dx, du, out5, pack)."""
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
-    params, weights, arr = _problem(N, seed=1)
-    args = _port_args(params, weights, arr)
-    tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha, x0s = args[:13]
-    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=REG)
-
-    lib = ctypes.CDLL(build.build_host(
-        f"{build.CSRC}/sqp_planes.cu", flags=("-O2", "-ffp-contract=off")))
-    fn = lib.srbd_sqp_planes_host_f64
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 2
-                   + [ctypes.c_double] * 3)
+    flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
+    fn = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes.cu",
+                                      flags=flags)).srbd_sqp_planes_host
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 20
+                   + [ctypes.c_int] * 2 + [ctypes.c_double] * 3)
     fn.restype = ctypes.c_int
+    tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha, x0s = args[:13]
+    N, B = us.shape[0], xa.shape[-1]
+    dtype = torch.float32 if f32 else F64
     Ac1, Ac2 = Ac[0:12, 0:6], Ac[12:24, 6:12]
     consts = torch.cat([tp.mass.reshape(1), tp.dt.reshape(1),
                         tp.inertia_inv.reshape(9), tp.foot_pos.reshape(6),
                         Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
-                        R.reshape(144), Q.reshape(144), Qf.reshape(144)])
+                        R.reshape(144), Q.reshape(144),
+                        Qf.reshape(144)]).to(dtype)
     assert consts.numel() == sqp_stage.K_LEN
-    B = xa.shape[-1]
-    dx = torch.empty((N + 1, 12, B), dtype=F64)
+    dx = torch.empty((N + 1, 12, B), dtype=dtype)
     dx[0] = x0s - (xa[0] + alpha[None] * dxc[0])
-    du = torch.empty((N, 12, B), dtype=F64)
-    out5 = torch.empty((5, B), dtype=F64)
-    pack = torch.empty((N, sqp_planes._C, B), dtype=F64)
-    K = torch.empty((N, 12, 12, B), dtype=F64)
-    kv = torch.empty((N, 12, B), dtype=F64)
-    ptrs = [t.data_ptr() for t in (consts, xa, us, xra, dxc, duc, alpha, dx,
-                                   dx[1:], du, out5[0], out5[1], out5[2],
-                                   out5[3], out5[4], pack, K, kv)]
-    assert fn(*ptrs, N, B, MU_B, THETA_B, REG) == 0
+    du = torch.empty((N, 12, B), dtype=dtype)
+    out5 = torch.empty((5, B), dtype=dtype)
+    pack = torch.empty((N, sqp_planes._C, B), dtype=dtype)
+    parks = [torch.empty(s, dtype=dtype) if s else None
+             for s in sqp_planes.park_shapes(body, N, B)]
+    ins = (consts, xa, us, xra, dxc, duc, alpha)
+    assert all(t.dtype == dtype for t in ins)
+    ptrs = [t.data_ptr() for t in (*ins, dx, dx[1:], du, *out5, pack)]
+    ptrs += [None if t is None else t.data_ptr() for t in parks]
+    assert fn(sqp_planes.BODIES.index(body), *ptrs, N, B, *args[13:15],
+              REG) == 0
+    return dx, du, out5, pack
+
+
+def _host_run(N, body=None):
+    """The host f64 build for ``body`` (None: the default one) and the
+    plain version on the same inputs."""
+    flags = BODIES[body] if body else {}
+    params, weights, arr = _problem(N, seed=1)
+    args = _port_args(params, weights, arr)
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=REG, **flags)
+    return _host_kernel(args, body or "gains")[:3], ref
+
+
+def _assert_host_matches_plain(got, ref):
+    dx, du, out5 = got
     np.testing.assert_allclose(dx.numpy(), ref[0].numpy(), rtol=1e-12,
                                atol=1e-13)
     np.testing.assert_allclose(du.numpy(), ref[1].numpy(), rtol=1e-12,
@@ -193,3 +258,64 @@ def test_cuda_source_host_build_matches_plain(N):
     for i in range(4):
         np.testing.assert_allclose(out5[1 + i].numpy(), ref[3][i].numpy(),
                                    rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("N", [5, 20])
+def test_cuda_source_host_build_matches_plain(N):
+    """The kernel's per-scenario body (csrc/sqp_planes.cu) compiled as host
+    C++ in double precision reproduces the plain version: it checks the
+    hand-written arithmetic of K1 without a card (the CUDA launch itself
+    is checked on the card by test_torch_kernels_cuda.py)."""
+    _assert_host_matches_plain(*_host_run(N))
+
+
+@pytest.mark.parametrize("N", [5, 20])
+@pytest.mark.parametrize("body", sorted(BODIES))
+def test_cuda_source_host_build_body_matches_plain(body, N):
+    """As above for the rank-6 and factor instantiations of the kernel's
+    per-scenario body, against the plain version with the same flag."""
+    _assert_host_matches_plain(*_host_run(N, body))
+
+
+def _jax_association(Jlt, djl_a, w, Jw):
+    """JAX's association of (d Jl^-1 / d r_a) w: the matrix first."""
+    from srbd_nmpc_tpu_torch.models import srbd_planes as spl
+
+    return spl.m3v(spl.m3_scale(-1.0, spl.m3(Jlt, spl.m3(djl_a, Jlt))), w)
+
+
+@pytest.mark.parametrize("association", ["kernel", "jax"])
+def test_f32_host_build_rounds_d1_as_plain(monkeypatch, association):
+    """Why the plain model forms (d Jl^-1 / d r_a) w as K1 does
+    (``srbd_planes.djlt_apply``) and not in JAX's order: K1's plane phase
+    built as host C++ in float32 against the plain version's pass 1 in
+    float32. The host's sin/cos and PyTorch's do not always round alike,
+    so the comparison is made on the (stage, lane) pairs whose D2 (the
+    same chain without the derivative term) is bitwise the plain one's.
+    There D1 is bitwise the plain one's with K1's association, and almost
+    never with JAX's."""
+    from srbd_nmpc_tpu_torch.models import srbd_planes as spl
+
+    params, weights, arr = _problem(20, seed=2)
+    args = list(_port_args(params, weights, arr))
+    for i in range(6, 13):
+        args[i] = args[i].to(torch.float32)
+    tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha = args[:12]
+    args[0] = dataclasses.replace(tp, **{
+        f.name: getattr(tp, f.name).to(torch.float32)
+        for f in dataclasses.fields(tp)})
+    pack = _host_kernel(args, f32=True)[3].permute(1, 0, 2)   # [87, N, B]
+    if association == "jax":
+        monkeypatch.setattr(spl, "djlt_apply", _jax_association)
+    Ac1, Ac2 = sqp_stage._split_leg_blocks(Ac.to(torch.float32))
+    _, ref, _, _ = sqp_planes._planes_phase(
+        args[0], Q.float(), Qf.float(), R.float(), Ac1, Ac2, bc.float(),
+        xa, us, xra, dxc, duc, alpha, MU_B, THETA_B)
+    d2_same = (pack[9:18] == ref[9:18]).all(0)
+    d1_same = (pack[0:9] == ref[0:9]).all(0)
+    assert int(d2_same.sum()) >= d2_same.numel() // 2
+    share = float((d1_same & d2_same).sum() / d2_same.sum())
+    if association == "kernel":
+        assert share >= 0.99
+    else:
+        assert share <= 0.05
