@@ -3,16 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc`` (phase 2
-prints K1's ptxas registers and spills for each of its three stage bodies),
-checks each against its plain PyTorch version at the main path's shapes
-(phase 4: K1's gains, rank-6 and factor bodies, each timed at the four
-widths the main path launches; phase 3: the
+prints K1's ptxas registers and spills for each of its three one-launch
+stage bodies and for each launch of the split gains body,
+``sqp_planes_split.cu``), checks each against its plain PyTorch version at
+the main path's shapes (phase 4: K1's gains, rank-6 and factor bodies, each
+timed at the four widths the main path launches; then the gains body's
+split kernels and its one-thread kernel against the plain version at
+B=4096 and B=131072, timed against each other in alternated rounds with
+each split launch's device ms, and the split kernels, the main path's,
+held to be no slower than the one-thread body; phase 3: the
 lane permutes K2a/K2b bitwise on the engine's shapes and the edge cases,
 timed per call and on the device beside ``index_select`` / ``index_copy``
 at every compaction crossing of the cold solve), then drives the
 port's main path (``parallel.sharded.solve_batch``, the default NmpcConfig:
 N=20, speculative fused SQP trips, compaction tiers (2, 8, 32)) on a cold and
-a warm B=131072 solve, and checks the results: convergence, compaction
+a warm B=131072 solve (phase 5 also profiles one cold solve: K1's share of
+device time by launch), and checks the results: convergence, compaction
 bitwise on the card, the kernel path against the plain path on the CPU, and
 the independent f64 C++ oracle (``native/srbd_oracle.cpp``). Phases 10-12 do
 the same for the iteration-synchronous loop: its kernels (K5, K6, K7a)
@@ -38,7 +44,8 @@ just after; K1's rank-6 body, which no engine route takes (as in JAX), is
 driven by direct calls of the op in phase 4.
 
 The ``kernels`` line gives, for each of the 16 kernel bodies behind the 12
-TPU call sites, its launches on its
+TPU call sites (K1's gains row on its split kernels, with a row for each
+of its launches), its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
 plain, and the one PyTorch call that computes the same function where there
 is one) at the main path's shapes, timed over eager calls as the path makes
@@ -76,8 +83,8 @@ B_MAIN = 131072
 N_MAIN = 20
 REL_TOL = 1e-4
 ORACLE_TOL = 1e-3
-SOURCES = ("permute", "sqp_planes", "linearize", "riccati", "merit",
-           "sqp_onepass", "sqp_twopass")
+SOURCES = ("permute", "sqp_planes", "sqp_planes_split", "linearize",
+           "riccati", "merit", "sqp_onepass", "sqp_twopass")
 # the synchronous routes: converged within 0.5 % of B and mean SQP
 # iterations within 0.1 of the speculative path's cold solve
 SYNC_ROUTES = {"pallas": dict(qp_kernel="pallas"),
@@ -90,6 +97,16 @@ DENSE_ROUTES = {"spec": dict(planes=False),
 K1_BODIES = {"sqp_planes": {}, "sqp_planes_rank6": dict(rank6=True),
              "sqp_planes_factor": dict(factor=True)}
 K1_WIDTHS = (B_MAIN, B_MAIN // 2, B_MAIN // 8, B_MAIN // 32)
+# the gains body's kernels on the card by sqp_planes._gains_cuda's
+# one_thread: the one-thread yardstick and the split kernels (the main path's)
+K1_DESIGNS = {"one-thread": True, "split": False}
+# the split kernels' launches by their device kernel names
+K1S_PASSES = {"K1s-A": "k1s_planes_kernel",
+              "K1s-B": "k1s_riccati_team_kernel",
+              "K1s-C": "k1s_rollout_kernel"}
+# the default cold B=131072 solve as every run of the port has read it
+# (PRs 1-7): converged, mean SQP iterations, speculative trips
+COLD_REF = (128135, 11.4225, 17)
 FACTOR_ROUTES = {"spec": dict(park_factor=True),
                  "sync": dict(SYNC_ROUTES["fused"], park_factor=True)}
 SYNC_CONV_FRAC = 0.005
@@ -195,10 +212,13 @@ def phase_build(sources=SOURCES):
         for ln in lines:
             print(f"[2 build] {name}: {ln}", flush=True)
     k1 = _k1_ptxas() if "sqp_planes" in sources else {}
+    if "sqp_planes_split" in sources:
+        k1.update(_k1s_ptxas())
     if k1:
-        print("[2 build] K1 ptxas by stage body: " + "; ".join(
-            f"{n} {r} registers, {st} B spill stores, {ld} B spill loads, "
-            f"{sk} B stack" for n, (r, st, ld, sk) in k1.items()), flush=True)
+        print("[2 build] K1 ptxas by stage body and split launch: "
+              + "; ".join(f"{n} {r} registers, {st} B spill stores, {ld} B "
+                          f"spill loads, {sk} B stack"
+                          for n, (r, st, ld, sk) in k1.items()), flush=True)
     return secs, k1
 
 
@@ -524,6 +544,102 @@ def phase_k1(dev):
     return max_abs, times, plain_ms, bounds, r6_launches
 
 
+def _k1_err(got, ref):
+    """(worst relative error of dx, du, dphi, theta, phi by key; max |diff|
+    over dx, du, dphi; whether all seven outputs are bitwise equal)."""
+    from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
+
+    w, mx = {}, 0.0
+    for j, key in enumerate(("dx", "du", "dphi")):
+        g, r = got[j].cpu().numpy(), ref[j].cpu().numpy()
+        if not np.all(np.isfinite(g)):
+            raise AssertionError(f"K1 {key} not finite")
+        w[key] = parity_metric(g, r)
+        mx = max(mx, float(np.max(np.abs(g - r))))
+    for j, key in ((0, "theta"), (1, "phi")):
+        g = got[3][j].cpu().numpy().astype(np.float64)
+        r = ref[3][j].cpu().numpy().astype(np.float64)
+        w[key] = float(np.max(np.abs(g - r) / np.abs(r)))
+    same = all(torch.equal(g, r) for g, r in zip((*got[:3], *got[3]),
+                                                  (*ref[:3], *ref[3])))
+    return w, mx, same
+
+
+def phase_k1_designs(dev):
+    """The gains body's kernels (K1_DESIGNS) at N=20: each against the
+    plain version at B=4096 (alpha 0 and random alpha) and at B=131072
+    (random alpha), max |diff| printed, bitwise expected; ms per call at
+    the main path's four widths, in alternated rounds in this call; each
+    split launch's device ms (torch.profiler) at each width."""
+    from srbd_nmpc_tpu_torch.ops import sqp_planes
+
+    rng = np.random.default_rng(1)
+    err = {name: ({}, 0.0, True) for name in K1_DESIGNS}
+    for B, az in ((4096, True), (4096, False), (B_MAIN, False)):
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, az)
+        ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg)
+        for name, one in K1_DESIGNS.items():
+            got = sqp_planes._gains_cuda(*args, reg=reg, one_thread=one)
+            torch.cuda.synchronize()
+            w, mx, same = _k1_err(got, ref)
+            print(f"[4 K1] gains {name} vs plain at B={B}, alpha "
+                  f"{'0' if az else 'random'}: " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in w.items())
+                  + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
+                  f"{same}", flush=True)
+            w0, mx0, same0 = err[name]
+            err[name] = ({k: max(v, w0.get(k, 0.0)) for k, v in w.items()},
+                         max(mx, mx0), same and same0)
+            del got
+        del args, ref
+        torch.cuda.empty_cache()
+    bad = {n: w for n, (w, _, _) in err.items()
+           if not all(v < REL_TOL for v in w.values())}
+    if bad:
+        raise AssertionError(f"a gains design disagrees with plain: {bad}")
+
+    # ms per call in turns: forward, backward, forward, backward (10 calls
+    # each), the mean of the four; then each split launch's device ms
+    times = {name: {} for name in K1_DESIGNS}
+    passes = {"split": {}}
+    order = list(K1_DESIGNS)
+    for B in K1_WIDTHS:
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
+        for name in (order + order[::-1]) * 2:
+            ms = _cuda_ms(lambda: sqp_planes._gains_cuda(
+                *args, reg=reg, one_thread=K1_DESIGNS[name]), 10)
+            times[name][B] = times[name].get(B, 0.0) + ms / 4
+        for name in passes:
+            by_name, _ = _device_ms(lambda: [sqp_planes._gains_cuda(
+                *args, reg=reg, one_thread=K1_DESIGNS[name])
+                for _ in range(5)])
+            passes[name][B] = {p: sum(v for k, v in by_name.items()
+                                      if key in k) / 5
+                               for p, key in K1S_PASSES.items()}
+        del args
+        torch.cuda.empty_cache()
+    one = times["one-thread"]
+    for name in K1_DESIGNS:
+        print(f"[4 K1] gains {name} ms per call: " + ", ".join(
+            f"B={B} {ms:.3f} ({ms / one[B]:.3f}x one-thread)"
+            for B, ms in times[name].items()), flush=True)
+        for B, by in passes.get(name, {}).items():
+            print(f"[4 K1] gains {name} device ms per launch at B={B}: "
+                  + ", ".join(f"{p} {v:.3f}" for p, v in by.items()),
+                  flush=True)
+    # the main path's split kernels must be no slower than the one-thread
+    # body at full width and at the last tier
+    ratio = {B: times["split"][B] / one[B] for B in (B_MAIN, B_MAIN // 32)}
+    print("[4 K1] the main path's gains kernels (split) against the "
+          "one-thread body: " + ", ".join(f"B={B} {r:.3f}x"
+                                          for B, r in ratio.items()),
+          flush=True)
+    if max(ratio.values()) > 1.0:
+        raise AssertionError(f"the split gains kernels are slower than the "
+                             f"one-thread body: {ratio}")
+    return err, times, passes
+
+
 def _f64(args):
     """K1's arguments with every tensor (the model parameters included) in
     float64."""
@@ -580,6 +696,12 @@ def phase_cold(dev, card):
           flush=True)
     if n_conv < 0.95 * B_MAIN:
         raise AssertionError(f"cold solve converged {n_conv} < 95 %")
+    if (abs(n_conv - COLD_REF[0]) > SYNC_CONV_FRAC * B_MAIN
+            or abs(mean_it - COLD_REF[1]) > SYNC_ITER_TOL
+            or trips != COLD_REF[2] or launches["sqp_planes"] != trips):
+        raise AssertionError(f"cold solve {n_conv} at {mean_it:.4f} in {trips} "
+                             f"trips, {launches['sqp_planes']} K1 calls: "
+                             f"expected {COLD_REF}, one K1 call a trip")
     if not u_ok:
         raise AssertionError("a converged cold solution is not finite")
     if min(launches.values()) <= 0:
@@ -597,6 +719,36 @@ def phase_cold(dev, card):
     print(f"[5 cold] p50 {p50:.3f} ms per B={B_MAIN} solve, "
           f"{B_MAIN / p50 * 1e3:.1f} solves/s (times {[round(t, 3) for t in times]}) "
           f"on {card}", flush=True)
+
+    # where the time goes: one more cold solve under the profiler, K1's
+    # device time by launch
+    n_by = {}
+    by_name, n = _device_ms(lambda: sharded.solve_batch(*prob), n_by)
+    busy = sum(by_name.values())
+    k1 = {p: (sum(v for k, v in by_name.items() if key in k),
+              sum(c for k, c in n_by.items() if key in k))
+          for p, key in K1S_PASSES.items()}
+    k1["one-thread"] = (sum(v for k, v in by_name.items()
+                            if "sqp_planes_kernel" in k),
+                        sum(c for k, c in n_by.items()
+                            if "sqp_planes_kernel" in k))
+    k1_ms = sum(v for v, _ in k1.values())
+    k1_n = sum(c for _, c in k1.values())
+    rest = sorted(((k, v) for k, v in by_name.items()
+                   if "k1s_" not in k and "sqp_planes_kernel" not in k),
+                  key=lambda kv: -kv[1])[:3]
+    print(f"[5 cold] profiled cold solve: {n} device kernels, device busy "
+          f"{busy:.3f} ms ({100 * busy / p50:.1f} % of the p50, so idle "
+          f"{100 * (1 - busy / p50):.1f} %); K1 {k1_ms:.3f} ms in {k1_n} "
+          f"device kernels ({100 * k1_ms / busy:.1f} % of device time): "
+          + ", ".join(f"{p} {v:.3f} ms in {c} ({100 * v / busy:.1f} %)"
+                      for p, (v, c) in k1.items() if c)
+          + "; next kernels " + ", ".join(f"{k[:40]} {v:.3f}"
+                                          for k, v in rest), flush=True)
+    want = {p: 0 if p == "one-thread" else launches["sqp_planes"]
+            for p in k1}
+    if {p: c for p, (_, c) in k1.items()} != want:
+        raise AssertionError(f"K1 device kernels {k1}, expected {want}")
     return st, info, prob, launches, (n_conv, mean_it)
 
 
@@ -1574,6 +1726,20 @@ def _k1_ptxas():
     return out
 
 
+def _k1s_ptxas():
+    """(registers, spill stores, spill loads, stack bytes) of each split
+    kernel of the gains body (sqp_planes_split.cu): K1s-A, K1s-B, K1s-C."""
+    out = {}
+    for mangled, regs, stores, loads, stack in _ptxas("sqp_planes_split",
+                                                      "k1s_"):
+        name = next((p for p, key in K1S_PASSES.items() if key in mangled),
+                    mangled)
+        out[name] = (regs, stores, loads, stack)
+    if set(out) != set(K1S_PASSES):
+        raise AssertionError(f"split kernels in the ptxas report: {out}")
+    return out
+
+
 def phase_factor(dev, card, spec):
     """Cold B=131072 solves with ``park_factor=True`` (K1's factor body) on
     the speculative loop and the synchronous ``fused`` route, read against
@@ -1628,11 +1794,12 @@ def phase_factor(dev, card, spec):
     return out
 
 
-def _device_ms(fn):
+def _device_ms(fn, counts=None):
     """Device ms by kernel name of one ``fn()`` under torch.profiler, and
-    the number of device kernels it ran. Kernels run on one stream, so
-    their sum is the device busy time (the profiled call's wall time
-    includes the profiler's own start-up and is not used)."""
+    the number of device kernels it ran (by name into ``counts``, where
+    given). Kernels run on one stream, so their sum is the device busy time
+    (the profiled call's wall time includes the profiler's own start-up and
+    is not used)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1644,6 +1811,8 @@ def _device_ms(fn):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
             n += e.count
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count
     return by_name, n
 
 
@@ -1655,6 +1824,31 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library_ms, **extra}
+
+
+def _k1_entry(launches, err, t, plain, bound, regs, d_err, d_t, d_passes):
+    """K1's row: the default gains path (the split kernels), timed through
+    the public entry in phase 4, its largest difference from the plain
+    version over phase 4's checks, and a row for each of its launches
+    (device ms by width, ptxas report); registers and spills of the row are
+    the largest of its launches'. The one-thread body's ms beside it."""
+    per = [{"pass": p, "kernel": key, "ms": d_passes["split"][B_MAIN][p],
+            "ms_by_width": {str(B): by[p]
+                            for B, by in d_passes["split"].items()},
+            "registers": r, "spill_stores": st, "spill_loads": ld,
+            "stack": sk}
+           for p, key in K1S_PASSES.items()
+           for r, st, ld, sk in [regs[p]]]
+    return _entry("sqp_planes", "sqp_planes_split.cu", "ops/sqp_planes.py:301",
+                  launches, max(err, d_err["split"][1]), t[B_MAIN], plain,
+                  bound, design="split",
+                  ms_by_width={str(B): v for B, v in t.items()},
+                  one_thread_ms_by_width={str(B): v for B, v in
+                                          d_t["one-thread"].items()},
+                  registers=max(e["registers"] for e in per),
+                  spill_stores=max(e["spill_stores"] for e in per),
+                  spill_loads=max(e["spill_loads"] for e in per),
+                  launches_per_call=per)
 
 
 # the TPU kernels' ids (PERF.md's table) by the port's counter names
@@ -1687,6 +1881,7 @@ def main(argv=None) -> int:
     if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
         raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
     k1_err, k1_t, k1_plain, k1_b, r6_launches = phase_k1(dev)
+    k1d_err, k1d_t, k1d_passes = phase_k1_designs(dev)
     st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
     phase_compaction(dev)
@@ -1712,9 +1907,11 @@ def main(argv=None) -> int:
                    "sqp_planes_rank6": r6_launches["sqp_planes_rank6"],
                    "sqp_planes_factor":
                        factor["spec"]["launches"]["sqp_planes_factor"]}
-    kernels = []
-    for name, replaces in (("sqp_planes", "ops/sqp_planes.py:301"),
-                           ("sqp_planes_rank6", "ops/sqp_planes.py:77"),
+    kernels = [_k1_entry(k1_launches["sqp_planes"], k1_err["sqp_planes"],
+                         k1_t["sqp_planes"], k1_plain["sqp_planes"],
+                         k1_b["sqp_planes"], k1_regs, k1d_err, k1d_t,
+                         k1d_passes)]
+    for name, replaces in (("sqp_planes_rank6", "ops/sqp_planes.py:77"),
                            ("sqp_planes_factor", "ops/sqp_planes.py:373")):
         regs, stores, loads, _ = k1_regs[name]
         kernels.append(_entry(

@@ -886,6 +886,9 @@ HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dx
 
 }  // namespace k1
 
+// K1_NO_ENTRIES: the bodies alone, for a source that includes this one
+// (sqp_planes_split.cu)
+#ifndef K1_NO_ENTRIES
 #ifdef __CUDACC__
 
 template <int kBody>
@@ -966,3 +969,4 @@ extern "C" int srbd_sqp_planes_host(int body, const host_t* consts, const host_t
 }
 
 #endif
+#endif  // K1_NO_ENTRIES

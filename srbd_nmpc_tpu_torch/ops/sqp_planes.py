@@ -12,9 +12,11 @@ same stage parking its factor (``factor=True``), and
   reduction over stages or rows is an explicit loop, so a lane's result
   does not depend on the batch width.
 - ``sqp_qp_solve_onepass_planes``: the public entry. CPU tensors go to the
-  plain version; CUDA tensors launch the hand-written kernel
-  ``csrc/sqp_planes.cu`` (f32 only; one instantiation per stage body) or
-  raise.
+  plain version; CUDA tensors launch the hand-written kernels (f32 only) or
+  raise: the default gains body as three launches of
+  ``csrc/sqp_planes_split.cu`` (a plane pass, a Riccati pass with a team of
+  16 threads per scenario, the rollout), the rank-6 and factor bodies as
+  one launch each of ``csrc/sqp_planes.cu``.
 
 The candidate fold ``x + alpha dx`` is applied on load, so one function
 serves the bootstrap (alpha = 0) and every speculative line-search trip.
@@ -51,12 +53,19 @@ _RF = 51         # 12: r_eff = Rw u + Ac' db
 _DDB = 63        # 24: barrier curvature ddb
 _C = 87
 
-# CUDA threads per block of K1 (independent of NmpcConfig.pallas_block,
-# which only sets the granularity of the compaction tiers)
+# CUDA threads per block of K1's one-launch bodies (independent of
+# NmpcConfig.pallas_block, which only sets the granularity of the compaction
+# tiers)
 THREADS = 128
 
-# launches of each stage body's CUDA kernel since the last reset (read by
-# chip_smoke.py)
+# the split gains body's scratch beside the pack: per stage the merit terms
+# u_i (R u)_i, e_i (Q e)_i (12 each), the barrier sum and the least
+# constraint; the terminal stage's qN and eN'qN
+_M_C = 26
+_T_C = 13
+
+# calls of each stage body on the card since the last reset (read by
+# chip_smoke.py); a gains call counts once, whichever kernels run it
 launches = {"gains": 0, "rank6": 0, "factor": 0}
 
 
@@ -340,8 +349,55 @@ def _lib():
     return fn
 
 
+def _split_lib():
+    lib = load_kernel("sqp_planes_split")
+    if lib.srbd_k1s_planes_launch.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.srbd_k1s_planes_launch.argtypes = [P] * 10 + [I, I, F, F, P]
+        lib.srbd_k1s_riccati_launch.argtypes = [P] * 5 + [I, I, F, P]
+        lib.srbd_k1s_rollout_launch.argtypes = [P] * 14 + [I, I, P]
+        for fn in (lib.srbd_k1s_planes_launch, lib.srbd_k1s_riccati_launch,
+                   lib.srbd_k1s_rollout_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(what: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _launch_split(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
+                  theta_b, reg, stream):
+    """The gains body as three launches (``csrc/sqp_planes_split.cu``): the
+    plane pass, the Riccati pass, the rollout; each launch's return code
+    checked as it is made."""
+    N, Bt = us.shape[0], xa.shape[-1]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xa.device)
+
+    pack, mer, term = empty(N, _C, Bt), empty(N, _M_C, Bt), empty(_T_C, Bt)
+    park0, park1 = (empty(*s) for s in park_shapes("gains", N, Bt)[:2])
+    lib = _split_lib()
+    _check("sqp_planes_split plane pass", lib.srbd_k1s_planes_launch(
+        kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
+        dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
+        mer.data_ptr(), term.data_ptr(), N, Bt, float(mu_b), float(theta_b),
+        stream))
+    _check("sqp_planes_split Riccati pass", lib.srbd_k1s_riccati_launch(
+        kc.data_ptr(), pack.data_ptr(), term.data_ptr(), park0.data_ptr(),
+        park1.data_ptr(), N, Bt, float(reg), stream))
+    _check("sqp_planes_split rollout", lib.srbd_k1s_rollout_launch(
+        kc.data_ptr(), pack.data_ptr(), mer.data_ptr(), term.data_ptr(),
+        park0.data_ptr(), park1.data_ptr(), dx.data_ptr(), dx[1:].data_ptr(),
+        du.data_ptr(), *(out5[i].data_ptr() for i in range(5)), N, Bt,
+        stream))
+
+
 def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                alpha, x0s, mu_b, theta_b, reg, rank6, factor, consts):
+                alpha, x0s, mu_b, theta_b, reg, rank6, factor, consts,
+                one_thread=False):
     N = us.shape[0]
     Bt = xa.shape[-1]
     for name, t, shape in (("xa", xa, (N + 1, NX, Bt)),
@@ -355,6 +411,7 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     if consts is None:
         consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc)
     body = _body(rank6, factor, lambda: consts.rank6)
+    split = body == "gains" and not one_thread
     xa, us, xra, dxc, duc, alpha, x0s = (
         t.contiguous() for t in (xa, us, xra, dxc, duc, alpha, x0s))
 
@@ -367,23 +424,35 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     dx[0] = x0s - (xa[0] + alpha[None, :] * dxc[0])
     du = empty(N, NU, Bt)
     out5 = empty(5, Bt)                       # dphi, theta, phi, md, mc
-    pack = empty(N, _C, Bt)
-    parks = [empty(*s) if s else None for s in park_shapes(body, N, Bt)]
-
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(BODIES.index(body), consts.block.data_ptr(),
-                 xa.data_ptr(), us.data_ptr(), xra.data_ptr(), dxc.data_ptr(),
-                 duc.data_ptr(), alpha.data_ptr(), dx.data_ptr(),
-                 dx[1:].data_ptr(), du.data_ptr(),
-                 *(out5[i].data_ptr() for i in range(5)), pack.data_ptr(),
-                 *(t.data_ptr() if t is not None else None for t in parks),
-                 N, Bt, float(mu_b), float(theta_b), float(reg), THREADS,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"sqp_planes kernel ({body}) launch failed: CUDA "
-                           f"error {err}")
+    if split:
+        _launch_split(consts.block, xa, us, xra, dxc, duc, alpha, dx, du,
+                      out5, mu_b, theta_b, reg, stream)
+    else:
+        pack = empty(N, _C, Bt)
+        parks = [empty(*s) if s else None for s in park_shapes(body, N, Bt)]
+        _check(f"sqp_planes kernel ({body})", _lib()(
+            BODIES.index(body), consts.block.data_ptr(), xa.data_ptr(),
+            us.data_ptr(), xra.data_ptr(), dxc.data_ptr(), duc.data_ptr(),
+            alpha.data_ptr(), dx.data_ptr(), dx[1:].data_ptr(),
+            du.data_ptr(), *(out5[i].data_ptr() for i in range(5)),
+            pack.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in parks),
+            N, Bt, float(mu_b), float(theta_b), float(reg), THREADS, stream))
     launches[body] += 1
     return dx, du, out5[0], (out5[1], out5[2], out5[3], out5[4])
+
+
+def _gains_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+                alpha, x0s, mu_b, theta_b, reg=0.0, one_thread=False,
+                consts=None):
+    """The gains body on the card: the split kernels, or with
+    ``one_thread`` the one-thread kernel ``sqp_planes.cu <kGains>``, the
+    yardstick that the card tests and chip_smoke.py hold to the plain
+    version and time the split kernels against. CUDA tensors only."""
+    return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+                       alpha, x0s, mu_b, theta_b, reg, False, False, consts,
+                       one_thread=one_thread)
 
 
 def sqp_qp_solve_onepass_planes(
@@ -398,9 +467,10 @@ def sqp_qp_solve_onepass_planes(
     kernel's constants from ``sqp_stage.kernel_constants`` (built, with its
     checks, on each CUDA call when not given).
 
-    The stage body (JAX's three, one kernel instantiation each):
+    The stage body (JAX's three):
 
-    - default: the 12x12 structured stage, parking the gains (K, kv);
+    - default: the 12x12 structured stage, parking the gains (K, kv); on
+      CUDA the three launches of ``sqp_planes_split.cu``;
     - ``rank6``: the rank-6 stage (``_riccati_stage_rank6``). It needs R_w
       leg-block-diagonal; where it is not, the 12x12 stage runs, silently,
       as in JAX (on CUDA ``consts.rank6`` decides, with no read-back; the
@@ -411,8 +481,8 @@ def sqp_qp_solve_onepass_planes(
 
     ``factor`` with ``rank6`` raises ``ValueError``, as in JAX. JAX's
     ``factor`` limit on its lane block (``block <= 128``) guards the TPU's
-    VMEM and has no counterpart: the CUDA kernel parks in global memory,
-    and its block size is the fixed ``THREADS``."""
+    VMEM and has no counterpart: the CUDA kernels park in global memory,
+    and their block sizes are fixed."""
     if xa.device.type == "cuda":
         return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
                            duc, alpha, x0s, mu_b, theta_b, reg, rank6, factor,

@@ -25,6 +25,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -61,9 +62,14 @@ def _nvcc() -> str:
 
 
 def _key(src: str, cmd) -> str:
-    """Hash of ``src``, every shared header in ``csrc/`` and the command."""
+    """Hash of ``src``, the sources it includes from ``csrc/`` by name
+    (``#include "x.cu"``), every shared header in ``csrc/`` and the
+    command."""
+    with open(src) as f:
+        named = re.findall(r'^#include "([^"]+\.cu)"', f.read(), re.M)
     h = hashlib.sha256()
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    for path in ([src] + [os.path.join(CSRC, n) for n in named]
+                 + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))):
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(cmd).encode())

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 fused SQP trip with its three stage bodies, K2 lane permutes, K3a/K3b dense one-pass trips, K4 the
+(K1 fused SQP trip with its three stage bodies, the gains body also by its
+one-thread kernel, K2 lane permutes, K3a/K3b dense one-pass trips, K4 the
 two-pass solve, K5 stage linearization, K6 Riccati backward and forward
 passes, K7a line-search merit, K7b merit with and without gradients), at
 the main path's widths; one synchronous ``pallas`` solve that launches K5,
@@ -73,21 +74,30 @@ K1_BODIES = {"gains": {}, "rank6": dict(rank6=True),
 @pytest.mark.parametrize("body", sorted(K1_BODIES))
 def test_k1_matches_plain(dev, body, alpha_zero):
     """Each stage body against its plain version; the benchmark weights
-    are leg-block-diagonal, so rank6=True runs the rank-6 body."""
+    are leg-block-diagonal, so rank6=True runs the rank-6 body. The gains
+    body also through ``sqp_planes._gains_cuda``: the split kernels and the
+    one-thread kernel, each call counted once."""
     args = _k1_args(dev, 20, 4096, alpha_zero)
     flags = K1_BODIES[body]
-    before = dict(sqp_planes.launches)
-    got = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9, **flags)
-    torch.cuda.synchronize()
-    assert sqp_planes.launches == {**before, body: before[body] + 1}
     ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9,
                                                      **flags)
-    for g, r in zip(got[:3], ref[:3]):
-        assert torch.isfinite(g).all()
-        assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
-    for g, r in zip(got[3][:2], ref[3][:2]):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
-                                   rtol=1e-4)
+    calls = [lambda: sqp_planes.sqp_qp_solve_onepass_planes(
+        *args, reg=1e-9, **flags)]
+    if body == "gains":
+        calls += [lambda o=o: sqp_planes._gains_cuda(*args, reg=1e-9,
+                                                     one_thread=o)
+                  for o in (False, True)]
+    for call in calls:
+        before = dict(sqp_planes.launches)
+        got = call()
+        torch.cuda.synchronize()
+        assert sqp_planes.launches == {**before, body: before[body] + 1}
+        for g, r in zip(got[:3], ref[:3]):
+            assert torch.isfinite(g).all()
+            assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
+        for g, r in zip(got[3][:2], ref[3][:2]):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=1e-4)
 
 
 def test_k1_rank6_on_dense_R_runs_the_12x12_body(dev):
@@ -230,14 +240,20 @@ def test_k2_one_device_kernel_per_call(dev):
 
 
 def test_k1_one_kernel_per_call(dev):
-    """One call of each stage body launches one K1 kernel, the
-    instantiation of its body (template argument 0 gains, 1 rank6, 2
-    factor)."""
+    """One call of each stage body: the gains body launches the three split
+    kernels (the plane pass, the Riccati pass, the rollout) once each, the
+    rank-6 and factor bodies one K1 kernel each, the instantiation of their
+    body (template argument 1 rank6, 2 factor)."""
     kernels = _device_kernels("_k1_calls")
     k1 = {k: n for k, n in kernels.items() if "sqp_planes_kernel" in k}
-    assert sorted(k1.values()) == [1, 1, 1]
-    for tag in range(3):
+    assert sorted(k1.values()) == [1, 1]
+    for tag in (1, 2):
         assert sum(f"<{tag}>" in k or f"ILi{tag}E" in k for k in k1) == 1
+    split = {k: n for k, n in kernels.items() if "k1s_" in k}
+    assert sorted(split.values()) == [1, 1, 1]
+    for name in ("k1s_planes_kernel", "k1s_riccati_team_kernel",
+                 "k1s_rollout_kernel"):
+        assert sum(name in k for k in split) == 1
 
 
 def test_k2_leaves_inputs_untouched(dev):

@@ -200,6 +200,18 @@ def test_non_leg_block_diagonal_constraints_raise():
         sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=REG)
 
 
+def _host_consts(tp, Q, Qf, R, Ac, bc, dtype):
+    """K1's constants block (``sqp_stage.kernel_constants``' layout)."""
+    Ac1, Ac2 = Ac[0:12, 0:6], Ac[12:24, 6:12]
+    consts = torch.cat([tp.mass.reshape(1), tp.dt.reshape(1),
+                        tp.inertia_inv.reshape(9), tp.foot_pos.reshape(6),
+                        Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
+                        R.reshape(144), Q.reshape(144),
+                        Qf.reshape(144)]).to(dtype)
+    assert consts.numel() == sqp_stage.K_LEN
+    return consts
+
+
 def _host_kernel(args, body="gains", f32=False):
     """The kernel's per-scenario body (csrc/sqp_planes.cu) for ``body``,
     built as host C++ (in double precision, or in float32 with ``f32``) and
@@ -215,13 +227,7 @@ def _host_kernel(args, body="gains", f32=False):
     tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha, x0s = args[:13]
     N, B = us.shape[0], xa.shape[-1]
     dtype = torch.float32 if f32 else F64
-    Ac1, Ac2 = Ac[0:12, 0:6], Ac[12:24, 6:12]
-    consts = torch.cat([tp.mass.reshape(1), tp.dt.reshape(1),
-                        tp.inertia_inv.reshape(9), tp.foot_pos.reshape(6),
-                        Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
-                        R.reshape(144), Q.reshape(144),
-                        Qf.reshape(144)]).to(dtype)
-    assert consts.numel() == sqp_stage.K_LEN
+    consts = _host_consts(tp, Q, Qf, R, Ac, bc, dtype)
     dx = torch.empty((N + 1, 12, B), dtype=dtype)
     dx[0] = x0s - (xa[0] + alpha[None] * dxc[0])
     du = torch.empty((N, 12, B), dtype=dtype)
@@ -319,3 +325,115 @@ def test_f32_host_build_rounds_d1_as_plain(monkeypatch, association):
         assert share >= 0.99
     else:
         assert share <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# The split gains body (csrc/sqp_planes_split.cu: plane pass, Riccati pass,
+# rollout) built as host C++, each team of the Riccati pass emulated with its
+# members one after another within each step
+# ---------------------------------------------------------------------------
+
+# team widths of the Riccati pass to emulate: the card's (16) and two more,
+# since the rounding must not depend on how a stage's work items fall to the
+# members
+TEAMS = (8, 16, 32)
+
+
+def _host_split(args, team, rev=False, f32=False):
+    """The split kernels' host build (``team``: the emulated team width,
+    ``rev``: each team's members in reverse order) run on every lane of
+    K1's arguments ``args``: (dx, du, out5)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
+    fn = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes_split.cu",
+                                      flags=flags)).srbd_sqp_planes_split_host
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
+                   + [ctypes.c_int] * 2 + [ctypes.c_double] * 3)
+    fn.restype = ctypes.c_int
+    tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha, x0s = args[:13]
+    N, B = us.shape[0], xa.shape[-1]
+    dtype = torch.float32 if f32 else F64
+    consts = _host_consts(tp, Q, Qf, R, Ac, bc, dtype)
+    dx = torch.empty((N + 1, 12, B), dtype=dtype)
+    dx[0] = x0s - (xa[0] + alpha[None] * dxc[0])
+    du = torch.empty((N, 12, B), dtype=dtype)
+    out5 = torch.empty((5, B), dtype=dtype)
+    scratch = [torch.empty(s, dtype=dtype) for s in (
+        (N, sqp_planes._C, B), (N, sqp_planes._M_C, B), (sqp_planes._T_C, B),
+        *sqp_planes.park_shapes("gains", N, B)[:2])]
+    ins = (consts, xa, us, xra, dxc, duc, alpha)
+    assert all(t.dtype == dtype for t in ins)
+    ptrs = [t.data_ptr() for t in (*ins, dx, dx[1:], du, *out5, *scratch)]
+    assert fn(team, int(rev), *ptrs, N, B, *args[13:15], REG) == 0
+    return dx, du, out5
+
+
+@functools.lru_cache(maxsize=None)
+def _split_run(N, team):
+    """The split host f64 build and the plain version on the same inputs
+    (every lane: 0-7 alpha = 0, 8-15 random alpha)."""
+    params, weights, arr = _problem(N, seed=1)
+    args = _port_args(params, weights, arr)
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=REG)
+    return _host_split(args, team), ref
+
+
+@pytest.mark.parametrize("team", TEAMS)
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("N", [5, 20])
+def test_split_host_build_matches_plain(N, case, team):
+    """The three split kernels' arithmetic (csrc/sqp_planes_split.cu)
+    compiled as host C++ in double precision reproduces the plain version,
+    with the Riccati pass's team at each emulated width."""
+    (dx, du, out5), ref = _split_run(N, team)
+    lanes = CASES[case]
+    _assert_host_matches_plain(
+        (dx[..., lanes], du[..., lanes], out5[:, lanes]),
+        (ref[0][..., lanes], ref[1][..., lanes], ref[2][lanes],
+         tuple(a[lanes] for a in ref[3])))
+
+
+def _f32_args():
+    params, weights, arr = _problem(20, seed=2)
+    args = list(_port_args(params, weights, arr))
+    for i in range(1, 13):
+        args[i] = args[i].to(torch.float32)
+    args[0] = dataclasses.replace(args[0], **{
+        f.name: getattr(args[0], f.name).to(torch.float32)
+        for f in dataclasses.fields(args[0])})
+    return args
+
+
+@pytest.mark.parametrize("team,rev", [
+    (w, rev) for w in TEAMS for rev in (False, True)])
+def test_split_f32_host_build_rounds_as_one_thread_body(team, rev):
+    """In float32, the split kernels give the one-thread gains body's dx,
+    du, dphi, max|defect| and min constraint bit for bit, with either
+    member order of a team: no sum of the Riccati stage is split between
+    threads or reordered, and no step reads what another member writes in
+    it. theta and phi are reduced over the stages in the plain version's
+    order, where the one-thread body sums stage by stage: they may differ
+    in the last bits."""
+    args = _f32_args()
+    one_dx, one_du, one_out5, _ = _host_kernel(args, f32=True)
+    dx, du, out5 = _host_split(args, team, rev, f32=True)
+    assert torch.equal(dx, one_dx)
+    assert torch.equal(du, one_du)
+    for i in (0, 3, 4):                      # dphi, maxdef, mincon
+        assert torch.equal(out5[i], one_out5[i])
+    for i, name in ((1, "theta"), (2, "phi")):
+        rel = float(((out5[i].double() - one_out5[i].double()).abs()
+                     / one_out5[i].double().abs()).max())
+        print(f"{name}: split vs one-thread body, max relative {rel:.3e}")
+        assert rel <= 1e-6
+
+
+@pytest.mark.parametrize("one_thread", [False, True])
+def test_gains_designs_raise_on_what_they_cannot_take(one_thread):
+    """The card-only entry of the gains body's kernels, split or one-thread,
+    raises on CPU tensors before anything is built."""
+    params, weights, arr = _problem(5)
+    args = _port_args(params, weights, arr)
+    with pytest.raises(TypeError, match="CUDA"):
+        sqp_planes._gains_cuda(*args, reg=REG, one_thread=one_thread)
