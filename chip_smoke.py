@@ -5,7 +5,8 @@
 Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc`` (phase 2
 prints K1's ptxas registers and spills for each of its three one-launch
 stage bodies and for each launch of the split gains body,
-``sqp_planes_split.cu``), checks each against its plain PyTorch version at
+``sqp_planes_split.cu``, and K3's for its one-thread body and each launch
+of its split trip, ``sqp_onepass_split.cu``), checks each against its plain PyTorch version at
 the main path's shapes (phase 4: K1's gains, rank-6 and factor bodies, each
 timed at the four widths the main path launches; then the gains body's
 split kernels and its one-thread kernel against the plain version at
@@ -25,11 +26,13 @@ the same for the iteration-synchronous loop: its kernels (K5, K6, K7a)
 against their plain versions, cold B=131072 solves on its ``pallas`` and
 ``fused`` routes against the speculative path, and each kernel route against
 the plain ``xla`` route. Phases 13-14 do it for the dense one-pass route
-(``planes=False``): its kernels (K3a, K3b) and the two-pass oracle (K4a,
-K4b) against their plain versions (at B=4096 and at B=131072), K3b against
-K4 on the inputs the JAX tests' f32 tolerances were set on, and cold
-B=131072 solves of the dense
-route on both loops. Phase 15 checks the batched merit with diagnostics
+(``planes=False``): its kernels (K3a, K3b: the split kernels, and the
+one-thread body they replaced, timed against each other in alternated
+rounds at the four widths with each split launch's device ms, the split
+held to be no slower) and the two-pass oracle (K4a, K4b) against their
+plain versions (at B=4096 and at B=131072), K3b against K4 on the inputs
+the JAX tests' f32 tolerances were set on, and cold B=131072 solves of the
+dense route on both loops. Phase 15 checks the batched merit with diagnostics
 (K7b, with and without gradients) against its plain version at B=4096 and
 B=131072 and drives it through ``engine._merit_fast``; phase 16 drives the
 single-scenario solve (one robot, ``x [N+1, 12]``, the reference's own
@@ -44,8 +47,8 @@ just after; K1's rank-6 body, which no engine route takes (as in JAX), is
 driven by direct calls of the op in phase 4.
 
 The ``kernels`` line gives, for each of the 16 kernel bodies behind the 12
-TPU call sites (K1's gains row on its split kernels, with a row for each
-of its launches), its launches on its
+TPU call sites (K1's gains row and K3a's and K3b's on their split kernels,
+each with a row for each of its launches), its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
 plain, and the one PyTorch call that computes the same function where there
 is one) at the main path's shapes, timed over eager calls as the path makes
@@ -84,7 +87,8 @@ N_MAIN = 20
 REL_TOL = 1e-4
 ORACLE_TOL = 1e-3
 SOURCES = ("permute", "sqp_planes", "sqp_planes_split", "linearize",
-           "riccati", "merit", "sqp_onepass", "sqp_twopass")
+           "riccati", "merit", "sqp_onepass", "sqp_onepass_split",
+           "sqp_twopass")
 # the synchronous routes: converged within 0.5 % of B and mean SQP
 # iterations within 0.1 of the speculative path's cold solve
 SYNC_ROUTES = {"pallas": dict(qp_kernel="pallas"),
@@ -104,6 +108,19 @@ K1_DESIGNS = {"one-thread": True, "split": False}
 K1S_PASSES = {"K1s-A": "k1s_planes_kernel",
               "K1s-B": "k1s_riccati_team_kernel",
               "K1s-C": "k1s_rollout_kernel"}
+# K3 (the dense route's one-pass trip) by its counter names, and its kernels
+# on the card by sqp_kernel._k3a_cuda / _k3b_cuda's one_thread: the
+# one-thread yardstick and the split kernels (the dense route's)
+K3_NAMES = ("sqp_onepass_cand", "sqp_onepass")
+K3_DESIGNS = K1_DESIGNS
+# the split K3's launches by their device kernel names (K3s-B is K1s-B's
+# kernel, launched through sqp_planes_split.cu)
+K3S_PASSES = {"K3s-A": "k3s_planes_kernel",
+              "K3s-B": "k1s_riccati_team_kernel",
+              "K3s-C": "k3s_rollout_kernel"}
+# the dense route's cold p50 (ms) on the one-thread K3, from the final run
+# of the gains redesign (PERF.md section 5), printed beside phase 14's
+DENSE_P50_BEFORE = {"spec": 402.243, "sync": 515.165}
 # the default cold B=131072 solve as every run of the port has read it
 # (PRs 1-7): converged, mean SQP iterations, speculative trips
 COLD_REF = (128135, 11.4225, 17)
@@ -214,12 +231,17 @@ def phase_build(sources=SOURCES):
     k1 = _k1_ptxas() if "sqp_planes" in sources else {}
     if "sqp_planes_split" in sources:
         k1.update(_k1s_ptxas())
-    if k1:
-        print("[2 build] K1 ptxas by stage body and split launch: "
-              + "; ".join(f"{n} {r} registers, {st} B spill stores, {ld} B "
-                          f"spill loads, {sk} B stack"
-                          for n, (r, st, ld, sk) in k1.items()), flush=True)
-    return secs, k1
+    k3 = (_k3_ptxas(k1) if {"sqp_onepass", "sqp_onepass_split",
+                            "sqp_planes_split"} <= set(sources) else {})
+    for what, regs in (("K1 ptxas by stage body and split launch", k1),
+                       ("K3 ptxas by body and split launch", k3)):
+        if regs:
+            print(f"[2 build] {what}: "
+                  + "; ".join(f"{n} {r} registers, {st} B spill stores, "
+                              f"{ld} B spill loads, {sk} B stack"
+                              for n, (r, st, ld, sk) in regs.items()),
+                  flush=True)
+    return secs, k1, k3
 
 
 # K2's shapes on the cold speculative path: the compaction crossings
@@ -1300,6 +1322,120 @@ def phase_dense_kernels(dev):
     return max_abs, times, bounds, k4_launches
 
 
+def _k3_call(name, design, cand, one, reg):
+    """K3a (``name`` "sqp_onepass_cand") or K3b on the card by design
+    (K3_DESIGNS) on ``_k3_args``' arguments."""
+    from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
+
+    one_thread = K3_DESIGNS[design]
+    if name == "sqp_onepass_cand":
+        return lambda: sk._k3a_cuda(*cand, reg=reg, one_thread=one_thread)
+    return lambda: sk._k3b_cuda(*one, reg=reg, one_thread=one_thread)
+
+
+def _k3_split_bytes(N, B, cand):
+    """Bytes the split K3 must move per call in float32, each array read
+    once and written once by each launch that touches it: K3s-A reads the
+    inputs (xa, us, xra; dxc, duc, alpha under cand) and writes the pack
+    [N,87,B], the merit terms [N,4,B] and the terminal rows [13,B]; K3s-B
+    reads the pack and qN and writes K, kv [N,156,B]; K3s-C reads 63 of the
+    pack's channels, the merit terms, the terminal rows, K, kv and dx0, and
+    writes dx[1:], du [N,24,B] and the five scalars [5,B]."""
+    inputs = 12 * (N + 1) * 2 + 12 * N + (12 * (N + 1) + 12 * N + 1) * cand
+    words = (inputs + (87 + 4) * N + 13                  # K3s-A
+             + 87 * N + 12 + 156 * N                     # K3s-B
+             + (63 + 4 + 156 + 24) * N + 13 + 12 + 5)    # K3s-C
+    return 4 * B * words
+
+
+def phase_k3_designs(dev):
+    """K3a and K3b by design (K3_DESIGNS) at N=20: each against its plain
+    version at B=4096 and B=131072, max |diff| printed, bitwise expected;
+    ms per call at the main path's four widths in alternated rounds in this
+    call; each split launch's device ms (torch.profiler) at each width.
+    Fails if the split kernels (the dense route's) are slower than the
+    one-thread body at B=131072 or at B=4096."""
+    from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
+
+    rng = np.random.default_rng(15)
+    err = {(n, d): (0.0, 0.0, True) for n in K3_NAMES for d in K3_DESIGNS}
+    for B in (4096, B_MAIN):
+        cand, one, _, reg = _k3_args(rng, B, dev)
+        for name in K3_NAMES:
+            ref = (sk.sqp_qp_solve_onepass_cand_ref(*cand, reg=reg)
+                   if name == "sqp_onepass_cand"
+                   else sk.sqp_qp_solve_onepass_ref(*one, reg=reg))
+            for design in K3_DESIGNS:
+                got = _k3_call(name, design, cand, one, reg)()
+                torch.cuda.synchronize()
+                rel, mx = _diff(got, ref)
+                same = all(torch.equal(g, r)
+                           for g, r in zip(_flat(got), _flat(ref)))
+                print(f"[13 K3 designs] {KERNEL_IDS[name]} {design} vs plain "
+                      f"at B={B}: {rel:.3e} (limit {REL_TOL:g}); max |diff| "
+                      f"{mx:.3e}; bitwise {same}", flush=True)
+                r0, m0, s0 = err[(name, design)]
+                err[(name, design)] = (max(rel, r0), max(mx, m0), same and s0)
+                del got
+            del ref
+        del cand, one
+        torch.cuda.empty_cache()
+    bad = {k: v for k, v in err.items() if not v[0] < REL_TOL}
+    if bad:
+        raise AssertionError(f"a K3 design disagrees with plain: {bad}")
+
+    # ms per call in turns: forward, backward, forward, backward (5 calls
+    # each), the mean of the four; then each split launch's device ms
+    times = {(n, d): {} for n in K3_NAMES for d in K3_DESIGNS}
+    passes = {n: {} for n in K3_NAMES}
+    order = list(K3_DESIGNS)
+    for B in K1_WIDTHS:
+        cand, one, _, reg = _k3_args(rng, B, dev)
+        for name in K3_NAMES:
+            for design in (order + order[::-1]) * 2:
+                ms = _cuda_ms(_k3_call(name, design, cand, one, reg), 5)
+                t = times[(name, design)]
+                t[B] = t.get(B, 0.0) + ms / 4
+            split = _k3_call(name, "split", cand, one, reg)
+            by_name, _ = _device_ms(lambda: [split() for _ in range(5)])
+            passes[name][B] = {p: sum(v for k, v in by_name.items()
+                                      if key in k) / 5
+                               for p, key in K3S_PASSES.items()}
+        del cand, one
+        torch.cuda.empty_cache()
+    ratio = {}
+    for name in K3_NAMES:
+        one_t = times[(name, "one-thread")]
+        for design in K3_DESIGNS:
+            print(f"[13 K3 designs] {KERNEL_IDS[name]} {design} ms per call: "
+                  + ", ".join(f"B={B} {ms:.3f} ({ms / one_t[B]:.3f}x "
+                              "one-thread)"
+                              for B, ms in times[(name, design)].items()),
+                  flush=True)
+        for B, by in passes[name].items():
+            print(f"[13 K3 designs] {KERNEL_IDS[name]} split device ms per "
+                  f"launch at B={B}: " + ", ".join(
+                      f"{p} {v:.3f}" for p, v in by.items()), flush=True)
+        for B in (B_MAIN, B_MAIN // 32):
+            ratio[(KERNEL_IDS[name], B)] = (times[(name, "split")][B]
+                                            / one_t[B])
+    print("[13 K3 designs] the dense route's K3 kernels (split) against the "
+          "one-thread body: " + ", ".join(f"{k} B={B} {r:.3f}x"
+                                          for (k, B), r in ratio.items()),
+          flush=True)
+    floor = {name: _k3_split_bytes(N_MAIN, B_MAIN, name == "sqp_onepass_cand")
+             for name in K3_NAMES}
+    print(f"[13 K3 designs] bytes the split design moves per call at "
+          f"B={B_MAIN}: " + ", ".join(
+              f"{KERNEL_IDS[n]} {b / 1e9:.3f} GB, a floor of "
+              f"{b / PEAK_BYTES * 1e3:.3f} ms at {PEAK_BYTES / 1e12:g} TB/s"
+              for n, b in floor.items()), flush=True)
+    if max(ratio.values()) > 1.0:
+        raise AssertionError(f"the split K3 kernels are slower than the "
+                             f"one-thread body: {ratio}")
+    return err, times, passes, floor
+
+
 def phase_dense(dev, card, spec):
     """Cold B=131072 solves of the dense one-pass route on both loops, read
     against the speculative planes path (phase 5); then the dense
@@ -1329,7 +1465,11 @@ def phase_dense(dev, card, spec):
         # where the time goes: one more solve under the profiler
         by_name, _ = _device_ms(lambda: sharded.solve_batch(*prob))
         busy = sum(by_name.values())
-        k3 = {k: v for k, v in by_name.items() if "sqp_onepass" in k}
+        # K3's device kernels: the split launches (K3s-B is K1s-B's kernel,
+        # which this route runs for K3 alone) and the one-thread body
+        k3 = {k: v for k, v in by_name.items()
+              if "sqp_onepass" in k
+              or any(key in k for key in K3S_PASSES.values())}
         d_conv, d_it = n_conv - n_spec, mean_it - it_spec
         what = ("trips (bootstrap included)" if loop == "spec"
                 else "line-search trips")
@@ -1337,12 +1477,14 @@ def phase_dense(dev, card, spec):
               f"{n_conv}/{B_MAIN} ({d_conv:+d} vs phase 5), mean SQP "
               f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
               f"{what} {trips}, launches {launches}; p50 {p50:.3f} ms per "
-              f"solve, {B_MAIN / p50 * 1e3:.1f} solves/s (times "
+              f"solve ({DENSE_P50_BEFORE[loop]:.3f} on the one-thread K3), "
+              f"{B_MAIN / p50 * 1e3:.1f} solves/s (times "
               f"{[round(t, 3) for t in times]}) on {card}", flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         print(f"[14 dense] {loop} profiled solve: device busy {busy:.3f} ms "
               f"({100 * busy / p50:.1f} % of the p50, so idle "
-              f"{100 * (1 - busy / p50):.1f} %), K3 {sum(k3.values()):.3f} ms; "
+              f"{100 * (1 - busy / p50):.1f} %), K3 {sum(k3.values()):.3f} ms "
+              f"({len(k3)} kernel names); "
               "top kernels " + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top),
               flush=True)
         if loop == "spec":
@@ -1726,6 +1868,30 @@ def _k1_ptxas():
     return out
 
 
+def _k3_ptxas(k1):
+    """(registers, spill stores, spill loads, stack bytes) of K3's kernels:
+    the one-thread body (sqp_onepass.cu, K3a <true>, K3b <false>) and the
+    split launches (sqp_onepass_split.cu's K3s-A <true>/<false> and K3s-C;
+    K3s-B is K1s-B, from ``k1``)."""
+    out = {}
+    for mangled, regs, stores, loads, stack in _ptxas("sqp_onepass",
+                                                      "sqp_onepass_kernel"):
+        tag = "true" if "ILb1E" in mangled else "false"
+        out[f"one-thread <{tag}>"] = (regs, stores, loads, stack)
+    for mangled, regs, stores, loads, stack in _ptxas("sqp_onepass_split",
+                                                      "k3s_"):
+        tag = "true" if "ILb1E" in mangled else "false"
+        name = ("K3s-A <" + tag + ">" if "k3s_planes_kernel" in mangled
+                else "K3s-C")
+        out[name] = (regs, stores, loads, stack)
+    out["K3s-B"] = k1["K1s-B"]
+    want = {"one-thread <true>", "one-thread <false>", "K3s-A <true>",
+            "K3s-A <false>", "K3s-B", "K3s-C"}
+    if set(out) != want:
+        raise AssertionError(f"K3 kernels in the ptxas report: {out}")
+    return out
+
+
 def _k1s_ptxas():
     """(registers, spill stores, spill loads, stack bytes) of each split
     kernel of the gains body (sqp_planes_split.cu): K1s-A, K1s-B, K1s-C."""
@@ -1851,6 +2017,39 @@ def _k1_entry(launches, err, t, plain, bound, regs, d_err, d_t, d_passes):
                   launches_per_call=per)
 
 
+def _k3_entry(name, replaces, launches, err, t, plain, bound, regs, d_err,
+              d_t, d_passes, floor):
+    """K3a's or K3b's row: the dense route's path (the split kernels), timed
+    through the public entry in phase 13, its largest difference from the
+    plain version over phase 13's checks, and a row for each of its
+    launches (device ms by width, ptxas report); registers and spills of
+    the row are the largest of its launches'. The one-thread body's ms
+    beside it, and the floor that the bytes of the split design put under
+    it."""
+    tag = "true" if name == "sqp_onepass_cand" else "false"
+    per = [{"pass": p, "kernel": key, "ms": d_passes[name][B_MAIN][p],
+            "ms_by_width": {str(B): by[p]
+                            for B, by in d_passes[name].items()},
+            "registers": r, "spill_stores": st, "spill_loads": ld,
+            "stack": sk}
+           for p, key in K3S_PASSES.items()
+           for r, st, ld, sk in [regs[f"{p} <{tag}>" if p == "K3s-A"
+                                      else p]]]
+    return _entry(name, "sqp_onepass_split.cu", replaces, launches,
+                  max(err, d_err[(name, "split")][1]), t, plain, bound,
+                  design="split",
+                  ms_by_width={str(B): v for B, v in
+                               d_t[(name, "split")].items()},
+                  one_thread_ms_by_width={str(B): v for B, v in
+                                          d_t[(name, "one-thread")].items()},
+                  registers=max(e["registers"] for e in per),
+                  spill_stores=max(e["spill_stores"] for e in per),
+                  spill_loads=max(e["spill_loads"] for e in per),
+                  split_bytes=floor[name],
+                  split_bytes_floor_ms=floor[name] / PEAK_BYTES * 1e3,
+                  launches_per_call=per)
+
+
 # the TPU kernels' ids (PERF.md's table) by the port's counter names
 KERNEL_IDS = {"sqp_planes": "K1", "sqp_planes_rank6": "K1_rank6",
               "sqp_planes_factor": "K1_factor",
@@ -1876,7 +2075,7 @@ def main(argv=None) -> int:
         phase_permute(dev)
         print(smi)
         return 0
-    _, k1_regs = phase_build()
+    _, k1_regs, k3_regs = phase_build()
     k2, per_call = phase_permute(dev)
     if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
         raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
@@ -1892,6 +2091,7 @@ def main(argv=None) -> int:
     _, k_err, k_t, k_b = phase_sync_kernels(dev)
     sync = phase_sync(dev, f"{smi}", spec)
     d_err, d_t, d_b, k4_launches = phase_dense_kernels(dev)
+    k3d_err, k3d_t, k3d_passes, k3d_floor = phase_k3_designs(dev)
     dense = phase_dense(dev, f"{smi}", spec)
     phase_parity(dev)
     k7b_err, k7b_t, k7b_b, k7b_launches = phase_k7b(dev)
@@ -1925,11 +2125,15 @@ def main(argv=None) -> int:
         kernels.append(_entry(name, "permute.cu", replaces, launches[name],
                               0.0, k_call, l_call, bound, l_call,
                               device_ms=k_dev, library_device_ms=l_dev))
+    for name, replaces, n in (
+            ("sqp_onepass_cand", "ops/sqp_pallas.py:574",
+             dense_spec["sqp_onepass_cand"]),
+            ("sqp_onepass", "ops/sqp_pallas.py:492",
+             dense_sync["sqp_onepass"])):
+        kernels.append(_k3_entry(name, replaces, n, d_err[name],
+                                 *d_t[name], d_b[name], k3_regs, k3d_err,
+                                 k3d_t, k3d_passes, k3d_floor))
     for name, source, replaces, n, err, t, b in (
-            ("sqp_onepass_cand", "sqp_onepass.cu", "ops/sqp_pallas.py:574",
-             dense_spec["sqp_onepass_cand"], d_err, d_t, d_b),
-            ("sqp_onepass", "sqp_onepass.cu", "ops/sqp_pallas.py:492",
-             dense_sync["sqp_onepass"], d_err, d_t, d_b),
             ("sqp_twopass_bwd", "sqp_twopass.cu", "ops/sqp_pallas.py:383",
              k4_launches["sqp_twopass_bwd"], d_err, d_t, d_b),
             ("sqp_twopass_fwd", "sqp_twopass.cu", "ops/sqp_pallas.py:465",

@@ -7,7 +7,11 @@
 // TPU kernels are deliberate near-duplicates; here they are one template on a
 // compile-time CAND. Contract: the plain PyTorch versions
 // srbd_nmpc_tpu_torch/ops/sqp_kernel.py::sqp_qp_solve_onepass_cand_ref and
-// ::sqp_qp_solve_onepass_ref.
+// ::sqp_qp_solve_onepass_ref. The dense route runs K3 as the three launches
+// of sqp_onepass_split.cu, which call this body's stage code (terminal_stage,
+// stage_terms, closed_loop_column) and round as it does; this one-launch body
+// stays as the yardstick that the card tests and chip_smoke.py hold the split
+// kernels to (ops/sqp_kernel.py::_k3a_cuda / _k3b_cuda with one_thread).
 //
 // Per scenario, stages k = N-1 ... 0 in one backward sweep: linearize the stage
 // (srbd_soa.jacobian_blocks and the four-call srbd_soa.rk4, K5's evaluation
@@ -30,7 +34,8 @@
 //
 // Full-precision math only, built with -fmad=false, sums in the plain
 // version's order: the kernel rounds like the plain version. The per-scenario
-// body also compiles as host C++ (without __CUDACC__) for a CPU check in f64.
+// body also compiles as host C++ (without __CUDACC__) for a CPU check in f64,
+// and in f32 (-DSRBD_HOST_F32) as the split kernels' bitwise yardstick.
 
 #include "srbd_dev.cuh"
 
@@ -52,6 +57,114 @@ HD void load_stage(const T* xa, const T* dxc, T a, int k, int B, int b, T* x) {
   }
 }
 
+// the terminal stage: the state xn = x_N (the candidate's under CAND),
+// qN = Qf (xn - x_ref,N) and sN = eN'qN, each row sum left to right
+template <typename T, bool CAND>
+HD void terminal_stage(const T* kc, const T* xa, const T* dxc, const T* xr, T a, int N,
+                       int B, int b, T* xn, T* qN, T& sN) {
+  const T* Qf = kc + K_QF;
+  load_stage<T, CAND>(xa, dxc, a, N, B, b, xn);
+  T eN[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) eN[i] = xn[i] - xr[(size_t)(N * 12 + i) * B + b];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    T acc = Qf[12 * i] * eN[0];
+#pragma unroll
+    for (int j = 1; j < 12; ++j) acc = acc + Qf[12 * i + j] * eN[j];
+    qN[i] = acc;
+    sN = (i == 0) ? eN[0] * acc : sN + eN[i] * acc;
+  }
+}
+
+// one stage's terms at (x, u), e = x - x_ref, next state xn: the Jacobian
+// blocks (srbd_soa.jacobian_blocks: D1, D2 and the generators sF, sr, sl),
+// the defect bv = rk4(x, u) - xn (the four-call srbd_soa.rk4: K5's
+// evaluation order, not K1's shared chain), the 24 leg-block-diagonal
+// constraint rows con with their relaxed barrier (bb, ddb), Ru = R u,
+// q = Q e and r_eff = Ru + Ac' db
+template <typename T>
+HD void stage_terms(const Model<T>& md, const T* kc, T mu_b, T theta_b, T log_th,
+                    const T* x, const T* u, const T* e, const T* xn, M3<T>& D1, M3<T>& D2,
+                    T* sF, T* sr, T* sl, T* bv, T* con, T* bb, T* ddb, T* Ru, T* q, T* rf) {
+  const T* Ac1 = kc + K_AC1;  // [12, 6]
+  const T* Ac2 = kc + K_AC2;
+  const T* bc = kc + K_BC;
+  const T* Rw = kc + K_R;
+  const T* Qw = kc + K_Q;
+  soa_jacobian_blocks(md, x, u, D1, D2, sF, sr, sl);
+  soa_rk4(md, x, u, bv);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) bv[i] = bv[i] - xn[i];
+
+  T db[24];
+#pragma unroll
+  for (int g = 0; g < 24; ++g) {
+    const T* arow = (g < 12) ? Ac1 + 6 * g : Ac2 + 6 * (g - 12);
+    const T* ug = (g < 12) ? u : u + 6;
+    T c = arow[0] * ug[0];
+#pragma unroll
+    for (int j = 1; j < 6; ++j) c = c + arow[j] * ug[j];
+    con[g] = c + bc[g];
+    barrier(con[g], mu_b, theta_b, log_th, bb[g], db[g], ddb[g]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    T ri = Rw[12 * i] * u[0];
+    T qi = Qw[12 * i] * e[0];
+#pragma unroll
+    for (int j = 1; j < 12; ++j) {
+      ri = ri + Rw[12 * i + j] * u[j];
+      qi = qi + Qw[12 * i + j] * e[j];
+    }
+    const T* Ab = (i < 6) ? Ac1 + i : Ac2 + (i - 6);
+    const T* dbl = (i < 6) ? db : db + 12;
+    T acc = Ab[0] * dbl[0];
+#pragma unroll
+    for (int g = 1; g < 12; ++g) acc = acc + Ab[6 * g] * dbl[g];
+    Ru[i] = ri;
+    q[i] = qi;
+    rf[i] = ri + acc;
+  }
+}
+
+// column j of the closed-loop products from column j of [K | kv] (y [12]):
+// column j < 12 of Acl = A + B K, or (j == 12) bcl = b + B kv, with
+//   A = [I + dt D1, dt D2, 0, 0; 0, I, dt SF, 0; 0, 0, I, dt I; 0, 0, 0, I]
+//   B K rows: 0; dt (Sr K0 + K1 + Sl K2 + K3); 0; dt/m (K0 + K2)
+// (dtm = dt/m). Structural zeros are returned as zeros, so that a product
+// with the column rounds as the dense one does.
+template <typename T>
+HD void closed_loop_column(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF,
+                           const T* sr, const T* sl, const T* bv, const T* y, int j, T dt,
+                           T dtm, T* col) {
+  const T k0[3] = {y[0], y[1], y[2]};
+  const T k2[3] = {y[6], y[7], y[8]};
+  T cr[3], cl[3];
+  cross3(sr, k0, cr);
+  cross3(sl, k2, cl);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const T bk = dt * (((cr[i] + y[3 + i]) + cl[i]) + y[9 + i]);
+    const T bm = dtm * (y[i] + y[6 + i]);
+    if (j == 12) {
+      col[i] = bv[i];
+      col[3 + i] = bv[3 + i] + bk;
+      col[6 + i] = bv[6 + i];
+      col[9 + i] = bv[9 + i] + bm;
+      continue;
+    }
+    col[i] = (j < 3) ? T(i == j ? 1 : 0) + dt * D1[i][j] : (j < 6) ? dt * D2[i][j - 3] : T(0);
+    const T a3 = (j >= 3 && j < 6) ? T(i == j - 3 ? 1 : 0)
+                 : (j >= 6 && j < 9) ? dt * skew_at(sF, i, j - 6) : T(0);
+    col[3 + i] = a3 + bk;
+    col[6 + i] = (j >= 6 && j < 9) ? T(i == j - 6 ? 1 : 0)
+                 : (j >= 9) ? dt * T(i == j - 9 ? 1 : 0) : T(0);
+    col[9 + i] = T(j >= 9 && i == j - 9 ? 1 : 0) + bm;
+  }
+}
+
 template <typename T, bool CAND>
 HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dxc,
                  const T* duc, const T* alpha, const T* dx0, T* dx_out, T* du_out,
@@ -64,82 +177,35 @@ HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dx
   const T m_inv = T(1) / md.mass;
   const T dtm = dt * m_inv;
   const T a = CAND ? alpha[b] : T(0);
-  const T* Ac1 = kc + K_AC1;  // [12, 6]
+  const T* Ac1 = kc + K_AC1;
   const T* Ac2 = kc + K_AC2;
-  const T* bc = kc + K_BC;
   const T* Rw = kc + K_R;
   const T* Qw = kc + K_Q;
   const T* Qf = kc + K_QF;
   const T log_th = k_log(theta_b);
 
   // terminal stage: Riccati seed (P, p) = (Qf, qN) and phi_N
-  T P[12][12], p[12], qN[12], xn[12];
-  load_stage<T, CAND>(xa, dxc, a, N, B, b, xn);
-  T eN[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) eN[i] = xn[i] - AT(xr, N * 12 + i);
-  T sN = 0;
+  T P[12][12], p[12], qN[12], xn[12], sN;
+  terminal_stage<T, CAND>(kc, xa, dxc, xr, a, N, B, b, xn, qN, sN);
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
-    T acc = Qf[12 * i] * eN[0];
-#pragma unroll
-    for (int j = 1; j < 12; ++j) acc = acc + Qf[12 * i + j] * eN[j];
-    qN[i] = acc;
-    p[i] = acc;
-    sN = (i == 0) ? eN[0] * acc : sN + eN[i] * acc;
+    p[i] = qN[i];
 #pragma unroll
     for (int j = 0; j < 12; ++j) P[i][j] = Qf[12 * i + j];
   }
   Merit<T> mer = merit_seed(T(0.5) * sN);
 
   for (int k = N - 1; k >= 0; --k) {
-    // ---- stage linearization (srbd_soa) -----------------------------------
+    // ---- stage linearization, constraints, barrier, Ru, q, r_eff ---------
     T x[12], u[12], e[12];
     load_stage<T, CAND>(xa, dxc, a, k, B, b, x);
     load_stage<T, CAND>(us, duc, a, k, B, b, u);
 #pragma unroll
     for (int i = 0; i < 12; ++i) e[i] = x[i] - AT(xr, k * 12 + i);
     M3<T> D1, D2;
-    T sF[3], sr[3], sl[3];
-    soa_jacobian_blocks(md, x, u, D1, D2, sF, sr, sl);
-    T bv[12];
-    soa_rk4(md, x, u, bv);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) bv[i] = bv[i] - xn[i];
-
-    // ---- constraints (leg-block-diagonal rows) and relaxed barrier --------
-    T con[24], bb[24], db[24], ddb[24];
-#pragma unroll
-    for (int g = 0; g < 24; ++g) {
-      const T* arow = (g < 12) ? Ac1 + 6 * g : Ac2 + 6 * (g - 12);
-      const T* ug = (g < 12) ? u : u + 6;
-      T c = arow[0] * ug[0];
-#pragma unroll
-      for (int j = 1; j < 6; ++j) c = c + arow[j] * ug[j];
-      con[g] = c + bc[g];
-      barrier(con[g], mu_b, theta_b, log_th, bb[g], db[g], ddb[g]);
-    }
-
-    // ---- Ru = R u, q = Q e, r_eff = Ru + Ac' db ----------------------------
-    T Ru[12], q[12], rf[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      T ri = Rw[12 * i] * u[0];
-      T qi = Qw[12 * i] * e[0];
-#pragma unroll
-      for (int j = 1; j < 12; ++j) {
-        ri = ri + Rw[12 * i + j] * u[j];
-        qi = qi + Qw[12 * i + j] * e[j];
-      }
-      const T* Ab = (i < 6) ? Ac1 + i : Ac2 + (i - 6);
-      const T* dbl = (i < 6) ? db : db + 12;
-      T acc = Ab[0] * dbl[0];
-#pragma unroll
-      for (int g = 1; g < 12; ++g) acc = acc + Ab[6 * g] * dbl[g];
-      Ru[i] = ri;
-      q[i] = qi;
-      rf[i] = ri + acc;
-    }
+    T sF[3], sr[3], sl[3], bv[12], con[24], bb[24], ddb[24], Ru[12], q[12], rf[12];
+    stage_terms(md, kc, mu_b, theta_b, log_th, x, u, e, xn, D1, D2, sF, sr, sl, bv, con, bb,
+                ddb, Ru, q, rf);
 
     // ---- structured Riccati stage; [K | kv] = -Y --------------------------
     T Y[12][13];
@@ -151,40 +217,17 @@ HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dx
       for (int c = 0; c < 13; ++c) Y[i][c] = -Y[i][c];
 
     // ---- park K, kv, q, r_eff and Acl = A + B K, bcl = b + B kv -----------
-    //   A = [I + dt D1, dt D2, 0, 0; 0, I, dt SF, 0; 0, 0, I, dt I; 0, 0, 0, I]
-    //   B K rows: 0; dt (Sr K0 + K1 + Sl K2 + K3); 0; dt/m (K0 + K2)
-    //   column j < 12 of [K | kv] gives column j of Acl, column 12 gives bcl
 #pragma unroll
     for (int j = 0; j < 13; ++j) {
-      const T k0[3] = {Y[0][j], Y[1][j], Y[2][j]};
-      const T k2[3] = {Y[6][j], Y[7][j], Y[8][j]};
-      T cr[3], cl[3];
-      cross3(sr, k0, cr);
-      cross3(sl, k2, cl);
-      if (j == 12) {
+      T y[12], col[12];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          AT(bclp, k * 12 + i) = bv[i];
-          AT(bclp, k * 12 + 3 + i) =
-              bv[3 + i] + dt * (((cr[i] + Y[3 + i][12]) + cl[i]) + Y[9 + i][12]);
-          AT(bclp, k * 12 + 6 + i) = bv[6 + i];
-          AT(bclp, k * 12 + 9 + i) = bv[9 + i] + dtm * (Y[i][12] + Y[6 + i][12]);
-        }
-        continue;
-      }
-#define ACL(i) AT(Aclp, (k * 12 + (i)) * 12 + j)
+      for (int i = 0; i < 12; ++i) y[i] = Y[i][j];
+      closed_loop_column(D1.m, D2.m, sF, sr, sl, bv, y, j, dt, dtm, col);
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        ACL(i) = (j < 3) ? T(i == j ? 1 : 0) + dt * D1.m[i][j]
-                         : (j < 6) ? dt * D2.m[i][j - 3] : T(0);
-        const T a3 = (j >= 3 && j < 6) ? T(i == j - 3 ? 1 : 0)
-                     : (j >= 6 && j < 9) ? dt * skew_at(sF, i, j - 6) : T(0);
-        ACL(3 + i) = a3 + dt * (((cr[i] + Y[3 + i][j]) + cl[i]) + Y[9 + i][j]);
-        ACL(6 + i) = (j >= 6 && j < 9) ? T(i == j - 6 ? 1 : 0)
-                     : (j >= 9) ? dt * T(i == j - 9 ? 1 : 0) : T(0);
-        ACL(9 + i) = T(j >= 9 && i == j - 9 ? 1 : 0) + dtm * (Y[i][j] + Y[6 + i][j]);
+      for (int i = 0; i < 12; ++i) {
+        if (j == 12) AT(bclp, k * 12 + i) = col[i];
+        else AT(Aclp, (k * 12 + i) * 12 + j) = col[i];
       }
-#undef ACL
     }
 #pragma unroll
     for (int i = 0; i < 12; ++i) {
@@ -216,6 +259,9 @@ HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dx
 
 }  // namespace k3
 
+// K3_NO_ENTRIES: the bodies alone, for a source that includes this one
+// (sqp_onepass_split.cu)
+#ifndef K3_NO_ENTRIES
 #ifdef __CUDACC__
 
 template <bool CAND>
@@ -285,3 +331,4 @@ extern "C" int srbd_sqp_onepass_host_f64(const host_t* consts, const host_t* xa,
 }
 
 #endif
+#endif  // K3_NO_ENTRIES

@@ -631,6 +631,10 @@ HD void rollout(const T* kc, const T* pack, const T* mer, const T* term, const T
 
 }  // namespace k1s
 
+// K1S_NO_ENTRIES: the bodies alone, for a source that includes this one
+// (sqp_onepass_split.cu, whose Riccati pass is k1s_riccati_team_kernel,
+// launched through this source's srbd_k1s_riccati_launch)
+#ifndef K1S_NO_ENTRIES
 #ifdef __CUDACC__
 
 // the constants block into shared memory, for the whole block
@@ -755,3 +759,4 @@ extern "C" int srbd_sqp_planes_split_host(int team, int rev, const host_t* const
 }
 
 #endif
+#endif  // K1S_NO_ENTRIES

@@ -16,11 +16,15 @@ Counterpart of ``srbd_nmpc_tpu/ops/sqp_pallas.py``:
 
 Each has a plain PyTorch version (``*_ref``; any device and dtype, stage
 bodies in ``ops.sqp_stage``). CPU tensors run the plain version; CUDA
-tensors launch the hand-written kernels ``csrc/sqp_onepass.cu`` (K3a and
-K3b, one template) and ``csrc/sqp_twopass.cu`` (K4a backward, K4b forward),
-float32 only, or raise. The K3 wrappers take the constants block
-``sqp_stage.kernel_constants`` as ``consts=`` so that a solve builds it (and
-checks ``Ac``) once.
+tensors launch the hand-written kernels, float32 only, or raise: K3a and
+K3b as three launches (``csrc/sqp_onepass_split.cu``'s plane pass, the team
+Riccati pass of ``csrc/sqp_planes_split.cu`` through
+``sqp_planes.riccati_team_cuda``, the closed-loop rollout), K4a backward
+and K4b forward one launch each of ``csrc/sqp_twopass.cu``. The one-thread
+K3 kernel ``csrc/sqp_onepass.cu`` stays as the yardstick, reachable only
+through the private ``_k3a_cuda`` / ``_k3b_cuda(one_thread=True)``. The K3
+wrappers take the constants block ``sqp_stage.kernel_constants`` as
+``consts=`` so that a solve builds it (and checks ``Ac``) once.
 
 Returns follow the JAX functions: (dx [N+1,12,B], du [N,12,B], dphi [B],
 (theta, phi, max|defect|, min constraint) [B] at the evaluation point).
@@ -37,6 +41,7 @@ from srbd_nmpc_tpu_torch.models import srbd_soa
 from srbd_nmpc_tpu_torch.models.srbd import NG, NU, NX, SRBDParams
 from srbd_nmpc_tpu_torch.models.srbd_linearize import model_constants
 from srbd_nmpc_tpu_torch.ops import smallmat as sm
+from srbd_nmpc_tpu_torch.ops import sqp_planes
 from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
 from srbd_nmpc_tpu_torch.ops.sqp_stage import (_accumulate_merit,
                                                _backward_stage_structured,
@@ -49,6 +54,9 @@ from srbd_nmpc_tpu_torch.utils.build import check_cuda_f32, load_kernel
 # Iinv[9], foot[6], then Ac [24,12], bc [24], R, Q, Qf [12,12]
 _K4_LEN = 761
 THREADS = 128
+# the split K3 trip's merit terms per stage [N, MERIT_C, B]: 0.5 |b|^2, the
+# stage's phi term, max |b|, min constraint (csrc/sqp_onepass_split.cu)
+MERIT_C = 4
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
 launches = {"sqp_onepass_cand": 0, "sqp_onepass": 0,
@@ -199,9 +207,72 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _split_lib():
+    lib = load_kernel("sqp_onepass_split")
+    if lib.srbd_k3s_planes_launch.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.srbd_k3s_planes_launch.argtypes = [P] * 10 + [I, I, F, F, I, P]
+        lib.srbd_k3s_rollout_launch.argtypes = [P] * 14 + [I, I, P]
+        for fn in (lib.srbd_k3s_planes_launch, lib.srbd_k3s_rollout_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_split(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
+                  theta_b, reg, cand, stream):
+    """K3 as three launches: the plane pass (pack [N, 87, B], merit terms
+    [N, MERIT_C, B], terminal rows [13, B]), the team Riccati pass (K, kv),
+    the rollout; each launch's return code checked as it is made."""
+    N, Bt = us.shape[0], xa.shape[-1]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xa.device)
+
+    pack, mer = empty(N, sqp_planes._C, Bt), empty(N, MERIT_C, Bt)
+    term = empty(sqp_planes._T_C, Bt)
+    opt = (lambda t: t.data_ptr()) if cand else (lambda t: None)
+    lib = _split_lib()
+    _check(lib.srbd_k3s_planes_launch(
+        kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
+        opt(dxc), opt(duc), opt(alpha), pack.data_ptr(), mer.data_ptr(),
+        term.data_ptr(), N, Bt, float(mu_b), float(theta_b), int(cand),
+        stream), "sqp_onepass_split plane pass")
+    K, kv = sqp_planes.riccati_team_cuda(kc, pack, term, reg, stream)
+    _check(lib.srbd_k3s_rollout_launch(
+        kc.data_ptr(), pack.data_ptr(), mer.data_ptr(), term.data_ptr(),
+        K.data_ptr(), kv.data_ptr(), dx.data_ptr(), dx[1:].data_ptr(),
+        du.data_ptr(), *(out5[i].data_ptr() for i in range(5)), N, Bt,
+        stream), "sqp_onepass_split rollout")
+
+
+def _launch_one_thread(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
+                       theta_b, reg, cand, stream):
+    """K3 as one launch of the one-thread kernel ``csrc/sqp_onepass.cu``."""
+    N, Bt = us.shape[0], xa.shape[-1]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xa.device)
+
+    Acl, K = empty(N, NX, NX, Bt), empty(N, NU, NX, Bt)
+    vecs = empty(4, N, NX, Bt)                # bcl, kv, q, r_eff
+    opt = (lambda t: t.data_ptr()) if cand else (lambda t: None)
+    fn = _fn("sqp_onepass", "srbd_sqp_onepass_launch", 21,
+             [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
+    _check(fn(kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
+              opt(dxc), opt(duc), opt(alpha), dx.data_ptr(),
+              dx[1:].data_ptr(), du.data_ptr(),
+              *(out5[i].data_ptr() for i in range(5)),
+              Acl.data_ptr(), K.data_ptr(),
+              *(vecs[i].data_ptr() for i in range(4)),
+              N, Bt, float(mu_b), float(theta_b), float(reg), int(cand),
+              THREADS, stream),
+           "sqp_onepass")
+
+
 def _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                  alpha, dx0, mu_b, theta_b, reg, consts, cand: bool
-                  ) -> Outputs:
+                  alpha, dx0, mu_b, theta_b, reg, consts, cand: bool,
+                  one_thread: bool = False) -> Outputs:
     N = us.shape[0]
     Bt = xa.shape[-1]
     shapes = [("xa", xa, (N + 1, NX, Bt)), ("us", us, (N, NU, Bt)),
@@ -218,30 +289,38 @@ def _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     if cand:
         dxc, duc, alpha = (t.contiguous() for t in (dxc, duc, alpha))
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    dx = empty(N + 1, NX, Bt)
+    dx = torch.empty((N + 1, NX, Bt), dtype=torch.float32, device=dev)
     dx[0] = dx0
-    du = empty(N, NU, Bt)
-    out5 = empty(5, Bt)                       # dphi, theta, phi, md, mc
-    Acl, K = empty(N, NX, NX, Bt), empty(N, NU, NX, Bt)
-    vecs = empty(4, N, NX, Bt)                # bcl, kv, q, r_eff
-    opt = (lambda t: t.data_ptr()) if cand else (lambda t: None)
-    fn = _fn("sqp_onepass", "srbd_sqp_onepass_launch", 21,
-             [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
-             + [ctypes.c_void_p])
-    _check(fn(consts.block.data_ptr(), xa.data_ptr(), us.data_ptr(),
-              xra.data_ptr(), opt(dxc), opt(duc), opt(alpha), dx.data_ptr(),
-              dx[1:].data_ptr(), du.data_ptr(),
-              *(out5[i].data_ptr() for i in range(5)),
-              Acl.data_ptr(), K.data_ptr(),
-              *(vecs[i].data_ptr() for i in range(4)),
-              N, Bt, float(mu_b), float(theta_b), float(reg), int(cand),
-              THREADS, _stream(dev)),
-           "sqp_onepass")
+    du = torch.empty((N, NU, Bt), dtype=torch.float32, device=dev)
+    out5 = torch.empty((5, Bt), dtype=torch.float32, device=dev)
+    launch = _launch_one_thread if one_thread else _launch_split
+    launch(consts.block, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
+           theta_b, reg, cand, _stream(dev))
     launches["sqp_onepass_cand" if cand else "sqp_onepass"] += 1
     return dx, du, out5[0], (out5[1], out5[2], out5[3], out5[4])
+
+
+def _k3a_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc, alpha,
+              x0s, mu_b, theta_b, reg=0.0, one_thread=False, consts=None
+              ) -> Outputs:
+    """K3a on the card: the split kernels, or with ``one_thread`` the
+    one-thread kernel ``sqp_onepass.cu <true>``, the yardstick that the card
+    tests and chip_smoke.py hold to the plain version and time the split
+    kernels against. CUDA tensors only; dx0 is formed here."""
+    check_cuda_f32("x0s", x0s, (NX, xa.shape[-1]))
+    dx0 = x0s - (xa[0] + alpha[None, :] * dxc[0])
+    return _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
+                         duc, alpha, dx0, mu_b, theta_b, reg, consts,
+                         cand=True, one_thread=one_thread)
+
+
+def _k3b_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dx0, mu_b,
+              theta_b, reg=0.0, one_thread=False, consts=None) -> Outputs:
+    """K3b on the card, as ``_k3a_cuda`` (``sqp_onepass.cu <false>`` with
+    ``one_thread``)."""
+    return _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, None,
+                         None, None, dx0, mu_b, theta_b, reg, consts,
+                         cand=False, one_thread=one_thread)
 
 
 def _dispatch(t: torch.Tensor) -> bool:
@@ -265,9 +344,8 @@ def sqp_qp_solve_onepass(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us,
     (checked)."""
     del fold
     if _dispatch(xa):
-        return _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,
-                             None, None, None, dx0, mu_b, theta_b, reg,
-                             consts, cand=False)
+        return _k3b_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dx0,
+                         mu_b, theta_b, reg, consts=consts)
     return sqp_qp_solve_onepass_ref(params, Q_w, Qf_w, R_w, Ac, bc, xa, us,
                                     xra, dx0, mu_b, theta_b, reg)
 
@@ -282,11 +360,8 @@ def sqp_qp_solve_onepass_cand(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa,
     ``sqp_qp_solve_onepass``)."""
     del fold
     if _dispatch(xa):
-        check_cuda_f32("x0s", x0s, (NX, xa.shape[-1]))
-        dx0 = x0s - (xa[0] + alpha[None, :] * dxc[0])
-        return _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,
-                             dxc, duc, alpha, dx0, mu_b, theta_b, reg,
-                             consts, cand=True)
+        return _k3a_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
+                         duc, alpha, x0s, mu_b, theta_b, reg, consts=consts)
     return sqp_qp_solve_onepass_cand_ref(params, Q_w, Qf_w, R_w, Ac, bc, xa,
                                          us, xra, dxc, duc, alpha, x0s, mu_b,
                                          theta_b, reg)

@@ -367,6 +367,22 @@ def _check(what: str, err: int) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
+def riccati_team_cuda(kc, pack, term, reg, stream):
+    """K1s-B, ``k1s_riccati_team_kernel`` (``csrc/sqp_planes_split.cu``):
+    the structured backward Riccati pass over a pack [N, 87, B] (``_D1`` ...
+    ``_DDB``), seeded by P = Qf and p = ``term[:12]``, a team of 16 threads
+    per scenario. Returns the parked K [N,12,12,B] and kv [N,12,B]. The
+    split gains body and K3's split trip (``ops/sqp_kernel``) both run it."""
+    N, Bt = pack.shape[0], pack.shape[-1]
+    park0, park1 = (torch.empty(s, dtype=torch.float32, device=pack.device)
+                    for s in park_shapes("gains", N, Bt)[:2])
+    _check("sqp_planes_split Riccati pass",
+           _split_lib().srbd_k1s_riccati_launch(
+               kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
+               park0.data_ptr(), park1.data_ptr(), N, Bt, float(reg), stream))
+    return park0, park1
+
+
 def _launch_split(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
                   theta_b, reg, stream):
     """The gains body as three launches (``csrc/sqp_planes_split.cu``): the
@@ -378,16 +394,13 @@ def _launch_split(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
         return torch.empty(shape, dtype=torch.float32, device=xa.device)
 
     pack, mer, term = empty(N, _C, Bt), empty(N, _M_C, Bt), empty(_T_C, Bt)
-    park0, park1 = (empty(*s) for s in park_shapes("gains", N, Bt)[:2])
     lib = _split_lib()
     _check("sqp_planes_split plane pass", lib.srbd_k1s_planes_launch(
         kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
         dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
         mer.data_ptr(), term.data_ptr(), N, Bt, float(mu_b), float(theta_b),
         stream))
-    _check("sqp_planes_split Riccati pass", lib.srbd_k1s_riccati_launch(
-        kc.data_ptr(), pack.data_ptr(), term.data_ptr(), park0.data_ptr(),
-        park1.data_ptr(), N, Bt, float(reg), stream))
+    park0, park1 = riccati_team_cuda(kc, pack, term, reg, stream)
     _check("sqp_planes_split rollout", lib.srbd_k1s_rollout_launch(
         kc.data_ptr(), pack.data_ptr(), mer.data_ptr(), term.data_ptr(),
         park0.data_ptr(), park1.data_ptr(), dx.data_ptr(), dx[1:].data_ptr(),

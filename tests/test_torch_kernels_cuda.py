@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (K1 fused SQP trip with its three stage bodies, the gains body also by its
-one-thread kernel, K2 lane permutes, K3a/K3b dense one-pass trips, K4 the
+one-thread kernel, K2 lane permutes, K3a/K3b dense one-pass trips (split
+and one-thread), K4 the
 two-pass solve, K5 stage linearization, K6 Riccati backward and forward
 passes, K7a line-search merit, K7b merit with and without gradients), at
 the main path's widths; one synchronous ``pallas`` solve that launches K5,
@@ -190,6 +191,17 @@ def _k2_calls(dev):
             lambda: permute.set_lanes(a, src, idx)]
 
 
+def _k3_calls(dev):
+    """One call of K3a and one of K3b through their public entries."""
+    args = _k1_args(dev, 20, 1024, False)
+    head, (xa, us, xra, dxc, duc, alpha, x0s), tail = \
+        args[:6], args[6:13], args[13:]
+    return [lambda: sqp_kernel.sqp_qp_solve_onepass_cand(
+                *head, xa, us, xra, dxc, duc, alpha, x0s, *tail, reg=1e-9),
+            lambda: sqp_kernel.sqp_qp_solve_onepass(
+                *head, xa, us, xra, x0s - xa[0], *tail, reg=1e-9)]
+
+
 def _k1_calls(dev):
     """One call of each K1 stage body (gains, rank-6, factor)."""
     args = _k1_args(dev, 20, 1024, False)
@@ -254,6 +266,19 @@ def test_k1_one_kernel_per_call(dev):
     for name in ("k1s_planes_kernel", "k1s_riccati_team_kernel",
                  "k1s_rollout_kernel"):
         assert sum(name in k for k in split) == 1
+
+
+def test_k3_three_kernels_per_call(dev):
+    """One K3a and one K3b call each launch the three split kernels once:
+    the plane pass (its <true> and <false> instantiations), the team
+    Riccati pass k1s_riccati_team_kernel and the rollout; the one-thread
+    body does not run."""
+    kernels = _device_kernels("_k3_calls")
+    assert not any("sqp_onepass_kernel" in k for k in kernels)
+    planes = {k: n for k, n in kernels.items() if "k3s_planes_kernel" in k}
+    assert sorted(planes.values()) == [1, 1]
+    for name in ("k1s_riccati_team_kernel", "k3s_rollout_kernel"):
+        assert sum(n for k, n in kernels.items() if name in k) == 2
 
 
 def test_k2_leaves_inputs_untouched(dev):
@@ -424,26 +449,31 @@ def test_sync_pallas_solve_launches_kernels(dev):
 
 @pytest.mark.parametrize("cand", [True, False])
 def test_k3_matches_plain(dev, cand):
+    """The public entry (the split kernels) and the private one-thread
+    yardstick against the plain version; each call counts one launch."""
     args = _k1_args(dev, 20, 4096, alpha_zero=False)
     head, (xa, us, xra, dxc, duc, alpha, x0s), tail = \
         args[:6], args[6:13], args[13:]
     if cand:
         call = (head + (xa, us, xra, dxc, duc, alpha, x0s) + tail,
-                sqp_kernel.sqp_qp_solve_onepass_cand,
+                sqp_kernel.sqp_qp_solve_onepass_cand, sqp_kernel._k3a_cuda,
                 sqp_kernel.sqp_qp_solve_onepass_cand_ref, "sqp_onepass_cand")
     else:
         call = (head + (xa, us, xra, x0s - xa[0]) + tail,
-                sqp_kernel.sqp_qp_solve_onepass,
+                sqp_kernel.sqp_qp_solve_onepass, sqp_kernel._k3b_cuda,
                 sqp_kernel.sqp_qp_solve_onepass_ref, "sqp_onepass")
-    a, kern, plain, key = call
-    before = dict(sqp_kernel.launches)
-    got = kern(*a, reg=1e-9)
-    torch.cuda.synchronize()
-    assert sqp_kernel.launches[key] == before[key] + 1
+    a, kern, private, plain, key = call
     ref = plain(*a, reg=1e-9)
-    for g, r in zip((*got[:3], *got[3]), (*ref[:3], *ref[3])):
-        assert torch.isfinite(g).all()
-        assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
+    for run in (lambda: kern(*a, reg=1e-9),
+                lambda: private(*a, reg=1e-9, one_thread=False),
+                lambda: private(*a, reg=1e-9, one_thread=True)):
+        before = dict(sqp_kernel.launches)
+        got = run()
+        torch.cuda.synchronize()
+        assert sqp_kernel.launches[key] == before[key] + 1
+        for g, r in zip((*got[:3], *got[3]), (*ref[:3], *ref[3])):
+            assert torch.isfinite(g).all()
+            assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
 
 
 def test_k4_matches_plain(dev):
