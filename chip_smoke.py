@@ -5,8 +5,10 @@
 Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc`` (phase 2
 prints K1's ptxas registers and spills for each of its three one-launch
 stage bodies and for each launch of the split gains body,
-``sqp_planes_split.cu``, and K3's for its one-thread body and each launch
-of its split trip, ``sqp_onepass_split.cu``), checks each against its plain PyTorch version at
+``sqp_planes_split.cu``, K3's for its one-thread body and each launch
+of its split trip, ``sqp_onepass_split.cu``, and K6's for the two
+instantiations of its backward team kernel and of the one-thread body,
+``riccati.cu``), checks each against its plain PyTorch version at
 the main path's shapes (phase 4: K1's gains, rank-6 and factor bodies, each
 timed at the four widths the main path launches; then the gains body's
 split kernels and its one-thread kernel against the plain version at
@@ -23,9 +25,14 @@ device time by launch), and checks the results: convergence, compaction
 bitwise on the card, the kernel path against the plain path on the CPU, and
 the independent f64 C++ oracle (``native/srbd_oracle.cpp``). Phases 10-12 do
 the same for the iteration-synchronous loop: its kernels (K5, K6, K7a)
-against their plain versions, cold B=131072 solves on its ``pallas`` and
-``fused`` routes against the speculative path, and each kernel route against
-the plain ``xla`` route. Phases 13-14 do it for the dense one-pass route
+against their plain versions; phase 10b K6's backward pass by its team
+kernel (the ``pallas`` route's) and the one-thread body it replaced, each
+against plain at B=4096, 4093 (a ragged edge) and 131072, timed against
+each other in alternated rounds at the four widths with the team kernel's
+device ms, the team kernel held to be no slower; cold B=131072 solves on
+its ``pallas`` and ``fused`` routes against the speculative path (the
+``pallas`` solve profiled: K6a's device ms and share), and each kernel
+route against the plain ``xla`` route. Phases 13-14 do it for the dense one-pass route
 (``planes=False``): its kernels (K3a, K3b: the split kernels, and the
 one-thread body they replaced, timed against each other in alternated
 rounds at the four widths with each split launch's device ms, the split
@@ -48,7 +55,8 @@ driven by direct calls of the op in phase 4.
 
 The ``kernels`` line gives, for each of the 16 kernel bodies behind the 12
 TPU call sites (K1's gains row and K3a's and K3b's on their split kernels,
-each with a row for each of its launches), its launches on its
+each with a row for each of its launches; K6a's and K6b's on the team
+kernel, with the one-thread body's ms beside it), its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
 plain, and the one PyTorch call that computes the same function where there
 is one) at the main path's shapes, timed over eager calls as the path makes
@@ -118,6 +126,17 @@ K3_DESIGNS = K1_DESIGNS
 K3S_PASSES = {"K3s-A": "k3s_planes_kernel",
               "K3s-B": "k1s_riccati_team_kernel",
               "K3s-C": "k3s_rollout_kernel"}
+# K6's backward pass on the card by riccati_kernel._lqr_backward_cuda's
+# arguments: the one-thread yardstick and the team kernel (the pallas
+# route's), and K6's two instantiations by the port's counter names
+K6_DESIGNS = {"one-thread": dict(one_thread=True), "team": {}}
+K6_NAMES = ("riccati_bwd_constq", "riccati_bwd")
+# widths of the K6 designs' checks against plain: a ragged edge (lanes not a
+# multiple of a block's teams) beside the two of phase 13's checks
+K6_CHECK_WIDTHS = (4096, 4093, B_MAIN)
+# the pallas route's cold p50 (ms) on the one-thread K6, from the final run
+# of the dense trip's redesign (PERF.md section 5), printed beside phase 11's
+PALLAS_P50_BEFORE = 852.832
 # the dense route's cold p50 (ms) on the one-thread K3, from the final run
 # of the gains redesign (PERF.md section 5), printed beside phase 14's
 DENSE_P50_BEFORE = {"spec": 402.243, "sync": 515.165}
@@ -233,15 +252,17 @@ def phase_build(sources=SOURCES):
         k1.update(_k1s_ptxas())
     k3 = (_k3_ptxas(k1) if {"sqp_onepass", "sqp_onepass_split",
                             "sqp_planes_split"} <= set(sources) else {})
+    k6 = _k6_ptxas() if "riccati" in sources else {}
     for what, regs in (("K1 ptxas by stage body and split launch", k1),
-                       ("K3 ptxas by body and split launch", k3)):
+                       ("K3 ptxas by body and split launch", k3),
+                       ("K6 backward ptxas by body", k6)):
         if regs:
             print(f"[2 build] {what}: "
                   + "; ".join(f"{n} {r} registers, {st} B spill stores, "
                               f"{ld} B spill loads, {sk} B stack"
                               for n, (r, st, ld, sk) in regs.items()),
                   flush=True)
-    return secs, k1, k3
+    return secs, k1, k3, k6
 
 
 # K2's shapes on the cold speculative path: the compaction crossings
@@ -1022,9 +1043,13 @@ def phase_sync_kernels(dev):
            "riccati_bwd": (*bwd, Qs, L["R"], L["q"], L["r"]),
            "riccati_fwd": (*bwd, K, k, L["x0"]),
            "merit_alpha": merit_args[6:12]}
+    # K6a/K6b read only R's lower triangle: 78 of its 144 planes a stage
+    r_upper = _nbytes(L["R"]) * (144 - 78) // 144
+    less = {"riccati_bwd_constq": r_upper, "riccati_bwd": r_upper}
     bounds = {}
     for name, (kern, _) in calls.items():
-        bounds[name] = _bound(_nbytes(ins[name], kern()), ops[name])
+        bounds[name] = _bound(_nbytes(ins[name], kern()) - less.get(name, 0),
+                              ops[name])
     del calls, lin_args, L, K, k, merit_args, ins
     torch.cuda.empty_cache()
     print(f"[10 kernels] ms per launch at B={B_MAIN}, kernel (plain; bound): "
@@ -1032,6 +1057,101 @@ def phase_sync_kernels(dev):
                       f"{bounds[k][1]})" for k, t in times.items()),
           flush=True)
     return rel, max_abs, times, bounds
+
+
+def _k6_args(L, name, B):
+    """K6a's (``name`` "riccati_bwd_constq") or K6b's backward arguments
+    (A, B, b, Q, R, q, r) on the first ``B`` lanes of the LQR data ``L``."""
+    def cut(t):
+        return t if B == t.shape[-1] else t[..., :B].contiguous()
+
+    Q = L["Qc"] if name == "riccati_bwd_constq" else cut(L["Qs"])
+    return (*(cut(L[k]) for k in ("A", "B", "b")), Q,
+            *(cut(L[k]) for k in ("R", "q", "r")))
+
+
+def phase_k6_designs(dev):
+    """K6a and K6b's backward pass by design (K6_DESIGNS) at N=20 on the
+    benchmark problem's LQR data: each against the plain version at
+    K6_CHECK_WIDTHS, max |diff| printed, bitwise expected; ms per call at
+    the main path's four widths in alternated rounds in this call; the team
+    kernel's device ms (CUDA graphs) at each width. Fails if the team
+    kernel (the pallas route's) is slower than the one-thread body at
+    B=131072 or at B=4096."""
+    from srbd_nmpc_tpu_torch.ops import riccati_kernel as rk
+    from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
+
+    _, L, _, _ = _sync_kernel_inputs(np.random.default_rng(16), B_MAIN, dev)
+    reg = L["reg"]
+    err = {(n, d): (0.0, 0.0, True) for n in K6_NAMES for d in K6_DESIGNS}
+    for B in K6_CHECK_WIDTHS:
+        for name in K6_NAMES:
+            args = _k6_args(L, name, B)
+            ref = rk.lqr_backward_ref(*args, reg)
+            for design, kw in K6_DESIGNS.items():
+                got = rk._lqr_backward_cuda(*args, reg, **kw)
+                torch.cuda.synchronize()
+                if not all(bool(torch.isfinite(g).all()) for g in got):
+                    raise AssertionError(f"{name} {design}: not finite")
+                rel = max(parity_metric(g.cpu().numpy().astype(np.float64),
+                                        r.cpu().numpy().astype(np.float64))
+                          for g, r in zip(got, ref))
+                mx = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                same = all(torch.equal(g, r) for g, r in zip(got, ref))
+                print(f"[10b K6 designs] {KERNEL_IDS[name]} {design} vs "
+                      f"plain at B={B}: {rel:.3e} (limit {REL_TOL:g}); max "
+                      f"|diff| {mx:.3e}; bitwise {same}", flush=True)
+                r0, m0, s0 = err[(name, design)]
+                err[(name, design)] = (max(rel, r0), max(mx, m0), same and s0)
+                del got
+            del args, ref
+    bad = {k: v for k, v in err.items() if not v[0] < REL_TOL}
+    if bad:
+        raise AssertionError(f"a K6 design disagrees with plain: {bad}")
+
+    # ms per call in turns: forward, backward, forward, backward (5 calls
+    # each), the mean of the four; then the team kernel's device ms (CUDA
+    # graphs of 5 calls: the call launches the team kernel alone)
+    times = {(n, d): {} for n in K6_NAMES for d in K6_DESIGNS}
+    dev_ms = {n: {} for n in K6_NAMES}
+    order = list(K6_DESIGNS)
+    for B in K1_WIDTHS:
+        for name in K6_NAMES:
+            args = _k6_args(L, name, B)
+            for design in (order + order[::-1]) * 2:
+                ms = _cuda_ms(lambda: rk._lqr_backward_cuda(
+                    *args, reg, **K6_DESIGNS[design]), 5)
+                t = times[(name, design)]
+                t[B] = t.get(B, 0.0) + ms / 4
+            dev_ms[name][B] = _graph_ms(lambda: rk._lqr_backward_cuda(
+                *args, reg, **K6_DESIGNS["team"]), reps=10, per_graph=5)
+            del args
+    del L
+    torch.cuda.empty_cache()
+    ratio = {}
+    for name in K6_NAMES:
+        one_t = times[(name, "one-thread")]
+        for design in K6_DESIGNS:
+            print(f"[10b K6 designs] {KERNEL_IDS[name]} {design} ms per call: "
+                  + ", ".join(f"B={B} {ms:.3f} ({ms / one_t[B]:.3f}x "
+                              "one-thread)"
+                              for B, ms in times[(name, design)].items()),
+                  flush=True)
+        print(f"[10b K6 designs] {KERNEL_IDS[name]} team device ms per "
+              "launch: " + ", ".join(f"B={B} {v:.3f}"
+                                     for B, v in dev_ms[name].items()),
+              flush=True)
+        for B in (B_MAIN, B_MAIN // 32):
+            ratio[(KERNEL_IDS[name], B)] = (times[(name, "team")][B]
+                                            / one_t[B])
+    print("[10b K6 designs] the pallas route's K6 backward (team) against "
+          "the one-thread body: " + ", ".join(f"{k} B={B} {r:.3f}x"
+                                              for (k, B), r in ratio.items()),
+          flush=True)
+    if max(ratio.values()) > 1.0:
+        raise AssertionError(f"the team K6 kernel is slower than the "
+                             f"one-thread body: {ratio}")
+    return err, times, dev_ms
 
 
 def _route_problem(dev, B, kw, seed=0):
@@ -1072,14 +1192,32 @@ def phase_sync(dev, card, spec):
             times.append((time.perf_counter() - t0) * 1e3)
         p50 = float(np.percentile(times, 50))
         d_conv, d_it = n_conv - n_spec, mean_it - it_spec
+        before = (f" ({PALLAS_P50_BEFORE:.3f} on the one-thread K6)"
+                  if route == "pallas" else "")
         print(f"[11 sync] {route} (qp_kernel={kw['qp_kernel']!r}, speculative="
               f"{kw.get('speculative', True)}) B={B_MAIN}: converged "
               f"{n_conv}/{B_MAIN} ({d_conv:+d} vs speculative), mean SQP "
               f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
               f"line-search trips {ls}, host syncs {syncs}, launches "
-              f"{launches}; p50 {p50:.3f} ms per solve, "
+              f"{launches}; p50 {p50:.3f} ms per solve{before}, "
               f"{B_MAIN / p50 * 1e3:.1f} solves/s (times "
               f"{[round(t, 3) for t in times]}) on {card}", flush=True)
+        if route == "pallas":
+            # where the time goes: one more solve under the profiler
+            by_name, _ = _device_ms(lambda: sharded.solve_batch(*prob))
+            busy = sum(by_name.values())
+            k6a = sum(v for k, v in by_name.items()
+                      if "riccati_team_kernel" in k)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            print(f"[11 sync] pallas profiled solve: device busy {busy:.3f} "
+                  f"ms ({100 * busy / p50:.1f} % of the p50, so idle "
+                  f"{100 * (1 - busy / p50):.1f} %), K6a (team kernel) "
+                  f"{k6a:.3f} ms, {100 * k6a / busy:.1f} % of device time; "
+                  "top kernels " + ", ".join(f"{k[:40]} {v:.3f}"
+                                             for k, v in top), flush=True)
+            if k6a <= 0.0:
+                raise AssertionError("pallas: no team K6 kernel in the "
+                                     "profiled solve")
         missing = [k for k in need[route] if not launches.get(k)]
         if missing:
             raise AssertionError(f"{route}: kernels never launched: {missing}")
@@ -1906,6 +2044,22 @@ def _k1s_ptxas():
     return out
 
 
+def _k6_ptxas():
+    """(registers, spill stores, spill loads, stack bytes) of K6's backward
+    kernels (riccati.cu): the one-thread body and the team kernel, each
+    <true> (K6a, const Q) and <false> (K6b, per-stage Q)."""
+    out = {}
+    for needle, what in (("riccati_bwd_kernel", "one-thread"),
+                         ("riccati_team_kernel", "team")):
+        for mangled, regs, stores, loads, stack in _ptxas("riccati", needle):
+            tag = "true" if "ILb1E" in mangled else "false"
+            out[f"{what} <{tag}>"] = (regs, stores, loads, stack)
+    if sorted(out) != ["one-thread <false>", "one-thread <true>",
+                       "team <false>", "team <true>"]:
+        raise AssertionError(f"K6 kernels in the ptxas report: {out}")
+    return out
+
+
 def phase_factor(dev, card, spec):
     """Cold B=131072 solves with ``park_factor=True`` (K1's factor body) on
     the speculative loop and the synchronous ``fused`` route, read against
@@ -2050,6 +2204,24 @@ def _k3_entry(name, replaces, launches, err, t, plain, bound, regs, d_err,
                   launches_per_call=per)
 
 
+def _k6_extra(name, regs, d_err, d_t, d_dev):
+    """The keys that K6a's or K6b's row adds: the team kernel's (the pallas
+    route's) ms and device ms by width, ptxas report and largest difference
+    from plain over phase 10b's checks (``design_err``, folded into the
+    row's max_abs_err), and the one-thread body's ms by width beside it."""
+    tag = "true" if name == "riccati_bwd_constq" else "false"
+    r, st, ld, sk = regs[f"team <{tag}>"]
+    return dict(design="team",
+                ms_by_width={str(B): v for B, v in d_t[(name, "team")].items()},
+                device_ms_by_width={str(B): v for B, v in d_dev[name].items()},
+                one_thread_ms_by_width={
+                    str(B): v for B, v in d_t[(name, "one-thread")].items()},
+                registers=r, spill_stores=st, spill_loads=ld, stack=sk,
+                one_thread_registers=regs[f"one-thread <{tag}>"][0],
+                one_thread_spill_stores=regs[f"one-thread <{tag}>"][1],
+                design_err=d_err[(name, "team")][1])
+
+
 # the TPU kernels' ids (PERF.md's table) by the port's counter names
 KERNEL_IDS = {"sqp_planes": "K1", "sqp_planes_rank6": "K1_rank6",
               "sqp_planes_factor": "K1_factor",
@@ -2075,7 +2247,7 @@ def main(argv=None) -> int:
         phase_permute(dev)
         print(smi)
         return 0
-    _, k1_regs, k3_regs = phase_build()
+    _, k1_regs, k3_regs, k6_regs = phase_build()
     k2, per_call = phase_permute(dev)
     if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
         raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
@@ -2089,6 +2261,7 @@ def main(argv=None) -> int:
     del st, info, prob
     torch.cuda.empty_cache()
     _, k_err, k_t, k_b = phase_sync_kernels(dev)
+    k6d_err, k6d_t, k6d_dev = phase_k6_designs(dev)
     sync = phase_sync(dev, f"{smi}", spec)
     d_err, d_t, d_b, k4_launches = phase_dense_kernels(dev)
     k3d_err, k3d_t, k3d_passes, k3d_floor = phase_k3_designs(dev)
@@ -2148,8 +2321,11 @@ def main(argv=None) -> int:
              pallas["riccati_fwd"], k_err, k_t, k_b),
             ("merit_alpha", "merit.cu", "models/merit_pallas.py:131",
              pallas["merit_alpha"], k_err, k_t, k_b)):
-        kernels.append(_entry(name, source, replaces, n, err[name], *t[name],
-                              b[name]))
+        extra = (_k6_extra(name, k6_regs, k6d_err, k6d_t, k6d_dev)
+                 if name in K6_NAMES else {})
+        kernels.append(_entry(name, source, replaces, n,
+                              max(err[name], extra.pop("design_err", 0.0)),
+                              *t[name], b[name], **extra))
     for name, replaces in (("merit", "models/merit_pallas.py:32"),
                            ("merit_nograd", "models/merit_pallas.py:42")):
         kernels.append(_entry(name, "merit.cu", replaces, k7b_launches[name],

@@ -69,10 +69,12 @@
 
 #define K1_NO_ENTRIES
 #include "sqp_planes.cu"
+#include "team.cuh"
 
 namespace k1s {
 
 using namespace srbd_dev;
+using namespace srbd_team;
 using namespace k1;
 
 // merit terms per stage [N, M_C, B] (as ops/sqp_planes.py::_M_*)
@@ -81,9 +83,6 @@ constexpr int M_UR = 0, M_EQ = 12, M_BAR = 24, M_CON = 25, M_C = 26;
 constexpr int T_PN = 12, T_C = 13;
 // the card's team width and teams per block of the team kernel (8 W threads)
 constexpr int W_CARD = 16, TEAMS = 8;
-
-// entry (r, c <= r) of a lower triangle stored row by row
-HD constexpr int li(int r, int c) { return r * (r + 1) / 2 + c; }
 
 // ---------------------------------------------------------------------------
 // K1s-A: one stage k < N of one lane (pass 1 of k1::scenario, with the merit
@@ -232,14 +231,6 @@ template <typename T> struct Team {
 static_assert(sizeof(Team<float>) == 720 * sizeof(float), "720 words a team");
 
 
-// row r and column c <= r of the e-th entry of a lower triangle taken row by
-// row (e < 78; 8e + 1 is exact in float and sqrtf rounds correctly, so a
-// perfect square gives its exact root)
-HD void tri(int e, int& r, int& c) {
-  r = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
-  c = e - r * (r + 1) / 2;
-}
-
 // component i of Jx' v (srbd_dev::stage_jxt_v)
 template <typename T>
 HD T jxtv_at(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF, const T* v, int i) {
@@ -250,31 +241,6 @@ HD T jxtv_at(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF, const T* v, 
   skewT_mul(sF, v[3], v[4], v[5], s);
   return s[i - 6];
 }
-
-// TEAM_FOR(t) { step }: member t's share of one step. On the card each
-// member runs its own share (t = lane) and TEAM_SYNC() is a barrier of the
-// team's lanes; on the host the members run one after another (in reverse
-// order with rev), so a step must read nothing that another member writes
-// in the same step. MINE(a): member t's own slot of a per-member array
-// a[SLOTS] that a member keeps from one step to the next (registers on the
-// card).
-#ifdef __CUDA_ARCH__
-#define TEAM_FOR(t) if (const int t = lane; true)
-#define TEAM_SYNC() __syncwarp(mask)
-#define MINE(a) (a)[0]
-constexpr int SLOTS = 1;
-#else
-#define TEAM_FOR(t) \
-  for (int m_ = 0; m_ < W; ++m_) if (const int t = rev ? W - 1 - m_ : m_; true)
-#define TEAM_SYNC() ((void)0)
-#define MINE(a) (a)[t]
-constexpr int SLOTS = 32;
-#endif
-
-// one round of a step's work items, unrolled: item e = t + q W of n
-#define TEAM_ITEMS(e, n)                                   \
-  _Pragma("unroll") for (int q_ = 0; q_ < 13; ++q_)        \
-    if (const int e = t + q_ * W; q_ * W < (n) && e < (n))
 
 template <typename T>
 HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* park0,
@@ -426,52 +392,10 @@ HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* p
     }
     TEAM_SYNC();
 
-    // right-looking Cholesky, dinv = rsqrt(pivot). Column 0 is scaled
-    // first; then each step j updates the trailing rows r > j by L[r][j]
-    // (scaled) and scales column j + 1 with the pivot every member forms
-    // from L[j+1][j+1] as its owner would, so the owner leaves that entry
-    // unwritten (the scaled diagonal is never read)
-    TEAM_FOR(t) {
-      const T d0 = k_rsqrt(s.L[0]);
-      if (t == 0) s.dinv[0] = d0;
-      for (int r = 1 + t; r < 12; r += W) s.L[li(r, 0)] = s.L[li(r, 0)] * d0;
-    }
-    TEAM_SYNC();
-#pragma unroll
-    for (int j = 0; j < 11; ++j) {
-      TEAM_FOR(t) {
-        const T lj = s.L[li(j + 1, j)];
-        const T dn = k_rsqrt(s.L[li(j + 1, j + 1)] - lj * lj);
-        if (t == 0) s.dinv[j + 1] = dn;
-        for (int r = j + 2 + t; r < 12; r += W) {
-          T* row = s.L + li(r, 0);
-          const T lrj = row[j];
-          row[j + 1] = (row[j + 1] - lrj * lj) * dn;
-#pragma unroll
-          for (int c = j + 2; c < 12; ++c)
-            if (c <= r) row[c] = row[c] - lrj * s.L[li(c, j)];
-        }
-      }
-      TEAM_SYNC();
-    }
-
-    // forward substitution Y <- L^-1 [H | rv], one column per member
-    TEAM_FOR(t) {
-      TEAM_ITEMS(c, 13) {
-        T y[12];
-#pragma unroll
-        for (int i = 0; i < 12; ++i) y[i] = s.Y[i][c];
-#pragma unroll
-        for (int i = 0; i < 12; ++i) {
-          y[i] = y[i] * s.dinv[i];
-#pragma unroll
-          for (int r = i + 1; r < 12; ++r) y[r] = y[r] - s.L[li(r, i)] * y[i];
-        }
-#pragma unroll
-        for (int i = 0; i < 12; ++i) s.Y[i][c] = y[i];
-      }
-    }
-    TEAM_SYNC();
+    // right-looking Cholesky, dinv = rsqrt(pivot), a row per member; forward
+    // substitution Y <- L^-1 [H | rv], a column per member
+    team_cholesky(s.L, s.dinv, lane, W, mask, rev);
+    team_forward_subst(s.L, s.dinv, s.Y, lane, W, mask, rev);
 
     // P_new = 0.5 ((X0 - Yh'Yh) + (X0 - Yh'Yh)'), 78 entries in place, and
     // p_new = q + Pb_p + dt Jx' Pb_p - Yh' yv (12)
@@ -505,14 +429,7 @@ HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* p
     TEAM_FOR(t) {
       TEAM_ITEMS(c, 13) {
         T y[12];
-#pragma unroll
-        for (int i = 0; i < 12; ++i) y[i] = s.Y[i][c];
-#pragma unroll
-        for (int i = 11; i >= 0; --i) {
-          y[i] = y[i] * s.dinv[i];
-#pragma unroll
-          for (int r = 0; r < i; ++r) y[r] = y[r] - s.L[li(i, r)] * y[i];
-        }
+        back_subst_column(s.L, s.dinv, s.Y, c, y);
 #pragma unroll
         for (int i = 0; i < 12; ++i) {
           if (c < 12) AT(park0, (k * 12 + i) * 12 + c) = -y[i];
@@ -666,7 +583,7 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b = blockIdx.x * k1s::TEAMS + team;
   if (b >= B) return;  // the whole team leaves
-  const unsigned mask = ((1u << W) - 1u) << ((threadIdx.x & 31) / W * W);
+  const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
   k1s::riccati_team<float>(teams[team], kc, pack, term, park0, park1, N, B, b, reg, lane, W,
                            mask, false);
 }

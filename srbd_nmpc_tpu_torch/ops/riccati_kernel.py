@@ -12,12 +12,16 @@ symmetrized after each stage.
 - ``lqr_backward_ref`` / ``lqr_forward_ref``: the plain PyTorch versions,
   any device and dtype.
 - ``lqr_backward`` / ``lqr_forward``: CPU tensors run the plain versions;
-  CUDA tensors launch ``csrc/riccati.cu`` (f32 only) or raise.
+  CUDA tensors launch ``csrc/riccati.cu`` (f32 only) or raise. The
+  backward pass launches the team kernel ``riccati_team_kernel`` (a team of
+  threads per scenario over shared memory); the one-thread kernel
+  ``riccati_bwd_kernel`` it replaced stays as the yardstick, reached only
+  through the private ``_lqr_backward_cuda(..., one_thread=True)``.
 - ``lqr_solve``: the contract of ``lqr_solve_pallas``.
 
 ``Q`` is either a stacked per-stage, per-scenario tensor [N+1,12,12,B] or a
 tuple ``(Q, Qf)`` of [12,12] matrices shared by every stage and scenario
-(the engine's case); the CUDA backward kernel is one template over both.
+(the engine's case); each CUDA backward kernel is one template over both.
 """
 
 from __future__ import annotations
@@ -94,41 +98,64 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _lqr_backward_cuda(A, B, b, Q, R, q, r, reg: float = 0.0,
+                       one_thread: bool = False):
+    """The backward recursion on the card: the team kernel, or with
+    ``one_thread`` the one-thread kernel, the yardstick that the card tests
+    and chip_smoke.py hold to the plain version and time the team kernel
+    against. float32 CUDA tensors only."""
+    N, Bt = A.shape[0], A.shape[-1]
+    const_q = isinstance(Q, tuple)
+    shapes = [("A", A, (N, NX, NX, Bt)), ("B", B, (N, NX, NX, Bt)),
+              ("R", R, (N, NX, NX, Bt)), ("b", b, (N, NX, Bt)),
+              ("q", q, (N + 1, NX, Bt)), ("r", r, (N, NX, Bt))]
+    if const_q:
+        for name, m in zip(("Q", "Qf"), Q):
+            if tuple(m.shape) != (NX, NX):
+                raise ValueError(f"{name}: expected shape ({NX}, {NX}), "
+                                 f"got {tuple(m.shape)}")
+    else:
+        shapes.append(("Q", Q, (N + 1, NX, NX, Bt)))
+    for name, t, shape in shapes:
+        check_cuda_f32(name, t, shape)
+    dev = A.device
+    if const_q:   # no copy (no device kernel) for float32 matrices on the card
+        Qw, Qf = (m.to(device=dev, dtype=torch.float32).contiguous()
+                  for m in Q)
+    else:
+        Qw = Qf = Q.contiguous()
+    A, B, b, R, q, r = (t.contiguous() for t in (A, B, b, R, q, r))
+    K = torch.empty((N, NX, NX, Bt), dtype=torch.float32, device=dev)
+    k = torch.empty((N, NX, Bt), dtype=torch.float32, device=dev)
+    tail = [t.data_ptr() for t in (R, q, r, K, k)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if one_thread:
+        Qc = torch.cat([Qw.reshape(-1), Qf.reshape(-1)]) if const_q else Qw
+        fn = _fn("srbd_riccati_bwd_launch", 9,
+                 [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p])
+        err = fn(A.data_ptr(), B.data_ptr(), b.data_ptr(), Qc.data_ptr(),
+                 *tail, N, Bt, float(reg), int(const_q), THREADS, stream)
+    else:
+        fn = _fn("srbd_riccati_bwd_team_launch", 10,
+                 [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int]
+                 + [ctypes.c_void_p])
+        err = fn(A.data_ptr(), B.data_ptr(), b.data_ptr(), Qw.data_ptr(),
+                 Qf.data_ptr(), *tail, N, Bt, float(reg), int(const_q),
+                 stream)
+    _check(err, "riccati backward")
+    launches["riccati_bwd_constq" if const_q else "riccati_bwd"] += 1
+    return K, k
+
+
 def lqr_backward(A, B, b, Q, R, q, r, reg: float = 0.0):
-    """Backward recursion: the plain version on CPU tensors, the CUDA
+    """Backward recursion: the plain version on CPU tensors, the team
     kernel (f32) on CUDA tensors."""
     if A.device.type == "cpu":
         return lqr_backward_ref(A, B, b, Q, R, q, r, reg)
     if A.device.type != "cuda":
         raise TypeError(f"unsupported device {A.device}")
-    N, Bt = A.shape[0], A.shape[-1]
-    const_q = isinstance(Q, tuple)
-    for name, t, shape in (("A", A, (N, NX, NX, Bt)), ("B", B, (N, NX, NX, Bt)),
-                           ("R", R, (N, NX, NX, Bt)), ("b", b, (N, NX, Bt)),
-                           ("q", q, (N + 1, NX, Bt)), ("r", r, (N, NX, Bt))):
-        check_cuda_f32(name, t, shape)
-    if const_q:
-        if tuple(Q[0].shape) != (NX, NX) or tuple(Q[1].shape) != (NX, NX):
-            raise ValueError(f"(Q, Qf): expected two ({NX}, {NX}) matrices, "
-                             f"got {tuple(Q[0].shape)}, {tuple(Q[1].shape)}")
-        Qc = torch.cat([Q[0].reshape(-1), Q[1].reshape(-1)]).to(
-            device=A.device, dtype=torch.float32).contiguous()
-    else:
-        check_cuda_f32("Q", Q, (N + 1, NX, NX, Bt))
-        Qc = Q.contiguous()
-    A, B, b, R, q, r = (t.contiguous() for t in (A, B, b, R, q, r))
-    K = torch.empty((N, NX, NX, Bt), dtype=torch.float32, device=A.device)
-    k = torch.empty((N, NX, Bt), dtype=torch.float32, device=A.device)
-    fn = _fn("srbd_riccati_bwd_launch", 9,
-             [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
-             + [ctypes.c_void_p])
-    _check(fn(A.data_ptr(), B.data_ptr(), b.data_ptr(), Qc.data_ptr(),
-              R.data_ptr(), q.data_ptr(), r.data_ptr(), K.data_ptr(),
-              k.data_ptr(), N, Bt, float(reg), int(const_q), THREADS,
-              torch.cuda.current_stream(A.device).cuda_stream),
-           "riccati backward")
-    launches["riccati_bwd_constq" if const_q else "riccati_bwd"] += 1
-    return K, k
+    return _lqr_backward_cuda(A, B, b, Q, R, q, r, reg)
 
 
 def lqr_forward(A, B, b, K, k, x0):

@@ -3,7 +3,8 @@
 one-thread kernel, K2 lane permutes, K3a/K3b dense one-pass trips (split
 and one-thread), K4 the
 two-pass solve, K5 stage linearization, K6 Riccati backward and forward
-passes, K7a line-search merit, K7b merit with and without gradients), at
+passes (the backward pass by its team kernel and its one-thread yardstick),
+K7a line-search merit, K7b merit with and without gradients), at
 the main path's widths; one synchronous ``pallas`` solve that launches K5,
 K6 and K7a, the dense route's solves on both loops, the ``park_factor``
 solve through K1's factor body, the batched merit ``engine._merit_fast``
@@ -209,6 +210,14 @@ def _k1_calls(dev):
         *args, reg=1e-9, **f) for f in K1_BODIES.values()]
 
 
+def _k6_calls(dev):
+    """One lqr_backward call with stage-constant (Q, Qf) (K6a) and one with
+    a per-stage Q (K6b)."""
+    args = {c: _k6_args(dev, 1024, c) for c in (True, False)}
+    return [lambda c=c: riccati_kernel.lqr_backward(*args[c])
+            for c in (True, False)]
+
+
 _PROFILE = """
 import json, sys
 import torch
@@ -279,6 +288,19 @@ def test_k3_three_kernels_per_call(dev):
     assert sorted(planes.values()) == [1, 1]
     for name in ("k1s_riccati_team_kernel", "k3s_rollout_kernel"):
         assert sum(n for k, n in kernels.items() if name in k) == 2
+
+
+def test_k6_one_team_kernel_per_backward_call(dev):
+    """One lqr_backward call runs exactly one device kernel, the team
+    kernel (its <true> instantiation for (Q, Qf), <false> for a per-stage
+    Q), and never the one-thread riccati_bwd_kernel."""
+    kernels = _device_kernels("_k6_calls")
+    assert sum(kernels.values()) == 2
+    assert not any("riccati_bwd_kernel" in k for k in kernels)
+    team = {k: n for k, n in kernels.items() if "riccati_team_kernel" in k}
+    assert sorted(team.values()) == [1, 1]
+    for tag, mangled in (("<true>", "ILb1E"), ("<false>", "ILb0E")):
+        assert sum(tag in k or mangled in k for k in team) == 1
 
 
 def test_k2_leaves_inputs_untouched(dev):
@@ -393,6 +415,61 @@ def test_k6_matches_plain(dev, const_q):
     for g, ref in ((K, K_r), (k, k_r), (x, x_r), (u, u_r)):
         assert torch.isfinite(g).all()
         assert parity_metric(g.cpu().numpy(), ref.cpu().numpy()) < 1e-4
+
+
+def _k6_args(dev, B, const_q):
+    """K6's backward arguments (A, B, b, Q, R, q, r, reg) on the benchmark
+    problem's LQR data: Q the stage-constant (Q, Qf) (K6a) or a per-stage
+    tensor [N+1,12,12,B] of the weights plus a small PSD perturbation per
+    stage and scenario (K6b)."""
+    _, (A, Bm, b, Qc, R, q, r, _, reg), _ = _sync_args(dev, B)
+    N = A.shape[0]
+    if const_q:
+        Q = Qc
+    else:
+        Mh = torch.as_tensor(np.random.default_rng(3).normal(
+            size=(N + 1, 12, 12, B)), dtype=torch.float32, device=dev)
+        Q = (torch.cat([Qc[0][None].expand(N, 12, 12), Qc[1][None]])[..., None]
+             + 1e-3 * torch.einsum("nikb,njkb->nijb", Mh, Mh)).contiguous()
+    return A, Bm, b, Q, R, q, r, reg
+
+
+@pytest.mark.parametrize("B", [4096, 4093])
+@pytest.mark.parametrize("const_q", [True, False])
+def test_k6_team_and_one_thread_match_plain(dev, const_q, B):
+    """K6a/K6b's backward pass through the team kernel (the public entry's)
+    and through the one-thread yardstick against the plain version, at
+    B=4096 and at a width that is not a multiple of a block's 8 teams (a
+    ragged edge); the team kernel equal to the one-thread kernel bit for
+    bit."""
+    A, Bm, b, Q, R, q, r, reg = _k6_args(dev, B, const_q)
+    key = "riccati_bwd_constq" if const_q else "riccati_bwd"
+    before = riccati_kernel.launches[key]
+    team = riccati_kernel.lqr_backward(A, Bm, b, Q, R, q, r, reg)
+    one = riccati_kernel._lqr_backward_cuda(A, Bm, b, Q, R, q, r, reg,
+                                            one_thread=True)
+    torch.cuda.synchronize()
+    assert riccati_kernel.launches[key] == before + 2
+    ref = riccati_kernel.lqr_backward_ref(A, Bm, b, Q, R, q, r, reg)
+    for g, o, r_ in zip(team, one, ref):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, o)
+        assert parity_metric(g.cpu().numpy(), r_.cpu().numpy()) < 1e-4
+
+
+def test_k6_backward_rejects_what_it_cannot_take(dev):
+    """The public backward entry raises on float64 and on misshapen CUDA
+    tensors, the team and one-thread kernels alike."""
+    A, Bm, b, Q, R, q, r, reg = _k6_args(dev, 64, True)
+    for one_thread in (False, True):
+        with pytest.raises(TypeError, match="float32"):
+            riccati_kernel._lqr_backward_cuda(A.double(), Bm, b, Q, R, q, r,
+                                              reg, one_thread=one_thread)
+        with pytest.raises(ValueError, match="shape"):
+            riccati_kernel._lqr_backward_cuda(A, Bm, b, Q, R, q, r[..., :-1],
+                                              reg, one_thread=one_thread)
+    with pytest.raises(ValueError, match="shape"):
+        riccati_kernel.lqr_backward(A, Bm[:-1], b, Q, R, q, r, reg)
 
 
 def test_k7_matches_plain(dev):
