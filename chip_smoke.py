@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc`` (phase 2
 prints K1's ptxas registers and spills for each of its three one-launch
-stage bodies and for each launch of the split gains body,
+stage bodies and for each launch of the split gains and factor bodies,
 ``sqp_planes_split.cu``, K3's for its one-thread body and each launch
 of its split trip, ``sqp_onepass_split.cu``, and K6's for the two
 instantiations of its backward team kernel and of the one-thread body,
@@ -14,7 +14,10 @@ timed at the four widths the main path launches; then the gains body's
 split kernels and its one-thread kernel against the plain version at
 B=4096 and B=131072, timed against each other in alternated rounds with
 each split launch's device ms, and the split kernels, the main path's,
-held to be no slower than the one-thread body; phase 3: the
+held to be no slower than the one-thread body; then the same for the
+factor body's split kernels and its one-thread kernel, at B=4096, 4093 (a
+ragged edge) and 131072, timed in the same rounds as the gains body's split
+kernels, with the byte floor of both splits; phase 3: the
 lane permutes K2a/K2b bitwise on the engine's shapes and the edge cases,
 timed per call and on the device beside ``index_select`` / ``index_copy``
 at every compaction crossing of the cold solve), then drives the
@@ -48,13 +51,16 @@ against the CPU and the f64 oracle, in f32 against the CPU and the oracle,
 and with exact sensitivities, and times its cold and warm solves; phase 16b
 runs the batched exact-sensitivity (``xla``) route at B=4096 against the
 CPU; phase 17 runs the cold B=131072 problem with ``park_factor=True`` (K1's
-factor body) on the speculative loop and the synchronous ``fused`` route.
+factor body) on the speculative loop and the synchronous ``fused`` route,
+each p50 beside the one-thread factor body's, and profiles one solve of
+each (the factor split's device time by launch).
 Each path's launch counts are set to 0 just before it is driven and read
 just after; K1's rank-6 body, which no engine route takes (as in JAX), is
 driven by direct calls of the op in phase 4.
 
 The ``kernels`` line gives, for each of the 16 kernel bodies behind the 12
-TPU call sites (K1's gains row and K3a's and K3b's on their split kernels,
+TPU call sites (K1's gains and factor rows and K3a's and K3b's on their
+split kernels,
 each with a row for each of its launches; K6a's and K6b's on the team
 kernel, with the one-thread body's ms beside it), its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
@@ -116,6 +122,22 @@ K1_DESIGNS = {"one-thread": True, "split": False}
 K1S_PASSES = {"K1s-A": "k1s_planes_kernel",
               "K1s-B": "k1s_riccati_team_kernel",
               "K1s-C": "k1s_rollout_kernel"}
+# the factor body's split launches: the same plane pass, the factor forms of
+# the Riccati pass and of the rollout
+K1FS_PASSES = {"K1s-A": "k1s_planes_kernel",
+               "K1s-B factor": "k1s_riccati_factor_kernel",
+               "K1s-C factor": "k1s_rollout_factor_kernel"}
+# K1s-B's ptxas report (registers, spill stores) as PERF.md records it: the
+# gains kernel's code does not change with the factor forms beside it
+K1S_B_PTXAS = (64, 0)
+# the factor body on the card by sqp_planes._factor_cuda's one_thread, and
+# the gains body's split kernels timed in the same rounds
+K1F_DESIGNS = {"factor one-thread": ("factor", True),
+               "factor split": ("factor", False),
+               "gains split": ("gains", False)}
+# widths of the factor designs' checks against plain: a ragged edge (lanes
+# not a multiple of a block's teams) beside B=4096 and B=131072
+K1F_CHECK_WIDTHS = (4096, 4093, B_MAIN)
 # K3 (the dense route's one-pass trip) by its counter names, and its kernels
 # on the card by sqp_kernel._k3a_cuda / _k3b_cuda's one_thread: the
 # one-thread yardstick and the split kernels (the dense route's)
@@ -145,6 +167,9 @@ DENSE_P50_BEFORE = {"spec": 402.243, "sync": 515.165}
 COLD_REF = (128135, 11.4225, 17)
 FACTOR_ROUTES = {"spec": dict(park_factor=True),
                  "sync": dict(SYNC_ROUTES["fused"], park_factor=True)}
+# phase 17's cold p50 (ms) on the one-thread factor body, from the final run
+# of K6's redesign (PERF.md section 5), printed beside phase 17's
+FACTOR_P50_BEFORE = {"spec": 224.867, "sync": 320.641}
 SYNC_CONV_FRAC = 0.005
 SYNC_ITER_TOL = 0.1
 PARITY_FLIP_FRAC = 0.005
@@ -681,6 +706,122 @@ def phase_k1_designs(dev):
         raise AssertionError(f"the split gains kernels are slower than the "
                              f"one-thread body: {ratio}")
     return err, times, passes
+
+
+def _k1_split_bytes(N, B, factor):
+    """Bytes the split K1 must move per call in float32, each array read
+    once and written once by each launch that touches it: K1s-A reads the
+    inputs (xa, xr, dxc [N+1,12,B]; us, duc [N,12,B]; alpha) and writes the
+    pack [N,87,B], the merit terms [N,26,B] and the terminal rows [13,B];
+    K1s-B reads the pack and qN and writes its parks (the gains K, kv: 156
+    words a stage; the factor form's Yh, yv, L, dinv: 246); K1s-C reads 63
+    of the pack's channels, the merit terms, the terminal rows, the parks
+    and dx0, and writes dx[1:], du [N,24,B] and the five scalars [5,B]."""
+    park = 246 if factor else 156
+    inputs = 12 * (N + 1) * 3 + 12 * N * 2 + 1
+    words = (inputs + (87 + 26) * N + 13                # K1s-A
+             + 87 * N + 12 + park * N                   # K1s-B
+             + (63 + 26 + park + 24) * N + 13 + 12 + 5)  # K1s-C
+    return 4 * B * words
+
+
+def _k1_factor_call(design, args, reg):
+    """One call of K1F_DESIGNS' ``design`` on ``_k1_inputs``' arguments."""
+    from srbd_nmpc_tpu_torch.ops import sqp_planes
+
+    body, one = K1F_DESIGNS[design]
+    fn = sqp_planes._factor_cuda if body == "factor" else sqp_planes._gains_cuda
+    return lambda: fn(*args, reg=reg, one_thread=one)
+
+
+def phase_k1_factor_designs(dev):
+    """The factor body's kernels at N=20: the split kernels (the
+    park_factor path's) and the one-thread yardstick, each against the
+    plain factor body at K1F_CHECK_WIDTHS (alpha 0 and random alpha at
+    B=4096, random alpha at the others), max |diff| printed, bitwise
+    expected; ms per call at the main path's four widths in alternated
+    rounds with the gains body's split kernels; each split launch's device
+    ms (torch.profiler), factor and gains, at each width; the byte floor of
+    both splits. Fails if the factor split is slower than the one-thread
+    body at B=131072 or at B=4096."""
+    from srbd_nmpc_tpu_torch.ops import sqp_planes
+
+    rng = np.random.default_rng(17)
+    checked = [d for d, (body, _) in K1F_DESIGNS.items() if body == "factor"]
+    err = {d: ({}, 0.0, True) for d in checked}
+    for B, az in [(4096, True)] + [(B, False) for B in K1F_CHECK_WIDTHS]:
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, az)
+        ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg,
+                                                         factor=True)
+        for d in checked:
+            got = _k1_factor_call(d, args, reg)()
+            torch.cuda.synchronize()
+            w, mx, same = _k1_err(got, ref)
+            print(f"[4 K1 factor] {d} vs plain at B={B}, alpha "
+                  f"{'0' if az else 'random'}: " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in w.items())
+                  + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
+                  f"{same}", flush=True)
+            w0, mx0, same0 = err[d]
+            err[d] = ({k: max(v, w0.get(k, 0.0)) for k, v in w.items()},
+                      max(mx, mx0), same and same0)
+            del got
+        del args, ref
+        torch.cuda.empty_cache()
+    bad = {d: w for d, (w, _, _) in err.items()
+           if not all(v < REL_TOL for v in w.values())}
+    if bad:
+        raise AssertionError(f"a factor design disagrees with plain: {bad}")
+
+    # ms per call in turns: forward, backward, forward, backward (10 calls
+    # each), the mean of the four; then each split launch's device ms
+    times = {d: {} for d in K1F_DESIGNS}
+    passes = {"factor split": {}, "gains split": {}}
+    order = list(K1F_DESIGNS)
+    for B in K1_WIDTHS:
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
+        for d in (order + order[::-1]) * 2:
+            ms = _cuda_ms(_k1_factor_call(d, args, reg), 10)
+            times[d][B] = times[d].get(B, 0.0) + ms / 4
+        for d, by_pass in (("factor split", K1FS_PASSES),
+                           ("gains split", K1S_PASSES)):
+            call = _k1_factor_call(d, args, reg)
+            by_name, _ = _device_ms(lambda: [call() for _ in range(5)])
+            passes[d][B] = {p: sum(v for k, v in by_name.items()
+                                   if key in k) / 5
+                            for p, key in by_pass.items()}
+        del args
+        torch.cuda.empty_cache()
+    one, gains = times["factor one-thread"], times["gains split"]
+    for d in K1F_DESIGNS:
+        print(f"[4 K1 factor] {d} ms per call: " + ", ".join(
+            f"B={B} {ms:.3f} ({ms / one[B]:.3f}x factor one-thread, "
+            f"{ms / gains[B]:.3f}x gains split)"
+            for B, ms in times[d].items()), flush=True)
+    for d, by_B in passes.items():
+        for B, by in by_B.items():
+            print(f"[4 K1 factor] {d} device ms per launch at B={B}: "
+                  + ", ".join(f"{p} {v:.3f}" for p, v in by.items()),
+                  flush=True)
+    floor = {body: _k1_split_bytes(N_MAIN, B_MAIN, body == "factor")
+             for body in ("factor", "gains")}
+    print(f"[4 K1 factor] bytes each split design moves per call at "
+          f"B={B_MAIN}: " + ", ".join(
+              f"{body} {b / 1e9:.3f} GB, a floor of "
+              f"{b / PEAK_BYTES * 1e3:.3f} ms at {PEAK_BYTES / 1e12:g} TB/s"
+              for body, b in floor.items()), flush=True)
+    ratio = {B: times["factor split"][B] / one[B]
+             for B in (B_MAIN, B_MAIN // 32)}
+    print("[4 K1 factor] the park_factor path's kernels (factor split) "
+          "against the one-thread factor body: " + ", ".join(
+              f"B={B} {r:.3f}x" for B, r in ratio.items())
+          + "; against the gains split (the factor split faster where below "
+          "1): " + ", ".join(f"B={B} {times['factor split'][B] / gains[B]:.3f}x"
+                             for B in K1_WIDTHS), flush=True)
+    if max(ratio.values()) > 1.0:
+        raise AssertionError(f"the split factor kernels are slower than the "
+                             f"one-thread body: {ratio}")
+    return err, times, passes, floor
 
 
 def _f64(args):
@@ -2032,15 +2173,21 @@ def _k3_ptxas(k1):
 
 def _k1s_ptxas():
     """(registers, spill stores, spill loads, stack bytes) of each split
-    kernel of the gains body (sqp_planes_split.cu): K1s-A, K1s-B, K1s-C."""
+    kernel of the gains and factor bodies (sqp_planes_split.cu): K1s-A,
+    K1s-B, K1s-C and the factor forms of the last two."""
+    passes = {**K1S_PASSES, **K1FS_PASSES}
     out = {}
     for mangled, regs, stores, loads, stack in _ptxas("sqp_planes_split",
                                                       "k1s_"):
-        name = next((p for p, key in K1S_PASSES.items() if key in mangled),
+        name = next((p for p, key in passes.items() if key in mangled),
                     mangled)
         out[name] = (regs, stores, loads, stack)
-    if set(out) != set(K1S_PASSES):
+    if set(out) != set(passes):
         raise AssertionError(f"split kernels in the ptxas report: {out}")
+    regs, stores = out["K1s-B"][:2]
+    print(f"[2 build] K1s-B (gains) {regs} registers, {stores} B spill "
+          f"stores against the recorded {K1S_B_PTXAS[0]} and "
+          f"{K1S_B_PTXAS[1]} B: unchanged {(regs, stores) == K1S_B_PTXAS}", flush=True)
     return out
 
 
@@ -2093,8 +2240,21 @@ def phase_factor(dev, card, spec):
               f"{n_conv}/{B_MAIN} ({d_conv:+d} vs phase 5), mean SQP "
               f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
               f"{what} {trips}, launches {launches}; p50 {p50:.3f} ms per "
-              f"solve, {B_MAIN / p50 * 1e3:.1f} solves/s (times "
-              f"{[round(t, 3) for t in times]}) on {card}", flush=True)
+              f"solve (on the one-thread factor body "
+              f"{FACTOR_P50_BEFORE[loop]:.3f}), {B_MAIN / p50 * 1e3:.1f} "
+              f"solves/s (times {[round(t, 3) for t in times]}) on {card}",
+              flush=True)
+        # where the time goes: one more solve under the profiler, the
+        # factor split's device time by launch
+        by_name, n = _device_ms(lambda: sharded.solve_batch(*prob))
+        busy = sum(by_name.values())
+        k1 = {p: sum(v for k, v in by_name.items() if key in k)
+              for p, key in K1FS_PASSES.items()}
+        print(f"[17 factor] {loop} profiled solve: {n} device kernels, busy "
+              f"{busy:.3f} ms; K1 (factor split) {sum(k1.values()):.3f} ms "
+              f"({100 * sum(k1.values()) / busy:.1f} % of device time): "
+              + ", ".join(f"{p} {v:.3f} ({100 * v / busy:.1f} %)"
+                          for p, v in k1.items()), flush=True)
         # one factor-body launch per trip (speculative) or per SQP loop
         want = trips if loop == "spec" else loops
         k1 = {k: v for k, v in launches.items() if k.startswith("sqp_planes")}
@@ -2146,19 +2306,24 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
             "library_ms": library_ms, **extra}
 
 
+def _launch_rows(passes, by_width, regs):
+    """A row for each launch of a split design (``passes``: pass name to
+    kernel name): device ms at full width and by width (``by_width``: width
+    to ms by pass) and its ptxas report (``regs`` by pass)."""
+    return [{"pass": p, "kernel": key, "ms": by_width[B_MAIN][p],
+             "ms_by_width": {str(B): by[p] for B, by in by_width.items()},
+             "registers": r, "spill_stores": st, "spill_loads": ld,
+             "stack": sk}
+            for p, key in passes.items() for r, st, ld, sk in [regs[p]]]
+
+
 def _k1_entry(launches, err, t, plain, bound, regs, d_err, d_t, d_passes):
     """K1's row: the default gains path (the split kernels), timed through
     the public entry in phase 4, its largest difference from the plain
     version over phase 4's checks, and a row for each of its launches
     (device ms by width, ptxas report); registers and spills of the row are
     the largest of its launches'. The one-thread body's ms beside it."""
-    per = [{"pass": p, "kernel": key, "ms": d_passes["split"][B_MAIN][p],
-            "ms_by_width": {str(B): by[p]
-                            for B, by in d_passes["split"].items()},
-            "registers": r, "spill_stores": st, "spill_loads": ld,
-            "stack": sk}
-           for p, key in K1S_PASSES.items()
-           for r, st, ld, sk in [regs[p]]]
+    per = _launch_rows(K1S_PASSES, d_passes["split"], regs)
     return _entry("sqp_planes", "sqp_planes_split.cu", "ops/sqp_planes.py:301",
                   launches, max(err, d_err["split"][1]), t[B_MAIN], plain,
                   bound, design="split",
@@ -2168,6 +2333,35 @@ def _k1_entry(launches, err, t, plain, bound, regs, d_err, d_t, d_passes):
                   registers=max(e["registers"] for e in per),
                   spill_stores=max(e["spill_stores"] for e in per),
                   spill_loads=max(e["spill_loads"] for e in per),
+                  launches_per_call=per)
+
+
+def _k1_factor_entry(launches, err, t, plain, bound, regs, d_err, d_t,
+                     d_passes, floor):
+    """K1_factor's row: the park_factor path (the split factor kernels),
+    timed through the public entry in phase 4, its largest difference from
+    the plain version over phase 4's checks, and a row for each of its
+    launches (device ms by width, ptxas report); registers and spills of
+    the row are the largest of its launches'. The one-thread body's ms and
+    ptxas report, the gains split's ms and the floor that the bytes of the
+    split design put under it beside them."""
+    per = _launch_rows(K1FS_PASSES, d_passes["factor split"], regs)
+    return _entry("sqp_planes_factor", "sqp_planes_split.cu",
+                  "ops/sqp_planes.py:373", launches,
+                  max(err, d_err["factor split"][1]), t[B_MAIN], plain, bound,
+                  design="split",
+                  ms_by_width={str(B): v for B, v in t.items()},
+                  one_thread_ms_by_width={
+                      str(B): v for B, v in d_t["factor one-thread"].items()},
+                  gains_split_ms_by_width={
+                      str(B): v for B, v in d_t["gains split"].items()},
+                  registers=max(e["registers"] for e in per),
+                  spill_stores=max(e["spill_stores"] for e in per),
+                  spill_loads=max(e["spill_loads"] for e in per),
+                  one_thread_registers=regs["sqp_planes_factor"][0],
+                  one_thread_spill_stores=regs["sqp_planes_factor"][1],
+                  split_bytes=floor["factor"],
+                  split_bytes_floor_ms=floor["factor"] / PEAK_BYTES * 1e3,
                   launches_per_call=per)
 
 
@@ -2253,6 +2447,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
     k1_err, k1_t, k1_plain, k1_b, r6_launches = phase_k1(dev)
     k1d_err, k1d_t, k1d_passes = phase_k1_designs(dev)
+    k1f_err, k1f_t, k1f_passes, k1f_floor = phase_k1_factor_designs(dev)
     st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
     phase_compaction(dev)
@@ -2284,14 +2479,19 @@ def main(argv=None) -> int:
                          k1_t["sqp_planes"], k1_plain["sqp_planes"],
                          k1_b["sqp_planes"], k1_regs, k1d_err, k1d_t,
                          k1d_passes)]
-    for name, replaces in (("sqp_planes_rank6", "ops/sqp_planes.py:77"),
-                           ("sqp_planes_factor", "ops/sqp_planes.py:373")):
-        regs, stores, loads, _ = k1_regs[name]
-        kernels.append(_entry(
-            name, "sqp_planes.cu", replaces, k1_launches[name], k1_err[name],
-            k1_t[name][B_MAIN], k1_plain[name], k1_b[name],
-            ms_by_width={str(B): t for B, t in k1_t[name].items()},
-            registers=regs, spill_stores=stores, spill_loads=loads))
+    regs, stores, loads, _ = k1_regs["sqp_planes_rank6"]
+    kernels.append(_entry(
+        "sqp_planes_rank6", "sqp_planes.cu", "ops/sqp_planes.py:77",
+        k1_launches["sqp_planes_rank6"], k1_err["sqp_planes_rank6"],
+        k1_t["sqp_planes_rank6"][B_MAIN], k1_plain["sqp_planes_rank6"],
+        k1_b["sqp_planes_rank6"],
+        ms_by_width={str(B): t for B, t in k1_t["sqp_planes_rank6"].items()},
+        registers=regs, spill_stores=stores, spill_loads=loads))
+    kernels.append(_k1_factor_entry(
+        k1_launches["sqp_planes_factor"], k1_err["sqp_planes_factor"],
+        k1_t["sqp_planes_factor"], k1_plain["sqp_planes_factor"],
+        k1_b["sqp_planes_factor"], k1_regs, k1f_err, k1f_t, k1f_passes,
+        k1f_floor))
     for name, replaces in (("take_lanes", "ops/permute_pallas.py:48"),
                            ("set_lanes", "ops/permute_pallas.py:149")):
         k_call, l_call, k_dev, l_dev, bound = k2[name]

@@ -1,20 +1,27 @@
-// K1s · K1's gains body (the default fused SQP trip) as three launches:
+// K1s · K1's gains body (the default fused SQP trip) and its factor-parking
+// body (park_factor=True) as three launches each:
 //
-//   K1s-A  k1s_planes_kernel         the plane pass, one thread per (stage, lane);
+//   K1s-A  k1s_planes_kernel         the plane pass, one thread per (stage,
+//                                    lane); the same launch for both bodies;
 //   K1s-B  k1s_riccati_team_kernel   the backward Riccati pass, a team of
 //                                    W = 16 threads of one warp per scenario;
+//          k1s_riccati_factor_kernel its factor form: the same stage, parking
+//                                    the factor in place of the gains;
 //   K1s-C  k1s_rollout_kernel        the rollout, dphi and the merit's
 //                                    reduction over the stages, one thread per
-//                                    lane.
+//                                    lane;
+//          k1s_rollout_factor_kernel its factor form: du back-substituted
+//                                    from the parked factor at every stage.
 //
 // Replaces the TPU kernel srbd_nmpc_tpu/ops/sqp_planes.py::
-// _onepass_planes_kernel (:301, called at :582) with rank6=False,
-// factor=False: its grid step 0 (_planes_phase, all N stages at once on
-// [N, block] planes) and its backward steps (the structured stage
-// sqp_pallas._riccati_stage_structured), then its forward epilogue.
-// Contract: srbd_nmpc_tpu_torch/ops/sqp_planes.py::
-// sqp_qp_solve_onepass_planes_ref with the default flags, as the one-thread
-// body sqp_planes.cu <kGains>, which stays beside it.
+// _onepass_planes_kernel (:301, called at :582) with rank6=False: its grid
+// step 0 (_planes_phase, all N stages at once on [N, block] planes) and its
+// backward steps (the structured stage sqp_pallas._riccati_stage_structured;
+// with factor=True its return_factor form, :373-389), then its forward
+// epilogue (with factor=True, t = Yh dx + yv, du = -bwd_subst(L, dinv, t),
+// :408-416). Contract: srbd_nmpc_tpu_torch/ops/sqp_planes.py::
+// sqp_qp_solve_onepass_planes_ref with rank6=False, as the one-thread bodies
+// sqp_planes.cu <kGains> and <kFactor>, which stay beside it.
 //
 // What bounds it on the H100: in one thread per scenario, the 12x12 stage's
 // live set (P, V = Jx'P, [H | rv], the Cholesky factor: ~380 floats) sets
@@ -57,6 +64,21 @@
 //   components), where the one-thread body sums stage by stage; dx, du,
 //   dphi, max|defect| and min constraint are those of the one-thread body
 //   bit for bit.
+// - The factor forms (a compile-time flag of the same team and rollout
+//   bodies; the gains instantiations do not change) trade the team's
+//   13-column back substitution for a serial one in the rollout: the team
+//   parks [Yh | yv] (156 words a stage), L's lower triangle row by row (78,
+//   its diagonal as the one-thread body leaves it) and dinv (12), 246 words
+//   against the gains' 156. The whole block writes them, once every team is
+//   done with the stage (two block barriers a stage; a team past the ragged
+//   edge repeats the last lane so that it reaches them): each row's 8 lanes
+//   are one 32-byte sector, where the members of the two teams of a warp
+//   would write 8-byte pieces of 16 rows. On the H100 that took K1s-B's
+//   factor form from 9.9 to 6.7 ms at B=131072 (PERF.md). The rollout forms
+//   t = Yh dx + yv as the gains rollout forms K dx + kv, then x = L'^-1 t
+//   in sqp_planes.cu's pass 3 order (i = 11 ... 0, t_r updated in
+//   ascending r), du = -x: 90 more words read and 78 dependent
+//   multiply-adds a stage, one thread a lane.
 // No operation crosses scenarios, so a compacted launch gives bitwise the
 // full-width result.
 //
@@ -242,10 +264,52 @@ HD T jxtv_at(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF, const T* v, 
   return s[i - 6];
 }
 
+// the factor form's park of a stage: F_WORDS words, Yh (e < 144, row by
+// row), yv (< 156), L's lower triangle row by row (< 234) and dinv
+constexpr int F_WORDS = 246;
+
+// word e of the team's stage factor. L's diagonal as the one-thread body
+// leaves it, the pivot times dinv: the team Cholesky leaves each pivot's
+// last update to the members that read it
 template <typename T>
+HD T factor_word(const Team<T>& s, int e) {
+  if (e < 144) return s.Y[e / 12][e % 12];
+  if (e < 156) return s.Y[e - 144][12];
+  if (e < 234) {
+    const int q = e - 156;
+    int r, c;
+    tri(q, r, c);
+    T v = s.L[q];
+    if (c == r) {
+      if (r > 0) {
+        const T l = s.L[li(r, r - 1)];
+        v = v - l * l;
+      }
+      v = v * s.dinv[r];
+    }
+    return v;
+  }
+  return s.dinv[e - 234];
+}
+
+// the row of word e of stage k in the park arrays (Yh [N, 144, B], yv
+// [N, 12, B], L [N, 78, B], dinv [N, 12, B])
+template <typename T>
+HD T* factor_row(T* park0, T* park1, T* park2, T* park3, int k, int e, int B) {
+  if (e < 144) return park0 + ((size_t)k * 144 + e) * B;
+  if (e < 156) return park1 + ((size_t)k * 12 + e - 144) * B;
+  if (e < 234) return park2 + ((size_t)k * 78 + e - 156) * B;
+  return park3 + ((size_t)k * 12 + e - 234) * B;
+}
+
+// kFactor: park0..park3 take [Yh | yv], L and dinv (sqp_planes.cu's
+// k1::scenario <kFactor> layout) in place of K and kv; on the card the
+// block writes them (park(k), once every team is done with stage k)
+template <typename T, bool kFactor = false, typename Park = int>
 HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* park0,
                      T* park1, int N, int B, int b, T reg, int lane, int W, unsigned mask,
-                     bool rev) {
+                     bool rev, T* park2 = nullptr, T* park3 = nullptr,
+                     const Park& park = Park()) {
 #define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
   (void)lane;
   (void)mask;
@@ -423,17 +487,31 @@ HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* p
     }
     TEAM_SYNC();
 
-    // back substitution L' X = Y, one column per member; [K | kv] = -X.
-    // No barrier after it: the next stage's load writes only the pack
-    // channels, which this step does not read.
-    TEAM_FOR(t) {
-      TEAM_ITEMS(c, 13) {
-        T y[12];
-        back_subst_column(s.L, s.dinv, s.Y, c, y);
+    if constexpr (kFactor) {
+      // park [Yh | yv], L and dinv: on the card from the whole block, on
+      // the host an entry a member
+#ifdef __CUDA_ARCH__
+      park(k);
+#else
+      (void)park;
+      TEAM_FOR(t) {
+        for (int e = t; e < F_WORDS; e += W)
+          factor_row(park0, park1, park2, park3, k, e, B)[b] = factor_word(s, e);
+      }
+#endif
+    } else {
+      // back substitution L' X = Y, one column per member; [K | kv] = -X.
+      // No barrier after it: the next stage's load writes only the pack
+      // channels, which this step does not read.
+      TEAM_FOR(t) {
+        TEAM_ITEMS(c, 13) {
+          T y[12];
+          back_subst_column(s.L, s.dinv, s.Y, c, y);
 #pragma unroll
-        for (int i = 0; i < 12; ++i) {
-          if (c < 12) AT(park0, (k * 12 + i) * 12 + c) = -y[i];
-          else AT(park1, k * 12 + i) = -y[i];
+          for (int i = 0; i < 12; ++i) {
+            if (c < 12) AT(park0, (k * 12 + i) * 12 + c) = -y[i];
+            else AT(park1, k * 12 + i) = -y[i];
+          }
         }
       }
     }
@@ -442,14 +520,15 @@ HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* p
 }
 
 // ---------------------------------------------------------------------------
-// K1s-C: pass 3 of k1::scenario <kGains>, and the merit reduced over the
-// stages in the plain version's order
+// K1s-C: pass 3 of k1::scenario <kGains> (kFactor: <kFactor>, from the
+// factor in park0..park3), and the merit reduced over the stages in the
+// plain version's order
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kFactor = false>
 HD void rollout(const T* kc, const T* pack, const T* mer, const T* term, const T* park0,
                 const T* park1, const T* dx0, T* dx_out, T* du_out, T* dphi_out,
                 T* theta_out, T* phi_out, T* maxdef_out, T* mincon_out, int N, int B,
-                int b) {
+                int b, const T* park2 = nullptr, const T* park3 = nullptr) {
 #define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
 #define PK(c) pk[(size_t)(c) * B + b]
 #define MK(c) mk[(size_t)(c) * B + b]
@@ -472,6 +551,18 @@ HD void rollout(const T* kc, const T* pack, const T* mer, const T* term, const T
 #pragma unroll
       for (int j = 1; j < 12; ++j) acc = acc + AT(park0, (k * 12 + i) * 12 + j) * dx[j];
       du[i] = acc + AT(park1, k * 12 + i);
+    }
+    if constexpr (kFactor) {
+      // du = -L'^-1 (Yh dx + yv)
+#pragma unroll
+      for (int i = 11; i >= 0; --i) {
+        const T xi = du[i] * AT(park3, k * 12 + i);
+        du[i] = xi;
+#pragma unroll
+        for (int r = 0; r < i; ++r) du[r] = du[r] - AT(park2, k * 78 + li(i, r)) * xi;
+      }
+#pragma unroll
+      for (int i = 0; i < 12; ++i) du[i] = -du[i];
     }
     T sF[3], sr[3], sl[3];
 #pragma unroll
@@ -588,6 +679,46 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
                            mask, false);
 }
 
+// the factor form's park of stage k from the whole block, between two block
+// barriers: thread tid writes lane b0 + tid % TEAMS of words tid / TEAMS,
+// + W, ..., so each row's 8 lanes are one 32-byte sector
+struct BlockPark {
+  const k1s::Team<float>* teams;
+  float *park0, *park1, *park2, *park3;
+  int B, b0;
+  __host__ __device__ void operator()(int k) const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();  // every team is done with stage k
+    const int sc = threadIdx.x % k1s::TEAMS;
+    if (b0 + sc < B)
+      for (int e = threadIdx.x / k1s::TEAMS; e < k1s::F_WORDS; e += k1s::W_CARD)
+        k1s::factor_row(park0, park1, park2, park3, k, e, B)[b0 + sc] =
+            k1s::factor_word(teams[sc], e);
+    __syncthreads();  // before a team's next stage writes Y, L or dinv
+#else
+    (void)k;
+#endif
+  }
+};
+
+__global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
+    k1s_riccati_factor_kernel(const float* __restrict__ consts, const float* pack,
+                              const float* term, float* park0, float* park1, float* park2,
+                              float* park3, int N, int B, float reg) {
+  constexpr int W = k1s::W_CARD;
+  __shared__ k1s::Team<float> teams[k1s::TEAMS];
+  K1S_CONSTS
+  const int team = threadIdx.x / W, lane = threadIdx.x % W;
+  const int b0 = blockIdx.x * k1s::TEAMS;
+  // a team past the ragged edge repeats the last lane and parks nothing, so
+  // that it reaches the block's barriers
+  const int b = b0 + team < B ? b0 + team : B - 1;
+  const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
+  const BlockPark park{teams, park0, park1, park2, park3, B, b0};
+  k1s::riccati_team<float, true>(teams[team], kc, pack, term, park0, park1, N, B, b, reg,
+                                 lane, W, mask, false, park2, park3, park);
+}
+
 __global__ void __launch_bounds__(128)
     k1s_rollout_kernel(const float* __restrict__ consts, const float* pack, const float* mer,
                        const float* term, const float* park0, const float* park1,
@@ -599,6 +730,20 @@ __global__ void __launch_bounds__(128)
   if (b >= B) return;
   k1s::rollout<float>(kc, pack, mer, term, park0, park1, dx0, dx_out, du_out, dphi, theta,
                       phi, maxdef, mincon, N, B, b);
+}
+
+__global__ void __launch_bounds__(128)
+    k1s_rollout_factor_kernel(const float* __restrict__ consts, const float* pack,
+                              const float* mer, const float* term, const float* park0,
+                              const float* park1, const float* park2, const float* park3,
+                              const float* dx0, float* dx_out, float* du_out, float* dphi,
+                              float* theta, float* phi, float* maxdef, float* mincon, int N,
+                              int B) {
+  K1S_CONSTS
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  k1s::rollout<float, true>(kc, pack, mer, term, park0, park1, dx0, dx_out, du_out, dphi,
+                            theta, phi, maxdef, mincon, N, B, b, park2, park3);
 }
 
 constexpr int K1S_THREADS = 128;
@@ -642,13 +787,70 @@ extern "C" int srbd_k1s_rollout_launch(const float* consts, const float* pack,
   return (int)cudaGetLastError();
 }
 
+// the factor form of K1s-B: parks Yh [N, 12, 12, B], yv [N, 12, B], L's
+// lower triangle [N, 78, B] and dinv [N, 12, B]
+extern "C" int srbd_k1s_riccati_factor_launch(const float* consts, const float* pack,
+                                              const float* term, float* park0, float* park1,
+                                              float* park2, float* park3, int N, int B,
+                                              float reg, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const int teams = (B + k1s::TEAMS - 1) / k1s::TEAMS;
+  k1s_riccati_factor_kernel<<<teams, k1s::TEAMS * k1s::W_CARD, 0, (cudaStream_t)stream>>>(
+      consts, pack, term, park0, park1, park2, park3, N, B, reg);
+  return (int)cudaGetLastError();
+}
+
+// the factor form of K1s-C, from K1s-B's factor parks
+extern "C" int srbd_k1s_rollout_factor_launch(const float* consts, const float* pack,
+                                              const float* mer, const float* term,
+                                              const float* park0, const float* park1,
+                                              const float* park2, const float* park3,
+                                              const float* dx0, float* dx_out,
+                                              float* du_out, float* dphi, float* theta,
+                                              float* phi, float* maxdef, float* mincon, int N,
+                                              int B, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  k1s_rollout_factor_kernel<<<(B + K1S_THREADS - 1) / K1S_THREADS, K1S_THREADS, 0,
+                              (cudaStream_t)stream>>>(consts, pack, mer, term, park0, park1,
+                                                      park2, park3, dx0, dx_out, du_out,
+                                                      dphi, theta, phi, maxdef, mincon, N, B);
+  return (int)cudaGetLastError();
+}
+
 #else  // host build: the three passes over every lane
 
 using srbd_dev::host_t;
 
-// the arguments of the three launches together; team: the team width the
-// Riccati pass emulates (8 to 32; the card's is W_CARD), rev: the team's
-// members in reverse order within each step
+// the arguments of the three launches together, for the gains body or
+// (kFactor) the factor body
+template <bool kFactor>
+static int split_host(int team, int rev, const host_t* consts, const host_t* xa,
+                      const host_t* us, const host_t* xr, const host_t* dxc,
+                      const host_t* duc, const host_t* alpha, const host_t* dx0,
+                      host_t* dx_out, host_t* du_out, host_t* dphi, host_t* theta,
+                      host_t* phi, host_t* maxdef, host_t* mincon, host_t* pack,
+                      host_t* mer, host_t* term, host_t* park0, host_t* park1,
+                      host_t* park2, host_t* park3, int N, int B, double mu_b,
+                      double theta_b, double reg) {
+  if (team < 8 || team > 32) return 1;  // x0: two columns a member
+  const host_t mu(mu_b), th(theta_b), rg(reg);
+  for (int k = 0; k <= N; ++k)
+    for (int b = 0; b < B; ++b)
+      k1s::plane_stage(consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, k, b, mu,
+                       th);
+  for (int b = 0; b < B; ++b) {
+    k1s::Team<host_t> s;
+    k1s::riccati_team<host_t, kFactor>(s, consts, pack, term, park0, park1, N, B, b, rg, 0,
+                                       team, 0u, rev != 0, park2, park3);
+  }
+  for (int b = 0; b < B; ++b)
+    k1s::rollout<host_t, kFactor>(consts, pack, mer, term, park0, park1, dx0, dx_out, du_out,
+                                  dphi, theta, phi, maxdef, mincon, N, B, b, park2, park3);
+  return 0;
+}
+
+// team: the team width the Riccati pass emulates (8 to 32; the card's is
+// W_CARD), rev: the team's members in reverse order within each step
 extern "C" int srbd_sqp_planes_split_host(int team, int rev, const host_t* consts,
                                           const host_t* xa, const host_t* us,
                                           const host_t* xr, const host_t* dxc,
@@ -659,20 +861,22 @@ extern "C" int srbd_sqp_planes_split_host(int team, int rev, const host_t* const
                                           host_t* pack, host_t* mer, host_t* term,
                                           host_t* park0, host_t* park1, int N, int B,
                                           double mu_b, double theta_b, double reg) {
-  if (team < 8 || team > 32) return 1;  // x0: two columns a member
-  const host_t mu(mu_b), th(theta_b), rg(reg);
-  for (int k = 0; k <= N; ++k)
-    for (int b = 0; b < B; ++b)
-      k1s::plane_stage(consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, k, b, mu,
-                       th);
-  for (int b = 0; b < B; ++b) {
-    k1s::Team<host_t> s;
-    k1s::riccati_team(s, consts, pack, term, park0, park1, N, B, b, rg, 0, team, 0u, rev != 0);
-  }
-  for (int b = 0; b < B; ++b)
-    k1s::rollout(consts, pack, mer, term, park0, park1, dx0, dx_out, du_out, dphi, theta,
-                 phi, maxdef, mincon, N, B, b);
-  return 0;
+  return split_host<false>(team, rev, consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out,
+                           du_out, dphi, theta, phi, maxdef, mincon, pack, mer, term, park0,
+                           park1, nullptr, nullptr, N, B, mu_b, theta_b, reg);
+}
+
+// the same for the factor body, with its four parks
+extern "C" int srbd_sqp_planes_split_factor_host(
+    int team, int rev, const host_t* consts, const host_t* xa, const host_t* us,
+    const host_t* xr, const host_t* dxc, const host_t* duc, const host_t* alpha,
+    const host_t* dx0, host_t* dx_out, host_t* du_out, host_t* dphi, host_t* theta,
+    host_t* phi, host_t* maxdef, host_t* mincon, host_t* pack, host_t* mer, host_t* term,
+    host_t* park0, host_t* park1, host_t* park2, host_t* park3, int N, int B, double mu_b,
+    double theta_b, double reg) {
+  return split_host<true>(team, rev, consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out,
+                          du_out, dphi, theta, phi, maxdef, mincon, pack, mer, term, park0,
+                          park1, park2, park3, N, B, mu_b, theta_b, reg);
 }
 
 #endif

@@ -267,11 +267,12 @@ def _check_slice(cfg: NmpcConfig, state: NmpcState) -> None:
 
     if state.x.dim() not in (2, 3):
         todo(f"a state of rank {state.x.dim()} (one scenario [N+1, 12] or a "
-             "batch [B, N+1, 12] only)", "Queue 1 item 9")
+             "batch [B, N+1, 12] only)",
+             'Queue 1, "States with more than one batch axis"')
     if cfg.qp_kernel == "pscan" or (cfg.qp_kernel == "auto" and cfg.refine == 0
                                     and cfg.N >= cfg.pscan_min_N):
         todo("the associative-scan Riccati (qp_kernel='pscan', or "
-             "N >= pscan_min_N)", "Queue 1 item 6")
+             "N >= pscan_min_N)", 'Queue 1, "ops/riccati_pscan.py"')
     if state.x.dim() == 2:
         return   # the single scenario runs no kernel: any dtype and device
     if (state.x.device.type == "cuda" and state.x.dtype != torch.float32

@@ -13,10 +13,11 @@ same stage parking its factor (``factor=True``), and
   does not depend on the batch width.
 - ``sqp_qp_solve_onepass_planes``: the public entry. CPU tensors go to the
   plain version; CUDA tensors launch the hand-written kernels (f32 only) or
-  raise: the default gains body as three launches of
-  ``csrc/sqp_planes_split.cu`` (a plane pass, a Riccati pass with a team of
-  16 threads per scenario, the rollout), the rank-6 and factor bodies as
-  one launch each of ``csrc/sqp_planes.cu``.
+  raise: the default gains body and the factor body as three launches each
+  of ``csrc/sqp_planes_split.cu`` (a plane pass, a Riccati pass with a team
+  of 16 threads per scenario, the rollout; the factor body's Riccati pass
+  and rollout are their factor forms), the rank-6 body as one launch of
+  ``csrc/sqp_planes.cu``.
 
 The candidate fold ``x + alpha dx`` is applied on load, so one function
 serves the bootstrap (alpha = 0) and every speculative line-search trip.
@@ -58,14 +59,14 @@ _C = 87
 # tiers)
 THREADS = 128
 
-# the split gains body's scratch beside the pack: per stage the merit terms
+# the split bodies' scratch beside the pack: per stage the merit terms
 # u_i (R u)_i, e_i (Q e)_i (12 each), the barrier sum and the least
 # constraint; the terminal stage's qN and eN'qN
 _M_C = 26
 _T_C = 13
 
 # calls of each stage body on the card since the last reset (read by
-# chip_smoke.py); a gains call counts once, whichever kernels run it
+# chip_smoke.py); a call counts once, whichever kernels run it
 launches = {"gains": 0, "rank6": 0, "factor": 0}
 
 
@@ -356,8 +357,12 @@ def _split_lib():
         lib.srbd_k1s_planes_launch.argtypes = [P] * 10 + [I, I, F, F, P]
         lib.srbd_k1s_riccati_launch.argtypes = [P] * 5 + [I, I, F, P]
         lib.srbd_k1s_rollout_launch.argtypes = [P] * 14 + [I, I, P]
+        lib.srbd_k1s_riccati_factor_launch.argtypes = [P] * 7 + [I, I, F, P]
+        lib.srbd_k1s_rollout_factor_launch.argtypes = [P] * 16 + [I, I, P]
         for fn in (lib.srbd_k1s_planes_launch, lib.srbd_k1s_riccati_launch,
-                   lib.srbd_k1s_rollout_launch):
+                   lib.srbd_k1s_rollout_launch,
+                   lib.srbd_k1s_riccati_factor_launch,
+                   lib.srbd_k1s_rollout_factor_launch):
             fn.restype = ctypes.c_int
     return lib
 
@@ -383,10 +388,12 @@ def riccati_team_cuda(kc, pack, term, reg, stream):
     return park0, park1
 
 
-def _launch_split(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
-                  theta_b, reg, stream):
-    """The gains body as three launches (``csrc/sqp_planes_split.cu``): the
-    plane pass, the Riccati pass, the rollout; each launch's return code
+def _launch_split(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5,
+                  mu_b, theta_b, reg, stream):
+    """The gains or factor ``body`` as three launches
+    (``csrc/sqp_planes_split.cu``): the plane pass, the Riccati pass, the
+    rollout (for the factor body the factor forms of the last two, which
+    park and back-substitute the stage factor); each launch's return code
     checked as it is made."""
     N, Bt = us.shape[0], xa.shape[-1]
 
@@ -400,10 +407,20 @@ def _launch_split(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
         dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
         mer.data_ptr(), term.data_ptr(), N, Bt, float(mu_b), float(theta_b),
         stream))
-    park0, park1 = riccati_team_cuda(kc, pack, term, reg, stream)
-    _check("sqp_planes_split rollout", lib.srbd_k1s_rollout_launch(
+    if body == "gains":
+        parks = riccati_team_cuda(kc, pack, term, reg, stream)
+        rollout = lib.srbd_k1s_rollout_launch
+    else:
+        parks = [empty(*s) for s in park_shapes("factor", N, Bt)]
+        _check("sqp_planes_split factor Riccati pass",
+               lib.srbd_k1s_riccati_factor_launch(
+                   kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
+                   *(p.data_ptr() for p in parks), N, Bt, float(reg),
+                   stream))
+        rollout = lib.srbd_k1s_rollout_factor_launch
+    _check(f"sqp_planes_split rollout ({body})", rollout(
         kc.data_ptr(), pack.data_ptr(), mer.data_ptr(), term.data_ptr(),
-        park0.data_ptr(), park1.data_ptr(), dx.data_ptr(), dx[1:].data_ptr(),
+        *(p.data_ptr() for p in parks), dx.data_ptr(), dx[1:].data_ptr(),
         du.data_ptr(), *(out5[i].data_ptr() for i in range(5)), N, Bt,
         stream))
 
@@ -424,7 +441,7 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     if consts is None:
         consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc)
     body = _body(rank6, factor, lambda: consts.rank6)
-    split = body == "gains" and not one_thread
+    split = body != "rank6" and not one_thread
     xa, us, xra, dxc, duc, alpha, x0s = (
         t.contiguous() for t in (xa, us, xra, dxc, duc, alpha, x0s))
 
@@ -439,8 +456,8 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     out5 = empty(5, Bt)                       # dphi, theta, phi, md, mc
     stream = torch.cuda.current_stream(dev).cuda_stream
     if split:
-        _launch_split(consts.block, xa, us, xra, dxc, duc, alpha, dx, du,
-                      out5, mu_b, theta_b, reg, stream)
+        _launch_split(body, consts.block, xa, us, xra, dxc, duc, alpha, dx,
+                      du, out5, mu_b, theta_b, reg, stream)
     else:
         pack = empty(N, _C, Bt)
         parks = [empty(*s) if s else None for s in park_shapes(body, N, Bt)]
@@ -468,6 +485,17 @@ def _gains_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
                        one_thread=one_thread)
 
 
+def _factor_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+                 alpha, x0s, mu_b, theta_b, reg=0.0, one_thread=False,
+                 consts=None):
+    """The factor body on the card, as ``_gains_cuda`` the gains body: the
+    split kernels, or with ``one_thread`` the yardstick
+    ``sqp_planes.cu <kFactor>``. CUDA tensors only."""
+    return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+                       alpha, x0s, mu_b, theta_b, reg, False, True, consts,
+                       one_thread=one_thread)
+
+
 def sqp_qp_solve_onepass_planes(
     params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     alpha, x0s, mu_b: float, theta_b: float, reg: float = 0.0,
@@ -490,7 +518,9 @@ def sqp_qp_solve_onepass_planes(
       launch counter says which body ran);
     - ``factor``: the 12x12 stage parking its factor (L, dinv) and
       forward-substituted half (Yh, yv); the rollout forms
-      du = -L'^-1 (Yh dx + yv) per stage.
+      du = -L'^-1 (Yh dx + yv) per stage. On CUDA the three launches of
+      ``sqp_planes_split.cu`` with the factor forms of its Riccati pass and
+      rollout.
 
     ``factor`` with ``rank6`` raises ``ValueError``, as in JAX. JAX's
     ``factor`` limit on its lane block (``block <= 128``) guards the TPU's

@@ -2,7 +2,7 @@
 
 Counterpart of ``srbd_nmpc_tpu/parallel/sharded.py:26-66, 149-153``. The
 multi-device solvers (``make_sharded_solver``, ``make_shardmap_solver``)
-are not ported yet (ROADMAP.md Queue 1 item 7).
+are not ported yet (ROADMAP.md Queue 1, "Multi-device").
 """
 
 from __future__ import annotations

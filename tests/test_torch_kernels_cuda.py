@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 fused SQP trip with its three stage bodies, the gains body also by its
-one-thread kernel, K2 lane permutes, K3a/K3b dense one-pass trips (split
+(K1 fused SQP trip with its three stage bodies, the gains and factor bodies
+also by their one-thread kernels, K2 lane permutes, K3a/K3b dense one-pass trips (split
 and one-thread), K4 the
 two-pass solve, K5 stage linearization, K6 Riccati backward and forward
 passes (the backward pass by its team kernel and its one-thread yardstick),
@@ -117,6 +117,37 @@ def test_k1_rank6_on_dense_R_runs_the_12x12_body(dev):
     with pytest.raises(ValueError, match="rank-6"):
         sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9, rank6=True,
                                                factor=True)
+
+
+@pytest.mark.parametrize("alpha_zero", [True, False])
+@pytest.mark.parametrize("B", [4096, 4093])
+def test_k1_factor_split_and_one_thread_match_plain(dev, B, alpha_zero):
+    """The factor body through its split kernels (the public entry's) and
+    through the one-thread yardstick ``sqp_planes.cu <kFactor>`` against
+    the plain factor body, at B=4096 and at a width that is not a multiple
+    of a block's 8 teams (a ragged edge): the split kernels equal to plain
+    bit for bit on all seven outputs; the one-thread kernel on dx, du,
+    dphi, max|defect| and min constraint (it sums theta and phi stage by
+    stage, the plain version per component over the stages)."""
+    args = _k1_args(dev, 20, B, alpha_zero)
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9,
+                                                     factor=True)
+    before = sqp_planes.launches["factor"]
+    split = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9,
+                                                   factor=True)
+    one = sqp_planes._factor_cuda(*args, reg=1e-9, one_thread=True)
+    torch.cuda.synchronize()
+    assert sqp_planes.launches["factor"] == before + 2
+    ref = (*ref[:3], *ref[3])
+    for g, r in zip((*split[:3], *split[3]), ref):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, r)
+    for i, (g, r) in enumerate(zip((*one[:3], *one[3]), ref)):
+        if i in (3, 4):                      # theta, phi
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=1e-4)
+        else:
+            assert torch.equal(g, r)
 
 
 def test_k1_rejects_float64(dev):
@@ -263,18 +294,20 @@ def test_k2_one_device_kernel_per_call(dev):
 def test_k1_one_kernel_per_call(dev):
     """One call of each stage body: the gains body launches the three split
     kernels (the plane pass, the Riccati pass, the rollout) once each, the
-    rank-6 and factor bodies one K1 kernel each, the instantiation of their
-    body (template argument 1 rank6, 2 factor)."""
+    factor body the same plane pass and the factor forms of the other two
+    once each, the rank-6 body one K1 kernel, the instantiation of its body
+    (template argument 1); the one-thread factor body (2) does not run."""
     kernels = _device_kernels("_k1_calls")
     k1 = {k: n for k, n in kernels.items() if "sqp_planes_kernel" in k}
-    assert sorted(k1.values()) == [1, 1]
-    for tag in (1, 2):
-        assert sum(f"<{tag}>" in k or f"ILi{tag}E" in k for k in k1) == 1
+    assert list(k1.values()) == [1]
+    assert sum("<1>" in k or "ILi1E" in k for k in k1) == 1
     split = {k: n for k, n in kernels.items() if "k1s_" in k}
-    assert sorted(split.values()) == [1, 1, 1]
-    for name in ("k1s_planes_kernel", "k1s_riccati_team_kernel",
-                 "k1s_rollout_kernel"):
-        assert sum(name in k for k in split) == 1
+    assert sorted(split.values()) == [1, 1, 1, 1, 2]
+    for name, n in (("k1s_planes_kernel", 2), ("k1s_riccati_team_kernel", 1),
+                    ("k1s_rollout_kernel", 1),
+                    ("k1s_riccati_factor_kernel", 1),
+                    ("k1s_rollout_factor_kernel", 1)):
+        assert sum(v for k, v in split.items() if name in k) == n
 
 
 def test_k3_three_kernels_per_call(dev):

@@ -212,10 +212,11 @@ def _host_consts(tp, Q, Qf, R, Ac, bc, dtype):
     return consts
 
 
-def _host_kernel(args, body="gains", f32=False):
+def _host_kernel(args, body="gains", f32=False, with_parks=False):
     """The kernel's per-scenario body (csrc/sqp_planes.cu) for ``body``,
     built as host C++ (in double precision, or in float32 with ``f32``) and
-    run on every lane of K1's arguments ``args``: (dx, du, out5, pack)."""
+    run on every lane of K1's arguments ``args``: (dx, du, out5, pack), and
+    with ``with_parks`` the body's park arrays after them."""
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
     flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
@@ -241,7 +242,7 @@ def _host_kernel(args, body="gains", f32=False):
     ptrs += [None if t is None else t.data_ptr() for t in parks]
     assert fn(sqp_planes.BODIES.index(body), *ptrs, N, B, *args[13:15],
               REG) == 0
-    return dx, du, out5, pack
+    return (dx, du, out5, pack) + ((parks,) if with_parks else ())
 
 
 def _host_run(N, body=None):
@@ -339,16 +340,21 @@ def test_f32_host_build_rounds_d1_as_plain(monkeypatch, association):
 TEAMS = (8, 16, 32)
 
 
-def _host_split(args, team, rev=False, f32=False):
+def _host_split(args, team, rev=False, f32=False, body="gains"):
     """The split kernels' host build (``team``: the emulated team width,
-    ``rev``: each team's members in reverse order) run on every lane of
-    K1's arguments ``args``: (dx, du, out5)."""
+    ``rev``: each team's members in reverse order) for ``body`` (the gains
+    body, or ``"factor"``: the factor forms of the Riccati pass and of the
+    rollout) run on every lane of K1's arguments ``args``: (dx, du, out5),
+    and for the factor body its parks [Yh, yv, L, dinv] after them."""
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
     flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
-    fn = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes_split.cu",
-                                      flags=flags)).srbd_sqp_planes_split_host
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
+    lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes_split.cu",
+                                       flags=flags))
+    factor = body == "factor"
+    fn = (lib.srbd_sqp_planes_split_factor_host if factor
+          else lib.srbd_sqp_planes_split_host)
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * (20 + 2 * factor)
                    + [ctypes.c_int] * 2 + [ctypes.c_double] * 3)
     fn.restype = ctypes.c_int
     tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha, x0s = args[:13]
@@ -360,23 +366,27 @@ def _host_split(args, team, rev=False, f32=False):
     du = torch.empty((N, 12, B), dtype=dtype)
     out5 = torch.empty((5, B), dtype=dtype)
     scratch = [torch.empty(s, dtype=dtype) for s in (
-        (N, sqp_planes._C, B), (N, sqp_planes._M_C, B), (sqp_planes._T_C, B),
-        *sqp_planes.park_shapes("gains", N, B)[:2])]
+        (N, sqp_planes._C, B), (N, sqp_planes._M_C, B), (sqp_planes._T_C, B))]
+    parks = [torch.empty(s, dtype=dtype)
+             for s in sqp_planes.park_shapes(body, N, B) if s]
     ins = (consts, xa, us, xra, dxc, duc, alpha)
     assert all(t.dtype == dtype for t in ins)
-    ptrs = [t.data_ptr() for t in (*ins, dx, dx[1:], du, *out5, *scratch)]
+    ptrs = [t.data_ptr() for t in (*ins, dx, dx[1:], du, *out5, *scratch,
+                                   *parks)]
     assert fn(team, int(rev), *ptrs, N, B, *args[13:15], REG) == 0
-    return dx, du, out5
+    return (dx, du, out5) + ((parks,) if factor else ())
 
 
 @functools.lru_cache(maxsize=None)
-def _split_run(N, team):
-    """The split host f64 build and the plain version on the same inputs
-    (every lane: 0-7 alpha = 0, 8-15 random alpha)."""
+def _split_run(N, team, body="gains"):
+    """The split host f64 build for ``body`` and the plain version with the
+    same body on the same inputs (every lane: 0-7 alpha = 0, 8-15 random
+    alpha)."""
     params, weights, arr = _problem(N, seed=1)
     args = _port_args(params, weights, arr)
-    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=REG)
-    return _host_split(args, team), ref
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(
+        *args, reg=REG, factor=body == "factor")
+    return _host_split(args, team, body=body)[:3], ref
 
 
 @pytest.mark.parametrize("team", TEAMS)
@@ -437,3 +447,66 @@ def test_gains_designs_raise_on_what_they_cannot_take(one_thread):
     args = _port_args(params, weights, arr)
     with pytest.raises(TypeError, match="CUDA"):
         sqp_planes._gains_cuda(*args, reg=REG, one_thread=one_thread)
+
+
+# ---------------------------------------------------------------------------
+# The split factor body (the same plane pass, then the factor forms of the
+# Riccati pass and of the rollout) built as host C++, as the gains body above
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("team", TEAMS)
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("N", [5, 20])
+def test_split_factor_host_build_matches_plain(N, case, team):
+    """The split factor kernels' arithmetic (the factor forms of the team
+    Riccati pass and of the rollout in csrc/sqp_planes_split.cu) compiled
+    as host C++ in double precision reproduces the plain factor body to
+    1e-12 (relative and absolute), with the team at each emulated width."""
+    (dx, du, out5), ref = _split_run(N, team, "factor")
+    lanes = CASES[case]
+    for got, want in ((dx, ref[0]), (du, ref[1]), (out5[0], ref[2]),
+                      *zip(out5[1:], ref[3])):
+        np.testing.assert_allclose(got[..., lanes].numpy(),
+                                   want[..., lanes].numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("team,rev", [
+    (w, rev) for w in TEAMS for rev in (False, True)])
+def test_split_factor_f32_host_build_rounds_as_one_thread_body(team, rev):
+    """In float32, the split factor kernels give the one-thread factor
+    body's (sqp_planes.cu <kFactor>) dx, du, dphi, max|defect| and min
+    constraint bit for bit, and park the same Yh, yv, L (its diagonal
+    included) and dinv bit for bit, with either member order of a team.
+    theta and phi are reduced in the plain version's order, as the split
+    gains body's are (see the gains test above)."""
+    args = _f32_args()
+    one_dx, one_du, one_out5, _, one_parks = _host_kernel(
+        args, "factor", f32=True, with_parks=True)
+    dx, du, out5, parks = _host_split(args, team, rev, f32=True,
+                                      body="factor")
+    assert torch.equal(dx, one_dx)
+    assert torch.equal(du, one_du)
+    for i in (0, 3, 4):                      # dphi, maxdef, mincon
+        assert torch.equal(out5[i], one_out5[i])
+    for got, want in zip(parks, one_parks):
+        assert torch.equal(got, want)
+    for i in (1, 2):                         # theta, phi
+        rel = float(((out5[i].double() - one_out5[i].double()).abs()
+                     / one_out5[i].double().abs()).max())
+        assert rel <= 1e-6
+
+
+@pytest.mark.parametrize("one_thread", [False, True])
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_factor_designs_raise_on_what_they_cannot_take(one_thread, dtype):
+    """The card-only entry of the factor body's kernels, split or
+    one-thread, raises on CPU tensors (float64 or float32) before anything
+    is built."""
+    params, weights, arr = _problem(5)
+    args = list(_port_args(params, weights, arr))
+    for i in range(6, 13):
+        args[i] = args[i].to(dtype)
+    with pytest.raises(TypeError, match="CUDA"):
+        sqp_planes._factor_cuda(*args, reg=REG, one_thread=one_thread)
