@@ -32,7 +32,9 @@ against their plain versions; phase 10b K6's backward pass by its team
 kernel (the ``pallas`` route's) and the one-thread body it replaced, each
 against plain at B=4096, 4093 (a ragged edge) and 131072, timed against
 each other in alternated rounds at the four widths with the team kernel's
-device ms, the team kernel held to be no slower; cold B=131072 solves on
+device ms, the team kernel held to be no slower; phase 10c K5's and K7a's
+split designs and their one-thread bodies the same way (bitwise to plain at
+B=4096, 4093 and 131072; timed at B=131072 and 4096); cold B=131072 solves on
 its ``pallas`` and ``fused`` routes against the speculative path (the
 ``pallas`` solve profiled: K6a's device ms and share), and each kernel
 route against the plain ``xla`` route. Phases 13-14 do it for the dense one-pass route
@@ -156,9 +158,36 @@ K6_NAMES = ("riccati_bwd_constq", "riccati_bwd")
 # widths of the K6 designs' checks against plain: a ragged edge (lanes not a
 # multiple of a block's teams) beside the two of phase 13's checks
 K6_CHECK_WIDTHS = (4096, 4093, B_MAIN)
-# the pallas route's cold p50 (ms) on the one-thread K6, from the final run
-# of the dense trip's redesign (PERF.md section 5), printed beside phase 11's
-PALLAS_P50_BEFORE = 852.832
+# K5 and K7a on the card by the keyword arguments of
+# srbd_linearize._linearize_cuda / merit_kernel._merit_alpha_cuda: the
+# one-thread yardsticks and the new designs (the path's)
+K5_DESIGNS = {"one-thread": dict(one_thread=True), "split": {}}
+K7A_DESIGNS = {"one-thread": dict(one_thread=True), "split": {}}
+# each design's launches by their device kernel names
+K5_PASSES = {"one-thread": {"one-thread": "linearize_kernel"},
+             "split": {"stage": "k5s_stage_kernel",
+                       "dense": "k5s_dense_kernel"}}
+K7A_PASSES = {"one-thread": {"one-thread": "merit_alpha_kernel"},
+              "split": {"stage": "k7s_stage_kernel",
+                        "reduce": "k7s_reduce_kernel"}}
+# words per lane that a design moves beyond its inputs read once and its
+# outputs written once, at N=20: K5's split writes and reads the ddb
+# hand-off [N, 24, B], and its dense write reads x (rows 0-8) and u (rows
+# 0-2, 6-8) again for A and x (rows 6-8) for B; K7a's writes and reads its
+# terms [3N + 1, B]
+K5_EXTRA_WORDS = {"split": (2 * 24 + 18) * N_MAIN}
+K7A_EXTRA_WORDS = {"split": 2 * (3 * N_MAIN + 1)}
+# widths of phase 10c's checks against plain (a ragged edge: no multiple of
+# a block's 128 lanes) and of its timed rounds
+K5K7_CHECK_WIDTHS = (4096, 4093, B_MAIN)
+K5K7_WIDTHS = (B_MAIN, 4096)
+# seconds the profiler's window is held open on either side of a profiled
+# call (_device_ms)
+PROFILE_PAD_S = 3.0
+# the synchronous routes' cold p50 (ms) on the one-thread K5 and K7a, from
+# the final run of K1's factor redesign (PERF.md section 5), printed beside
+# phase 11's
+SYNC_P50_BEFORE = {"pallas": 547.252, "fused": 248.551, "dense": 302.808}
 # the dense route's cold p50 (ms) on the one-thread K3, from the final run
 # of the gains redesign (PERF.md section 5), printed beside phase 14's
 DENSE_P50_BEFORE = {"spec": 402.243, "sync": 515.165}
@@ -278,16 +307,19 @@ def phase_build(sources=SOURCES):
     k3 = (_k3_ptxas(k1) if {"sqp_onepass", "sqp_onepass_split",
                             "sqp_planes_split"} <= set(sources) else {})
     k6 = _k6_ptxas() if "riccati" in sources else {}
+    k57 = (_k5_k7a_ptxas() if {"linearize", "merit"} <= set(sources)
+           else {})
     for what, regs in (("K1 ptxas by stage body and split launch", k1),
                        ("K3 ptxas by body and split launch", k3),
-                       ("K6 backward ptxas by body", k6)):
+                       ("K6 backward ptxas by body", k6),
+                       ("K5 and K7a ptxas by design and launch", k57)):
         if regs:
             print(f"[2 build] {what}: "
                   + "; ".join(f"{n} {r} registers, {st} B spill stores, "
                               f"{ld} B spill loads, {sk} B stack"
                               for n, (r, st, ld, sk) in regs.items()),
                   flush=True)
-    return secs, k1, k3, k6
+    return secs, k1, k3, k6, k57
 
 
 # K2's shapes on the cold speculative path: the compaction crossings
@@ -678,12 +710,8 @@ def phase_k1_designs(dev):
                 *args, reg=reg, one_thread=K1_DESIGNS[name]), 10)
             times[name][B] = times[name].get(B, 0.0) + ms / 4
         for name in passes:
-            by_name, _ = _device_ms(lambda: [sqp_planes._gains_cuda(
-                *args, reg=reg, one_thread=K1_DESIGNS[name])
-                for _ in range(5)])
-            passes[name][B] = {p: sum(v for k, v in by_name.items()
-                                      if key in k) / 5
-                               for p, key in K1S_PASSES.items()}
+            passes[name][B] = _launch_ms(lambda: sqp_planes._gains_cuda(
+                *args, reg=reg, one_thread=K1_DESIGNS[name]), K1S_PASSES)
         del args
         torch.cuda.empty_cache()
     one = times["one-thread"]
@@ -785,11 +813,8 @@ def phase_k1_factor_designs(dev):
             times[d][B] = times[d].get(B, 0.0) + ms / 4
         for d, by_pass in (("factor split", K1FS_PASSES),
                            ("gains split", K1S_PASSES)):
-            call = _k1_factor_call(d, args, reg)
-            by_name, _ = _device_ms(lambda: [call() for _ in range(5)])
-            passes[d][B] = {p: sum(v for k, v in by_name.items()
-                                   if key in k) / 5
-                            for p, key in by_pass.items()}
+            passes[d][B] = _launch_ms(_k1_factor_call(d, args, reg),
+                                      by_pass)
         del args
         torch.cuda.empty_cache()
     one, gains = times["factor one-thread"], times["gains split"]
@@ -1295,6 +1320,148 @@ def phase_k6_designs(dev):
     return err, times, dev_ms
 
 
+def _cut_lanes(args, lo, hi, B):
+    """``args`` with the tensors at positions lo .. hi - 1 cut to their
+    first ``B`` lanes."""
+    return tuple(a[..., :B].contiguous() if lo <= i < hi and
+                 B != a.shape[-1] else a for i, a in enumerate(args))
+
+
+def _k5_k7a_call(kid, design, args):
+    """One call of K5's or K7a's ``design`` on its arguments, with the
+    constants block built beforehand, as the engine builds it once per
+    solve."""
+    from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
+
+    if kid == "K5":
+        kc = srbd_linearize.kernel_constants(*args[:5]).to(args[5].device)
+        return lambda: srbd_linearize._linearize_cuda(
+            *args, consts=kc, **K5_DESIGNS[design])
+    kc = merit_kernel.kernel_constants(*args[:6]).to(args[6].device)
+    return lambda: merit_kernel._merit_alpha_cuda(
+        *args, consts=kc, **K7A_DESIGNS[design])
+
+
+def _k5_k7a_inputs(dev):
+    """Phase 10c's designs by id: (designs, passes, the plain version, the
+    arguments at a width), on phase 10's inputs."""
+    from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
+
+    lin_full, _, _, merit_full = _sync_kernel_inputs(
+        np.random.default_rng(18), B_MAIN, dev)
+    return {
+        "K5": (K5_DESIGNS, K5_PASSES, srbd_linearize.linearize_ref,
+               lambda B: _cut_lanes(lin_full, 5, 9, B)),
+        "K7a": (K7A_DESIGNS, K7A_PASSES, merit_kernel.merit_alpha_ref,
+                lambda B: _cut_lanes(merit_full, 6, 12, B))}
+
+
+def phase_k5_k7a_designs(dev):
+    """K5 and K7a, each through its new design (the path's ``split``) and
+    its one-thread yardstick, at N=20 on phase 10's inputs: each against
+    the plain version at K5K7_CHECK_WIDTHS, bitwise flag and max |diff|
+    printed; ms per call in four alternated rounds at K5K7_WIDTHS; each
+    launch's device ms (torch.profiler over 5 calls of each design, one
+    profile a width); the byte floor of each design. Fails if a design is not bitwise equal to plain at any
+    width, or if a split design is slower than its one-thread body at
+    B=131072 or at B=4096."""
+    from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
+
+    kernels = _k5_k7a_inputs(dev)
+    err = {(k, d): (0.0, 0.0, True) for k, v in kernels.items() for d in v[0]}
+    for B in K5K7_CHECK_WIDTHS:
+        for kid, (designs, _, plain, args_at) in kernels.items():
+            args = args_at(B)
+            ref = plain(*args)
+            for design in designs:
+                got = _k5_k7a_call(kid, design, args)()
+                torch.cuda.synchronize()
+                if not all(bool(torch.isfinite(g).all()) for g in got):
+                    raise AssertionError(f"{kid} {design}: not finite")
+                rel = max(parity_metric(g.cpu().numpy().astype(np.float64),
+                                        r.cpu().numpy().astype(np.float64))
+                          for g, r in zip(got, ref))
+                mx = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                same = all(torch.equal(g, r) for g, r in zip(got, ref))
+                print(f"[10c K5/K7a designs] {kid} {design} vs plain at B={B}: "
+                      f"{rel:.3e} (limit {REL_TOL:g}); max |diff| {mx:.3e}; "
+                      f"bitwise {same}", flush=True)
+                r0, m0, s0 = err[(kid, design)]
+                err[(kid, design)] = (max(rel, r0), max(mx, m0), same and s0)
+                del got
+            del args, ref
+            torch.cuda.empty_cache()
+    bad = {k: v for k, v in err.items() if not (v[0] < REL_TOL and v[2])}
+    if bad:
+        raise AssertionError(f"a K5/K7a design is not bitwise equal to plain "
+                             f"(rel, max |diff|, bitwise): {bad}")
+
+    # ms per call in turns: forward, backward, forward, backward (5 calls
+    # each), the mean of the four; then each launch's device ms
+    times = {k: {d: {} for d in v[0]} for k, v in kernels.items()}
+    dev_ms = {k: {d: {} for d in v[0]} for k, v in kernels.items()}
+    floor = {k: {} for k in kernels}
+    for B in K5K7_WIDTHS:
+        launch_calls = {}
+        for kid, (designs, _, _, args_at) in kernels.items():
+            args = args_at(B)
+            order = list(designs)
+            calls = {d: _k5_k7a_call(kid, d, args) for d in designs}
+            for design in (order + order[::-1]) * 2:
+                ms = _cuda_ms(calls[design], 5)
+                t = times[kid][design]
+                t[B] = t.get(B, 0.0) + ms / 4
+            launch_calls[kid] = calls
+            if B == B_MAIN:
+                # each input read once, each output written once; a split
+                # design also moves its extra words per lane (K5_EXTRA_WORDS,
+                # K7A_EXTRA_WORDS)
+                hi = 9 if kid == "K5" else 12
+                lo = 5 if kid == "K5" else 6
+                io = _nbytes(args[lo:hi], _k5_k7a_call(kid, order[0], args)())
+                extra = (K5_EXTRA_WORDS if kid == "K5" else K7A_EXTRA_WORDS)
+                for design in designs:
+                    floor[kid][design] = io + 4 * B * extra.get(design, 0)
+            del args
+        # one profile of both kernels' designs (their kernels' names differ)
+        tagged = {(kid, d, p): key for kid, v in kernels.items()
+                  for d, by in v[1].items() for p, key in by.items()}
+        got = _launch_ms(lambda: [c() for by in launch_calls.values()
+                                  for c in by.values()],
+                         {"/".join(t): key for t, key in tagged.items()})
+        for (kid, d, p) in tagged:
+            dev_ms[kid][d].setdefault(B, {})[p] = got[f"{kid}/{d}/{p}"]
+        del launch_calls
+        torch.cuda.empty_cache()
+    ratio = {}
+    for kid, (designs, _, _, _) in kernels.items():
+        one = times[kid]["one-thread"]
+        for design in designs:
+            print(f"[10c K5/K7a designs] {kid} {design} ms per call: "
+                  + ", ".join(f"B={B} {ms:.3f} ({ms / one[B]:.3f}x "
+                              "one-thread)"
+                              for B, ms in times[kid][design].items())
+                  + "; device ms per launch: " + "; ".join(
+                      f"B={B} " + ", ".join(f"{p} {v:.3f}" for p, v in
+                                            by.items())
+                      for B, by in dev_ms[kid][design].items()), flush=True)
+        print(f"[10c K5/K7a designs] {kid} bytes each design moves per call "
+              f"at B={B_MAIN}: " + ", ".join(
+                  f"{d} {b / 1e9:.3f} GB, a floor of "
+                  f"{b / PEAK_BYTES * 1e3:.3f} ms"
+                  for d, b in floor[kid].items()), flush=True)
+        for B in K5K7_WIDTHS:
+            ratio[(kid, B)] = times[kid]["split"][B] / one[B]
+    print("[10c K5/K7a designs] the split designs against the one-thread "
+          "bodies: " + ", ".join(f"{k} B={B} {r:.3f}x"
+                                 for (k, B), r in ratio.items()),
+          flush=True)
+    if max(ratio.values()) > 1.0:
+        raise AssertionError(f"a split K5/K7a design is slower than the "
+                             f"one-thread body: {ratio}")
+    return err, times, dev_ms, floor
+
+
 def _route_problem(dev, B, kw, seed=0):
     import dataclasses
 
@@ -1303,16 +1470,20 @@ def _route_problem(dev, B, kw, seed=0):
 
 
 def phase_sync(dev, card, spec):
-    """Cold B=131072 solves of the iteration-synchronous loop on its two
-    kernel routes, each read against the speculative path's cold solve."""
+    """Cold B=131072 solves of the iteration-synchronous loop on its kernel
+    routes (``pallas``, ``fused``, and the dense ``fused`` with
+    ``planes=False``), each read against the speculative path's cold solve,
+    each p50 beside the one-thread K5's and K7a's, each profiled (K5's,
+    K7a's and on ``pallas`` K6a's device ms and share)."""
     from srbd_nmpc_tpu_torch.parallel import sharded
 
     n_spec, it_spec = spec
     need = {"pallas": ("linearize", "riccati_bwd_constq", "riccati_fwd",
                        "merit_alpha"),
-            "fused": ("sqp_planes", "merit_alpha")}
+            "fused": ("sqp_planes", "merit_alpha"),
+            "dense": ("sqp_onepass", "merit_alpha")}
     out = {}
-    for route, kw in SYNC_ROUTES.items():
+    for route, kw in {**SYNC_ROUTES, "dense": DENSE_ROUTES["sync"]}.items():
         prob = _route_problem(dev, B_MAIN, kw)
         torch.cuda.synchronize()
         _reset_counts()
@@ -1333,32 +1504,42 @@ def phase_sync(dev, card, spec):
             times.append((time.perf_counter() - t0) * 1e3)
         p50 = float(np.percentile(times, 50))
         d_conv, d_it = n_conv - n_spec, mean_it - it_spec
-        before = (f" ({PALLAS_P50_BEFORE:.3f} on the one-thread K6)"
-                  if route == "pallas" else "")
-        print(f"[11 sync] {route} (qp_kernel={kw['qp_kernel']!r}, speculative="
-              f"{kw.get('speculative', True)}) B={B_MAIN}: converged "
+        before = (f" ({SYNC_P50_BEFORE[route]:.3f} on the one-thread K5 and "
+                  "K7a)")
+        print(f"[11 sync] {route} ({kw}) B={B_MAIN}: converged "
               f"{n_conv}/{B_MAIN} ({d_conv:+d} vs speculative), mean SQP "
               f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
               f"line-search trips {ls}, host syncs {syncs}, launches "
               f"{launches}; p50 {p50:.3f} ms per solve{before}, "
               f"{B_MAIN / p50 * 1e3:.1f} solves/s (times "
               f"{[round(t, 3) for t in times]}) on {card}", flush=True)
-        if route == "pallas":
-            # where the time goes: one more solve under the profiler
-            by_name, _ = _device_ms(lambda: sharded.solve_batch(*prob))
-            busy = sum(by_name.values())
-            k6a = sum(v for k, v in by_name.items()
-                      if "riccati_team_kernel" in k)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-            print(f"[11 sync] pallas profiled solve: device busy {busy:.3f} "
-                  f"ms ({100 * busy / p50:.1f} % of the p50, so idle "
-                  f"{100 * (1 - busy / p50):.1f} %), K6a (team kernel) "
-                  f"{k6a:.3f} ms, {100 * k6a / busy:.1f} % of device time; "
-                  "top kernels " + ", ".join(f"{k[:40]} {v:.3f}"
-                                             for k, v in top), flush=True)
-            if k6a <= 0.0:
-                raise AssertionError("pallas: no team K6 kernel in the "
-                                     "profiled solve")
+        # where the time goes: one more solve under the profiler
+        by_name, _ = _device_ms(lambda: sharded.solve_batch(*prob))
+        busy = sum(by_name.values())
+
+        def dev_of(keys):
+            return sum(v for k, v in by_name.items()
+                       if any(key in k for key in keys))
+
+        shares = {"K5": dev_of(K5_PASSES["split"].values()),
+                  "K7a": dev_of(K7A_PASSES["split"].values()),
+                  # K6a's team kernel (K1s-B, k1s_riccati_team_kernel,
+                  # runs on the other routes)
+                  "K6a": (dev_of(("riccati_team_kernel",))
+                          if route == "pallas" else 0.0)}
+        old = dev_of(("linearize_kernel", "merit_alpha_kernel"))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[11 sync] {route} profiled solve: device busy {busy:.3f} ms "
+              f"({100 * busy / p50:.1f} % of the p50, so idle "
+              f"{100 * (1 - busy / p50):.1f} %), " + ", ".join(
+                  f"{k} {v:.3f} ms ({100 * v / busy:.1f} % of device time)"
+                  for k, v in shares.items() if v)
+              + f", one-thread K5/K7a {old:.3f} ms; top kernels "
+              + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top), flush=True)
+        want = ("K5", "K7a", "K6a") if route == "pallas" else ("K7a",)
+        if old > 0.0 or not all(shares[k] > 0.0 for k in want):
+            raise AssertionError(f"{route}: profiled device ms {shares}, "
+                                 f"one-thread K5/K7a {old}")
         missing = [k for k in need[route] if not launches.get(k)]
         if missing:
             raise AssertionError(f"{route}: kernels never launched: {missing}")
@@ -1368,7 +1549,8 @@ def phase_sync(dev, card, spec):
             raise AssertionError(f"{route}: converged {d_conv:+d}, mean "
                                  f"iterations {d_it:+.4f} vs speculative")
         out[route] = dict(launches=launches, n_conv=n_conv, mean_it=mean_it,
-                          ls=ls, syncs=syncs, p50=p50)
+                          ls=ls, syncs=syncs, p50=p50, busy=busy,
+                          shares=shares)
         del prob, st, info
         torch.cuda.empty_cache()
 
@@ -1675,11 +1857,8 @@ def phase_k3_designs(dev):
                 ms = _cuda_ms(_k3_call(name, design, cand, one, reg), 5)
                 t = times[(name, design)]
                 t[B] = t.get(B, 0.0) + ms / 4
-            split = _k3_call(name, "split", cand, one, reg)
-            by_name, _ = _device_ms(lambda: [split() for _ in range(5)])
-            passes[name][B] = {p: sum(v for k, v in by_name.items()
-                                      if key in k) / 5
-                               for p, key in K3S_PASSES.items()}
+            passes[name][B] = _launch_ms(
+                _k3_call(name, "split", cand, one, reg), K3S_PASSES)
         del cand, one
         torch.cuda.empty_cache()
     ratio = {}
@@ -2207,6 +2386,23 @@ def _k6_ptxas():
     return out
 
 
+def _k5_k7a_ptxas():
+    """(registers, spill stores, spill loads, stack bytes) of K5's and K7a's
+    kernels (linearize.cu, merit.cu) by "<id> <design> <pass>": the
+    one-thread yardsticks and each launch of the new designs."""
+    out = {}
+    for kid, source, designs in (("K5", "linearize", K5_PASSES),
+                                 ("K7a", "merit", K7A_PASSES)):
+        for design, passes in designs.items():
+            for p, key in passes.items():
+                found = _ptxas(source, key)
+                if len(found) != 1:
+                    raise AssertionError(f"{key} in the ptxas report: {found}")
+                name = f"{kid} {design}" + ("" if p == design else f" {p}")
+                out[name] = found[0][1:]
+    return out
+
+
 def phase_factor(dev, card, spec):
     """Cold B=131072 solves with ``park_factor=True`` (K1's factor body) on
     the speculative loop and the synchronous ``fused`` route, read against
@@ -2279,13 +2475,19 @@ def _device_ms(fn, counts=None):
     the number of device kernels it ran (by name into ``counts``, where
     given). Kernels run on one stream, so their sum is the device busy time
     (the profiled call's wall time includes the profiler's own start-up and
-    is not used)."""
+    is not used). The profiler keeps only the kernel records whose times,
+    moved from the card's clock to the host's, fall inside its window, and
+    on the card's machine those times can sit a second away from the
+    launches: the window is held open PROFILE_PAD_S on either side of
+    ``fn()`` (``chip_profile_probe.py`` measures the losses)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     by_name, n = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -2294,6 +2496,25 @@ def _device_ms(fn, counts=None):
             if counts is not None:
                 counts[e.key] = counts.get(e.key, 0) + e.count
     return by_name, n
+
+
+def _launch_ms(call, passes, reps=5, tries=3):
+    """Device ms per launch of each of ``passes`` (name: a key of its
+    kernel's name) over ``reps`` profiled runs of ``call``. A profile that
+    does not hold ``reps`` kernels of each pass lost records and would read
+    low: it is said so and taken again, at most ``tries`` times in all."""
+    for attempt in range(tries):
+        counts = {}
+        by_name, _ = _device_ms(lambda: [call() for _ in range(reps)], counts)
+        seen = {p: sum(n for k, n in counts.items() if key in k)
+                for p, key in passes.items()}
+        if all(n == reps for n in seen.values()):
+            return {p: sum(v for k, v in by_name.items() if key in k) / reps
+                    for p, key in passes.items()}
+        print(f"[device ms] the profile of {reps} runs held {seen} kernels "
+              f"by launch (try {attempt + 1} of {tries})", flush=True)
+    raise AssertionError(f"the profiler lost kernel records {tries} times: "
+                         f"{seen}")
 
 
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -2416,6 +2637,32 @@ def _k6_extra(name, regs, d_err, d_t, d_dev):
                 design_err=d_err[(name, "team")][1])
 
 
+def _k5_k7a_extra(name, regs, d_err, d_t, d_dev, floor):
+    """The keys that K5's or K7a's row adds: the path's design (the split),
+    its ms by width, a row for each of its launches (device ms by width,
+    ptxas report; registers and spills of the row are the largest of its
+    launches'), its byte floor and largest difference from plain over
+    phase 10c's checks (``design_err``, folded into the row's max_abs_err),
+    the one-thread body's ms by width and ptxas report beside it."""
+    kid, passes = (("K5", K5_PASSES) if name == "linearize"
+                   else ("K7a", K7A_PASSES))
+    per = _launch_rows(passes["split"], d_dev[kid]["split"], {
+        p: regs[f"{kid} split {p}"] for p in passes["split"]})
+    one = regs[f"{kid} one-thread"]
+    return dict(design="split",
+                ms_by_width={str(B): v for B, v in d_t[kid]["split"].items()},
+                split_bytes=floor[kid]["split"],
+                split_bytes_floor_ms=floor[kid]["split"] / PEAK_BYTES * 1e3,
+                launches_per_call=per,
+                one_thread_ms_by_width={
+                    str(B): v for B, v in d_t[kid]["one-thread"].items()},
+                registers=max(e["registers"] for e in per),
+                spill_stores=max(e["spill_stores"] for e in per),
+                spill_loads=max(e["spill_loads"] for e in per),
+                one_thread_registers=one[0], one_thread_spill_stores=one[1],
+                design_err=d_err[(kid, "split")][1])
+
+
 # the TPU kernels' ids (PERF.md's table) by the port's counter names
 KERNEL_IDS = {"sqp_planes": "K1", "sqp_planes_rank6": "K1_rank6",
               "sqp_planes_factor": "K1_factor",
@@ -2441,7 +2688,7 @@ def main(argv=None) -> int:
         phase_permute(dev)
         print(smi)
         return 0
-    _, k1_regs, k3_regs, k6_regs = phase_build()
+    _, k1_regs, k3_regs, k6_regs, k57_regs = phase_build()
     k2, per_call = phase_permute(dev)
     if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
         raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
@@ -2457,6 +2704,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     _, k_err, k_t, k_b = phase_sync_kernels(dev)
     k6d_err, k6d_t, k6d_dev = phase_k6_designs(dev)
+    k57 = phase_k5_k7a_designs(dev)
     sync = phase_sync(dev, f"{smi}", spec)
     d_err, d_t, d_b, k4_launches = phase_dense_kernels(dev)
     k3d_err, k3d_t, k3d_passes, k3d_floor = phase_k3_designs(dev)
@@ -2522,7 +2770,9 @@ def main(argv=None) -> int:
             ("merit_alpha", "merit.cu", "models/merit_pallas.py:131",
              pallas["merit_alpha"], k_err, k_t, k_b)):
         extra = (_k6_extra(name, k6_regs, k6d_err, k6d_t, k6d_dev)
-                 if name in K6_NAMES else {})
+                 if name in K6_NAMES else
+                 _k5_k7a_extra(name, k57_regs, *k57)
+                 if name in ("linearize", "merit_alpha") else {})
         kernels.append(_entry(name, source, replaces, n,
                               max(err[name], extra.pop("design_err", 0.0)),
                               *t[name], b[name], **extra))

@@ -7,7 +7,8 @@ cost plus the terminal cost, both accumulated stage by stage.
 - K7a, ``merit_alpha`` (``merit_alpha_pallas``, Pallas ``_kernel_alpha``):
   (theta, phi) at the line-search candidate ``(x + alpha dx, u + alpha du)``
   with a per-scenario alpha, so the backtracking line search never stores
-  candidate trajectories.
+  candidate trajectories. On the card two launches: a stage pass (a thread
+  per stage and lane) and a reduction in stage order.
 - K7b, ``merit`` (``merit_pallas``, Pallas ``_kernel`` / ``_kernel_nograd``):
   (theta, phi), the diagnostics max|defect| and min constraint and, with
   ``with_grad``, the gradients Jphi_x, Jphi_u at the iterate (x, u).
@@ -140,7 +141,7 @@ def _fn(entry: str, argtypes):
 
 def _lib():
     return _fn("srbd_merit_alpha_launch",
-               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+               [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
                + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -151,21 +152,33 @@ def _lib_merit():
 
 
 def _merit_alpha_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
-                      alpha, mu_b, theta_b):
+                      alpha, mu_b, theta_b, one_thread=False, consts=None):
+    """K7a on the card: the stage pass and the reduction, or with
+    ``one_thread`` the one-thread kernel ``merit_alpha_kernel``, the
+    yardstick that the card tests and chip_smoke.py hold to the plain
+    version and time the new design against. ``consts``: the block of
+    ``kernel_constants`` (built on each call when not given). CUDA tensors
+    only."""
     Np1, _, Bt = x.shape
     N = Np1 - 1
     for name, t, shape in (("x", x, (Np1, NX, Bt)), ("xr", xr, (Np1, NX, Bt)),
                            ("dx", dx, (Np1, NX, Bt)), ("u", u, (N, NU, Bt)),
                            ("du", du, (N, NU, Bt)), ("alpha", alpha, (Bt,))):
         check_cuda_f32(name, t, shape)
-    consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc).to(x.device)
+    if consts is None:
+        consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc)
+    consts = consts.to(x.device)      # a no-op where the block lies there
+    check_cuda_f32("consts", consts, (_K_LEN,))
     x, dx, u, du, xr, alpha = (t.contiguous()
                                for t in (x, dx, u, du, xr, alpha))
     out = torch.empty((2, Bt), dtype=torch.float32, device=x.device)
-    err = _lib()(consts.data_ptr(), x.data_ptr(), dx.data_ptr(), u.data_ptr(),
-                 du.data_ptr(), xr.data_ptr(), alpha.data_ptr(),
-                 out[0].data_ptr(), out[1].data_ptr(), N, Bt, float(mu_b),
-                 float(theta_b), THREADS,
+    terms = (None if one_thread else
+             torch.empty((3 * N + 1, Bt), dtype=torch.float32, device=x.device))
+    err = _lib()(int(one_thread), consts.data_ptr(), x.data_ptr(),
+                 dx.data_ptr(), u.data_ptr(), du.data_ptr(), xr.data_ptr(),
+                 alpha.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 None if terms is None else terms.data_ptr(), N, Bt,
+                 float(mu_b), float(theta_b), THREADS,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"merit kernel launch failed: CUDA error {err}")
@@ -174,15 +187,18 @@ def _merit_alpha_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
 
 
 def merit_alpha(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
-                alpha, mu_b: float, theta_b: float
+                alpha, mu_b: float, theta_b: float, consts=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merit (theta, phi) at the candidate (x + alpha dx, u + alpha du): the
     contract of the JAX ``merit_alpha_pallas`` (any width B). CPU tensors
-    run the plain version; CUDA tensors run the CUDA kernel (f32) or
-    raise."""
+    run the plain version; CUDA tensors run the CUDA kernels (f32) or
+    raise. ``consts``: the kernels' constants block from
+    ``kernel_constants`` on the card, built once per solve by the caller
+    (built on each CUDA call when not given; the plain version does not
+    read it)."""
     if x.device.type == "cuda":
         return _merit_alpha_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx,
-                                 du, alpha, mu_b, theta_b)
+                                 du, alpha, mu_b, theta_b, consts=consts)
     if x.device.type != "cpu":
         raise TypeError(f"unsupported device {x.device}")
     return merit_alpha_ref(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,

@@ -9,8 +9,8 @@ cost (R_eff, r_eff), the tracking gradient q, and eight merit partials.
 - ``linearize_ref``: the plain PyTorch version, any device and dtype
   (``models.srbd_soa`` and ``ops.smallmat`` k-loops).
 - ``linearize``: the public entry. CPU tensors run the plain version; CUDA
-  tensors launch the hand-written kernel ``csrc/linearize.cu`` (f32 only)
-  or raise.
+  tensors launch the hand-written kernels of ``csrc/linearize.cu`` (f32
+  only), the stage pass and the block-written dense A, B, R_eff, or raise.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ from srbd_nmpc_tpu_torch.utils.build import check_cuda_f32, load_kernel
 
 # constants block handed to the kernel (offsets match csrc/linearize.cu)
 _K_AC, _K_BC, _K_R, _K_Q, _K_LEN = 17, 305, 329, 473, 617
-THREADS = 128
+# the words a stage pass hands to the dense write (csrc/linearize.cu H_C):
+# ddb, one per constraint row
+_HAND = 24
 
 # launches of the CUDA kernel since the last reset (read by chip_smoke.py)
 launches = 0
@@ -96,18 +98,29 @@ def linearize_ref(params: SRBDParams, Q_w, R_w, Ac, bc, xs, xn, us, xr,
 def _lib():
     fn = load_kernel("linearize").srbd_linearize_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
+                       + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b):
+def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b,
+                    one_thread=False, consts=None):
+    """K5 on the card: the stage pass and the dense write (two launches
+    through a [N, 24, B] hand-off), or with ``one_thread`` the one-thread
+    kernel ``linearize_kernel``, the yardstick that the card tests and
+    chip_smoke.py hold to the plain version and time the new design
+    against. ``consts``: the block of ``kernel_constants`` (built on each
+    call when not given). CUDA tensors only."""
     global launches
     N, _, Bt = xs.shape
     for name, t in (("xs", xs), ("xn", xn), ("us", us), ("xr", xr)):
         check_cuda_f32(name, t, (N, NX, Bt))
-    consts = kernel_constants(params, Q_w, R_w, Ac, bc).to(xs.device)
+    if consts is None:
+        consts = kernel_constants(params, Q_w, R_w, Ac, bc)
+    consts = consts.to(xs.device)     # a no-op where the block lies there
+    check_cuda_f32("consts", consts, (_K_LEN,))
     xs, xn, us, xr = (t.contiguous() for t in (xs, xn, us, xr))
 
     def empty(*shape):
@@ -117,12 +130,15 @@ def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b):
                     empty(N, NU, NU, Bt))
     b, q, r_eff, mer = (empty(N, NX, Bt), empty(N, NX, Bt), empty(N, NU, Bt),
                         empty(N, 8, Bt))
+    hand = None if one_thread else empty(N, _HAND, Bt)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = _lib()(consts.data_ptr(), xs.data_ptr(), xn.data_ptr(),
-                 us.data_ptr(), xr.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+    err = _lib()(int(one_thread), consts.data_ptr(), xs.data_ptr(),
+                 xn.data_ptr(), us.data_ptr(), xr.data_ptr(), A.data_ptr(),
+                 Bm.data_ptr(),
                  b.data_ptr(), R_eff.data_ptr(), r_eff.data_ptr(),
-                 q.data_ptr(), mer.data_ptr(), N, Bt, float(mu_b),
-                 float(theta_b), THREADS, stream)
+                 q.data_ptr(), mer.data_ptr(),
+                 None if hand is None else hand.data_ptr(), N, Bt,
+                 float(mu_b), float(theta_b), stream)
     if err != 0:
         raise RuntimeError(f"linearize kernel launch failed: CUDA error {err}")
     launches += 1
@@ -130,13 +146,17 @@ def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b):
 
 
 def linearize(params: SRBDParams, Q_w, R_w, Ac, bc, xs, xn, us, xr,
-              mu_b: float, theta_b: float) -> Tuple[torch.Tensor, ...]:
+              mu_b: float, theta_b: float, consts=None
+              ) -> Tuple[torch.Tensor, ...]:
     """Fused stage linearization: the contract of the JAX
     ``linearize_pallas`` (any width B). CPU tensors run the plain version;
-    CUDA tensors run the CUDA kernel (f32) or raise."""
+    CUDA tensors run the CUDA kernels (f32) or raise. ``consts``: the
+    kernels' constants block from ``kernel_constants`` on the card, built
+    once per solve by the caller (built on each CUDA call when not
+    given; the plain version does not read it)."""
     if xs.device.type == "cuda":
         return _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr,
-                               mu_b, theta_b)
+                               mu_b, theta_b, consts=consts)
     if xs.device.type != "cpu":
         raise TypeError(f"unsupported device {xs.device}")
     return linearize_ref(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b,

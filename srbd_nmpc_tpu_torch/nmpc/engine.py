@@ -45,7 +45,7 @@ import dataclasses
 import functools
 import math
 import numbers
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -303,15 +303,47 @@ def solve(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
     return _solve_batched_soa(params, weights, cfg, state, x0, x_ref)
 
 
-def _fused_constants(params, weights, cfg, device):
-    """The constants block of the fused trips (K1, K3), built once per solve
-    on CUDA, where its leg-block-diagonal check costs a device read-back;
-    None elsewhere (the plain versions take the parameters themselves)."""
-    if _qp_route(cfg) != "fused" or torch.device(device).type != "cuda":
+@dataclasses.dataclass(frozen=True)
+class _KernelConstants:
+    """The constants of one solve's kernels: the constraint rows (Ac, bc)
+    and the constants blocks of the kernels its route runs, None where it
+    runs none: ``fused`` K1's and K3's (``sqp_stage.kernel_constants``),
+    ``linearize`` K5's (``pallas``), ``merit`` K7a's (``fused`` and
+    ``pallas``)."""
+
+    Ac: torch.Tensor
+    bc: torch.Tensor
+    fused: Optional[sqp_stage.KernelConstants] = None
+    linearize: Optional[torch.Tensor] = None
+    merit: Optional[torch.Tensor] = None
+
+
+def _kernel_constants(params, weights, cfg, device, merit=True):
+    """The kernels' constants, built once per solve on CUDA (K1's and K3's
+    leg-block-diagonal check costs a device read-back); None elsewhere
+    (the plain versions take the parameters themselves). ``merit``: whether
+    the solve's loop runs K7a (the synchronous loop does, the speculative
+    loop does not)."""
+    route = _qp_route(cfg)
+    if route == "xla" or torch.device(device).type != "cuda":
         return None
     Ac, bc = srbd.constraint_matrix(params)
-    return sqp_stage.kernel_constants(params, weights.Q, weights.Qf,
-                                      weights.R, Ac, bc)
+    k7 = (merit_kernel.kernel_constants(params, weights.Q, weights.Qf,
+                                        weights.R, Ac, bc) if merit else None)
+    if route == "fused":
+        return _KernelConstants(Ac, bc, merit=k7, fused=sqp_stage.
+                                kernel_constants(params, weights.Q, weights.Qf,
+                                                 weights.R, Ac, bc))
+    return _KernelConstants(Ac, bc, merit=k7, linearize=srbd_linearize.
+                            kernel_constants(params, weights.Q, weights.R, Ac,
+                                             bc))
+
+
+def _constraints(params, consts):
+    """(Ac, bc): the solve's, or built from the parameters without it."""
+    if consts is None:
+        return srbd.constraint_matrix(params)
+    return consts.Ac, consts.bc
 
 
 def _soa_inputs(cfg: NmpcConfig, state: NmpcState, x0, x_ref):
@@ -329,14 +361,17 @@ def _soa_inputs(cfg: NmpcConfig, state: NmpcState, x0, x_ref):
     return xa, us, x0s, xra
 
 
-def _stage_linearization(lin, params, weights, cfg, xa, us, xra):
-    """Run a stage linearization ``lin`` (``srbd_linearize.linearize`` or
-    its plain version) and add the terminal gradient and the merit at the
-    current iterate from its partials (JAX ``_linearize_pallas_soa``)."""
-    Ac, bc = srbd.constraint_matrix(params)
+def _stage_linearization(lin, params, weights, cfg, xa, us, xra,
+                         consts=None):
+    """Run a stage linearization ``lin`` (``srbd_linearize.linearize``, with
+    the solve's ``consts`` from ``_kernel_constants``, or its plain version)
+    and add the terminal gradient and the merit at the current iterate from
+    its partials (JAX ``_linearize_pallas_soa``)."""
+    Ac, bc = _constraints(params, consts)
+    kw = {} if consts is None else dict(consts=consts.linearize)
     A, Bm, b, q_run, r_eff, R_eff, mer = lin(
         params, weights.Q, weights.R, Ac, bc, xa[:-1], xa[1:], us, xra[:-1],
-        cfg.mu_barrier, cfg.theta_barrier)
+        cfg.mu_barrier, cfg.theta_barrier, **kw)
     eN = xa[-1] - xra[-1]
     q_term = sm.mv(weights.Qf.to(xa.dtype)[:, :, None], eN)
     q = torch.cat([q_run, q_term[None]], dim=0)
@@ -347,12 +382,12 @@ def _stage_linearization(lin, params, weights, cfg, xa, us, xra):
     return A, Bm, b, R_eff, q, r_eff, aux
 
 
-def _linearize_pallas_soa(params, weights, cfg, xa, us, xra):
-    """The ``pallas`` route's linearization: kernel K5 on CUDA tensors.
-    Returns (A, B, b, R_eff, q, r_eff, (theta, phi, max|defect|,
-    min constraint))."""
+def _linearize_pallas_soa(params, weights, cfg, xa, us, xra, consts=None):
+    """The ``pallas`` route's linearization: kernel K5 on CUDA tensors
+    (``consts``: ``_kernel_constants``). Returns (A, B, b, R_eff, q, r_eff,
+    (theta, phi, max|defect|, min constraint))."""
     return _stage_linearization(srbd_linearize.linearize, params, weights,
-                                cfg, xa, us, xra)
+                                cfg, xa, us, xra, consts)
 
 
 def _rk4_jacobians_soa(params, x, u):
@@ -517,21 +552,24 @@ def linearize(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
 
 
 def _merit_candidate_soa(params, weights, cfg, xa, us, xra, dx, du, alpha,
-                         use_kernel: bool):
+                         use_kernel: bool, consts=None):
     """(theta, phi) [B] at the candidate (xa + alpha dx, us + alpha du):
     kernel K7a on the ``fused`` and ``pallas`` routes (the candidate is
-    formed inside the kernel), the plain merit on ``xla``."""
+    formed inside the kernel; ``consts``: ``_kernel_constants``), the plain
+    merit on ``xla``."""
     if use_kernel:
-        Ac, bc = srbd.constraint_matrix(params)
+        Ac, bc = _constraints(params, consts)
         return merit_kernel.merit_alpha(
             params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us, xra,
-            dx, du, alpha, cfg.mu_barrier, cfg.theta_barrier)
+            dx, du, alpha, cfg.mu_barrier, cfg.theta_barrier,
+            consts=None if consts is None else consts.merit)
     a = alpha[None, None, :]
     return _merit_soa(params, weights, cfg, xa + a * dx, us + a * du, xra)
 
 
 def _line_search_soa(params, weights, cfg, xa, us, alpha0, xra, dx, du,
-                     theta0, phi0, dphi, active0, use_kernel: bool):
+                     theta0, phi0, dphi, active0, use_kernel: bool,
+                     consts=None):
     """Backtracking filter line search, per scenario the reference's loop
     (NMPC_solver.cpp:200-264): evaluate at alpha, accept or multiply alpha
     by beta_alpha. The JAX ``lax.while_loop`` is a host loop here with one
@@ -545,7 +583,8 @@ def _line_search_soa(params, weights, cfg, xa, us, alpha0, xra, dx, du,
         if not bool(searching.any()):
             break
         theta_a, phi_a = _merit_candidate_soa(
-            params, weights, cfg, xa, us, xra, dx, du, alpha, use_kernel)
+            params, weights, cfg, xa, us, xra, dx, du, alpha, use_kernel,
+            consts)
         ok = _accept(cfg, theta_a, phi_a, alpha, theta0, phi0, dphi) & searching
         alpha = torch.where(searching & ~ok, cfg.beta_alpha * alpha, alpha)
         accepted = accepted | ok
@@ -561,28 +600,29 @@ def _sqp_step_soa(params, weights, cfg, xa, us, alpha, x0s, xra, active,
                   consts=None):
     """One SQP iteration in SoA layout (xa [N+1,12,B], us [N,12,B],
     x0s [12,B], xra [N+1,12,B]): linearize, solve the QP on the route
-    ``_qp_route`` picks, line-search. ``consts``: ``_fused_constants``.
+    ``_qp_route`` picks, line-search. ``consts``: ``_kernel_constants``.
     Returns (xa', us', alpha', (theta0, phi0, dphi, max_defect, min_con,
     nan, trips))."""
     Bn = xa.shape[-1]
     route = _qp_route(cfg)
     dx0s = x0s - xa[0]
     if route == "fused":
-        Ac, bc = srbd.constraint_matrix(params)
+        Ac, bc = _constraints(params, consts)
         head = (params, weights.Q, weights.Qf, weights.R, Ac, bc, xa, us, xra)
+        fused = None if consts is None else consts.fused
         if cfg.planes:
             dx, du, dphi, aux = sqp_planes.sqp_qp_solve_onepass_planes(
                 *head, torch.zeros_like(xa), torch.zeros_like(us),
                 torch.zeros(Bn, dtype=xa.dtype, device=xa.device), x0s,
                 cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg,
-                factor=cfg.park_factor, consts=consts)
+                factor=cfg.park_factor, consts=fused)
         else:
             dx, du, dphi, aux = sqp_kernel.sqp_qp_solve_onepass(
                 *head, dx0s, cfg.mu_barrier, cfg.theta_barrier, reg=cfg.reg,
-                fold=cfg.fold_forward, consts=consts)
+                fold=cfg.fold_forward, consts=fused)
     elif route == "pallas":
         A, Bm, b, R, q, r, aux = _linearize_pallas_soa(
-            params, weights, cfg, xa, us, xra)
+            params, weights, cfg, xa, us, xra, consts)
         dx, du = riccati_kernel.lqr_solve(
             A, Bm, b, (weights.Q, weights.Qf), R, q, r, dx0s, reg=cfg.reg)
         dphi = (dx * q).sum(dim=(0, 1)) + (du * r).sum(dim=(0, 1))
@@ -598,7 +638,7 @@ def _sqp_step_soa(params, weights, cfg, xa, us, alpha, x0s, xra, active,
     alpha0 = alpha if cfg.persistent_alpha else torch.ones_like(alpha)
     xa_n, us_n, alpha_n, trips = _line_search_soa(
         params, weights, cfg, xa, us, alpha0, xra, dx, du, theta0, phi0, dphi,
-        active & ~nan, route != "xla")
+        active & ~nan, route != "xla", consts)
     return xa_n, us_n, alpha_n, (theta0, phi0, dphi, max_defect, min_con, nan,
                                  trips)
 
@@ -628,7 +668,7 @@ def sqp_step(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
         active = torch.ones((Bn,), dtype=torch.bool, device=xa.device)
     xa_n, us_n, alpha_n, aux = _sqp_step_soa(
         params, weights, cfg, xa, us, state.alpha, x0s, xra, active,
-        _fused_constants(params, weights, cfg, xa.device))
+        _kernel_constants(params, weights, cfg, xa.device))
     theta0, phi0, dphi, max_defect, min_con, nan, trips = aux
     converged, status = _step_status(cfg, theta0, dphi, nan)
     new_state = NmpcState(x=xa_n.permute(2, 0, 1).contiguous(),
@@ -653,7 +693,7 @@ def _solve_batched_soa(params, weights, cfg, state, x0, x_ref):
     dtype, dev = state.x.dtype, state.x.device
     xa, us, x0s, xra = _soa_inputs(cfg, state, x0, x_ref)
     alpha = state.alpha
-    consts = _fused_constants(params, weights, cfg, dev)
+    consts = _kernel_constants(params, weights, cfg, dev)
     i32 = torch.int32
     inf = torch.full((Bn,), math.inf, dtype=dtype, device=dev)
     info = NmpcInfo(
@@ -754,9 +794,10 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
                 .to(dtype).contiguous())
 
     xra = _xra_at(Bn) if shared_ref else x_ref.permute(1, 2, 0).contiguous()
-    Ac, bc = srbd.constraint_matrix(params)
+    consts = _kernel_constants(params, weights, cfg, dev, merit=False)
+    Ac, bc = _constraints(params, consts)
     head = (params, weights.Q, weights.Qf, weights.R, Ac, bc)
-    kw = dict(reg=cfg.reg, consts=_fused_constants(params, weights, cfg, dev))
+    kw = dict(reg=cfg.reg, consts=None if consts is None else consts.fused)
 
     if cfg.planes:
         # one plane-phase kernel (K1) serves the bootstrap (alpha = 0) and

@@ -147,13 +147,14 @@ def build_log(name: str) -> str:
 
 def check_cuda_f32(name: str, t, shape) -> None:
     """Raise unless ``t`` is a float32 CUDA tensor of shape ``shape``: what
-    every kernel wrapper checks before it hands a pointer to a kernel."""
-    if t.device.type != "cuda" or t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 CUDA tensors, "
-                        f"got {t.dtype} on {t.device}")
+    every kernel wrapper checks before it hands a pointer to a kernel. The
+    shape is checked first, so a misshapen input is named on any device."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 CUDA tensors, "
+                        f"got {t.dtype} on {t.device}")
 
 
 def load_kernel(name: str) -> ctypes.CDLL:

@@ -116,6 +116,35 @@ def test_routes_run_on_cpu_without_launching_kernels():
     assert counts() == before
 
 
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_kernel_constants_built_once_per_solve_for_the_route(route):
+    """The constants the engine builds once per solve: None on the CPU and
+    on the plain routes; for a CUDA device the blocks of the kernels the
+    route runs, each equal to the block its wrapper builds without them:
+    K1's and K3's and K7a's on ``fused``, K5's and K7a's on ``pallas``;
+    K7a's only where the loop runs it (not the speculative loop's). Only
+    the device's type decides, so the CPU parameters serve here."""
+    params, weights, cfg = _port_problem(**ROUTES[route])[:3]
+    assert engine._kernel_constants(params, weights, cfg, "cpu") is None
+    kc = engine._kernel_constants(params, weights, cfg, "cuda")
+    if route not in ("fused", "pallas"):
+        assert kc is None
+        return
+    Ac, bc = srbd.constraint_matrix(params)
+    assert torch.equal(kc.Ac, Ac) and torch.equal(kc.bc, bc)
+    assert torch.equal(kc.merit, merit_kernel.kernel_constants(
+        params, weights.Q, weights.Qf, weights.R, Ac, bc))
+    if route == "pallas":
+        assert kc.fused is None
+        assert torch.equal(kc.linearize, srbd_linearize.kernel_constants(
+            params, weights.Q, weights.R, Ac, bc))
+    else:
+        assert kc.linearize is None and kc.fused is not None
+    spec = engine._kernel_constants(params, weights, cfg, "cuda", merit=False)
+    assert spec.merit is None
+    assert spec.fused is not None or spec.linearize is not None
+
+
 def test_speculative_matches_synchronous():
     """The speculative loop reproduces the synchronous fused loop (it
     evaluates the same candidates with the same acceptance rule), as

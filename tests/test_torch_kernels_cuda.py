@@ -241,6 +241,18 @@ def _k1_calls(dev):
         *args, reg=1e-9, **f) for f in K1_BODIES.values()]
 
 
+def _k5_k7a_calls(dev):
+    """One call of K5 (``srbd_linearize.linearize``) and one of K7a
+    (``merit_kernel.merit_alpha``) through their public entries."""
+    lin, _, merit = _sync_args(dev, 1024)
+    # the constants blocks built beforehand, as the engine builds them once
+    # per solve: the calls then launch nothing else
+    k5c = srbd_linearize.kernel_constants(*lin[:5]).to(dev)
+    k7c = merit_kernel.kernel_constants(*merit[:6]).to(dev)
+    return [lambda: srbd_linearize.linearize(*lin, consts=k5c),
+            lambda: merit_kernel.merit_alpha(*merit, consts=k7c)]
+
+
 def _k6_calls(dev):
     """One lqr_backward call with stage-constant (Q, Qf) (K6a) and one with
     a per-stage Q (K6b)."""
@@ -336,6 +348,20 @@ def test_k6_one_team_kernel_per_backward_call(dev):
         assert sum(tag in k or mangled in k for k in team) == 1
 
 
+def test_k5_k7a_new_kernels_per_call(dev):
+    """One K5 call launches the new design's k5s_stage_kernel and
+    k5s_dense_kernel once each, one K7a call k7s_stage_kernel and
+    k7s_reduce_kernel once each; the one-thread linearize_kernel and
+    merit_alpha_kernel never run."""
+    kernels = _device_kernels("_k5_k7a_calls")
+    assert not any("linearize_kernel" in k or "merit_alpha_kernel" in k
+                   for k in kernels)
+    for name in ("k5s_stage_kernel", "k5s_dense_kernel", "k7s_stage_kernel",
+                 "k7s_reduce_kernel"):
+        assert sum(v for k, v in kernels.items() if name in k) == 1, kernels
+    assert sum(kernels.values()) == 4
+
+
 def test_k2_leaves_inputs_untouched(dev):
     a, src, idx = _k2_inputs(dev, (20, 12), 16384, 4096, "clumpy")
     keep = [a.clone(), src.clone(), idx.clone()]
@@ -427,6 +453,44 @@ def test_k5_matches_plain(dev):
     for i in range(8):   # merit partials, one row at a time
         assert parity_metric(got[6][:, i].cpu().numpy(),
                              ref[6][:, i].cpu().numpy()) < 1e-4
+
+
+def _cut(args, lo, hi, B):
+    """``args`` with the tensors at positions lo .. hi - 1 cut to their
+    first ``B`` lanes."""
+    return tuple(a[..., :B].contiguous() if lo <= i < hi else a
+                 for i, a in enumerate(args))
+
+
+@pytest.mark.parametrize("B", [4096, 4093])
+def test_k5_designs_match_plain_bitwise(dev, B):
+    """K5 through the new design, through the one-thread yardstick and the
+    plain version agree bit for bit on all seven outputs, at B=4096 and at
+    a width that is no multiple of a block's 128 lanes."""
+    lin = _cut(_sync_args(dev, 4096)[0], 5, 9, B)
+    ref = srbd_linearize.linearize_ref(*lin)
+    outs = [srbd_linearize._linearize_cuda(*lin, one_thread=one_thread)
+            for one_thread in (False, True)]
+    torch.cuda.synchronize()
+    for got in outs:
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert torch.isfinite(g).all()
+            assert torch.equal(_bits(g), _bits(r))
+
+
+@pytest.mark.parametrize("B", [4096, 4093])
+def test_k7a_designs_match_plain_bitwise(dev, B):
+    """K7a through the stage pass and the reduction, through the one-thread
+    yardstick and the plain version agree bit for bit on theta and phi."""
+    merit = _cut(_sync_args(dev, 4096)[2], 6, 12, B)
+    ref = merit_kernel.merit_alpha_ref(*merit)
+    for one_thread in (False, True):
+        got = merit_kernel._merit_alpha_cuda(*merit, one_thread=one_thread)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.isfinite(g).all()
+            assert torch.equal(_bits(g), _bits(r))
 
 
 @pytest.mark.parametrize("const_q", [True, False])
