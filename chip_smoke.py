@@ -4,11 +4,13 @@
 
 Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc`` (phase 2
 prints K1's ptxas registers and spills for each of its three one-launch
-stage bodies and for each launch of the split gains and factor bodies,
-``sqp_planes_split.cu``, K3's for its one-thread body and each launch
-of its split trip, ``sqp_onepass_split.cu``, and K6's for the two
+stage bodies and for each launch of the split gains, rank-6 and factor
+bodies, ``sqp_planes_split.cu``, K3's for its one-thread body and each
+launch of its split trip, ``sqp_onepass_split.cu``, K6's for the two
 instantiations of its backward team kernel and of the one-thread body,
-``riccati.cu``), checks each against its plain PyTorch version at
+``riccati.cu``, and K4a's for its one-thread body and each launch of its
+split, and says whether K1s-B's gains and factor forms and K6's team
+kernel read as recorded), checks each against its plain PyTorch version at
 the main path's shapes (phase 4: K1's gains, rank-6 and factor bodies, each
 timed at the four widths the main path launches; then the gains body's
 split kernels and its one-thread kernel against the plain version at
@@ -17,7 +19,11 @@ each split launch's device ms, and the split kernels, the main path's,
 held to be no slower than the one-thread body; then the same for the
 factor body's split kernels and its one-thread kernel, at B=4096, 4093 (a
 ragged edge) and 131072, timed in the same rounds as the gains body's split
-kernels, with the byte floor of both splits; phase 3: the
+kernels, with the byte floor of both splits; then the rank-6 body's split
+kernels and its
+one-thread kernel, bitwise to plain at B=4096, 4093 and 131072, timed in
+alternated rounds at B=131072 and 4096 with each split launch's device ms,
+reported as they are; phase 3: the
 lane permutes K2a/K2b bitwise on the engine's shapes and the edge cases,
 timed per call and on the device beside ``index_select`` / ``index_copy``
 at every compaction crossing of the cold solve), then drives the
@@ -42,7 +48,11 @@ route against the plain ``xla`` route. Phases 13-14 do it for the dense one-pass
 one-thread body they replaced, timed against each other in alternated
 rounds at the four widths with each split launch's device ms, the split
 held to be no slower) and the two-pass oracle (K4a, K4b) against their
-plain versions (at B=4096 and at B=131072), K3b against K4 on the inputs
+plain versions (at B=4096 and at B=131072), K4a by its split (four
+launches: K5's two, a merit pass, K6a's team pass writing Acl and bcl)
+and its one-thread kernel, bitwise to plain at B=4096, 4093 and 131072,
+timed the same way with each split launch's device ms beside K6a's own
+team kernel on the same stage inputs, K3b against K4 on the inputs
 the JAX tests' f32 tolerances were set on, and cold B=131072 solves of the
 dense route on both loops. Phase 15 checks the batched merit with diagnostics
 (K7b, with and without gradients) against its plain version at B=4096 and
@@ -58,12 +68,12 @@ each p50 beside the one-thread factor body's, and profiles one solve of
 each (the factor split's device time by launch).
 Each path's launch counts are set to 0 just before it is driven and read
 just after; K1's rank-6 body, which no engine route takes (as in JAX), is
-driven by direct calls of the op in phase 4.
+driven by direct calls of the op in phase 4, and K4, which none takes
+either, by a direct ``sqp_qp_solve`` call in phase 13.
 
 The ``kernels`` line gives, for each of the 16 kernel bodies behind the 12
-TPU call sites (K1's gains and factor rows and K3a's and K3b's on their
-split kernels,
-each with a row for each of its launches; K6a's and K6b's on the team
+TPU call sites (K1's gains, rank-6 and factor rows, K3a's, K3b's and
+K4a's on their split kernels, each with a row for each of its launches; K6a's and K6b's on the team
 kernel, with the one-thread body's ms beside it), its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
 plain, and the one PyTorch call that computes the same function where there
@@ -140,6 +150,26 @@ K1F_DESIGNS = {"factor one-thread": ("factor", True),
 # widths of the factor designs' checks against plain: a ragged edge (lanes
 # not a multiple of a block's teams) beside B=4096 and B=131072
 K1F_CHECK_WIDTHS = (4096, 4093, B_MAIN)
+# the rank-6 body on the card by sqp_planes._rank6_cuda's one_thread: the
+# one-thread yardstick and the split kernels (the path's)
+K1R_DESIGNS = {"one-thread": True, "split": False}
+# the rank-6 split's launches: the gains body's plane pass and rollout, the
+# rank-6 form of the Riccati pass
+K1RS_PASSES = {"K1s-A": "k1s_planes_kernel",
+               "K1s-B rank-6": "k1s_riccati_rank6_kernel",
+               "K1s-C": "k1s_rollout_kernel"}
+# widths of the rank-6 and K4a design sections' alternated rounds (their
+# checks against plain run at K1F_CHECK_WIDTHS)
+DESIGN_WIDTHS = (B_MAIN, 4096)
+# K4a on the card by sqp_kernel._k4a_cuda's one_thread, and the split's
+# launches by their device kernel names
+K4A_DESIGNS = {"one-thread": True, "split": False}
+K4AS_PASSES = {"K5 stage": "k5s_stage_kernel", "K5 dense": "k5s_dense_kernel",
+               "merit": "k4s_merit_kernel", "team": "riccati_team_acl_kernel"}
+# K6's team kernel's ptxas report (registers, spill stores) by
+# instantiation, as PERF.md records it: K4a's Acl form beside it does not
+# change it
+K6_TEAM_PTXAS = {"team <true>": (128, 0), "team <false>": (148, 0)}
 # K3 (the dense route's one-pass trip) by its counter names, and its kernels
 # on the card by sqp_kernel._k3a_cuda / _k3b_cuda's one_thread: the
 # one-thread yardstick and the split kernels (the dense route's)
@@ -235,6 +265,17 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _rounds(calls, reps: int) -> dict:
+    """ms per call of each of ``calls`` (design -> callable) on the same
+    inputs, in four alternated rounds (forward, backward, forward, backward;
+    ``reps`` calls each, ``_cuda_ms``), the mean of the four."""
+    order = list(calls)
+    ms = dict.fromkeys(order, 0.0)
+    for d in (order + order[::-1]) * 2:
+        ms[d] += _cuda_ms(calls[d], reps) / 4
+    return ms
+
+
 def _nbytes(*ts) -> int:
     """Bytes of the tensors among ``ts`` (nested tuples flattened)."""
     n = 0
@@ -309,17 +350,20 @@ def phase_build(sources=SOURCES):
     k6 = _k6_ptxas() if "riccati" in sources else {}
     k57 = (_k5_k7a_ptxas() if {"linearize", "merit"} <= set(sources)
            else {})
+    k4 = (_k4a_ptxas() if {"linearize", "sqp_twopass", "riccati"}
+          <= set(sources) else {})
     for what, regs in (("K1 ptxas by stage body and split launch", k1),
                        ("K3 ptxas by body and split launch", k3),
                        ("K6 backward ptxas by body", k6),
-                       ("K5 and K7a ptxas by design and launch", k57)):
+                       ("K5 and K7a ptxas by design and launch", k57),
+                       ("K4a ptxas by body and split launch", k4)):
         if regs:
             print(f"[2 build] {what}: "
                   + "; ".join(f"{n} {r} registers, {st} B spill stores, "
                               f"{ld} B spill loads, {sk} B stack"
                               for n, (r, st, ld, sk) in regs.items()),
                   flush=True)
-    return secs, k1, k3, k6, k57
+    return secs, k1, k3, k6, k57, k4
 
 
 # K2's shapes on the cold speculative path: the compaction crossings
@@ -698,17 +742,17 @@ def phase_k1_designs(dev):
     if bad:
         raise AssertionError(f"a gains design disagrees with plain: {bad}")
 
-    # ms per call in turns: forward, backward, forward, backward (10 calls
-    # each), the mean of the four; then each split launch's device ms
+    # ms per call in four alternated rounds (_rounds, 10 calls each); then
+    # each split launch's device ms
     times = {name: {} for name in K1_DESIGNS}
     passes = {"split": {}}
-    order = list(K1_DESIGNS)
     for B in K1_WIDTHS:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
-        for name in (order + order[::-1]) * 2:
-            ms = _cuda_ms(lambda: sqp_planes._gains_cuda(
-                *args, reg=reg, one_thread=K1_DESIGNS[name]), 10)
-            times[name][B] = times[name].get(B, 0.0) + ms / 4
+        ms = _rounds({name: (lambda o=o: sqp_planes._gains_cuda(
+            *args, reg=reg, one_thread=o)) for name, o in K1_DESIGNS.items()},
+            10)
+        for name in K1_DESIGNS:
+            times[name][B] = ms[name]
         for name in passes:
             passes[name][B] = _launch_ms(lambda: sqp_planes._gains_cuda(
                 *args, reg=reg, one_thread=K1_DESIGNS[name]), K1S_PASSES)
@@ -801,16 +845,16 @@ def phase_k1_factor_designs(dev):
     if bad:
         raise AssertionError(f"a factor design disagrees with plain: {bad}")
 
-    # ms per call in turns: forward, backward, forward, backward (10 calls
-    # each), the mean of the four; then each split launch's device ms
+    # ms per call in four alternated rounds (_rounds, 10 calls each); then
+    # each split launch's device ms
     times = {d: {} for d in K1F_DESIGNS}
     passes = {"factor split": {}, "gains split": {}}
-    order = list(K1F_DESIGNS)
     for B in K1_WIDTHS:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
-        for d in (order + order[::-1]) * 2:
-            ms = _cuda_ms(_k1_factor_call(d, args, reg), 10)
-            times[d][B] = times[d].get(B, 0.0) + ms / 4
+        ms = _rounds({d: _k1_factor_call(d, args, reg) for d in K1F_DESIGNS},
+                     10)
+        for d in K1F_DESIGNS:
+            times[d][B] = ms[d]
         for d, by_pass in (("factor split", K1FS_PASSES),
                            ("gains split", K1S_PASSES)):
             passes[d][B] = _launch_ms(_k1_factor_call(d, args, reg),
@@ -846,6 +890,78 @@ def phase_k1_factor_designs(dev):
     if max(ratio.values()) > 1.0:
         raise AssertionError(f"the split factor kernels are slower than the "
                              f"one-thread body: {ratio}")
+    return err, times, passes, floor
+
+
+def phase_k1_rank6_designs(dev):
+    """The rank-6 body's kernels (K1R_DESIGNS) at N=20: each against the
+    plain rank-6 body at K1F_CHECK_WIDTHS (alpha 0 and random alpha at
+    B=4096, random alpha at the others), max |diff| and a bitwise flag
+    printed; ms per call in four alternated rounds at DESIGN_WIDTHS; each
+    split launch's device ms (one profile a width); the split's byte floor.
+    Fails unless the split is bitwise equal to plain on all seven outputs
+    at every width. The times are reported as they are."""
+    from srbd_nmpc_tpu_torch.ops import sqp_planes
+
+    rng = np.random.default_rng(19)
+    err = {d: ({}, 0.0, True) for d in K1R_DESIGNS}
+    for B, az in [(4096, True)] + [(B, False) for B in K1F_CHECK_WIDTHS]:
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, az)
+        ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg,
+                                                         rank6=True)
+        for d, one_thread in K1R_DESIGNS.items():
+            got = sqp_planes._rank6_cuda(*args, reg=reg,
+                                         one_thread=one_thread)
+            torch.cuda.synchronize()
+            w, mx, same = _k1_err(got, ref)
+            # the one-thread body sums theta and phi stage by stage
+            five = all(torch.equal(g, r) for g, r in zip(
+                (*got[:3], got[3][2], got[3][3]),
+                (*ref[:3], ref[3][2], ref[3][3])))
+            print(f"[4 K1 rank-6] {d} vs plain at B={B}, alpha "
+                  f"{'0' if az else 'random'}: " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in w.items())
+                  + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
+                  f"{same} (dx, du, dphi, max|defect|, min constraint "
+                  f"{five})", flush=True)
+            w0, mx0, same0 = err[d]
+            err[d] = ({k: max(v, w0.get(k, 0.0)) for k, v in w.items()},
+                      max(mx, mx0), same and same0)
+            del got
+        del args, ref
+        torch.cuda.empty_cache()
+    bad = {d: e for d, e in err.items()
+           if not all(v < REL_TOL for v in e[0].values())
+           or (d != "one-thread" and not e[2])}
+    if bad:
+        raise AssertionError(f"a rank-6 design disagrees with plain or a "
+                             f"split is not bitwise equal to it: {bad}")
+
+    times, passes = {d: {} for d in K1R_DESIGNS}, {}
+    for B in DESIGN_WIDTHS:
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
+        calls = {d: (lambda o=o: sqp_planes._rank6_cuda(
+            *args, reg=reg, one_thread=o)) for d, o in K1R_DESIGNS.items()}
+        for d, ms in _rounds(calls, 10).items():
+            times[d][B] = ms
+        passes[B] = _launch_ms(calls["split"], K1RS_PASSES)
+        del calls, args
+        torch.cuda.empty_cache()
+    one = times["one-thread"]
+    for d in K1R_DESIGNS:
+        print(f"[4 K1 rank-6] {d} ms per call: " + ", ".join(
+            f"B={B} {ms:.3f} ({ms / one[B]:.3f}x one-thread)"
+            for B, ms in times[d].items()), flush=True)
+    for B, by in passes.items():
+        print(f"[4 K1 rank-6] split device ms per launch at B={B}: "
+              + ", ".join(f"{p} {v:.3f}" for p, v in by.items()), flush=True)
+    floor = _k1_split_bytes(N_MAIN, B_MAIN, False)
+    print(f"[4 K1 rank-6] bytes the split moves per call at B={B_MAIN}: "
+          f"{floor / 1e9:.3f} GB, a floor of {floor / PEAK_BYTES * 1e3:.3f} "
+          f"ms at {PEAK_BYTES / 1e12:g} TB/s; the split against the "
+          "one-thread body: " + ", ".join(
+              f"B={B} {times['split'][B] / one[B]:.3f}x" for B in one),
+          flush=True)
     return err, times, passes, floor
 
 
@@ -1275,20 +1391,18 @@ def phase_k6_designs(dev):
     if bad:
         raise AssertionError(f"a K6 design disagrees with plain: {bad}")
 
-    # ms per call in turns: forward, backward, forward, backward (5 calls
-    # each), the mean of the four; then the team kernel's device ms (CUDA
-    # graphs of 5 calls: the call launches the team kernel alone)
+    # ms per call in four alternated rounds (_rounds, 5 calls each); then
+    # the team kernel's device ms (CUDA graphs of 5 calls: the call launches
+    # the team kernel alone)
     times = {(n, d): {} for n in K6_NAMES for d in K6_DESIGNS}
     dev_ms = {n: {} for n in K6_NAMES}
-    order = list(K6_DESIGNS)
     for B in K1_WIDTHS:
         for name in K6_NAMES:
             args = _k6_args(L, name, B)
-            for design in (order + order[::-1]) * 2:
-                ms = _cuda_ms(lambda: rk._lqr_backward_cuda(
-                    *args, reg, **K6_DESIGNS[design]), 5)
-                t = times[(name, design)]
-                t[B] = t.get(B, 0.0) + ms / 4
+            ms = _rounds({d: (lambda kw=kw: rk._lqr_backward_cuda(
+                *args, reg, **kw)) for d, kw in K6_DESIGNS.items()}, 5)
+            for design in K6_DESIGNS:
+                times[(name, design)][B] = ms[design]
             dev_ms[name][B] = _graph_ms(lambda: rk._lqr_backward_cuda(
                 *args, reg, **K6_DESIGNS["team"]), reps=10, per_graph=5)
             del args
@@ -1396,8 +1510,8 @@ def phase_k5_k7a_designs(dev):
         raise AssertionError(f"a K5/K7a design is not bitwise equal to plain "
                              f"(rel, max |diff|, bitwise): {bad}")
 
-    # ms per call in turns: forward, backward, forward, backward (5 calls
-    # each), the mean of the four; then each launch's device ms
+    # ms per call in four alternated rounds (_rounds, 5 calls each); then
+    # each launch's device ms
     times = {k: {d: {} for d in v[0]} for k, v in kernels.items()}
     dev_ms = {k: {d: {} for d in v[0]} for k, v in kernels.items()}
     floor = {k: {} for k in kernels}
@@ -1407,10 +1521,8 @@ def phase_k5_k7a_designs(dev):
             args = args_at(B)
             order = list(designs)
             calls = {d: _k5_k7a_call(kid, d, args) for d in designs}
-            for design in (order + order[::-1]) * 2:
-                ms = _cuda_ms(calls[design], 5)
-                t = times[kid][design]
-                t[B] = t.get(B, 0.0) + ms / 4
+            for design, ms in _rounds(calls, 5).items():
+                times[kid][design][B] = ms
             launch_calls[kid] = calls
             if B == B_MAIN:
                 # each input read once, each output written once; a split
@@ -1845,18 +1957,17 @@ def phase_k3_designs(dev):
     if bad:
         raise AssertionError(f"a K3 design disagrees with plain: {bad}")
 
-    # ms per call in turns: forward, backward, forward, backward (5 calls
-    # each), the mean of the four; then each split launch's device ms
+    # ms per call in four alternated rounds (_rounds, 5 calls each); then
+    # each split launch's device ms
     times = {(n, d): {} for n in K3_NAMES for d in K3_DESIGNS}
     passes = {n: {} for n in K3_NAMES}
-    order = list(K3_DESIGNS)
     for B in K1_WIDTHS:
         cand, one, _, reg = _k3_args(rng, B, dev)
         for name in K3_NAMES:
-            for design in (order + order[::-1]) * 2:
-                ms = _cuda_ms(_k3_call(name, design, cand, one, reg), 5)
-                t = times[(name, design)]
-                t[B] = t.get(B, 0.0) + ms / 4
+            ms = _rounds({d: _k3_call(name, d, cand, one, reg)
+                          for d in K3_DESIGNS}, 5)
+            for design in K3_DESIGNS:
+                times[(name, design)][B] = ms[design]
             passes[name][B] = _launch_ms(
                 _k3_call(name, "split", cand, one, reg), K3S_PASSES)
         del cand, one
@@ -1891,6 +2002,115 @@ def phase_k3_designs(dev):
     if max(ratio.values()) > 1.0:
         raise AssertionError(f"the split K3 kernels are slower than the "
                              f"one-thread body: {ratio}")
+    return err, times, passes, floor
+
+
+def _k4a_split_bytes(N, B):
+    """Bytes K4a's split must move per call in float32, each array read
+    once and written once by each launch that touches it: K5's stage pass
+    reads x, x_next, u, x_ref (48 words a stage) and writes b, q, r_eff
+    (36), the merit rows (8) and the ddb hand-off (24); its dense write
+    reads x and u again (18) and the hand-off, and writes A, B, R_eff
+    (432); the merit pass reads x_N, x_ref,N (24) and six merit rows a
+    stage, and writes q_N (12) and the four merit values; the team pass
+    reads A, B (288), R_eff's lower triangle (78), b, q, r_eff (36) and
+    q_N, and writes K, kv, Acl, bcl (312)."""
+    words = ((48 + 36 + 8 + 24) * N + (18 + 24 + 432) * N
+             + 24 + 6 * N + 12 + 4 + (288 + 78 + 36) * N + 12 + 312 * N)
+    return 4 * B * words
+
+
+def _k6a_on_k4a_inputs(bwd, reg):
+    """A call of K6a (``riccati_kernel.lqr_backward`` with (Q, Qf)) on the
+    stage inputs that K4a's split hands its team pass, built once here:
+    K5's A, B, b, q, r_eff and R_eff at (xa, us), q_N appended to q."""
+    from srbd_nmpc_tpu_torch.models import srbd_linearize
+    from srbd_nmpc_tpu_torch.ops import riccati_kernel
+    from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
+
+    params, Q, Qf, R, Ac, bc, xa, us, xra, mu_b, theta_b = bwd
+    N = us.shape[0]
+    A, Bm, b, q, r, Reff, _ = srbd_linearize.linearize(
+        params, Q, R, Ac, bc, xa[:N], xa[1:], us, xra[:N], mu_b, theta_b)
+    qN = sk.sqp_qp_backward(*bwd, reg=reg)[6]
+    q = torch.cat([q, qN[None]]).contiguous()
+    return lambda: riccati_kernel.lqr_backward(A, Bm, b, (Q, Qf), Reff, q, r,
+                                               reg)
+
+
+def phase_k4a_designs(dev):
+    """K4a by design (K4A_DESIGNS) at N=20: each against the plain version
+    at K1F_CHECK_WIDTHS on all eleven outputs, max |diff| and a bitwise flag
+    printed; ms per call in four alternated rounds at DESIGN_WIDTHS; each
+    split launch's device ms (one profile a width); the split's byte floor
+    beside the one-thread body's. Fails unless the split is bitwise equal
+    to plain at every width. The times are reported as they are."""
+    from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
+
+    rng = np.random.default_rng(21)
+    err = {d: (0.0, 0.0, True) for d in K4A_DESIGNS}
+    for B in K1F_CHECK_WIDTHS:
+        _, _, bwd, reg = _k3_args(rng, B, dev)
+        ref = sk.sqp_qp_backward_ref(*bwd, reg=reg)
+        for d, one in K4A_DESIGNS.items():
+            got = sk._k4a_cuda(*bwd, reg=reg, one_thread=one)
+            torch.cuda.synchronize()
+            rel, mx = _diff(got, ref)
+            same = all(torch.equal(g, r)
+                       for g, r in zip(_flat(got), _flat(ref)))
+            print(f"[13 K4a designs] {d} vs plain at B={B}: {rel:.3e} (limit "
+                  f"{REL_TOL:g}); max |diff| {mx:.3e}; bitwise {same} (all "
+                  "eleven outputs)", flush=True)
+            r0, m0, s0 = err[d]
+            err[d] = (max(rel, r0), max(mx, m0), same and s0)
+            del got
+        del bwd, ref
+        torch.cuda.empty_cache()
+    bad = {d: e for d, e in err.items()
+           if not e[0] < REL_TOL or (d == "split" and not e[2])}
+    if bad:
+        raise AssertionError(f"a K4a design disagrees with plain or the "
+                             f"split is not bitwise equal to it: {bad}")
+
+    # ms per call in four alternated rounds (_rounds, 5 calls each); then
+    # each split launch's device ms, and in the same profile K6a's own team
+    # kernel on the same stage inputs: the Acl and bcl writes' cost
+    times, passes = {d: {} for d in K4A_DESIGNS}, {}
+    k6a = {"K6a team": "riccati_team_kernel"}
+    for B in DESIGN_WIDTHS:
+        bwd, reg = _k3_args(rng, B, dev)[2:]
+        calls = {d: (lambda o=o: sk._k4a_cuda(*bwd, reg=reg, one_thread=o))
+                 for d, o in K4A_DESIGNS.items()}
+        for d, ms in _rounds(calls, 5).items():
+            times[d][B] = ms
+        k6a_call = _k6a_on_k4a_inputs(bwd, reg)
+        passes[B] = _launch_ms(lambda: (calls["split"](), k6a_call()),
+                               {**K4AS_PASSES, **k6a})
+        if B == B_MAIN:
+            io = _nbytes(bwd[6:9], calls["one-thread"]())
+        del calls, k6a_call, bwd
+        torch.cuda.empty_cache()
+    one = times["one-thread"]
+    for d in K4A_DESIGNS:
+        print(f"[13 K4a designs] {d} ms per call: " + ", ".join(
+            f"B={B} {ms:.3f} ({ms / one[B]:.3f}x one-thread)"
+            for B, ms in times[d].items()), flush=True)
+    for B, by in passes.items():
+        k6a_ms = by.pop("K6a team")
+        print(f"[13 K4a designs] split device ms per launch at B={B}: "
+              + ", ".join(f"{p} {v:.3f}" for p, v in by.items())
+              + f"; K6a's own team kernel on the same stage inputs {k6a_ms:.3f}"
+              f", so Acl and bcl cost the team pass "
+              f"{by['team'] - k6a_ms:.3f} ms", flush=True)
+    floor = {"split": _k4a_split_bytes(N_MAIN, B_MAIN), "one-thread": io}
+    print(f"[13 K4a designs] bytes each design moves per call at "
+          f"B={B_MAIN}: " + ", ".join(
+              f"{d} {b / 1e9:.3f} GB, a floor of "
+              f"{b / PEAK_BYTES * 1e3:.3f} ms" for d, b in floor.items())
+          + f" at {PEAK_BYTES / 1e12:g} TB/s; the split against the "
+          "one-thread body: " + ", ".join(
+              f"B={B} {times['split'][B] / one[B]:.3f}x" for B in one),
+          flush=True)
     return err, times, passes, floor
 
 
@@ -2352,21 +2572,24 @@ def _k3_ptxas(k1):
 
 def _k1s_ptxas():
     """(registers, spill stores, spill loads, stack bytes) of each split
-    kernel of the gains and factor bodies (sqp_planes_split.cu): K1s-A,
-    K1s-B, K1s-C and the factor forms of the last two."""
-    passes = {**K1S_PASSES, **K1FS_PASSES}
+    kernel of the three bodies (sqp_planes_split.cu): K1s-A, K1s-B, K1s-C,
+    the factor forms of the last two and the rank-6 form of K1s-B."""
+    passes = {**K1S_PASSES, **K1FS_PASSES,
+              "K1s-B rank-6": K1RS_PASSES["K1s-B rank-6"]}
     out = {}
     for mangled, regs, stores, loads, stack in _ptxas("sqp_planes_split",
                                                       "k1s_"):
         name = next((p for p, key in passes.items() if key in mangled),
                     mangled)
         out[name] = (regs, stores, loads, stack)
-    if set(out) != set(passes):
+    want = set(passes)
+    if set(out) != want:
         raise AssertionError(f"split kernels in the ptxas report: {out}")
-    regs, stores = out["K1s-B"][:2]
-    print(f"[2 build] K1s-B (gains) {regs} registers, {stores} B spill "
-          f"stores against the recorded {K1S_B_PTXAS[0]} and "
-          f"{K1S_B_PTXAS[1]} B: unchanged {(regs, stores) == K1S_B_PTXAS}", flush=True)
+    for p in ("K1s-B", "K1s-B factor"):
+        regs, stores = out[p][:2]
+        print(f"[2 build] {p} {regs} registers, {stores} B spill stores "
+              f"against the recorded {K1S_B_PTXAS[0]} and {K1S_B_PTXAS[1]} "
+              f"B: unchanged {(regs, stores) == K1S_B_PTXAS}", flush=True)
     return out
 
 
@@ -2383,6 +2606,28 @@ def _k6_ptxas():
     if sorted(out) != ["one-thread <false>", "one-thread <true>",
                        "team <false>", "team <true>"]:
         raise AssertionError(f"K6 kernels in the ptxas report: {out}")
+    print("[2 build] K6's team kernel against the recorded ptxas: " + ", ".join(
+        f"{n} {out[n][0]} registers, {out[n][1]} B spill stores (recorded "
+        f"{r} and {st} B): unchanged {out[n][:2] == (r, st)}"
+        for n, (r, st) in K6_TEAM_PTXAS.items()), flush=True)
+    return out
+
+
+def _k4a_ptxas():
+    """(registers, spill stores, spill loads, stack bytes) of K4a's
+    kernels: the one-thread body and the split's launches (K5's two from
+    linearize.cu, the merit pass from sqp_twopass.cu, the team pass from
+    riccati.cu)."""
+    out = {}
+    for name, source, key in (
+            [("one-thread", "sqp_twopass", "sqp_twopass_bwd_kernel")]
+            + [(p, "linearize" if p.startswith("K5") else
+                "sqp_twopass" if p == "merit" else "riccati", key)
+               for p, key in K4AS_PASSES.items()]):
+        found = _ptxas(source, key)
+        if len(found) != 1:
+            raise AssertionError(f"{key} in the ptxas report: {found}")
+        out[name] = found[0][1:]
     return out
 
 
@@ -2586,6 +2831,60 @@ def _k1_factor_entry(launches, err, t, plain, bound, regs, d_err, d_t,
                   launches_per_call=per)
 
 
+def _k1_rank6_entry(launches, err, t, plain, bound, regs, d_err, d_t,
+                    d_passes, floor):
+    """K1_rank6's row: ``rank6=True`` (the split kernels, K and kv written
+    by the block), timed through the public entry in phase 4, its largest
+    difference from the plain version over phase 4's checks, and a row for
+    each of its launches (device ms at DESIGN_WIDTHS, ptxas report);
+    registers and spills of the row are the largest of its launches'. The
+    one-thread body's ms and ptxas report, and the split's byte floor
+    beside them."""
+    per = _launch_rows(K1RS_PASSES, d_passes, regs)
+    return _entry("sqp_planes_rank6", "sqp_planes_split.cu",
+                  "ops/sqp_planes.py:77", launches,
+                  max(err, d_err["split"][1]),
+                  t[B_MAIN], plain, bound, design="split",
+                  ms_by_width={str(B): v for B, v in t.items()},
+                  one_thread_ms_by_width={
+                      str(B): v for B, v in d_t["one-thread"].items()},
+                  registers=max(e["registers"] for e in per),
+                  spill_stores=max(e["spill_stores"] for e in per),
+                  spill_loads=max(e["spill_loads"] for e in per),
+                  one_thread_registers=regs["sqp_planes_rank6"][0],
+                  one_thread_spill_stores=regs["sqp_planes_rank6"][1],
+                  split_bytes=floor,
+                  split_bytes_floor_ms=floor / PEAK_BYTES * 1e3,
+                  launches_per_call=per)
+
+
+def _k4a_extra(regs, d_err, d_t, d_passes, floor):
+    """The keys that K4a's row adds: the split (the path's) with a row for
+    each of its launches (device ms at DESIGN_WIDTHS, ptxas report;
+    registers and spills of the row are the largest of its launches'),
+    their sources, its byte floor and largest difference from plain over
+    the design section's checks (``design_err``, folded into the row's
+    max_abs_err), the one-thread body's ms by width and ptxas report."""
+    per = _launch_rows(K4AS_PASSES, d_passes, regs)
+    one = regs["one-thread"]
+    return dict(design="split",
+                split_sources=[f"srbd_nmpc_tpu_torch/csrc/{n}" for n in
+                               ("linearize.cu", "sqp_twopass.cu",
+                                "riccati.cu")],
+                ms_by_width={str(B): v for B, v in d_t["split"].items()},
+                one_thread_ms_by_width={
+                    str(B): v for B, v in d_t["one-thread"].items()},
+                registers=max(e["registers"] for e in per),
+                spill_stores=max(e["spill_stores"] for e in per),
+                spill_loads=max(e["spill_loads"] for e in per),
+                one_thread_registers=one[0], one_thread_spill_stores=one[1],
+                split_bytes=floor["split"],
+                split_bytes_floor_ms=floor["split"] / PEAK_BYTES * 1e3,
+                one_thread_bytes_floor_ms=floor["one-thread"] / PEAK_BYTES * 1e3,
+                launches_per_call=per,
+                design_err=max(d_err["split"][1], d_err["one-thread"][1]))
+
+
 def _k3_entry(name, replaces, launches, err, t, plain, bound, regs, d_err,
               d_t, d_passes, floor):
     """K3a's or K3b's row: the dense route's path (the split kernels), timed
@@ -2681,6 +2980,7 @@ def main(argv=None) -> int:
     ap.add_argument("--k2-only", action="store_true",
                     help="build permute.cu and run phases 1-3 only")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     card, smi = phase_device()
     dev = torch.device("cuda")
     if args.k2_only:
@@ -2688,13 +2988,14 @@ def main(argv=None) -> int:
         phase_permute(dev)
         print(smi)
         return 0
-    _, k1_regs, k3_regs, k6_regs, k57_regs = phase_build()
+    _, k1_regs, k3_regs, k6_regs, k57_regs, k4_regs = phase_build()
     k2, per_call = phase_permute(dev)
     if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
         raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
     k1_err, k1_t, k1_plain, k1_b, r6_launches = phase_k1(dev)
     k1d_err, k1d_t, k1d_passes = phase_k1_designs(dev)
     k1f_err, k1f_t, k1f_passes, k1f_floor = phase_k1_factor_designs(dev)
+    k1r = phase_k1_rank6_designs(dev)
     st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
     phase_compaction(dev)
@@ -2708,6 +3009,7 @@ def main(argv=None) -> int:
     sync = phase_sync(dev, f"{smi}", spec)
     d_err, d_t, d_b, k4_launches = phase_dense_kernels(dev)
     k3d_err, k3d_t, k3d_passes, k3d_floor = phase_k3_designs(dev)
+    k4d = phase_k4a_designs(dev)
     dense = phase_dense(dev, f"{smi}", spec)
     phase_parity(dev)
     k7b_err, k7b_t, k7b_b, k7b_launches = phase_k7b(dev)
@@ -2727,14 +3029,10 @@ def main(argv=None) -> int:
                          k1_t["sqp_planes"], k1_plain["sqp_planes"],
                          k1_b["sqp_planes"], k1_regs, k1d_err, k1d_t,
                          k1d_passes)]
-    regs, stores, loads, _ = k1_regs["sqp_planes_rank6"]
-    kernels.append(_entry(
-        "sqp_planes_rank6", "sqp_planes.cu", "ops/sqp_planes.py:77",
+    kernels.append(_k1_rank6_entry(
         k1_launches["sqp_planes_rank6"], k1_err["sqp_planes_rank6"],
-        k1_t["sqp_planes_rank6"][B_MAIN], k1_plain["sqp_planes_rank6"],
-        k1_b["sqp_planes_rank6"],
-        ms_by_width={str(B): t for B, t in k1_t["sqp_planes_rank6"].items()},
-        registers=regs, spill_stores=stores, spill_loads=loads))
+        k1_t["sqp_planes_rank6"], k1_plain["sqp_planes_rank6"],
+        k1_b["sqp_planes_rank6"], k1_regs, *k1r))
     kernels.append(_k1_factor_entry(
         k1_launches["sqp_planes_factor"], k1_err["sqp_planes_factor"],
         k1_t["sqp_planes_factor"], k1_plain["sqp_planes_factor"],
@@ -2772,7 +3070,9 @@ def main(argv=None) -> int:
         extra = (_k6_extra(name, k6_regs, k6d_err, k6d_t, k6d_dev)
                  if name in K6_NAMES else
                  _k5_k7a_extra(name, k57_regs, *k57)
-                 if name in ("linearize", "merit_alpha") else {})
+                 if name in ("linearize", "merit_alpha") else
+                 _k4a_extra(k4_regs, *k4d)
+                 if name == "sqp_twopass_bwd" else {})
         kernels.append(_entry(name, source, replaces, n,
                               max(err[name], extra.pop("design_err", 0.0)),
                               *t[name], b[name], **extra))
@@ -2780,6 +3080,8 @@ def main(argv=None) -> int:
                            ("merit_nograd", "models/merit_pallas.py:42")):
         kernels.append(_entry(name, "merit.cu", replaces, k7b_launches[name],
                               k7b_err[name], *k7b_t[name], k7b_b[name]))
+    print(f"[end] the script ran {time.perf_counter() - t_start:.1f} s, "
+          "the kernels' build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

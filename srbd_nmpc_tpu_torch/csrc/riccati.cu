@@ -4,7 +4,9 @@
 // Replaces the TPU kernels srbd_nmpc_tpu/ops/riccati_pallas.py::
 // _backward_kernel_constq (:100, stage-constant Q/Qf; K6a), _backward_kernel
 // (:56, per-stage Q; K6b) and _forward_kernel (:142; K6c), all through
-// lqr_solve_pallas (:161, pallas_call at :216 and :246). Contract: the plain
+// lqr_solve_pallas (:161, pallas_call at :216 and :246); its K6a team pass
+// with Acl and bcl is also K4a's Riccati pass (srbd_nmpc_tpu/ops/
+// sqp_pallas.py::_bwd_kernel, :383). Contract: the plain
 // PyTorch versions in srbd_nmpc_tpu_torch/ops/riccati_kernel.py.
 //
 // The rounding order is the TPU kernel's: G = R + B'PB + reg I with no
@@ -50,6 +52,13 @@
 //   once every team is done with a stage, the block writes each row's
 //   sector from the teams' Y, before the next stage overwrites it.
 // - Q and Qf (K6a) are one 288-word block in shared memory per block.
+// - K4a's split (sqp_twopass.cu) runs K6a's body with a compile-time flag
+//   (riccati_team_acl_kernel, a kernel of its own, so that K6a's and K6b's
+//   code does not change): after P's symmetrization the members also form
+//   Acl = A + B K, each a 3x3 tile of it (six words read a step for nine
+//   products), and bcl = b + B k, from the staged B and the team's [K | k]
+//   into (P A)' and Pb_p, which are spent by then; the block writes them
+//   beside K and k.
 // No operation crosses scenarios, so the ragged edge (lanes past B) only
 // skips its copies, its writes and its teams' work. The team width (16) and
 // the block (8 teams) won against 8x8, 32x8, 16x4 and 16x16 on the H100
@@ -386,10 +395,11 @@ HD void seed(Team<T>& s, const T* Qc, const T* Qg, const T* q, int N, int B, int
 }
 
 // one stage of the backward recursion: in the stage's staged inputs, Qc the
-// shared [Q | Qf] (CONST_Q). Leaves the stage's [K | k] in Y. Starts after a
-// barrier that makes P, p and the inputs visible to every member; ends with
-// no barrier (the block's ends the stage).
-template <typename T, bool CONST_Q>
+// shared [Q | Qf] (CONST_Q). Leaves the stage's [K | k] in Y, and with ACL
+// its closed-loop Acl = A + B K in PAt (row-major) and bcl = b + B k in Pbp.
+// Starts after a barrier that makes P, p and the inputs visible to every
+// member; ends with no barrier (the block's ends the stage).
+template <typename T, bool CONST_Q, bool ACL = false>
 HD void stage(Team<T>& s, const T* in, const T* Qc, T reg, int lane, int W, unsigned mask,
               bool rev) {
   (void)lane;
@@ -490,7 +500,11 @@ HD void stage(Team<T>& s, const T* in, const T* Qc, T reg, int lane, int W, unsi
   }
   TEAM_SYNC();
 
-  // P = (X + X') / 2, each entry pair by one member
+  // P = (X + X') / 2, each entry pair by one member; with ACL (PAt and Pbp
+  // are spent), Acl by 16 tiles of 3x3 entries and bcl by entries, each sum
+  // over m = 0 ... 11 of B[i][m] [K | k][m][j] before A's or b's entry is
+  // added (sqp_kernel.sqp_qp_backward_ref's mm(B, K) and mv(B, kv)); a
+  // tile reads 3 + 3 words a step for its 9 products
   TEAM_FOR(t) {
     TEAM_ITEMS(e, 78) {
       int j, i;
@@ -498,6 +512,38 @@ HD void stage(Team<T>& s, const T* in, const T* Qc, T reg, int lane, int W, unsi
       const T sym = T(0.5) * (s.P[j][i] + s.P[i][j]);
       s.P[i][j] = sym;
       s.P[j][i] = sym;
+    }
+    if constexpr (ACL) {
+      for (int q = t; q < 16; q += W) {
+        const int i0 = 3 * (q / 4), j0 = 3 * (q % 4);
+        T acc[3][3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) acc[r][c] = Bt[i0 + r] * s.Y[0][j0 + c];
+        for (int m = 1; m < 12; ++m) {
+          T bm[3], km[3];
+#pragma unroll
+          for (int r = 0; r < 3; ++r) {
+            bm[r] = Bt[12 * m + i0 + r];  // B[i][m] = Bt[12 m + i]
+            km[r] = s.Y[m][j0 + r];
+          }
+#pragma unroll
+          for (int r = 0; r < 3; ++r)
+#pragma unroll
+            for (int c = 0; c < 3; ++c) acc[r][c] = acc[r][c] + bm[r] * km[c];
+        }
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            s.PAt[i0 + r][j0 + c] = At[12 * (j0 + c) + i0 + r] + acc[r][c];
+      }
+      for (int i = t; i < 12; i += W) {
+        T acc = Bt[i] * s.Y[0][12];
+        for (int m = 1; m < 12; ++m) acc = acc + Bt[12 * m + i] * s.Y[m][12];
+        s.Pbp[i] = in[IN_BV + i] + acc;
+      }
     }
   }
 }
@@ -547,11 +593,15 @@ constexpr int team_smem_words(bool const_q) {
   return 288 + k6t::TEAMS * (720 + 2 * k6t::in_stride(const_q));
 }
 
-template <bool CONST_Q>
-__global__ void __launch_bounds__(k6t::W_CARD* k6t::TEAMS, CONST_Q ? 4 : 3)
-    riccati_team_kernel(const float* A, const float* Bm, const float* bv, const float* Qw,
-                        const float* Qf, const float* R, const float* q, const float* r,
-                        float* K, float* k, int N, int B, float reg) {
+// the team kernels' body; ACL (K4a's split) also writes Acl [N,12,12,B] and
+// bcl [N,12,B] beside K and k, the same way
+template <bool CONST_Q, bool ACL>
+__device__ __forceinline__ void team_backward(const float* A, const float* Bm,
+                                              const float* bv, const float* Qw,
+                                              const float* Qf, const float* R,
+                                              const float* q, const float* r, float* K,
+                                              float* k, float* Acl, float* bcl, int N,
+                                              int B, float reg) {
   constexpr int W = k6t::W_CARD, TEAMS = k6t::TEAMS, THREADS = W * TEAMS;
   constexpr int S = k6t::in_stride(CONST_Q);
   // each thread copies rows r0, r0 + RSTEP, ... of its lane sc of the block
@@ -577,13 +627,20 @@ __global__ void __launch_bounds__(k6t::W_CARD* k6t::TEAMS, CONST_Q ? 4 : 3)
                                  [](float* d, const float* src) { cp_async4(d, src); });
     cp_async_commit();
   };
-  // stage g's K and k of lane sc out of its team's Y
+  // stage g's K and k (ACL: and Acl, bcl) of lane sc out of its team's array
   auto store = [&](int g) {
     if (!mine) return;
     const float(*y)[13] = teams[sc].Y;
     for (int row = r0; row < 144; row += RSTEP)
       K[((size_t)g * 144 + row) * B + ln] = y[row / 12][row % 12];
     for (int i = r0; i < 12; i += RSTEP) k[((size_t)g * 12 + i) * B + ln] = y[i][12];
+    if constexpr (ACL) {
+      const float(*a)[12] = teams[sc].PAt;
+      for (int row = r0; row < 144; row += RSTEP)
+        Acl[((size_t)g * 144 + row) * B + ln] = a[row / 12][row % 12];
+      for (int i = r0; i < 12; i += RSTEP)
+        bcl[((size_t)g * 12 + i) * B + ln] = teams[sc].Pbp[i];
+    }
   };
 
   k6t::r_rows(rrow, tid, THREADS);
@@ -600,10 +657,29 @@ __global__ void __launch_bounds__(k6t::W_CARD* k6t::TEAMS, CONST_Q ? 4 : 3)
     if (g > 0) fetch(g - 1, in + ((N - g) & 1) * TEAMS * S);
     __syncthreads();  // stage g + 1's K and k are out
     if (live)
-      k6t::stage<float, CONST_Q>(teams[team], cur + team * S, qc, reg, lane, W, mask, false);
+      k6t::stage<float, CONST_Q, ACL>(teams[team], cur + team * S, qc, reg, lane, W, mask,
+                                      false);
   }
   __syncthreads();
   store(0);
+}
+
+template <bool CONST_Q>
+__global__ void __launch_bounds__(k6t::W_CARD* k6t::TEAMS, CONST_Q ? 4 : 3)
+    riccati_team_kernel(const float* A, const float* Bm, const float* bv, const float* Qw,
+                        const float* Qf, const float* R, const float* q, const float* r,
+                        float* K, float* k, int N, int B, float reg) {
+  team_backward<CONST_Q, false>(A, Bm, bv, Qw, Qf, R, q, r, K, k, nullptr, nullptr, N, B,
+                                reg);
+}
+
+// K4a's split: K6a's team pass also writing Acl and bcl
+__global__ void __launch_bounds__(k6t::W_CARD* k6t::TEAMS, 4)
+    riccati_team_acl_kernel(const float* A, const float* Bm, const float* bv,
+                            const float* Qw, const float* Qf, const float* R,
+                            const float* q, const float* r, float* K, float* k,
+                            float* Acl, float* bcl, int N, int B, float reg) {
+  team_backward<true, true>(A, Bm, bv, Qw, Qf, R, q, r, K, k, Acl, bcl, N, B, reg);
 }
 
 template <bool CONST_Q>
@@ -618,6 +694,25 @@ static int launch_team(const float* A, const float* Bm, const float* bv, const f
   const int blocks = (B + k6t::TEAMS - 1) / k6t::TEAMS;
   riccati_team_kernel<CONST_Q><<<blocks, k6t::W_CARD * k6t::TEAMS, bytes, stream>>>(
       A, Bm, bv, Qw, Qf, R, q, r, K, k, N, B, reg);
+  return (int)cudaGetLastError();
+}
+
+// K4a's team pass: K6a's (Qw, Qf the two 12x12 matrices), also writing Acl
+// = A + B K [N,12,12,B] and bcl = b + B k [N,12,B]
+extern "C" int srbd_riccati_bwd_team_acl_launch(const float* A, const float* Bm,
+                                                const float* bv, const float* Qw,
+                                                const float* Qf, const float* R,
+                                                const float* q, const float* r, float* K,
+                                                float* k, float* Acl, float* bcl, int N,
+                                                int B, float reg, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  constexpr int bytes = team_smem_words(true) * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      riccati_team_acl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + k6t::TEAMS - 1) / k6t::TEAMS;
+  riccati_team_acl_kernel<<<blocks, k6t::W_CARD * k6t::TEAMS, bytes, (cudaStream_t)stream>>>(
+      A, Bm, bv, Qw, Qf, R, q, r, K, k, Acl, bcl, N, B, reg);
   return (int)cudaGetLastError();
 }
 
@@ -683,11 +778,12 @@ extern "C" int srbd_riccati_bwd_host_f64(const host_t* A, const host_t* Bm,
 // the team body over every lane: team, the team width it emulates (8 to 32;
 // the card's is 16), rev: each team's members in reverse order within each
 // step. Stages each lane's inputs as the card's block does.
-template <bool CONST_Q>
+template <bool CONST_Q, bool ACL = false>
 static void team_host_lane(const host_t* A, const host_t* Bm, const host_t* bv,
                            const host_t* Qc, const host_t* R, const host_t* q,
                            const host_t* r, host_t* K, host_t* k, int N, int B, int b,
-                           host_t reg, int W, bool rev) {
+                           host_t reg, int W, bool rev, host_t* Acl = nullptr,
+                           host_t* bcl = nullptr) {
   k6t::Team<host_t> s;
   host_t in[k6t::IN_QG + 144];
   int rrow[78];
@@ -696,10 +792,15 @@ static void team_host_lane(const host_t* A, const host_t* Bm, const host_t* bv,
   for (int g = N - 1; g >= 0; --g) {
     k6t::stage_inputs<CONST_Q>(in, A, Bm, bv, Qc, R, q, r, rrow, g, B, (size_t)b, 0, 1,
                                [](host_t* d, const host_t* src) { *d = *src; });
-    k6t::stage<host_t, CONST_Q>(s, in, Qc, reg, 0, W, 0u, rev);
+    k6t::stage<host_t, CONST_Q, ACL>(s, in, Qc, reg, 0, W, 0u, rev);
     for (int i = 0; i < 12; ++i) {
       for (int j = 0; j < 12; ++j) K[(((size_t)g * 12 + i) * 12 + j) * B + b] = s.Y[i][j];
       k[((size_t)g * 12 + i) * B + b] = s.Y[i][12];
+      if (ACL) {
+        for (int j = 0; j < 12; ++j)
+          Acl[(((size_t)g * 12 + i) * 12 + j) * B + b] = s.PAt[i][j];
+        bcl[((size_t)g * 12 + i) * B + b] = s.Pbp[i];
+      }
     }
   }
 }
@@ -717,6 +818,22 @@ extern "C" int srbd_riccati_bwd_team_host(int team, int rev, const host_t* A,
     else
       team_host_lane<false>(A, Bm, bv, Qc, R, q, r, K, k, N, B, b, rg, team, rev != 0);
   }
+  return 0;
+}
+
+// K4a's team pass over every lane (Qc = [Q | Qf]), as the team entry above,
+// also writing Acl and bcl
+extern "C" int srbd_riccati_bwd_team_acl_host(int team, int rev, const host_t* A,
+                                              const host_t* Bm, const host_t* bv,
+                                              const host_t* Qc, const host_t* R,
+                                              const host_t* q, const host_t* r, host_t* K,
+                                              host_t* k, host_t* Acl, host_t* bcl, int N,
+                                              int B, double reg) {
+  if (team < 8 || team > 32) return 1;
+  const host_t rg(reg);
+  for (int b = 0; b < B; ++b)
+    team_host_lane<true, true>(A, Bm, bv, Qc, R, q, r, K, k, N, B, b, rg, team, rev != 0,
+                               Acl, bcl);
   return 0;
 }
 

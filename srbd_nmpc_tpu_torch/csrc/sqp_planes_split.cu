@@ -1,27 +1,32 @@
-// K1s · K1's gains body (the default fused SQP trip) and its factor-parking
-// body (park_factor=True) as three launches each:
+// K1s · K1's three bodies (the gains body, the default fused SQP trip; the
+// rank-6 body, rank6=True; the factor-parking body, park_factor=True) as
+// three launches each:
 //
 //   K1s-A  k1s_planes_kernel         the plane pass, one thread per (stage,
-//                                    lane); the same launch for both bodies;
+//                                    lane); the same launch for every body;
 //   K1s-B  k1s_riccati_team_kernel   the backward Riccati pass, a team of
 //                                    W = 16 threads of one warp per scenario;
+//          k1s_riccati_rank6_kernel  its rank-6 form: the 6x6 stage, K and kv
+//                                    parked as the gains form parks them;
 //          k1s_riccati_factor_kernel its factor form: the same stage, parking
 //                                    the factor in place of the gains;
 //   K1s-C  k1s_rollout_kernel        the rollout, dphi and the merit's
 //                                    reduction over the stages, one thread per
-//                                    lane;
+//                                    lane (the gains and rank-6 bodies);
 //          k1s_rollout_factor_kernel its factor form: du back-substituted
 //                                    from the parked factor at every stage.
 //
 // Replaces the TPU kernel srbd_nmpc_tpu/ops/sqp_planes.py::
-// _onepass_planes_kernel (:301, called at :582) with rank6=False: its grid
-// step 0 (_planes_phase, all N stages at once on [N, block] planes) and its
+// _onepass_planes_kernel (:301, called at :582): its grid step 0
+// (_planes_phase, all N stages at once on [N, block] planes) and its
 // backward steps (the structured stage sqp_pallas._riccati_stage_structured;
-// with factor=True its return_factor form, :373-389), then its forward
-// epilogue (with factor=True, t = Yh dx + yv, du = -bwd_subst(L, dinv, t),
-// :408-416). Contract: srbd_nmpc_tpu_torch/ops/sqp_planes.py::
-// sqp_qp_solve_onepass_planes_ref with rank6=False, as the one-thread bodies
-// sqp_planes.cu <kGains> and <kFactor>, which stay beside it.
+// with rank6=True _riccati_stage_rank6, :77, chosen at :362-367; with
+// factor=True the structured stage's return_factor form, :373-389), then
+// its forward epilogue (with factor=True, t = Yh dx + yv, du =
+// -bwd_subst(L, dinv, t), :408-416). Contract: srbd_nmpc_tpu_torch/ops/
+// sqp_planes.py::sqp_qp_solve_onepass_planes_ref with the same rank6 /
+// factor flags, as the one-thread bodies sqp_planes.cu <kGains>, <kRank6>
+// and <kFactor>, which stay beside it.
 //
 // What bounds it on the H100: in one thread per scenario, the 12x12 stage's
 // live set (P, V = Jx'P, [H | rv], the Cholesky factor: ~380 floats) sets
@@ -64,6 +69,31 @@
 //   components), where the one-thread body sums stage by stage; dx, du,
 //   dphi, max|defect| and min constraint are those of the one-thread body
 //   bit for bit.
+// - The rank-6 form (k1s_riccati_rank6_kernel, a sibling of the gains team
+//   body that shares its load and V/Pb_p step) spreads
+//   k1::riccati_stage_rank6 over the team in 11 steps a stage: columns of
+//   V with Pb_p beside the 42 lower entries of R1h/R2h; the two 6x6 leg
+//   factors, a member each, beside the 72 entries of Y (rows sel of P A);
+//   the 12 columns of E = R^-1 W' and the two legs of r~ (one code path);
+//   the 6 columns of T (and its copy Lt) and the one of w_r; T's factor by
+//   one member with zvec; Pss Lt; the 21 lower entries of Ms; Ms's factor
+//   by one member; then one member per column of [Y | zvec] runs the whole
+//   column chain (Lt', the Ms solve, Lt, Pss, the update) and forms its
+//   column of K (kv) and of W K (W kv), K's in registers; last the 78
+//   entry pairs of P, the 12 of p, and K and kv into the team's array. A
+//   step's items take one code path where they can: a warp runs every
+//   path that its members take. The 6x6 factors are k1::cholesky itself on
+//   a copy in registers, a serial chain of six pivots in one member (a
+//   team form, a barrier a column, was not measured). The next stage's
+//   pack is asked into L2 at the start of each stage. The team array is
+//   784 words (V, P, Y, the stage, and two regions that hold the 6x6
+//   matrices of the stage's first half and W K, K and kv after them), 8
+//   teams a block, 64 teams an SM; 64 registers. The block writes K and kv
+//   as it writes the factor form's park, once every team is done with the
+//   stage (the members' own store was slower on the H100, PERF.md). Every
+//   entry keeps
+//   k1::riccati_stage_rank6's expression and sum order, so the split
+//   rounds as the one-thread body does.
 // - The factor forms (a compile-time flag of the same team and rollout
 //   bodies; the gains instantiations do not change) trade the team's
 //   13-column back substitution for a serial one in the rollout: the team
@@ -264,6 +294,28 @@ HD T jxtv_at(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF, const T* v, 
   return s[i - 6];
 }
 
+// column j of V = Jx' P (srbd_dev::stage_jxt_p) and Pb_p[j] = (P b + p)_j,
+// the first step of the gains and the rank-6 team stages
+template <typename T>
+HD void v_column(const T (&P)[12][12], const Stage<T>& st, const T* p, int j,
+                 T (&V)[12][12], T* Pbp) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    V[i][j] = st.D1[0][i] * P[0][j] + st.D1[1][i] * P[1][j] + st.D1[2][i] * P[2][j];
+    V[3 + i][j] = st.D2[0][i] * P[0][j] + st.D2[1][i] * P[1][j] + st.D2[2][i] * P[2][j];
+    V[9 + i][j] = P[6 + i][j];
+  }
+  T sv[3];
+  skewT_mul(st.sF, P[3][j], P[4][j], P[5][j], sv);
+  V[6][j] = sv[0];
+  V[7][j] = sv[1];
+  V[8][j] = sv[2];
+  T acc = P[j][0] * st.bv[0];
+#pragma unroll
+  for (int c = 1; c < 12; ++c) acc = acc + P[j][c] * st.bv[c];
+  Pbp[j] = acc + p[j];
+}
+
 // the factor form's park of a stage: F_WORDS words, Yh (e < 144, row by
 // row), yv (< 156), L's lower triangle row by row (< 234) and dinv
 constexpr int F_WORDS = 246;
@@ -345,23 +397,7 @@ HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* p
     // and for j in 3..5, 9..11 column j of Ju'P (srbd_dev::ju_p)
     TEAM_FOR(t) {
       TEAM_ITEMS(j, 12) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          s.V[i][j] = st.D1[0][i] * s.P[0][j] + st.D1[1][i] * s.P[1][j]
-                      + st.D1[2][i] * s.P[2][j];
-          s.V[3 + i][j] = st.D2[0][i] * s.P[0][j] + st.D2[1][i] * s.P[1][j]
-                          + st.D2[2][i] * s.P[2][j];
-          s.V[9 + i][j] = s.P[6 + i][j];
-        }
-        T sv[3];
-        skewT_mul(st.sF, s.P[3][j], s.P[4][j], s.P[5][j], sv);
-        s.V[6][j] = sv[0];
-        s.V[7][j] = sv[1];
-        s.V[8][j] = sv[2];
-        T acc = s.P[j][0] * st.bv[0];
-#pragma unroll
-        for (int c = 1; c < 12; ++c) acc = acc + s.P[j][c] * st.bv[c];
-        s.Pbp[j] = acc + s.p[j];
+        v_column(s.P, st, s.p, j, s.V, s.Pbp);
         if ((j >= 3 && j < 6) || j >= 9) {
           const int m = (j < 6) ? j - 3 : j - 6;
 #pragma unroll
@@ -515,6 +551,368 @@ HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* p
         }
       }
     }
+  }
+#undef AT
+}
+
+// ---------------------------------------------------------------------------
+// K1s-B, rank-6 form (k1::riccati_stage_rank6), a team of W threads per
+// scenario
+// ---------------------------------------------------------------------------
+
+// one scenario's per-team array for the rank-6 stage. Y the rows sel(0..5)
+// of P A; ra and rb hold what lives only part of a stage:
+//   ra: L1, L2 [6][6] and d1, d2 (steps 1-3), then Pss Lt [6][6] (6-7), then
+//       W K [6][12] and W kv (9-10);
+//   rb: E1, E2, T, Lt, Lm [6][6] and dm (3-9), then K [12][12] and kv (10 to
+//       the park).
+// 784 words, so that the two teams of a warp start 16 banks apart
+template <typename T> struct Team6 {
+  T P[12][12], V[12][12], Y[6][12];
+  T Pbp[12], p[12], rt[12], wr[6], zv[6];
+  T ra[84], rb[186];
+  Stage<T> st;
+  T pad[19];
+};
+static_assert(sizeof(Team6<float>) == 784 * sizeof(float), "784 words a team");
+
+// the 6x6 matrix at word off of a region
+template <typename T>
+HD T (&m6(T* region, int off))[6][6] { return *reinterpret_cast<T(*)[6][6]>(region + off); }
+template <typename T>
+HD T (&v6(T* region, int off))[6] { return *reinterpret_cast<T(*)[6]>(region + off); }
+
+// row i of C' E for a W' block C = [[S', I/m], [I, 0]] (S = skew(s)), E's
+// column given by e(k) = E[k][c]: k1::wt_mul's expression for that entry
+template <typename T, typename F>
+HD T wt_row(const T* s, T m_inv, int i, F e) {
+  if (i >= 3) return m_inv * e(i - 3);
+  const int k0 = i == 0 ? 1 : 0, k1 = i == 2 ? 1 : 2;  // {0, 1, 2} \ {i}
+  T acc = skew_at(s, i, k0) * e(k0);
+  acc = acc + skew_at(s, i, k1) * e(k1);
+  return acc + e(3 + i);
+}
+
+// entry (k, c) of the W' block C = [[S', I/m], [I, 0]] (k1::riccati_stage_rank6)
+template <typename T>
+HD T wt_block(const T* s, T m_inv, int k, int c) {
+  if (k < 3) return c < 3 ? skew_at(s, c, k) : (k == c - 3 ? m_inv : T(0));
+  return (c < 3 && k - 3 == c) ? T(1) : T(0);
+}
+
+// a one-member Cholesky of the 6x6 lower triangle of S in place, through
+// k1::cholesky on a copy in registers: S becomes the factor with zeros above
+// the diagonal and the scaled pivots on it, as that body leaves it
+template <typename T>
+HD void cholesky6(T (&S)[6][6], T (&dinv)[6]) {
+  T a[6][6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j) a[i][j] = j <= i ? S[i][j] : T(0);
+  T d[6];
+  cholesky(a, d);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    dinv[i] = d[i];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) S[i][j] = a[i][j];
+  }
+}
+
+// the L2 prefetch of the line holding p (nothing on the host)
+HD void prefetch_l2(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+#else
+  (void)p;
+#endif
+}
+
+// the team leaves K and kv in rb and, on the card, the block writes them
+// (park(k), once every team is done with stage k)
+template <typename T, typename Park = int>
+HD void riccati_rank6_team(Team6<T>& s, const T* kc, const T* pack, const T* term, T* park0,
+                           T* park1, int N, int B, int b, T reg, int lane, int W,
+                           unsigned mask, bool rev, const Park& park = Park()) {
+#define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
+  (void)lane;
+  (void)mask;
+  (void)rev;
+  const T dt = kc[K_DT];
+  const T dt2 = dt * dt;
+  const T m_inv = T(1) / kc[K_MASS];
+  const T* Ac1 = kc + K_AC1;
+  const T* Ac2 = kc + K_AC2;
+  const T* Rw = kc + K_R;
+  const T* Qw = kc + K_Q;
+  const T* Qf = kc + K_QF;
+  const Stage<T>& st = s.st;
+  T(&L1)[6][6] = m6(s.ra, 0);
+  T(&L2)[6][6] = m6(s.ra, 36);
+  T(&d1)[6] = v6(s.ra, 72);
+  T(&d2)[6] = v6(s.ra, 78);
+  T(&PssLt)[6][6] = m6(s.ra, 0);
+  T(&WK)[6][12] = *reinterpret_cast<T(*)[6][12]>(s.ra);
+  T* const Wkv = s.ra + 72;
+  T(&E1)[6][6] = m6(s.rb, 0);
+  T(&E2)[6][6] = m6(s.rb, 36);
+  T(&Tm)[6][6] = m6(s.rb, 72);
+  T(&Lt)[6][6] = m6(s.rb, 108);
+  T(&Lm)[6][6] = m6(s.rb, 144);
+  T(&dm)[6] = v6(s.rb, 180);
+  T(&Kp)[12][12] = *reinterpret_cast<T(*)[12][12]>(s.rb);
+  T* const kvp = s.rb + 144;
+  // Pss = the rows and columns sel(0..5) of P
+  auto pss = [&](int i, int c) -> T { return s.P[sel(i)][sel(c)]; };
+  // a member's columns of [K | kv], kept from step 9 to step 10
+  T kcol[SLOTS][2][12];
+
+  TEAM_FOR(t) {
+    for (int e = t; e < 144; e += W) s.P[e / 12][e % 12] = Qf[e];
+    for (int i = t; i < 12; i += W) s.p[i] = AT(term, i);
+  }
+  for (int k = N - 1; k >= 0; --k) {
+    const T* pk = pack + (size_t)k * P_C * B;
+    T* flat = reinterpret_cast<T*>(&s.st);
+    TEAM_FOR(t) {
+      for (int c = t; c < P_C; c += W) flat[c] = pk[(size_t)c * B + b];
+    }
+    TEAM_SYNC();
+
+    // 1: columns of V = Jx' P with Pb_p; the lower entries of R1h and R2h,
+    // R's leg blocks + Ac' diag(ddb) Ac + reg I. The next stage's pack is
+    // asked into L2 meanwhile
+    TEAM_FOR(t) {
+      if (k > 0)
+        for (int c = t; c < P_C; c += W) prefetch_l2(pk - (size_t)(P_C - c) * B + b);
+      TEAM_ITEMS(e, 54) {
+        if (e < 12) {
+          v_column(s.P, st, s.p, e, s.V, s.Pbp);
+        } else {
+          const int leg = (e - 12) / 21;
+          int i, j;
+          tri(e - 12 - 21 * leg, i, j);
+          const T* Ab = leg ? Ac2 : Ac1;
+          const T* dd = st.ddb + 12 * leg;
+          T c = Ab[i] * (Ab[j] * dd[0]);
+#pragma unroll
+          for (int g = 1; g < 12; ++g) c = c + Ab[6 * g + i] * (Ab[6 * g + j] * dd[g]);
+          T v = Rw[12 * (6 * leg + i) + 6 * leg + j] + c;
+          if (i == j) v = v + reg;
+          (leg ? L2 : L1)[i][j] = v;
+        }
+      }
+    }
+    TEAM_SYNC();
+
+    // 2: the two leg factors, a member each; Y = rows sel of P + dt V'
+    TEAM_FOR(t) {
+      TEAM_ITEMS(e, 74) {
+        if (e < 2) {
+          cholesky6(e ? L2 : L1, e ? d2 : d1);
+        } else {
+          const int a = (e - 2) / 12, j = (e - 2) % 12;
+          s.Y[a][j] = s.P[sel(a)][j] + dt * s.V[j][sel(a)];
+        }
+      }
+    }
+    TEAM_SYNC();
+
+    // 3: E = R^-1 W' a column per member; r~ = R^-1 reff a leg per member
+    // (chol_solve_vec is chol_solve on one column)
+    TEAM_FOR(t) {
+      TEAM_ITEMS(e, 14) {
+        const int leg = e < 12 ? e / 6 : e - 12, c = e % 6;
+        T x[6][1];
+#pragma unroll
+        for (int r = 0; r < 6; ++r)
+          x[r][0] = e < 12 ? wt_block(leg ? st.sl : st.sr, m_inv, r, c) : st.rf[6 * leg + r];
+        chol_solve(leg ? L2 : L1, leg ? d2 : d1, x);
+        T* out = e < 12 ? &(leg ? E2 : E1)[0][c] : s.rt + 6 * leg;
+        const int stride = e < 12 ? 6 : 1;
+#pragma unroll
+        for (int r = 0; r < 6; ++r) out[stride * r] = x[r][0];
+      }
+    }
+    TEAM_SYNC();
+
+    // 4: T = W R^-1 W' = C1' E1 + C2' E2 (and its copy into Lt) a column per
+    // member; w_r = W r~ (the same for the column r~)
+    TEAM_FOR(t) {
+      TEAM_ITEMS(j, 7) {
+        const T* e1 = j < 6 ? &E1[0][j] : s.rt;
+        const T* e2 = j < 6 ? &E2[0][j] : s.rt + 6;
+        const int stride = j < 6 ? 6 : 1;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          const T v = wt_row(st.sr, m_inv, i, [&](int r) { return e1[stride * r]; })
+                      + wt_row(st.sl, m_inv, i, [&](int r) { return e2[stride * r]; });
+          if (j < 6) {
+            Tm[i][j] = v;
+            Lt[i][j] = v;
+          } else {
+            s.wr[i] = v;
+          }
+        }
+      }
+    }
+    TEAM_SYNC();
+
+    // 5: T = Lt Lt' by one member; zvec = dt ys - dt^2 Pss w_r
+    TEAM_FOR(t) {
+      TEAM_ITEMS(e, 7) {
+        if (e == 0) {
+          T dt6[6];
+          cholesky6(Lt, dt6);
+        } else {
+          const int i = e - 1;
+          T a = pss(i, 0) * s.wr[0];
+#pragma unroll
+          for (int c = 1; c < 6; ++c) a = a + pss(i, c) * s.wr[c];
+          s.zv[i] = dt * s.Pbp[sel(i)] - dt2 * a;
+        }
+      }
+    }
+    TEAM_SYNC();
+
+    // 6: Pss Lt by entries
+    TEAM_FOR(t) {
+      TEAM_ITEMS(e, 36) {
+        const int i = e / 6, j = e % 6;
+        T a = pss(i, 0) * Lt[0][j];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) a = a + pss(i, c) * Lt[c][j];
+        PssLt[i][j] = a;
+      }
+    }
+    TEAM_SYNC();
+
+    // 7: the lower entries of Ms = I + dt^2 Lt' (Pss Lt)
+    TEAM_FOR(t) {
+      TEAM_ITEMS(e, 21) {
+        int i, j;
+        tri(e, i, j);
+        T a = Lt[0][i] * PssLt[0][j];
+#pragma unroll
+        for (int c = 1; c < 6; ++c) a = a + Lt[c][i] * PssLt[c][j];
+        Lm[i][j] = i == j ? dt2 * a + T(1) : dt2 * a;
+      }
+    }
+    TEAM_SYNC();
+
+    // 8: Ms = Lm Lm' by one member
+    TEAM_FOR(t) {
+      if (t == 0) cholesky6(Lm, dm);
+    }
+    TEAM_SYNC();
+
+    // 9: a column c per member of X = [Y | zvec] - dt^2 Pss Lt Ms^-1 Lt' [Y | zvec],
+    // then its column of K = -dt [E1 Yh; E2 Yh] (kv = -[r~ + E zh] for
+    // c = 12) and of W K = -dt T Yh (W kv = -(w_r + T zh))
+    TEAM_FOR(t) {
+      TEAM_ITEMS(c, 13) {
+        T x[6], w[6][1], lw[6];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) x[i] = c < 12 ? s.Y[i][c] : s.zv[i];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          T a = Lt[0][i] * x[0];
+#pragma unroll
+          for (int r = 1; r < 6; ++r) a = a + Lt[r][i] * x[r];
+          w[i][0] = a;
+        }
+        chol_solve(Lm, dm, w);
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          T a = Lt[i][0] * w[0][0];
+#pragma unroll
+          for (int r = 1; r < 6; ++r) a = a + Lt[i][r] * w[r][0];
+          lw[i] = a;
+        }
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          T a = pss(i, 0) * lw[0];
+#pragma unroll
+          for (int r = 1; r < 6; ++r) a = a + pss(i, r) * lw[r];
+          x[i] = x[i] - dt2 * a;
+        }
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          T a = E1[i][0] * x[0], b2 = E2[i][0] * x[0], h = Tm[i][0] * x[0];
+#pragma unroll
+          for (int r = 1; r < 6; ++r) {
+            a = a + E1[i][r] * x[r];
+            b2 = b2 + E2[i][r] * x[r];
+            h = h + Tm[i][r] * x[r];
+          }
+          if (c < 12) {
+            MINE(kcol)[q_][i] = -dt * a;
+            MINE(kcol)[q_][6 + i] = -dt * b2;
+            WK[i][c] = -dt * h;
+          } else {
+            MINE(kcol)[q_][i] = -(s.rt[i] + a);
+            MINE(kcol)[q_][6 + i] = -(s.rt[6 + i] + b2);
+            Wkv[i] = -(s.wr[i] + h);
+          }
+        }
+      }
+    }
+    TEAM_SYNC();
+
+    // 10: P_new = Qw + P + dt (V' + V) + dt^2 Jx'V' + H'K symmetrized, 78
+    // entry pairs in place, H'K = dt Y'(W K); p_new = q + Pb_p + dt Jx' Pb_p +
+    // dt Y'(W kv); each member's columns of [K | kv] out of its registers
+    TEAM_FOR(t) {
+      TEAM_ITEMS(e, 90) {
+        if (e < 78) {
+          int j, i;
+          tri(e, j, i);  // i <= j
+          T hij = s.Y[0][i] * WK[0][j], hji = s.Y[0][j] * WK[0][i];
+#pragma unroll
+          for (int r = 1; r < 6; ++r) {
+            hij = hij + s.Y[r][i] * WK[r][j];
+            hji = hji + s.Y[r][j] * WK[r][i];
+          }
+          const T mvv = dt * (s.V[j][i] + s.V[i][j]);
+          const T xij = (((Qw[12 * i + j] + s.P[i][j]) + mvv)
+                         + dt2 * jxt_m(s.V, st.D1, st.D2, st.sF, i, j)) + dt * hij;
+          const T xji = (((Qw[12 * j + i] + s.P[j][i]) + mvv)
+                         + dt2 * jxt_m(s.V, st.D1, st.D2, st.sF, j, i)) + dt * hji;
+          const T sym = T(0.5) * (xij + xji);
+          s.P[i][j] = sym;
+          s.P[j][i] = sym;
+        } else {
+          const int i = e - 78;
+          T acc = s.Y[0][i] * Wkv[0];
+#pragma unroll
+          for (int r = 1; r < 6; ++r) acc = acc + s.Y[r][i] * Wkv[r];
+          s.p[i] = ((st.q[i] + s.Pbp[i]) + dt * jxtv_at(st.D1, st.D2, st.sF, s.Pbp, i))
+                   + dt * acc;
+        }
+      }
+      TEAM_ITEMS(c, 13) {
+#pragma unroll
+        for (int i = 0; i < 12; ++i) {
+          const T v = MINE(kcol)[q_][i];
+          if (c < 12) Kp[i][c] = v;
+          else kvp[i] = v;
+        }
+      }
+    }
+    TEAM_SYNC();
+
+#ifdef __CUDA_ARCH__
+    park(k);
+#else
+    (void)park;
+    TEAM_FOR(t) {
+      for (int e = t; e < 156; e += W) {
+        if (e < 144) AT(park0, k * 144 + e) = s.rb[e];
+        else AT(park1, k * 12 + e - 144) = s.rb[e];
+      }
+    }
+#endif
   }
 #undef AT
 }
@@ -719,6 +1117,47 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
                                  lane, W, mask, false, park2, park3, park);
 }
 
+// the rank-6 form's K and kv of stage k from the whole block, as BlockPark
+// writes the factor form's park: each row's 8 lanes one 32-byte sector
+struct BlockPark6 {
+  const k1s::Team6<float>* teams;
+  float *park0, *park1;
+  int B, b0;
+  __host__ __device__ void operator()(int k) const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();  // every team is done with stage k
+    const int sc = threadIdx.x % k1s::TEAMS;
+    if (b0 + sc < B)
+      for (int e = threadIdx.x / k1s::TEAMS; e < 156; e += k1s::W_CARD) {
+        float* row = e < 144 ? park0 + ((size_t)k * 144 + e) * B
+                             : park1 + ((size_t)k * 12 + e - 144) * B;
+        row[b0 + sc] = teams[sc].rb[e];
+      }
+    __syncthreads();  // before a team's next stage writes rb
+#else
+    (void)k;
+#endif
+  }
+};
+
+__global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
+    k1s_riccati_rank6_kernel(const float* __restrict__ consts, const float* pack,
+                             const float* term, float* park0, float* park1, int N, int B,
+                             float reg) {
+  constexpr int W = k1s::W_CARD;
+  __shared__ k1s::Team6<float> teams[k1s::TEAMS];
+  K1S_CONSTS
+  const int team = threadIdx.x / W, lane = threadIdx.x % W;
+  const int b0 = blockIdx.x * k1s::TEAMS;
+  const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
+  // a team past the ragged edge repeats the last lane and parks nothing,
+  // so that it reaches the block's barriers
+  const int b = b0 + team < B ? b0 + team : B - 1;
+  const BlockPark6 park{teams, park0, park1, B, b0};
+  k1s::riccati_rank6_team<float>(teams[team], kc, pack, term, park0, park1, N, B, b, reg,
+                                 lane, W, mask, false, park);
+}
+
 __global__ void __launch_bounds__(128)
     k1s_rollout_kernel(const float* __restrict__ consts, const float* pack, const float* mer,
                        const float* term, const float* park0, const float* park1,
@@ -772,6 +1211,18 @@ extern "C" int srbd_k1s_riccati_launch(const float* consts, const float* pack,
   return (int)cudaGetLastError();
 }
 
+// the rank-6 form of K1s-B (R leg-block-diagonal: the host decides): parks K
+// [N, 12, 12, B] and kv [N, 12, B] as the gains form does
+extern "C" int srbd_k1s_riccati_rank6_launch(const float* consts, const float* pack,
+                                             const float* term, float* park0, float* park1,
+                                             int N, int B, float reg, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const int teams = (B + k1s::TEAMS - 1) / k1s::TEAMS;
+  k1s_riccati_rank6_kernel<<<teams, k1s::TEAMS * k1s::W_CARD, 0, (cudaStream_t)stream>>>(
+      consts, pack, term, park0, park1, N, B, reg);
+  return (int)cudaGetLastError();
+}
+
 // K1s-C: dx_out = dx[1:], out5 rows dphi, theta, phi, maxdef, mincon
 extern "C" int srbd_k1s_rollout_launch(const float* consts, const float* pack,
                                        const float* mer, const float* term,
@@ -821,9 +1272,9 @@ extern "C" int srbd_k1s_rollout_factor_launch(const float* consts, const float* 
 
 using srbd_dev::host_t;
 
-// the arguments of the three launches together, for the gains body or
-// (kFactor) the factor body
-template <bool kFactor>
+// the arguments of the three launches together, for the gains, rank-6 or
+// factor body (k1::Body)
+template <int kBody>
 static int split_host(int team, int rev, const host_t* consts, const host_t* xa,
                       const host_t* us, const host_t* xr, const host_t* dxc,
                       const host_t* duc, const host_t* alpha, const host_t* dx0,
@@ -832,16 +1283,23 @@ static int split_host(int team, int rev, const host_t* consts, const host_t* xa,
                       host_t* mer, host_t* term, host_t* park0, host_t* park1,
                       host_t* park2, host_t* park3, int N, int B, double mu_b,
                       double theta_b, double reg) {
-  if (team < 8 || team > 32) return 1;  // x0: two columns a member
+  if (team < 8 || team > 32) return 1;  // x0, kcol: two columns a member
+  constexpr bool kFactor = kBody == k1::kFactor;
   const host_t mu(mu_b), th(theta_b), rg(reg);
   for (int k = 0; k <= N; ++k)
     for (int b = 0; b < B; ++b)
       k1s::plane_stage(consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, k, b, mu,
                        th);
   for (int b = 0; b < B; ++b) {
-    k1s::Team<host_t> s;
-    k1s::riccati_team<host_t, kFactor>(s, consts, pack, term, park0, park1, N, B, b, rg, 0,
-                                       team, 0u, rev != 0, park2, park3);
+    if constexpr (kBody == k1::kRank6) {
+      k1s::Team6<host_t> s;
+      k1s::riccati_rank6_team<host_t>(s, consts, pack, term, park0, park1, N, B, b, rg, 0,
+                                      team, 0u, rev != 0);
+    } else {
+      k1s::Team<host_t> s;
+      k1s::riccati_team<host_t, kFactor>(s, consts, pack, term, park0, park1, N, B, b, rg, 0,
+                                         team, 0u, rev != 0, park2, park3);
+    }
   }
   for (int b = 0; b < B; ++b)
     k1s::rollout<host_t, kFactor>(consts, pack, mer, term, park0, park1, dx0, dx_out, du_out,
@@ -861,9 +1319,23 @@ extern "C" int srbd_sqp_planes_split_host(int team, int rev, const host_t* const
                                           host_t* pack, host_t* mer, host_t* term,
                                           host_t* park0, host_t* park1, int N, int B,
                                           double mu_b, double theta_b, double reg) {
-  return split_host<false>(team, rev, consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out,
-                           du_out, dphi, theta, phi, maxdef, mincon, pack, mer, term, park0,
-                           park1, nullptr, nullptr, N, B, mu_b, theta_b, reg);
+  return split_host<k1::kGains>(team, rev, consts, xa, us, xr, dxc, duc, alpha, dx0,
+                                dx_out, du_out, dphi, theta, phi, maxdef, mincon, pack, mer,
+                                term, park0, park1, nullptr, nullptr, N, B, mu_b, theta_b,
+                                reg);
+}
+
+// the same for the rank-6 body (its K and kv in park0, park1)
+extern "C" int srbd_sqp_planes_split_rank6_host(
+    int team, int rev, const host_t* consts, const host_t* xa, const host_t* us,
+    const host_t* xr, const host_t* dxc, const host_t* duc, const host_t* alpha,
+    const host_t* dx0, host_t* dx_out, host_t* du_out, host_t* dphi, host_t* theta,
+    host_t* phi, host_t* maxdef, host_t* mincon, host_t* pack, host_t* mer, host_t* term,
+    host_t* park0, host_t* park1, int N, int B, double mu_b, double theta_b, double reg) {
+  return split_host<k1::kRank6>(team, rev, consts, xa, us, xr, dxc, duc, alpha, dx0,
+                                dx_out, du_out, dphi, theta, phi, maxdef, mincon, pack, mer,
+                                term, park0, park1, nullptr, nullptr, N, B, mu_b, theta_b,
+                                reg);
 }
 
 // the same for the factor body, with its four parks
@@ -874,9 +1346,9 @@ extern "C" int srbd_sqp_planes_split_factor_host(
     host_t* phi, host_t* maxdef, host_t* mincon, host_t* pack, host_t* mer, host_t* term,
     host_t* park0, host_t* park1, host_t* park2, host_t* park3, int N, int B, double mu_b,
     double theta_b, double reg) {
-  return split_host<true>(team, rev, consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out,
-                          du_out, dphi, theta, phi, maxdef, mincon, pack, mer, term, park0,
-                          park1, park2, park3, N, B, mu_b, theta_b, reg);
+  return split_host<k1::kFactor>(team, rev, consts, xa, us, xr, dxc, duc, alpha, dx0,
+                                 dx_out, du_out, dphi, theta, phi, maxdef, mincon, pack, mer,
+                                 term, park0, park1, park2, park3, N, B, mu_b, theta_b, reg);
 }
 
 #endif

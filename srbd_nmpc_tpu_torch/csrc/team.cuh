@@ -1,7 +1,8 @@
-// Helpers of the kernels that spread one scenario's 12x12 Riccati stage over a
+// Helpers of the kernels that spread one scenario's Riccati stage over a
 // team of W threads, with the stage's matrices in a per-team array in shared
-// memory: K1s-B (sqp_planes_split.cu, also K3's Riccati pass) and K6's team
-// backward pass (riccati.cu).
+// memory: K1s-B and its rank-6 and factor forms (sqp_planes_split.cu; the
+// gains form is also K3's Riccati pass) and K6's team backward pass
+// (riccati.cu; its Acl form is also K4a's).
 //
 // A team body is written once for the card and the host. On the card each
 // member runs its own share of a step (TEAM_FOR binds t = lane) and

@@ -105,6 +105,36 @@ def _lib():
     return fn
 
 
+def _launch(consts, xs, xn, us, xr, mu_b, theta_b, one_thread=False, q=None):
+    """K5's launch (``csrc/linearize.cu``), its return code checked; counts
+    nothing. ``consts``: the block of ``kernel_constants``, or a longer block
+    that starts with it (K4a's). ``q``: a buffer whose first N rows take q
+    (K4a's [N+1, 12, B], whose row N its terminal pass fills), else one of N
+    rows. Returns A, B, b, q (N rows), r_eff, R_eff and the merit rows."""
+    N, _, Bt = xs.shape
+    check_cuda_f32("consts", consts[:_K_LEN], (_K_LEN,))
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xs.device)
+
+    A, Bm, R_eff = (empty(N, NX, NX, Bt), empty(N, NX, NU, Bt),
+                    empty(N, NU, NU, Bt))
+    b, r_eff, mer = empty(N, NX, Bt), empty(N, NU, Bt), empty(N, 8, Bt)
+    q = empty(N, NX, Bt) if q is None else q
+    hand = None if one_thread else empty(N, _HAND, Bt)
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    err = _lib()(int(one_thread), consts.data_ptr(), xs.data_ptr(),
+                 xn.data_ptr(), us.data_ptr(), xr.data_ptr(), A.data_ptr(),
+                 Bm.data_ptr(),
+                 b.data_ptr(), R_eff.data_ptr(), r_eff.data_ptr(),
+                 q.data_ptr(), mer.data_ptr(),
+                 None if hand is None else hand.data_ptr(), N, Bt,
+                 float(mu_b), float(theta_b), stream)
+    if err != 0:
+        raise RuntimeError(f"linearize kernel launch failed: CUDA error {err}")
+    return A, Bm, b, q[:N], r_eff, R_eff, mer
+
+
 def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b,
                     one_thread=False, consts=None):
     """K5 on the card: the stage pass and the dense write (two launches
@@ -122,27 +152,9 @@ def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b,
     consts = consts.to(xs.device)     # a no-op where the block lies there
     check_cuda_f32("consts", consts, (_K_LEN,))
     xs, xn, us, xr = (t.contiguous() for t in (xs, xn, us, xr))
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=xs.device)
-
-    A, Bm, R_eff = (empty(N, NX, NX, Bt), empty(N, NX, NU, Bt),
-                    empty(N, NU, NU, Bt))
-    b, q, r_eff, mer = (empty(N, NX, Bt), empty(N, NX, Bt), empty(N, NU, Bt),
-                        empty(N, 8, Bt))
-    hand = None if one_thread else empty(N, _HAND, Bt)
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = _lib()(int(one_thread), consts.data_ptr(), xs.data_ptr(),
-                 xn.data_ptr(), us.data_ptr(), xr.data_ptr(), A.data_ptr(),
-                 Bm.data_ptr(),
-                 b.data_ptr(), R_eff.data_ptr(), r_eff.data_ptr(),
-                 q.data_ptr(), mer.data_ptr(),
-                 None if hand is None else hand.data_ptr(), N, Bt,
-                 float(mu_b), float(theta_b), stream)
-    if err != 0:
-        raise RuntimeError(f"linearize kernel launch failed: CUDA error {err}")
+    out = _launch(consts, xs, xn, us, xr, mu_b, theta_b, one_thread)
     launches += 1
-    return A, Bm, b, q, r_eff, R_eff, mer
+    return out
 
 
 def linearize(params: SRBDParams, Q_w, R_w, Ac, bc, xs, xn, us, xr,

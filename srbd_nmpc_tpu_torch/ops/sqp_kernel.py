@@ -19,12 +19,16 @@ bodies in ``ops.sqp_stage``). CPU tensors run the plain version; CUDA
 tensors launch the hand-written kernels, float32 only, or raise: K3a and
 K3b as three launches (``csrc/sqp_onepass_split.cu``'s plane pass, the team
 Riccati pass of ``csrc/sqp_planes_split.cu`` through
-``sqp_planes.riccati_team_cuda``, the closed-loop rollout), K4a backward
-and K4b forward one launch each of ``csrc/sqp_twopass.cu``. The one-thread
-K3 kernel ``csrc/sqp_onepass.cu`` stays as the yardstick, reachable only
-through the private ``_k3a_cuda`` / ``_k3b_cuda(one_thread=True)``. The K3
-wrappers take the constants block ``sqp_stage.kernel_constants`` as
-``consts=`` so that a solve builds it (and checks ``Ac``) once.
+``sqp_planes.riccati_team_cuda``, the closed-loop rollout); K4a backward as
+four launches (K5's stage pass and dense write of ``csrc/linearize.cu``
+into K4a's buffers, the terminal-and-merit pass of ``csrc/sqp_twopass.cu``,
+K6a's team pass of ``csrc/riccati.cu`` also writing Acl and bcl); K4b
+forward one launch of ``csrc/sqp_twopass.cu``. The one-thread kernels
+``csrc/sqp_onepass.cu`` (K3) and ``sqp_twopass_bwd_kernel`` (K4a) stay as
+yardsticks, reachable only through the private ``_k3a_cuda`` /
+``_k3b_cuda`` / ``_k4a_cuda(one_thread=True)``. The K3 wrappers take the
+constants block ``sqp_stage.kernel_constants`` as ``consts=`` so that a
+solve builds it (and checks ``Ac``) once.
 
 Returns follow the JAX functions: (dx [N+1,12,B], du [N,12,B], dphi [B],
 (theta, phi, max|defect|, min constraint) [B] at the evaluation point).
@@ -37,9 +41,8 @@ from typing import Tuple
 
 import torch
 
-from srbd_nmpc_tpu_torch.models import srbd_soa
+from srbd_nmpc_tpu_torch.models import srbd_linearize, srbd_soa
 from srbd_nmpc_tpu_torch.models.srbd import NG, NU, NX, SRBDParams
-from srbd_nmpc_tpu_torch.models.srbd_linearize import model_constants
 from srbd_nmpc_tpu_torch.ops import smallmat as sm
 from srbd_nmpc_tpu_torch.ops import sqp_planes
 from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
@@ -51,7 +54,8 @@ from srbd_nmpc_tpu_torch.ops.sqp_stage import (_accumulate_merit,
 from srbd_nmpc_tpu_torch.utils.build import check_cuda_f32, load_kernel
 
 # K4a's constants block (offsets match csrc/sqp_twopass.cu): mass, dt,
-# Iinv[9], foot[6], then Ac [24,12], bc [24], R, Q, Qf [12,12]
+# Iinv[9], foot[6], then Ac [24,12], bc [24], R, Q, Qf [12,12]: K5's block
+# (csrc/linearize.cu) then Qf
 _K4_LEN = 761
 THREADS = 128
 # the split K3 trip's merit terms per stage [N, MERIT_C, B]: 0.5 |b|^2, the
@@ -368,29 +372,57 @@ def sqp_qp_solve_onepass_cand(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa,
 
 
 def _k4_constants(params, Q_w, Qf_w, R_w, Ac, bc, dev) -> torch.Tensor:
-    k = torch.cat([t.to(device=dev, dtype=torch.float32).reshape(-1) for t in
-                   (model_constants(params), Ac, bc, R_w, Q_w, Qf_w)])
+    """K4's constants block: K5's (``srbd_linearize.kernel_constants``),
+    which K4a's split hands K5's launches, then Qf (``csrc/sqp_twopass.cu``
+    reads the same layout)."""
+    k = torch.cat([srbd_linearize.kernel_constants(params, Q_w, R_w, Ac, bc)
+                   .to(dev), Qf_w.to(device=dev, dtype=torch.float32)
+                   .reshape(-1)])
     assert k.numel() == _K4_LEN
     return k.contiguous()
 
 
-def sqp_qp_backward(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,
-                    mu_b: float, theta_b: float, reg: float = 0.0):
-    """K4a: the plain version on CPU tensors, the CUDA kernel (f32) on CUDA
-    tensors. Returns as ``sqp_qp_backward_ref``."""
-    if not _dispatch(xa):
-        return sqp_qp_backward_ref(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,
-                                   mu_b, theta_b, reg)
-    N = us.shape[0]
-    Bt = xa.shape[-1]
-    for name, t, shape in (("xa", xa, (N + 1, NX, Bt)), ("us", us, (N, NU, Bt)),
-                           ("xra", xra, (N + 1, NX, Bt))):
-        check_cuda_f32(name, t, shape)
-    if tuple(Ac.shape) != (NG, NU):
-        raise ValueError(f"Ac: expected shape {(NG, NU)}, got {tuple(Ac.shape)}")
+def _k4a_split(consts, xa, us, xra, mu_b, theta_b, reg, stream):
+    """K4a as four launches, each return code checked as it is made: K5's
+    stage pass and dense write (A, B, R_eff, b, q, r_eff and the merit rows
+    [N, 8, B] straight into the buffers below), the terminal-and-merit
+    pass (qN into row N of q [N+1, 12, B]; theta, phi, max|defect|, min
+    constraint), K6a's team pass also writing Acl and bcl (Q, Qf from the
+    constants block, q's N+1 rows its q)."""
+    N, Bt = us.shape[0], xa.shape[-1]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xa.device)
+
+    q = empty(N + 1, NX, Bt)
+    A, Bm, b, _, reff, Reff, mer = srbd_linearize._launch(
+        consts, xa[:N], xa[1:], us, xra[:N], mu_b, theta_b, q=q)
+    out4 = empty(4, Bt)                       # theta, phi, maxdef, mincon
+    _check(_fn("sqp_twopass", "srbd_k4s_merit_launch", 9,
+               [ctypes.c_int] * 2 + [ctypes.c_void_p])(
+        consts.data_ptr(), xa.data_ptr(), xra.data_ptr(), mer.data_ptr(),
+        q.data_ptr(), *(out4[i].data_ptr() for i in range(4)), N, Bt, stream),
+        "sqp_qp_backward terminal and merit pass")
+    del mer
+    Acl, K = empty(N, NX, NX, Bt), empty(N, NU, NX, Bt)
+    bcl, kv = empty(N, NX, Bt), empty(N, NU, Bt)
+    q_w = consts[srbd_linearize._K_Q:srbd_linearize._K_LEN]
+    qf_w = consts[srbd_linearize._K_LEN:]
+    _check(_fn("riccati", "srbd_riccati_bwd_team_acl_launch", 12,
+               [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])(
+        A.data_ptr(), Bm.data_ptr(), b.data_ptr(), q_w.data_ptr(),
+        qf_w.data_ptr(), Reff.data_ptr(), q.data_ptr(), reff.data_ptr(),
+        K.data_ptr(), kv.data_ptr(), Acl.data_ptr(), bcl.data_ptr(), N, Bt,
+        float(reg), stream),
+        "sqp_qp_backward Riccati pass (K6a with Acl, bcl)")
+    return Acl, K, bcl, kv, q[:N], reff, q[N], tuple(out4.unbind(0))
+
+
+def _k4a_one_thread(consts, xa, us, xra, mu_b, theta_b, reg, stream):
+    """K4a as one launch of the one-thread kernel ``sqp_twopass_bwd_kernel``
+    (the yardstick)."""
+    N, Bt = us.shape[0], xa.shape[-1]
     dev = xa.device
-    consts = _k4_constants(params, Q_w, Qf_w, R_w, Ac, bc, dev)
-    xa, us, xra = (t.contiguous() for t in (xa, us, xra))
     Acl = torch.empty((N, NX, NX, Bt), dtype=torch.float32, device=dev)
     K = torch.empty((N, NU, NX, Bt), dtype=torch.float32, device=dev)
     vecs = torch.empty((4, N, NX, Bt), dtype=torch.float32, device=dev)
@@ -404,11 +436,45 @@ def sqp_qp_backward(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,
               *(vecs[i].data_ptr() for i in range(4)), qN.data_ptr(),
               *(mer[i].data_ptr() for i in range(4)),
               N, Bt, float(mu_b), float(theta_b), float(reg), THREADS,
-              _stream(dev)),
+              stream),
            "sqp_twopass backward")
-    launches["sqp_twopass_bwd"] += 1
     return (Acl, K, vecs[0], vecs[1], vecs[2], vecs[3], qN,
             (mer[0], mer[1], mer[2], mer[3]))
+
+
+def _k4a_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, mu_b, theta_b,
+              reg=0.0, one_thread=False):
+    """K4a on the card: the split kernels, or with ``one_thread`` the
+    one-thread kernel ``sqp_twopass_bwd_kernel``, the yardstick that the
+    card tests and chip_smoke.py hold to the plain version and time the
+    split kernels against. CUDA tensors only; the constants block is built
+    once per call."""
+    N = us.shape[0]
+    Bt = xa.shape[-1]
+    for name, t, shape in (("xa", xa, (N + 1, NX, Bt)), ("us", us, (N, NU, Bt)),
+                           ("xra", xra, (N + 1, NX, Bt))):
+        check_cuda_f32(name, t, shape)
+    if tuple(Ac.shape) != (NG, NU):
+        raise ValueError(f"Ac: expected shape {(NG, NU)}, got {tuple(Ac.shape)}")
+    dev = xa.device
+    consts = _k4_constants(params, Q_w, Qf_w, R_w, Ac, bc, dev)
+    xa, us, xra = (t.contiguous() for t in (xa, us, xra))
+    launch = _k4a_one_thread if one_thread else _k4a_split
+    out = launch(consts, xa, us, xra, mu_b, theta_b, reg, _stream(dev))
+    launches["sqp_twopass_bwd"] += 1
+    return out
+
+
+def sqp_qp_backward(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,
+                    mu_b: float, theta_b: float, reg: float = 0.0):
+    """K4a: the plain version on CPU tensors, the CUDA kernels (f32, the
+    four launches of ``_k4a_split``) on CUDA tensors. Returns as
+    ``sqp_qp_backward_ref``."""
+    if not _dispatch(xa):
+        return sqp_qp_backward_ref(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,
+                                   mu_b, theta_b, reg)
+    return _k4a_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, mu_b,
+                     theta_b, reg)
 
 
 def sqp_qp_forward(Acl, K, bcl, kv, q, reff, qN, dx0):

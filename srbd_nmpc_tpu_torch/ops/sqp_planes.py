@@ -13,11 +13,13 @@ same stage parking its factor (``factor=True``), and
   does not depend on the batch width.
 - ``sqp_qp_solve_onepass_planes``: the public entry. CPU tensors go to the
   plain version; CUDA tensors launch the hand-written kernels (f32 only) or
-  raise: the default gains body and the factor body as three launches each
-  of ``csrc/sqp_planes_split.cu`` (a plane pass, a Riccati pass with a team
-  of 16 threads per scenario, the rollout; the factor body's Riccati pass
-  and rollout are their factor forms), the rank-6 body as one launch of
-  ``csrc/sqp_planes.cu``.
+  raise: each of the three bodies as three launches of
+  ``csrc/sqp_planes_split.cu`` (a plane pass, a Riccati pass with a team
+  of 16 threads per scenario, the rollout; the rank-6 body's Riccati pass
+  is its rank-6 form, the factor body's Riccati pass and rollout their
+  factor forms). The one-thread kernels of ``csrc/sqp_planes.cu`` stay as
+  yardsticks, reached only through the private ``_gains_cuda``,
+  ``_rank6_cuda`` and ``_factor_cuda(one_thread=True)``.
 
 The candidate fold ``x + alpha dx`` is applied on load, so one function
 serves the bootstrap (alpha = 0) and every speculative line-search trip.
@@ -359,10 +361,12 @@ def _split_lib():
         lib.srbd_k1s_rollout_launch.argtypes = [P] * 14 + [I, I, P]
         lib.srbd_k1s_riccati_factor_launch.argtypes = [P] * 7 + [I, I, F, P]
         lib.srbd_k1s_rollout_factor_launch.argtypes = [P] * 16 + [I, I, P]
+        lib.srbd_k1s_riccati_rank6_launch.argtypes = [P] * 5 + [I, I, F, P]
         for fn in (lib.srbd_k1s_planes_launch, lib.srbd_k1s_riccati_launch,
                    lib.srbd_k1s_rollout_launch,
                    lib.srbd_k1s_riccati_factor_launch,
-                   lib.srbd_k1s_rollout_factor_launch):
+                   lib.srbd_k1s_rollout_factor_launch,
+                   lib.srbd_k1s_riccati_rank6_launch):
             fn.restype = ctypes.c_int
     return lib
 
@@ -390,11 +394,11 @@ def riccati_team_cuda(kc, pack, term, reg, stream):
 
 def _launch_split(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5,
                   mu_b, theta_b, reg, stream):
-    """The gains or factor ``body`` as three launches
-    (``csrc/sqp_planes_split.cu``): the plane pass, the Riccati pass, the
-    rollout (for the factor body the factor forms of the last two, which
-    park and back-substitute the stage factor); each launch's return code
-    checked as it is made."""
+    """``body`` as three launches (``csrc/sqp_planes_split.cu``): the plane
+    pass, the Riccati pass, the rollout (for the rank-6 body the rank-6 form
+    of the Riccati pass; for the factor body the factor forms of the last
+    two, which park and back-substitute the stage factor); each
+    launch's return code checked as it is made."""
     N, Bt = us.shape[0], xa.shape[-1]
 
     def empty(*shape):
@@ -407,9 +411,16 @@ def _launch_split(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5,
         dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
         mer.data_ptr(), term.data_ptr(), N, Bt, float(mu_b), float(theta_b),
         stream))
+    rollout = lib.srbd_k1s_rollout_launch
     if body == "gains":
         parks = riccati_team_cuda(kc, pack, term, reg, stream)
-        rollout = lib.srbd_k1s_rollout_launch
+    elif body == "rank6":
+        parks = [empty(*s) for s in park_shapes("rank6", N, Bt)[:2]]
+        _check("sqp_planes_split rank-6 Riccati pass",
+               lib.srbd_k1s_riccati_rank6_launch(
+                   kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
+                   *(p.data_ptr() for p in parks), N, Bt, float(reg),
+                   stream))
     else:
         parks = [empty(*s) for s in park_shapes("factor", N, Bt)]
         _check("sqp_planes_split factor Riccati pass",
@@ -441,7 +452,6 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     if consts is None:
         consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc)
     body = _body(rank6, factor, lambda: consts.rank6)
-    split = body != "rank6" and not one_thread
     xa, us, xra, dxc, duc, alpha, x0s = (
         t.contiguous() for t in (xa, us, xra, dxc, duc, alpha, x0s))
 
@@ -455,7 +465,7 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     du = empty(N, NU, Bt)
     out5 = empty(5, Bt)                       # dphi, theta, phi, md, mc
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if split:
+    if not one_thread:
         _launch_split(body, consts.block, xa, us, xra, dxc, duc, alpha, dx,
                       du, out5, mu_b, theta_b, reg, stream)
     else:
@@ -482,6 +492,18 @@ def _gains_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     version and time the split kernels against. CUDA tensors only."""
     return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
                        alpha, x0s, mu_b, theta_b, reg, False, False, consts,
+                       one_thread=one_thread)
+
+
+def _rank6_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+                alpha, x0s, mu_b, theta_b, reg=0.0, one_thread=False,
+                consts=None):
+    """``rank6=True`` on the card, as ``_gains_cuda`` the gains body: the
+    split kernels, or with ``one_thread`` the yardstick
+    ``sqp_planes.cu <kRank6>``. ``consts.rank6`` decides the body, as on
+    the public entry. CUDA tensors only."""
+    return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
+                       alpha, x0s, mu_b, theta_b, reg, True, False, consts,
                        one_thread=one_thread)
 
 
@@ -515,7 +537,8 @@ def sqp_qp_solve_onepass_planes(
     - ``rank6``: the rank-6 stage (``_riccati_stage_rank6``). It needs R_w
       leg-block-diagonal; where it is not, the 12x12 stage runs, silently,
       as in JAX (on CUDA ``consts.rank6`` decides, with no read-back; the
-      launch counter says which body ran);
+      launch counter says which body ran). On CUDA the three launches of
+      ``sqp_planes_split.cu`` with the rank-6 form of its Riccati pass;
     - ``factor``: the 12x12 stage parking its factor (L, dinv) and
       forward-substituted half (Yh, yv); the rollout forms
       du = -L'^-1 (Yh dx + yv) per stage. On CUDA the three launches of

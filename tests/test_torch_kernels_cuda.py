@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 fused SQP trip with its three stage bodies, the gains and factor bodies
-also by their one-thread kernels, K2 lane permutes, K3a/K3b dense one-pass trips (split
-and one-thread), K4 the
-two-pass solve, K5 stage linearization, K6 Riccati backward and forward
-passes (the backward pass by its team kernel and its one-thread yardstick),
+(K1 fused SQP trip with its three stage bodies, each also by its one-thread
+kernel, K2 lane permutes, K3a/K3b dense one-pass trips (split and
+one-thread), K4 the two-pass solve (K4a split and one-thread), K5 stage
+linearization, K6 Riccati backward and forward passes (the backward pass
+by its team kernel and its one-thread yardstick),
 K7a line-search merit, K7b merit with and without gradients), at
 the main path's widths; one synchronous ``pallas`` solve that launches K5,
 K6 and K7a, the dense route's solves on both loops, the ``park_factor``
@@ -150,6 +150,35 @@ def test_k1_factor_split_and_one_thread_match_plain(dev, B, alpha_zero):
             assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("alpha_zero", [True, False])
+@pytest.mark.parametrize("B", [4096, 4093])
+def test_k1_rank6_split_and_one_thread_match_plain(dev, B, alpha_zero):
+    """The rank-6 body through its split kernels (the public entry's) and
+    through the one-thread yardstick ``sqp_planes.cu <kRank6>``
+    against the plain rank-6 body, at B=4096 and at a ragged width: the
+    split kernels equal to plain bit for bit on all seven outputs; the
+    one-thread kernel on all but theta and phi (summed stage by stage)."""
+    args = _k1_args(dev, 20, B, alpha_zero)
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9,
+                                                     rank6=True)
+    before = sqp_planes.launches["rank6"]
+    split = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9,
+                                                   rank6=True)
+    one = sqp_planes._rank6_cuda(*args, reg=1e-9, one_thread=True)
+    torch.cuda.synchronize()
+    assert sqp_planes.launches["rank6"] == before + 2
+    ref = (*ref[:3], *ref[3])
+    for g, r in zip((*split[:3], *split[3]), ref):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, r)
+    for i, (g, r) in enumerate(zip((*one[:3], *one[3]), ref)):
+        if i in (3, 4):                      # theta, phi
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=1e-4)
+        else:
+            assert torch.equal(g, r)
+
+
 def test_k1_rejects_float64(dev):
     args = list(_k1_args(dev, 20, 64, True))
     for i in range(6, 13):
@@ -241,6 +270,13 @@ def _k1_calls(dev):
         *args, reg=1e-9, **f) for f in K1_BODIES.values()]
 
 
+def _k4a_calls(dev):
+    """One call of K4a through its public entry."""
+    args = _k1_args(dev, 20, 1024, False)
+    head, tail = args[:9], args[13:]
+    return [lambda: sqp_kernel.sqp_qp_backward(*head, *tail, reg=1e-9)]
+
+
 def _k5_k7a_calls(dev):
     """One call of K5 (``srbd_linearize.linearize``) and one of K7a
     (``merit_kernel.merit_alpha``) through their public entries."""
@@ -306,20 +342,34 @@ def test_k2_one_device_kernel_per_call(dev):
 def test_k1_one_kernel_per_call(dev):
     """One call of each stage body: the gains body launches the three split
     kernels (the plane pass, the Riccati pass, the rollout) once each, the
-    factor body the same plane pass and the factor forms of the other two
-    once each, the rank-6 body one K1 kernel, the instantiation of its body
-    (template argument 1); the one-thread factor body (2) does not run."""
+    rank-6 body the same plane pass and rollout and the rank-6 form of the
+    Riccati pass, the factor body
+    the same plane pass and the factor forms of the other two once each; no
+    one-thread body (sqp_planes_kernel) runs."""
     kernels = _device_kernels("_k1_calls")
-    k1 = {k: n for k, n in kernels.items() if "sqp_planes_kernel" in k}
-    assert list(k1.values()) == [1]
-    assert sum("<1>" in k or "ILi1E" in k for k in k1) == 1
+    assert not any("sqp_planes_kernel" in k for k in kernels)
     split = {k: n for k, n in kernels.items() if "k1s_" in k}
-    assert sorted(split.values()) == [1, 1, 1, 1, 2]
-    for name, n in (("k1s_planes_kernel", 2), ("k1s_riccati_team_kernel", 1),
-                    ("k1s_rollout_kernel", 1),
+    assert sum(split.values()) == 9
+    for name, n in (("k1s_planes_kernel", 3), ("k1s_riccati_team_kernel", 1),
+                    ("k1s_riccati_rank6_kernel", 1), ("k1s_rollout_kernel", 2),
                     ("k1s_riccati_factor_kernel", 1),
                     ("k1s_rollout_factor_kernel", 1)):
-        assert sum(v for k, v in split.items() if name in k) == n
+        assert sum(v for k, v in split.items() if name in k) == n, kernels
+
+
+def test_k4a_four_kernels_per_call(dev):
+    """One sqp_qp_backward call launches K4a's four split kernels once each
+    (K5's k5s_stage_kernel and k5s_dense_kernel, k4s_merit_kernel,
+    riccati_team_acl_kernel) and no other kernel of the port's: not the
+    one-thread sqp_twopass_bwd_kernel, nor K5's, K6's one-launch bodies
+    (the rest are PyTorch's own, which build the constants block)."""
+    kernels = _device_kernels("_k4a_calls")
+    for name in ("sqp_twopass_bwd_kernel", "linearize_kernel",
+                 "riccati_team_kernel", "riccati_bwd_kernel"):
+        assert not any(name in k for k in kernels), kernels
+    for name in ("k5s_stage_kernel", "k5s_dense_kernel", "k4s_merit_kernel",
+                 "riccati_team_acl_kernel"):
+        assert sum(v for k, v in kernels.items() if name in k) == 1, kernels
 
 
 def test_k3_three_kernels_per_call(dev):
@@ -666,6 +716,51 @@ def test_k4_matches_plain(dev):
                     (*ref[:7], *ref[7], *ref_f)):
         assert torch.isfinite(g).all()
         assert parity_metric(g.cpu().numpy(), r.cpu().numpy()) < 1e-4
+
+
+@pytest.mark.parametrize("B", [4096, 4093])
+def test_k4a_split_and_one_thread_match_plain(dev, B):
+    """K4a through its split kernels (the public entry's) and through the
+    one-thread yardstick against the plain version, at B=4096 and at a
+    width that is not a multiple of a block's 8 teams: both bit for bit on
+    all eleven outputs, each call counted once."""
+    args = _k1_args(dev, 20, B, alpha_zero=False)
+    bwd = args[:9] + args[13:]
+    ref = sqp_kernel.sqp_qp_backward_ref(*bwd, reg=1e-9)
+    before = sqp_kernel.launches["sqp_twopass_bwd"]
+    outs = [sqp_kernel.sqp_qp_backward(*bwd, reg=1e-9),
+            sqp_kernel._k4a_cuda(*bwd, reg=1e-9, one_thread=True)]
+    torch.cuda.synchronize()
+    assert sqp_kernel.launches["sqp_twopass_bwd"] == before + 2
+    for got in outs:
+        for g, r in zip((*got[:7], *got[7]), (*ref[:7], *ref[7])):
+            assert torch.isfinite(g).all()
+            assert torch.equal(g, r)
+
+
+def test_redesigns_leave_the_other_team_kernels_unchanged(dev):
+    """ptxas (registers, spill stores) of the team kernels that the rank-6
+    and Acl forms sit beside, as PERF.md records them
+    (``chip_smoke.K1S_B_PTXAS``, ``chip_smoke.K6_TEAM_PTXAS``): K1s-B's
+    gains and factor forms at 64 registers and 0 B, K6a's and K6b's team
+    kernel at 128 and 148 registers and 0 B."""
+    import chip_smoke
+
+    from srbd_nmpc_tpu_torch.utils import build
+
+    for name in ("sqp_planes_split", "riccati"):
+        build.load_kernel(name)
+    got = {}
+    for source, needle in (("sqp_planes_split", "k1s_riccati_team_kernel"),
+                           ("sqp_planes_split", "k1s_riccati_factor_kernel"),
+                           ("riccati", "riccati_team_kernel")):
+        for mangled, regs, stores, _, _ in chip_smoke._ptxas(source, needle):
+            tag = ("team <true>" if "ILb1E" in mangled else "team <false>"
+                   if "ILb0E" in mangled else needle)
+            got[tag] = (regs, stores)
+    assert got == {"k1s_riccati_team_kernel": chip_smoke.K1S_B_PTXAS,
+                   "k1s_riccati_factor_kernel": chip_smoke.K1S_B_PTXAS,
+                   **chip_smoke.K6_TEAM_PTXAS}
 
 
 def test_k3_k4_reject_float64(dev):

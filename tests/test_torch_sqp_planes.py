@@ -343,17 +343,19 @@ TEAMS = (8, 16, 32)
 def _host_split(args, team, rev=False, f32=False, body="gains"):
     """The split kernels' host build (``team``: the emulated team width,
     ``rev``: each team's members in reverse order) for ``body`` (the gains
-    body, or ``"factor"``: the factor forms of the Riccati pass and of the
-    rollout) run on every lane of K1's arguments ``args``: (dx, du, out5),
-    and for the factor body its parks [Yh, yv, L, dinv] after them."""
+    body; ``"rank6"``: the rank-6 form of the Riccati pass; ``"factor"``:
+    the factor forms of the Riccati pass and of the rollout) run on every
+    lane of K1's arguments ``args``: (dx, du, out5), and for the rank-6 and
+    factor bodies their parks after them ([K, kv], [Yh, yv, L, dinv])."""
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
     flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
     lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes_split.cu",
                                        flags=flags))
     factor = body == "factor"
-    fn = (lib.srbd_sqp_planes_split_factor_host if factor
-          else lib.srbd_sqp_planes_split_host)
+    fn = {"gains": lib.srbd_sqp_planes_split_host,
+          "rank6": lib.srbd_sqp_planes_split_rank6_host,
+          "factor": lib.srbd_sqp_planes_split_factor_host}[body]
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * (20 + 2 * factor)
                    + [ctypes.c_int] * 2 + [ctypes.c_double] * 3)
     fn.restype = ctypes.c_int
@@ -374,7 +376,7 @@ def _host_split(args, team, rev=False, f32=False, body="gains"):
     ptrs = [t.data_ptr() for t in (*ins, dx, dx[1:], du, *out5, *scratch,
                                    *parks)]
     assert fn(team, int(rev), *ptrs, N, B, *args[13:15], REG) == 0
-    return (dx, du, out5) + ((parks,) if factor else ())
+    return (dx, du, out5) + ((parks,) if body != "gains" else ())
 
 
 @functools.lru_cache(maxsize=None)
@@ -385,7 +387,7 @@ def _split_run(N, team, body="gains"):
     params, weights, arr = _problem(N, seed=1)
     args = _port_args(params, weights, arr)
     ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(
-        *args, reg=REG, factor=body == "factor")
+        *args, reg=REG, **BODIES.get(body, {}))
     return _host_split(args, team, body=body)[:3], ref
 
 
@@ -510,3 +512,76 @@ def test_factor_designs_raise_on_what_they_cannot_take(one_thread, dtype):
         args[i] = args[i].to(dtype)
     with pytest.raises(TypeError, match="CUDA"):
         sqp_planes._factor_cuda(*args, reg=REG, one_thread=one_thread)
+
+
+# ---------------------------------------------------------------------------
+# The split rank-6 body (the same plane pass and rollout, the rank-6 form of
+# the team Riccati pass) built as host C++, as the gains body above
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("team", TEAMS)
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("N", [5, 20])
+def test_split_rank6_host_build_matches_plain(N, case, team):
+    """The rank-6 form of the team Riccati pass (csrc/sqp_planes_split.cu,
+    between the plane pass and the gains rollout) compiled as host C++ in
+    double precision reproduces the plain rank-6 body to 1e-12 (relative
+    and absolute), with the team at each emulated width."""
+    (dx, du, out5), ref = _split_run(N, team, "rank6")
+    lanes = CASES[case]
+    for got, want in ((dx, ref[0]), (du, ref[1]), (out5[0], ref[2]),
+                      *zip(out5[1:], ref[3])):
+        np.testing.assert_allclose(got[..., lanes].numpy(),
+                                   want[..., lanes].numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("team,rev", [
+    (w, rev) for w in TEAMS for rev in (False, True)])
+def test_split_rank6_f32_host_build_rounds_as_one_thread_body(team, rev):
+    """In float32, the split rank-6 kernels give the one-thread rank-6
+    body's (sqp_planes.cu <kRank6>) dx, du, dphi, max|defect| and min
+    constraint bit for bit, and park the same K and kv, with either member
+    order of a team: no sum of the 6x6 stage is split between members or
+    reordered. theta and phi are reduced in the plain version's order, as
+    the split gains body's are; they are held bit for bit to the split
+    gains body's, whose plane pass and rollout the rank-6 split shares."""
+    args = _f32_args()
+    one_dx, one_du, one_out5, _, one_parks = _host_kernel(
+        args, "rank6", f32=True, with_parks=True)
+    dx, du, out5, parks = _host_split(args, team, rev, f32=True,
+                                      body="rank6")
+    assert torch.equal(dx, one_dx)
+    assert torch.equal(du, one_du)
+    for i in (0, 3, 4):                      # dphi, maxdef, mincon
+        assert torch.equal(out5[i], one_out5[i])
+    for got, want in zip(parks, one_parks[:2]):
+        assert torch.equal(got, want)
+    gains_out5 = _host_split(args, team, rev, f32=True)[2]
+    for i in (1, 2):                         # theta, phi
+        assert torch.equal(out5[i], gains_out5[i])
+        rel = float(((out5[i].double() - one_out5[i].double()).abs()
+                     / one_out5[i].double().abs()).max())
+        assert rel <= 1e-6
+
+
+def test_split_rank6_host_build_matches_jax_kernel(jax_refs):
+    """The f64 host build of the rank-6 split against JAX's own rank-6 body
+    (``rank6=True``, interpret mode) on both cases' lanes at N=20, at the
+    tolerances the plain version is held to there."""
+    params, weights, arr, ref = jax_refs[("rank6", 20)]
+    dx, du, out5, _ = _host_split(_port_args(params, weights, arr), 16,
+                                  body="rank6")
+    _assert_matches_jax((dx, du, out5[0], tuple(out5[1:])), ref,
+                        slice(None))
+
+
+@pytest.mark.parametrize("one_thread", [False, True])
+def test_rank6_designs_raise_on_what_they_cannot_take(one_thread):
+    """The card-only entry of the rank-6 body's kernels, split or
+    one-thread, raises on CPU tensors before anything is built."""
+    params, weights, arr = _problem(5)
+    args = _port_args(params, weights, arr)
+    with pytest.raises(TypeError, match="CUDA"):
+        sqp_planes._rank6_cuda(*args, reg=REG, one_thread=one_thread)
