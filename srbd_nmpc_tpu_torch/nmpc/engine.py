@@ -59,6 +59,7 @@ from srbd_nmpc_tpu_torch.ops import smallmat as sm
 from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
 from srbd_nmpc_tpu_torch.utils.device import (DeviceLike, pin_float32,
                                               resolve_device)
+from srbd_nmpc_tpu_torch.utils.profiling import span
 
 # Engine status codes (IpmStatus encoding). STATUS_RUNNING doubles as
 # MAX_ITER_REACHED: a scenario that never leaves it ran out of iterations.
@@ -291,16 +292,21 @@ def solve(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
     [B, N+1, nx].
 
     On CUDA, TF32 is switched off for matmuls and convolutions first: the
-    ``theta < 1e-6`` convergence test must never see TF32 rounding."""
-    _check_slice(cfg, state)
-    pin_float32(state.x.device)
-    if state.x.dim() == 2:
-        return _unbatch(*_solve_batched_soa(
-            params, weights, _single_cfg(cfg), _batch_of_one(state), x0[None],
-            x_ref))
-    if cfg.speculative and _qp_route(cfg) == "fused":
-        return _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref)
-    return _solve_batched_soa(params, weights, cfg, state, x0, x_ref)
+    ``theta < 1e-6`` convergence test must never see TF32 rounding.
+
+    Under a profiler the solve is the span ``srbd::solve``, and every span
+    of its loops (``utils/profiling``) nests inside it."""
+    with span("solve"):
+        _check_slice(cfg, state)
+        pin_float32(state.x.device)
+        if state.x.dim() == 2:
+            return _unbatch(*_solve_batched_soa(
+                params, weights, _single_cfg(cfg), _batch_of_one(state),
+                x0[None], x_ref))
+        if cfg.speculative and _qp_route(cfg) == "fused":
+            return _solve_batched_soa_spec(params, weights, cfg, state, x0,
+                                           x_ref)
+        return _solve_batched_soa(params, weights, cfg, state, x0, x_ref)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -573,21 +579,27 @@ def _line_search_soa(params, weights, cfg, xa, us, alpha0, xra, dx, du,
     """Backtracking filter line search, per scenario the reference's loop
     (NMPC_solver.cpp:200-264): evaluate at alpha, accept or multiply alpha
     by beta_alpha. The JAX ``lax.while_loop`` is a host loop here with one
-    device sync per trip (its condition). The accepted trajectory is formed
-    once afterwards as xa + alpha dx. Returns (xa', us', alpha', trips)."""
+    device sync per trip (its condition, the span ``srbd::readback``). The
+    accepted trajectory is formed once afterwards as xa + alpha dx. Each
+    trip is the span ``srbd::ls_trip``. Returns (xa', us', alpha', trips)."""
     alpha = alpha0
     accepted = torch.zeros(alpha0.shape, dtype=torch.bool, device=xa.device)
     trips = 0
     while True:
         searching = active0 & ~accepted & (alpha > cfg.alpha_min)
-        if not bool(searching.any()):
+        with span("readback"):
+            go = bool(searching.any())
+        if not go:
             break
-        theta_a, phi_a = _merit_candidate_soa(
-            params, weights, cfg, xa, us, xra, dx, du, alpha, use_kernel,
-            consts)
-        ok = _accept(cfg, theta_a, phi_a, alpha, theta0, phi0, dphi) & searching
-        alpha = torch.where(searching & ~ok, cfg.beta_alpha * alpha, alpha)
-        accepted = accepted | ok
+        with span("ls_trip"):
+            theta_a, phi_a = _merit_candidate_soa(
+                params, weights, cfg, xa, us, xra, dx, du, alpha, use_kernel,
+                consts)
+            ok = (_accept(cfg, theta_a, phi_a, alpha, theta0, phi0, dphi)
+                  & searching)
+            alpha = torch.where(searching & ~ok, cfg.beta_alpha * alpha,
+                                alpha)
+            accepted = accepted | ok
         trips += 1
     am = accepted[None, None, :]
     af = alpha[None, None, :]
@@ -688,7 +700,8 @@ def _solve_batched_soa(params, weights, cfg, state, x0, x_ref):
     whole descent. The JAX ``lax.while_loop`` over SQP iterations is a host
     loop: its condition (iterations left and a scenario still RUNNING) is
     read back once per iteration, and the line search inside reads its own
-    condition once per trip."""
+    condition once per trip. Each iteration is the span
+    ``srbd::sqp_iter[B]``, each read-back ``srbd::readback``."""
     Bn = state.x.shape[0]
     dtype, dev = state.x.dtype, state.x.device
     xa, us, x0s, xra = _soa_inputs(cfg, state, x0, x_ref)
@@ -705,33 +718,38 @@ def _solve_batched_soa(params, weights, cfg, state, x0, x_ref):
         ls_trips=torch.zeros((Bn,), dtype=i32, device=dev))
 
     it = 0
-    while it < cfg.sqp_max_iter and bool((info.status == STATUS_RUNNING).any()):
-        act = info.status == STATUS_RUNNING
-        xa_n, us_n, alpha_n, aux = _sqp_step_soa(
-            params, weights, cfg, xa, us, alpha, x0s, xra, act, consts)
-        theta0, phi0, dphi, max_defect, min_con, nan, trips = aux
-        converged, step_status = _step_status(cfg, theta0, dphi, nan)
+    while it < cfg.sqp_max_iter:
+        with span("readback"):
+            running = bool((info.status == STATUS_RUNNING).any())
+        if not running:
+            break
+        with span("sqp_iter", Bn):
+            act = info.status == STATUS_RUNNING
+            xa_n, us_n, alpha_n, aux = _sqp_step_soa(
+                params, weights, cfg, xa, us, alpha, x0s, xra, act, consts)
+            theta0, phi0, dphi, max_defect, min_con, nan, trips = aux
+            converged, step_status = _step_status(cfg, theta0, dphi, nan)
 
-        m = act[None, None, :]
-        xa = torch.where(m, xa_n, xa)
-        us = torch.where(m, us_n, us)
-        alpha = torch.where(act, alpha_n, alpha)
+            m = act[None, None, :]
+            xa = torch.where(m, xa_n, xa)
+            us = torch.where(m, us_n, us)
+            alpha = torch.where(act, alpha_n, alpha)
 
-        def upd(new, old):
-            return torch.where(act, new, old)
+            def upd(new, old):
+                return torch.where(act, new, old)
 
-        info = NmpcInfo(
-            converged=info.converged | (converged & act),
-            sqp_iters=info.sqp_iters + act.to(i32),
-            theta=upd(theta0, info.theta),
-            phi=upd(phi0, info.phi),
-            dphi=upd(dphi, info.dphi),
-            alpha=upd(alpha, info.alpha),
-            max_defect=upd(max_defect, info.max_defect),
-            min_constraint=upd(min_con, info.min_constraint),
-            status=torch.where(act, step_status, info.status),
-            ls_trips=info.ls_trips + trips,
-        )
+            info = NmpcInfo(
+                converged=info.converged | (converged & act),
+                sqp_iters=info.sqp_iters + act.to(i32),
+                theta=upd(theta0, info.theta),
+                phi=upd(phi0, info.phi),
+                dphi=upd(dphi, info.dphi),
+                alpha=upd(alpha, info.alpha),
+                max_defect=upd(max_defect, info.max_defect),
+                min_constraint=upd(min_con, info.min_constraint),
+                status=torch.where(act, step_status, info.status),
+                ls_trips=info.ls_trips + trips,
+            )
         it += 1
 
     stalled = (info.status == STATUS_RUNNING) & (info.alpha <= cfg.alpha_min)
@@ -780,7 +798,9 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
 
     Each ``lax.while_loop`` phase of the JAX engine is a host ``while``
     loop here: its condition ``n_live > thresh and trips < trip_cap`` is
-    read back once per trip (one device sync per trip)."""
+    read back once per trip (one device sync per trip, the span
+    ``srbd::readback``). The bootstrap and each trip are the span
+    ``srbd::trip[<width>]``, at the width the trip launches."""
     Bn = state.x.shape[0]
     dtype, dev = state.x.dtype, state.x.device
     N = cfg.N
@@ -842,7 +862,8 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
     tiers = sorted(tiers, reverse=True)
 
     # ---- bootstrap: iteration 1's linearize + QP at the initial iterate --
-    dx_p, du_p, dphi_p, aux = _boot(xa0, us0)
+    with span("trip", Bn):
+        dx_p, du_p, dphi_p, aux = _boot(xa0, us0)
     th_p, ph_p, md_p, mc_p = aux
     nan0 = ~torch.isfinite(th_p + ph_p + dphi_p)
     conv_p = (dphi_p > cfg.conv_dphi) & (th_p < cfg.conv_theta)
@@ -953,8 +974,14 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
 
     def run_phase(carry, xra_p, x0s_p, thresh):
         # one host sync per trip: the live count decides whether to go on
-        while carry[3] < trip_cap and int(carry[1].sum()) > thresh:
-            carry = body(carry, xra_p, x0s_p)
+        width = carry[1].shape[0]
+        while carry[3] < trip_cap:
+            with span("readback"):
+                n_live = int(carry[1].sum())
+            if n_live <= thresh:
+                break
+            with span("trip", width):
+                carry = body(carry, xra_p, x0s_p)
         return carry
 
     def take_carry(carry, idx):

@@ -26,6 +26,7 @@ from srbd_nmpc_tpu_torch.models import srbd_soa
 from srbd_nmpc_tpu_torch.models.srbd import NX, SRBDParams
 from srbd_nmpc_tpu_torch.ops import smallmat as sm
 from srbd_nmpc_tpu_torch.ops.barrier import relaxed_log_barrier
+from srbd_nmpc_tpu_torch.utils.profiling import span
 
 # constants block of the structured kernels K1 and K3 (offsets match
 # csrc/sqp_planes.cu and csrc/sqp_onepass.cu): mass, dt, Iinv[9], foot[6],
@@ -69,7 +70,8 @@ def _split_leg_blocks(Ac: torch.Tensor, off: Optional[float] = None
     off-diagonal blocks, so they must be zero: checked here (one read-back
     on a CUDA tensor, unless the caller passes ``off``, their max |Ac|)."""
     if off is None:
-        off = float(_offdiag(Ac))
+        with span("readback"):
+            off = float(_offdiag(Ac))
     if off > 0:
         raise ValueError(
             "structured SQP kernels require a leg-block-diagonal constraint "
@@ -81,7 +83,8 @@ def r_leg_diagonal(R_w: torch.Tensor) -> bool:
     """Whether R_w has zero off-diagonal leg blocks, the condition of K1's
     rank-6 stage (JAX ``sqp_planes.py:527-530``; a NaN block counts as
     zero there too)."""
-    return not float(_offdiag(R_w)) > 0
+    with span("readback"):
+        return not float(_offdiag(R_w)) > 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +104,9 @@ def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc
     that ``Ac`` is leg-block-diagonal and whether ``R_w`` is (one read-back
     for both): build it once per solve and hand it to the kernel wrappers
     (``consts=``), so the read-back is not paid per launch."""
-    ac_off, r_off = torch.stack([_offdiag(Ac).double(),
-                                 _offdiag(R_w).double()]).tolist()
+    with span("readback"):
+        ac_off, r_off = torch.stack([_offdiag(Ac).double(),
+                                     _offdiag(R_w).double()]).tolist()
     Ac1, Ac2 = _split_leg_blocks(Ac, ac_off)
     parts = [params.mass.reshape(1), params.dt.reshape(1),
              params.inertia_inv.reshape(9), params.foot_pos.reshape(6),
