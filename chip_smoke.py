@@ -96,6 +96,15 @@ runs phases 1-3 alone (only ``permute.cu`` is built) and reports the
 device kernels per K2 call instead of requiring one. It imports the
 ``srbd_nmpc_tpu_torch`` beside the script, so a copy of the script in an
 unpacked older commit times that commit's K2 on the same card.
+
+    python3 chip_smoke.py --k1s-b-trees build/parent [build/other ...]
+
+runs phases 1-2 for ``sqp_planes_split.cu`` alone and builds K1s-B
+(``k1s_riccati_team_kernel``) from each named tree's source (an unpacked
+checkout, such as ``git archive <commit> | tar -x -C build/parent``): each
+build's parks against this tree's at B=4093 and the speculative loop's
+three widths (bitwise expected), and its ms per call beside the first
+tree's, in alternated rounds in one process.
 """
 
 from __future__ import annotations
@@ -139,9 +148,15 @@ K1S_PASSES = {"K1s-A": "k1s_planes_kernel",
 K1FS_PASSES = {"K1s-A": "k1s_planes_kernel",
                "K1s-B factor": "k1s_riccati_factor_kernel",
                "K1s-C factor": "k1s_rollout_factor_kernel"}
-# K1s-B's ptxas report (registers, spill stores) as PERF.md records it: the
-# gains kernel's code does not change with the factor forms beside it
-K1S_B_PTXAS = (64, 0)
+# K1s-B's ptxas reports (registers, spill stores) by kernel, as PERF.md
+# records them: the gains form's (with its block park), and the factor
+# form's, which does not change with the gains form's beside it
+K1S_B_PTXAS = {"k1s_riccati_team_kernel": (64, 0),
+               "k1s_riccati_factor_kernel": (64, 0)}
+# widths of K1s-B's comparison with other trees' builds (--k1s-b-trees): the
+# three widths the speculative loop launches it at (its parks are also
+# checked at 4093, a ragged edge)
+K1S_B_TREE_WIDTHS = (B_MAIN, B_MAIN // 2, B_MAIN // 32)
 # the factor body on the card by sqp_planes._factor_cuda's one_thread, and
 # the gains body's split kernels timed in the same rounds
 K1F_DESIGNS = {"factor one-thread": ("factor", True),
@@ -711,15 +726,15 @@ def _k1_err(got, ref):
 
 def phase_k1_designs(dev):
     """The gains body's kernels (K1_DESIGNS) at N=20: each against the
-    plain version at B=4096 (alpha 0 and random alpha) and at B=131072
-    (random alpha), max |diff| printed, bitwise expected; ms per call at
-    the main path's four widths, in alternated rounds in this call; each
-    split launch's device ms (torch.profiler) at each width."""
+    plain version at K1F_CHECK_WIDTHS (alpha 0 and random alpha at B=4096,
+    random alpha at the others), max |diff| printed, bitwise expected; ms
+    per call at the main path's four widths, in alternated rounds in this
+    call; each split launch's device ms (torch.profiler) at each width."""
     from srbd_nmpc_tpu_torch.ops import sqp_planes
 
     rng = np.random.default_rng(1)
     err = {name: ({}, 0.0, True) for name in K1_DESIGNS}
-    for B, az in ((4096, True), (4096, False), (B_MAIN, False)):
+    for B, az in [(4096, True)] + [(B, False) for B in K1F_CHECK_WIDTHS]:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, az)
         ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg)
         for name, one in K1_DESIGNS.items():
@@ -778,6 +793,104 @@ def phase_k1_designs(dev):
         raise AssertionError(f"the split gains kernels are slower than the "
                              f"one-thread body: {ratio}")
     return err, times, passes
+
+
+def _tree_k1s_b(tree: str, tag: str):
+    """K1s-B's launch (``srbd_k1s_riccati_launch``) from ``tree``'s
+    ``srbd_nmpc_tpu_torch/csrc/sqp_planes_split.cu``, built by nvcc with
+    the port's flags into the build directory's ``trees/<tag>``, and its
+    registers and spill stores (ptxas)."""
+    import ctypes
+    import os
+
+    from srbd_nmpc_tpu_torch.utils import build
+
+    src = os.path.join(tree, "srbd_nmpc_tpu_torch", "csrc",
+                       "sqp_planes_split.cu")
+    out = os.path.join(build.BUILD_DIR, "trees", tag)
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libsqp_planes_split.so")
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    fn = ctypes.CDLL(lib).srbd_k1s_riccati_launch
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P] * 5 + [I, I, F, P]
+    fn.restype = ctypes.c_int
+    regs = _ptxas("sqp_planes_split", "k1s_riccati_team_kernel",
+                  proc.stdout + proc.stderr)
+    return fn, regs[0][1:3]
+
+
+def phase_k1s_b_trees(dev, trees):
+    """Phases 1-2 for sqp_planes_split.cu, and K1s-B as built from each of
+    ``trees`` (unpacked checkouts of other commits, or variants) beside
+    this tree's, on this tree's K1s-A pack of the same inputs: each tree's
+    parks K and kv against this tree's at K1S_B_TREE_WIDTHS and at B=4093
+    (bitwise expected), then ms per call in four alternated rounds at
+    K1S_B_TREE_WIDTHS (``_rounds``, 10 back-to-back launches each, CUDA
+    events), each beside the first tree's; each build's registers and spill
+    stores. Fails if a tree's parks differ from this tree's."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from srbd_nmpc_tpu_torch.ops import sqp_planes
+    from srbd_nmpc_tpu_torch.ops.sqp_stage import kernel_constants
+
+    tags = [os.path.basename(os.path.normpath(t)) for t in trees]
+    with ThreadPoolExecutor(len(trees)) as pool:
+        pending = pool.map(_tree_k1s_b, trees, tags)
+        phase_build(("sqp_planes_split",))
+        lib = sqp_planes._split_lib()
+        built = [(lib.srbd_k1s_riccati_launch,
+                  _ptxas("sqp_planes_split",
+                         "k1s_riccati_team_kernel")[0][1:3])] + list(pending)
+    tags = ["this"] + tags
+    for tag, (_, (regs, stores)) in zip(tags, built):
+        print(f"[K1s-B trees] {tag}: k1s_riccati_team_kernel {regs} "
+              f"registers, {stores} B spill stores", flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(23)
+    for B in (4093, *K1S_B_TREE_WIDTHS):
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
+        kc = kernel_constants(*args[:6]).block
+        xa, us, xra, dxc, duc, alpha = args[6:12]
+        pack = torch.empty(N_MAIN, sqp_planes._C, B, device=dev)
+        mer = torch.empty(N_MAIN, sqp_planes._M_C, B, device=dev)
+        term = torch.empty(sqp_planes._T_C, B, device=dev)
+        sqp_planes._check("K1s-A", lib.srbd_k1s_planes_launch(
+            kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
+            dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
+            mer.data_ptr(), term.data_ptr(), N_MAIN, B, float(args[13]),
+            float(args[14]), stream))
+        shapes = sqp_planes.park_shapes("gains", N_MAIN, B)[:2]
+        parks = {tag: [torch.empty(sh, device=dev) for sh in shapes]
+                 for tag in tags}
+
+        def call(tag, fn):
+            return lambda: sqp_planes._check(f"K1s-B ({tag})", fn(
+                kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
+                *(p.data_ptr() for p in parks[tag]), N_MAIN, B, float(reg),
+                stream))
+
+        calls = {tag: call(tag, fn) for tag, (fn, _) in zip(tags, built)}
+        for c in calls.values():
+            c()
+        torch.cuda.synchronize()
+        same = {tag: all(torch.equal(a, b) for a, b in
+                         zip(parks[tag], parks["this"])) for tag in tags[1:]}
+        print(f"[K1s-B trees] B={B}: K and kv bitwise equal to this tree's: "
+              f"{same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"K1s-B's parks differ at B={B}: {same}")
+        if B in K1S_B_TREE_WIDTHS:
+            ms = _rounds(calls, 10)
+            print(f"[K1s-B trees] B={B} ms per call: " + ", ".join(
+                f"{tag} {v:.3f} ({v / ms[tags[1]]:.3f}x {tags[1]})"
+                for tag, v in ms.items()), flush=True)
+        del args, pack, mer, term, parks, calls
+        torch.cuda.empty_cache()
 
 
 def _k1_split_bytes(N, B, factor):
@@ -2214,16 +2327,17 @@ def phase_dense(dev, card, spec):
     return out
 
 
-def _ptxas(source: str, needle: str):
+def _ptxas(source: str, needle: str, log=None):
     """(registers, spill stores, spill loads, stack bytes) of the kernels
     of ``source`` whose mangled name contains ``needle``, from nvcc's
-    ``-Xptxas -v`` report, one tuple per such kernel."""
+    ``-Xptxas -v`` report (of the current build, or ``log``), one tuple per
+    such kernel."""
     import re
 
     from srbd_nmpc_tpu_torch.utils import build
 
     out, cur = [], None
-    for ln in build.build_log(source).splitlines():
+    for ln in (log or build.build_log(source)).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             cur = m.group(1) if needle in m.group(1) else None
@@ -2585,11 +2699,13 @@ def _k1s_ptxas():
     want = set(passes)
     if set(out) != want:
         raise AssertionError(f"split kernels in the ptxas report: {out}")
-    for p in ("K1s-B", "K1s-B factor"):
-        regs, stores = out[p][:2]
-        print(f"[2 build] {p} {regs} registers, {stores} B spill stores "
-              f"against the recorded {K1S_B_PTXAS[0]} and {K1S_B_PTXAS[1]} "
-              f"B: unchanged {(regs, stores) == K1S_B_PTXAS}", flush=True)
+    for p, key in passes.items():
+        if key in K1S_B_PTXAS:
+            regs, stores = out[p][:2]
+            rec = K1S_B_PTXAS[key]
+            print(f"[2 build] {p} {regs} registers, {stores} B spill stores "
+                  f"against the recorded {rec[0]} and {rec[1]} B: unchanged "
+                  f"{(regs, stores) == rec}", flush=True)
     return out
 
 
@@ -2979,6 +3095,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k2-only", action="store_true",
                     help="build permute.cu and run phases 1-3 only")
+    ap.add_argument("--k1s-b-trees", nargs="+", metavar="TREE",
+                    help="build sqp_planes_split.cu and time K1s-B from each "
+                         "TREE (an unpacked checkout) beside this tree's, "
+                         "phases 1-2 and this one only")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     card, smi = phase_device()
@@ -2986,6 +3106,10 @@ def main(argv=None) -> int:
     if args.k2_only:
         phase_build(("permute",))
         phase_permute(dev)
+        print(smi)
+        return 0
+    if args.k1s_b_trees:
+        phase_k1s_b_trees(dev, args.k1s_b_trees)
         print(smi)
         return 0
     _, k1_regs, k3_regs, k6_regs, k57_regs, k4_regs = phase_build()

@@ -52,17 +52,24 @@
 //   + dt^2 Jx'V' (the part of P_new that needs no factor); the 78 entries of
 //   G; the Cholesky factor a row per member, one barrier per column; the 13
 //   columns of the forward and of the back substitution, each serial within
-//   its column; the 78 entries of P and the 12 of p. Every entry is formed
-//   by one thread with the one-thread body's expression, and every in-place
-//   update of an entry keeps that body's order, so no sum is split between
-//   threads: the team rounds exactly as the one-thread body does (the stage
-//   is ill-conditioned enough, R_eff ~ 1e-4 against dt^2 B'PB, that another
-//   sum order alone moves du by ~1e-4 relative). Members synchronize with
-//   __syncwarp on the team's lanes between steps (18 per stage); the pack
-//   and the parked gains are read and written by the team's members. The
-//   team is 16 threads, two a warp: against one thread per scenario and
-//   teams of 8 and 32, it was the fastest at each width the main path
-//   launches on the H100 (PERF.md); the host build emulates widths 8 to 32.
+//   its column and in place in Y; the 78 entries of P and the 12 of p.
+//   Every entry is formed by one thread with the one-thread body's
+//   expression, and every in-place update of an entry keeps that body's
+//   order, so no sum is split between threads: the team rounds exactly as
+//   the one-thread body does (the stage is ill-conditioned enough, R_eff ~
+//   1e-4 against dt^2 B'PB, that another sum order alone moves du by ~1e-4
+//   relative). Members synchronize with __syncwarp on the team's lanes
+//   between steps (18 per stage). The team's members load its pack; the
+//   whole block writes K and kv out of the teams' Y, between two block
+//   barriers a stage, once every team is done with it (BlockPark): each
+//   row's 8 lanes are one 32-byte sector, where the members of the two
+//   teams of a warp would write 8-byte pieces of 16 rows (7.5 -> 6.7 ms a
+//   call at B=131072 on the H100; the next stage's pack brought in by the
+//   block in the same window, by cp.async, was slower at full width and not
+//   kept, PERF.md). The team is 16 threads, two a warp: against one thread
+//   per scenario and teams of 8 and 32, it was the fastest at each width
+//   the main path launches on the H100 (PERF.md); the host build emulates
+//   widths 8 to 32, its members parking their own words.
 // - The rollout holds dx, du and the merit's running sums, no P. It reduces
 //   theta and phi over the stages in the plain version's order
 //   (_planes_phase: per component over the stages, then over the
@@ -89,9 +96,8 @@
 //   784 words (V, P, Y, the stage, and two regions that hold the 6x6
 //   matrices of the stage's first half and W K, K and kv after them), 8
 //   teams a block, 64 teams an SM; 64 registers. The block writes K and kv
-//   as it writes the factor form's park, once every team is done with the
-//   stage (the members' own store was slower on the H100, PERF.md). Every
-//   entry keeps
+//   as it writes the gains form's (the members' own store was slower on the
+//   H100, PERF.md). Every entry keeps
 //   k1::riccati_stage_rank6's expression and sum order, so the split
 //   rounds as the one-thread body does.
 // - The factor forms (a compile-time flag of the same team and rollout
@@ -99,11 +105,9 @@
 //   13-column back substitution for a serial one in the rollout: the team
 //   parks [Yh | yv] (156 words a stage), L's lower triangle row by row (78,
 //   its diagonal as the one-thread body leaves it) and dinv (12), 246 words
-//   against the gains' 156. The whole block writes them, once every team is
-//   done with the stage (two block barriers a stage; a team past the ragged
-//   edge repeats the last lane so that it reaches them): each row's 8 lanes
-//   are one 32-byte sector, where the members of the two teams of a warp
-//   would write 8-byte pieces of 16 rows. On the H100 that took K1s-B's
+//   against the gains' 156. The whole block writes them as it writes the
+//   gains (a team past the ragged edge repeats the last lane so that it
+//   reaches the barriers). On the H100 the block's store took K1s-B's
 //   factor form from 9.9 to 6.7 ms at B=131072 (PERF.md). The rollout forms
 //   t = Yh dx + yv as the gains rollout forms K dx + kv, then x = L'^-1 t
 //   in sqp_planes.cu's pass 3 order (i = 11 ... 0, t_r updated in
@@ -316,15 +320,17 @@ HD void v_column(const T (&P)[12][12], const Stage<T>& st, const T* p, int j,
   Pbp[j] = acc + p[j];
 }
 
-// the factor form's park of a stage: F_WORDS words, Yh (e < 144, row by
-// row), yv (< 156), L's lower triangle row by row (< 234) and dinv
-constexpr int F_WORDS = 246;
+// the words a form parks of a stage: the gains and rank-6 forms G_WORDS, K
+// (e < 144, row by row) and kv (< 156); the factor form F_WORDS, Yh and yv
+// in their place, L's lower triangle row by row (< 234) and dinv
+constexpr int G_WORDS = 156, F_WORDS = 246;
 
-// word e of the team's stage factor. L's diagonal as the one-thread body
-// leaves it, the pivot times dinv: the team Cholesky leaves each pivot's
-// last update to the members that read it
+// word e of the team's parked stage, from Y, L and dinv: the gains form's
+// back substitution leaves [K | kv] in Y, the factor form parks [Yh | yv].
+// L's diagonal as the one-thread body leaves it, the pivot times dinv: the
+// team Cholesky leaves each pivot's last update to the members that read it
 template <typename T>
-HD T factor_word(const Team<T>& s, int e) {
+HD T park_word(const Team<T>& s, int e) {
   if (e < 144) return s.Y[e / 12][e % 12];
   if (e < 156) return s.Y[e - 144][12];
   if (e < 234) {
@@ -344,10 +350,10 @@ HD T factor_word(const Team<T>& s, int e) {
   return s.dinv[e - 234];
 }
 
-// the row of word e of stage k in the park arrays (Yh [N, 144, B], yv
-// [N, 12, B], L [N, 78, B], dinv [N, 12, B])
+// the row of word e of stage k in the park arrays (K or Yh [N, 144, B], kv
+// or yv [N, 12, B], L [N, 78, B], dinv [N, 12, B])
 template <typename T>
-HD T* factor_row(T* park0, T* park1, T* park2, T* park3, int k, int e, int B) {
+HD T* park_row(T* park0, T* park1, T* park2, T* park3, int k, int e, int B) {
   if (e < 144) return park0 + ((size_t)k * 144 + e) * B;
   if (e < 156) return park1 + ((size_t)k * 12 + e - 144) * B;
   if (e < 234) return park2 + ((size_t)k * 78 + e - 156) * B;
@@ -355,8 +361,8 @@ HD T* factor_row(T* park0, T* park1, T* park2, T* park3, int k, int e, int B) {
 }
 
 // kFactor: park0..park3 take [Yh | yv], L and dinv (sqp_planes.cu's
-// k1::scenario <kFactor> layout) in place of K and kv; on the card the
-// block writes them (park(k), once every team is done with stage k)
+// k1::scenario <kFactor> layout) in place of K and kv. On the card the
+// block writes either park (park(k), once every team is done with stage k)
 template <typename T, bool kFactor = false, typename Park = int>
 HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* park0,
                      T* park1, int N, int B, int b, T reg, int lane, int W, unsigned mask,
@@ -523,34 +529,30 @@ HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* p
     }
     TEAM_SYNC();
 
-    if constexpr (kFactor) {
-      // park [Yh | yv], L and dinv: on the card from the whole block, on
-      // the host an entry a member
-#ifdef __CUDA_ARCH__
-      park(k);
-#else
-      (void)park;
-      TEAM_FOR(t) {
-        for (int e = t; e < F_WORDS; e += W)
-          factor_row(park0, park1, park2, park3, k, e, B)[b] = factor_word(s, e);
-      }
-#endif
-    } else {
-      // back substitution L' X = Y, one column per member; [K | kv] = -X.
-      // No barrier after it: the next stage's load writes only the pack
-      // channels, which this step does not read.
+    if constexpr (!kFactor) {
+      // back substitution L' X = Y in place, one column per member: column
+      // c of Y becomes column c of [K | kv] = -X (a member reads only its
+      // own column)
       TEAM_FOR(t) {
         TEAM_ITEMS(c, 13) {
           T y[12];
           back_subst_column(s.L, s.dinv, s.Y, c, y);
 #pragma unroll
-          for (int i = 0; i < 12; ++i) {
-            if (c < 12) AT(park0, (k * 12 + i) * 12 + c) = -y[i];
-            else AT(park1, k * 12 + i) = -y[i];
-          }
+          for (int i = 0; i < 12; ++i) s.Y[i][c] = -y[i];
         }
       }
     }
+    // park the stage (park_word): on the card from the whole block, on the
+    // host a word a member
+#ifdef __CUDA_ARCH__
+    park(k);
+#else
+    (void)park;
+    TEAM_FOR(t) {
+      for (int e = t; e < (kFactor ? F_WORDS : G_WORDS); e += W)
+        park_row(park0, park1, park2, park3, k, e, B)[b] = park_word(s, e);
+    }
+#endif
   }
 #undef AT
 }
@@ -575,6 +577,10 @@ template <typename T> struct Team6 {
   T pad[19];
 };
 static_assert(sizeof(Team6<float>) == 784 * sizeof(float), "784 words a team");
+
+// word e of the rank-6 team's parked stage: K and kv, which it leaves in rb
+template <typename T>
+HD T park_word(const Team6<T>& s, int e) { return s.rb[e]; }
 
 // the 6x6 matrix at word off of a region
 template <typename T>
@@ -907,10 +913,8 @@ HD void riccati_rank6_team(Team6<T>& s, const T* kc, const T* pack, const T* ter
 #else
     (void)park;
     TEAM_FOR(t) {
-      for (int e = t; e < 156; e += W) {
-        if (e < 144) AT(park0, k * 144 + e) = s.rb[e];
-        else AT(park1, k * 12 + e - 144) = s.rb[e];
-      }
+      for (int e = t; e < G_WORDS; e += W)
+        park_row(park0, park1, (T*)nullptr, (T*)nullptr, k, e, B)[b] = park_word(s, e);
     }
 #endif
   }
@@ -1061,6 +1065,39 @@ __global__ void __launch_bounds__(128, 3)
                           blockIdx.y, b, mu_b, theta_b);
 }
 
+// stage k's park from the whole block, between two block barriers, once
+// every team is done with the stage: thread tid writes lane b0 + tid % TEAMS
+// of words tid / TEAMS, + W, ..., so each row's 8 lanes are one 32-byte
+// sector, where the members of the two teams of a warp would write 8-byte
+// pieces of 16 rows. WORDS words of each team's array (k1s::park_word): the
+// gains and rank-6 forms' K and kv, the factor form's factor. A team past
+// the ragged edge parks nothing.
+template <typename TeamT, int WORDS>
+struct BlockPark {
+  const TeamT* teams;
+  float *park0, *park1, *park2, *park3;
+  int B, b0;
+  __host__ __device__ void operator()(int k) const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();  // every team is done with stage k
+    const int sc = threadIdx.x % k1s::TEAMS;
+    if (b0 + sc < B)
+      for (int e = threadIdx.x / k1s::TEAMS; e < WORDS; e += k1s::W_CARD)
+        k1s::park_row(park0, park1, park2, park3, k, e, B)[b0 + sc] =
+            k1s::park_word(teams[sc], e);
+    __syncthreads();  // before a team's next stage writes the parked words
+#else
+    (void)k;
+#endif
+  }
+};
+
+// a team past the ragged edge of the team kernels repeats the last lane
+// and parks nothing, so that it reaches the block's barriers
+__device__ __forceinline__ int team_lane(int b0, int team, int B) {
+  return b0 + team < B ? b0 + team : B - 1;
+}
+
 __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
     k1s_riccati_team_kernel(const float* __restrict__ consts, const float* pack,
                             const float* term, float* park0, float* park1, int N, int B,
@@ -1070,34 +1107,14 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
   __shared__ k1s::Team<float> teams[k1s::TEAMS];
   K1S_CONSTS
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
-  const int b = blockIdx.x * k1s::TEAMS + team;
-  if (b >= B) return;  // the whole team leaves
+  const int b0 = blockIdx.x * k1s::TEAMS;
   const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
-  k1s::riccati_team<float>(teams[team], kc, pack, term, park0, park1, N, B, b, reg, lane, W,
-                           mask, false);
+  const BlockPark<k1s::Team<float>, k1s::G_WORDS> park{teams, park0, park1, nullptr,
+                                                        nullptr, B, b0};
+  k1s::riccati_team<float>(teams[team], kc, pack, term, park0, park1, N, B,
+                           team_lane(b0, team, B), reg, lane, W, mask, false, nullptr,
+                           nullptr, park);
 }
-
-// the factor form's park of stage k from the whole block, between two block
-// barriers: thread tid writes lane b0 + tid % TEAMS of words tid / TEAMS,
-// + W, ..., so each row's 8 lanes are one 32-byte sector
-struct BlockPark {
-  const k1s::Team<float>* teams;
-  float *park0, *park1, *park2, *park3;
-  int B, b0;
-  __host__ __device__ void operator()(int k) const {
-#ifdef __CUDA_ARCH__
-    __syncthreads();  // every team is done with stage k
-    const int sc = threadIdx.x % k1s::TEAMS;
-    if (b0 + sc < B)
-      for (int e = threadIdx.x / k1s::TEAMS; e < k1s::F_WORDS; e += k1s::W_CARD)
-        k1s::factor_row(park0, park1, park2, park3, k, e, B)[b0 + sc] =
-            k1s::factor_word(teams[sc], e);
-    __syncthreads();  // before a team's next stage writes Y, L or dinv
-#else
-    (void)k;
-#endif
-  }
-};
 
 __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
     k1s_riccati_factor_kernel(const float* __restrict__ consts, const float* pack,
@@ -1108,37 +1125,13 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
   K1S_CONSTS
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b0 = blockIdx.x * k1s::TEAMS;
-  // a team past the ragged edge repeats the last lane and parks nothing, so
-  // that it reaches the block's barriers
-  const int b = b0 + team < B ? b0 + team : B - 1;
   const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
-  const BlockPark park{teams, park0, park1, park2, park3, B, b0};
-  k1s::riccati_team<float, true>(teams[team], kc, pack, term, park0, park1, N, B, b, reg,
-                                 lane, W, mask, false, park2, park3, park);
+  const BlockPark<k1s::Team<float>, k1s::F_WORDS> park{teams, park0, park1, park2,
+                                                        park3, B, b0};
+  k1s::riccati_team<float, true>(teams[team], kc, pack, term, park0, park1, N, B,
+                                 team_lane(b0, team, B), reg, lane, W, mask, false, park2,
+                                 park3, park);
 }
-
-// the rank-6 form's K and kv of stage k from the whole block, as BlockPark
-// writes the factor form's park: each row's 8 lanes one 32-byte sector
-struct BlockPark6 {
-  const k1s::Team6<float>* teams;
-  float *park0, *park1;
-  int B, b0;
-  __host__ __device__ void operator()(int k) const {
-#ifdef __CUDA_ARCH__
-    __syncthreads();  // every team is done with stage k
-    const int sc = threadIdx.x % k1s::TEAMS;
-    if (b0 + sc < B)
-      for (int e = threadIdx.x / k1s::TEAMS; e < 156; e += k1s::W_CARD) {
-        float* row = e < 144 ? park0 + ((size_t)k * 144 + e) * B
-                             : park1 + ((size_t)k * 12 + e - 144) * B;
-        row[b0 + sc] = teams[sc].rb[e];
-      }
-    __syncthreads();  // before a team's next stage writes rb
-#else
-    (void)k;
-#endif
-  }
-};
 
 __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
     k1s_riccati_rank6_kernel(const float* __restrict__ consts, const float* pack,
@@ -1150,12 +1143,10 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b0 = blockIdx.x * k1s::TEAMS;
   const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
-  // a team past the ragged edge repeats the last lane and parks nothing,
-  // so that it reaches the block's barriers
-  const int b = b0 + team < B ? b0 + team : B - 1;
-  const BlockPark6 park{teams, park0, park1, B, b0};
-  k1s::riccati_rank6_team<float>(teams[team], kc, pack, term, park0, park1, N, B, b, reg,
-                                 lane, W, mask, false, park);
+  const BlockPark<k1s::Team6<float>, k1s::G_WORDS> park{teams, park0, park1, nullptr,
+                                                         nullptr, B, b0};
+  k1s::riccati_rank6_team<float>(teams[team], kc, pack, term, park0, park1, N, B,
+                                 team_lane(b0, team, B), reg, lane, W, mask, false, park);
 }
 
 __global__ void __launch_bounds__(128)

@@ -120,6 +120,36 @@ def test_k1_rank6_on_dense_R_runs_the_12x12_body(dev):
 
 
 @pytest.mark.parametrize("alpha_zero", [True, False])
+@pytest.mark.parametrize("B", [4096, 4093, 5])
+def test_k1_gains_split_and_one_thread_match_plain(dev, B, alpha_zero):
+    """The gains body through its split kernels (the public entry's, K1s-B
+    parking K and kv from the whole block) and through the one-thread
+    yardstick ``sqp_planes.cu <kGains>`` against the plain gains body, at
+    B=4096, at a width that is not a multiple of a block's 8 teams and at
+    one narrower than a block (ragged edges): the split kernels equal to
+    plain bit for bit on all seven outputs; the one-thread kernel on dx,
+    du, dphi, max|defect| and min constraint (it sums theta and phi stage
+    by stage, the plain version per component over the stages)."""
+    args = _k1_args(dev, 20, B, alpha_zero)
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9)
+    before = sqp_planes.launches["gains"]
+    split = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
+    one = sqp_planes._gains_cuda(*args, reg=1e-9, one_thread=True)
+    torch.cuda.synchronize()
+    assert sqp_planes.launches["gains"] == before + 2
+    ref = (*ref[:3], *ref[3])
+    for g, r in zip((*split[:3], *split[3]), ref):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, r)
+    for i, (g, r) in enumerate(zip((*one[:3], *one[3]), ref)):
+        if i in (3, 4):                      # theta, phi
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=1e-4)
+        else:
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("alpha_zero", [True, False])
 @pytest.mark.parametrize("B", [4096, 4093])
 def test_k1_factor_split_and_one_thread_match_plain(dev, B, alpha_zero):
     """The factor body through its split kernels (the public entry's) and
@@ -672,10 +702,13 @@ def test_sync_pallas_solve_launches_kernels(dev):
 
 
 @pytest.mark.parametrize("cand", [True, False])
-def test_k3_matches_plain(dev, cand):
+@pytest.mark.parametrize("B", [4096, 4093])
+def test_k3_matches_plain(dev, B, cand):
     """The public entry (the split kernels) and the private one-thread
-    yardstick against the plain version; each call counts one launch."""
-    args = _k1_args(dev, 20, 4096, alpha_zero=False)
+    yardstick against the plain version, at B=4096 and at a width that is
+    not a multiple of a block's 8 teams (K3s-B's ragged edge); each call
+    counts one launch."""
+    args = _k1_args(dev, 20, B, alpha_zero=False)
     head, (xa, us, xra, dxc, duc, alpha, x0s), tail = \
         args[:6], args[6:13], args[13:]
     if cand:
@@ -742,8 +775,9 @@ def test_redesigns_leave_the_other_team_kernels_unchanged(dev):
     """ptxas (registers, spill stores) of the team kernels that the rank-6
     and Acl forms sit beside, as PERF.md records them
     (``chip_smoke.K1S_B_PTXAS``, ``chip_smoke.K6_TEAM_PTXAS``): K1s-B's
-    gains and factor forms at 64 registers and 0 B, K6a's and K6b's team
-    kernel at 128 and 148 registers and 0 B."""
+    gains form (with its block park) and factor form, each at
+    64 registers and 0 B, K6a's and K6b's team kernel at 128 and 148
+    registers and 0 B."""
     import chip_smoke
 
     from srbd_nmpc_tpu_torch.utils import build
@@ -758,9 +792,7 @@ def test_redesigns_leave_the_other_team_kernels_unchanged(dev):
             tag = ("team <true>" if "ILb1E" in mangled else "team <false>"
                    if "ILb0E" in mangled else needle)
             got[tag] = (regs, stores)
-    assert got == {"k1s_riccati_team_kernel": chip_smoke.K1S_B_PTXAS,
-                   "k1s_riccati_factor_kernel": chip_smoke.K1S_B_PTXAS,
-                   **chip_smoke.K6_TEAM_PTXAS}
+    assert got == {**chip_smoke.K1S_B_PTXAS, **chip_smoke.K6_TEAM_PTXAS}
 
 
 def test_k3_k4_reject_float64(dev):
