@@ -173,6 +173,11 @@ K1R_DESIGNS = {"one-thread": True, "split": False}
 K1RS_PASSES = {"K1s-A": "k1s_planes_kernel",
                "K1s-B rank-6": "k1s_riccati_rank6_kernel",
                "K1s-C": "k1s_rollout_kernel"}
+# the gains body's float64 form (a float64 batch on the speculative route)
+# by its device kernel names
+K1S_F64_PASSES = {"K1s-A f64": "k1s_planes_f64_kernel",
+                  "K1s-B f64": "k1s_riccati_team_f64_kernel",
+                  "K1s-C f64": "k1s_rollout_f64_kernel"}
 # widths of the rank-6 and K4a design sections' alternated rounds (their
 # checks against plain run at K1F_CHECK_WIDTHS)
 DESIGN_WIDTHS = (B_MAIN, 4096)
@@ -793,6 +798,90 @@ def phase_k1_designs(dev):
         raise AssertionError(f"the split gains kernels are slower than the "
                              f"one-thread body: {ratio}")
     return err, times, passes
+
+
+def phase_k1_f64(dev):
+    """K1's gains body and K2 in float64, the speculative route's kernels
+    for a float64 batch: the float64 forms of the three split launches
+    against the plain version in float64 at K1F_CHECK_WIDTHS (alpha 0 and
+    random alpha at B=4096, random alpha at the others), bitwise expected
+    on all seven outputs; their ms per call beside the float32 split in
+    alternated rounds at the main path's widths and each float64 launch's
+    device ms; then K2's 8-byte form against index_select / index_copy
+    bitwise at the crossings' shapes, and its ms per call beside the
+    4-byte form's."""
+    from srbd_nmpc_tpu_torch.ops import permute, sqp_planes
+
+    rng = np.random.default_rng(5)
+    same_all = True
+    for B, az in [(4096, True)] + [(B, False) for B in K1F_CHECK_WIDTHS]:
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, az)
+        a64 = _f64(args)
+        ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*a64, reg=reg)
+        got = sqp_planes.sqp_qp_solve_onepass_planes(*a64, reg=reg)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.float64
+        w, mx, same = _k1_err(got, ref)
+        same_all = same_all and same
+        print(f"[4 K1 f64] gains split (float64) vs plain float64 at B={B}, "
+              f"alpha {'0' if az else 'random'}: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in w.items())
+              + f"; max |diff| {mx:.3e}; bitwise {same}", flush=True)
+        del args, a64, ref, got
+        torch.cuda.empty_cache()
+    times = {"float32": {}, "float64": {}}
+    for B in K1_WIDTHS:
+        args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
+        a64 = _f64(args)
+        ms = _rounds({"float32": lambda: sqp_planes._gains_cuda(*args, reg=reg),
+                      "float64": lambda: sqp_planes._gains_cuda(*a64, reg=reg)},
+                     10)
+        for k, v in ms.items():
+            times[k][B] = v
+        if B == B_MAIN:
+            by = _launch_ms(lambda: sqp_planes._gains_cuda(*a64, reg=reg),
+                            K1S_F64_PASSES)
+            print(f"[4 K1 f64] device ms per launch at B={B}: " + ", ".join(
+                f"{p} {v:.3f}" for p, v in by.items()), flush=True)
+        del args, a64
+        torch.cuda.empty_cache()
+    print("[4 K1 f64] gains split ms per call: " + ", ".join(
+        f"B={B} float32 {times['float32'][B]:.3f}, float64 "
+        f"{times['float64'][B]:.3f} ({times['float64'][B] / times['float32'][B]:.2f}x)"
+        for B in K1_WIDTHS), flush=True)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    k2_same = True
+    for (B, Bc) in K2_CROSSINGS:
+        for lead, _ in K2_GATHERS:
+            a32 = torch.randn(lead + (B,), generator=gen, device=dev)
+            a64 = torch.randn(lead + (B,), generator=gen, device=dev,
+                              dtype=torch.float64)
+            a64.view(torch.int64).reshape(-1)[:3] = torch.tensor(
+                [-2 ** 63, 0x7FF8000000000001, 0x7FF0123456789ABC],
+                device=dev)
+            src = torch.randn(lead + (Bc,), generator=gen, device=dev,
+                              dtype=torch.float64)
+            idx = torch.sort(torch.randperm(B, generator=gen, device=dev)[:Bc]
+                             ).values
+            take = permute.take_lanes(a64, idx)
+            put = permute.set_lanes(a64, src, idx)
+            same = (torch.equal(take.view(torch.int64),
+                                permute.take_lanes_ref(a64, idx).view(torch.int64))
+                    and torch.equal(put.view(torch.int64),
+                                    permute.set_lanes_ref(a64, src, idx)
+                                    .view(torch.int64)))
+            k2_same = k2_same and same
+            ms = _rounds({"take 4-byte": lambda: permute.take_lanes(a32, idx),
+                          "take 8-byte": lambda: permute.take_lanes(a64, idx)},
+                         20)
+            print(f"[4 K2 f64] {lead + (B,)} -> {Bc}: 8-byte bitwise {same}; "
+                  f"take ms per call 4-byte {ms['take 4-byte']:.4f}, 8-byte "
+                  f"{ms['take 8-byte']:.4f}", flush=True)
+    if not (same_all and k2_same):
+        raise AssertionError(f"float64 K1 bitwise {same_all}, K2 {k2_same}")
+    return times
 
 
 def _tree_k1s_b(tree: str, tag: str):
@@ -2687,9 +2776,10 @@ def _k3_ptxas(k1):
 def _k1s_ptxas():
     """(registers, spill stores, spill loads, stack bytes) of each split
     kernel of the three bodies (sqp_planes_split.cu): K1s-A, K1s-B, K1s-C,
-    the factor forms of the last two and the rank-6 form of K1s-B."""
+    the factor forms of the last two, the rank-6 form of K1s-B and the
+    float64 forms of the gains body's three."""
     passes = {**K1S_PASSES, **K1FS_PASSES,
-              "K1s-B rank-6": K1RS_PASSES["K1s-B rank-6"]}
+              "K1s-B rank-6": K1RS_PASSES["K1s-B rank-6"], **K1S_F64_PASSES}
     out = {}
     for mangled, regs, stores, loads, stack in _ptxas("sqp_planes_split",
                                                       "k1s_"):
@@ -3095,6 +3185,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k2-only", action="store_true",
                     help="build permute.cu and run phases 1-3 only")
+    ap.add_argument("--f64-only", action="store_true",
+                    help="build permute.cu and sqp_planes_split.cu and run "
+                         "phases 1-2 and the float64 phase only")
     ap.add_argument("--k1s-b-trees", nargs="+", metavar="TREE",
                     help="build sqp_planes_split.cu and time K1s-B from each "
                          "TREE (an unpacked checkout) beside this tree's, "
@@ -3112,6 +3205,11 @@ def main(argv=None) -> int:
         phase_k1s_b_trees(dev, args.k1s_b_trees)
         print(smi)
         return 0
+    if args.f64_only:
+        phase_build(("permute", "sqp_planes_split"))
+        phase_k1_f64(dev)
+        print(smi)
+        return 0
     _, k1_regs, k3_regs, k6_regs, k57_regs, k4_regs = phase_build()
     k2, per_call = phase_permute(dev)
     if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
@@ -3120,6 +3218,7 @@ def main(argv=None) -> int:
     k1d_err, k1d_t, k1d_passes = phase_k1_designs(dev)
     k1f_err, k1f_t, k1f_passes, k1f_floor = phase_k1_factor_designs(dev)
     k1r = phase_k1_rank6_designs(dev)
+    phase_k1_f64(dev)
     st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
     phase_compaction(dev)

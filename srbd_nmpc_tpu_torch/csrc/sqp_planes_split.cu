@@ -113,6 +113,12 @@
 //   in sqp_planes.cu's pass 3 order (i = 11 ... 0, t_r updated in
 //   ascending r), du = -x: 90 more words read and 78 dependent
 //   multiply-adds a stage, one thread a lane.
+// - The float64 forms (k1s_planes_f64_kernel, k1s_riccati_team_f64_kernel,
+//   k1s_rollout_f64_kernel; the gains body only) instantiate the same
+//   bodies in double: the constants block, the team array and the parks in
+//   double, the team array's layout kept, 4 teams a block so that the block
+//   stays in static shared memory and its park rows stay 32-byte sectors
+//   (F64_SHARED below). The float32 kernels are unchanged.
 // No operation crosses scenarios, so a compacted launch gives bitwise the
 // full-width result.
 //
@@ -137,8 +143,9 @@ using namespace k1;
 constexpr int M_UR = 0, M_EQ = 12, M_BAR = 24, M_CON = 25, M_C = 26;
 // the terminal stage [T_C, B]: qN = Qf eN (12) and eN'qN
 constexpr int T_PN = 12, T_C = 13;
-// the card's team width and teams per block of the team kernel (8 W threads)
-constexpr int W_CARD = 16, TEAMS = 8;
+// the card's team width and teams per block of the team kernel (8 W threads);
+// its float64 form takes 4 teams a block (below)
+constexpr int W_CARD = 16, TEAMS = 8, TEAMS_F64 = 4;
 
 // ---------------------------------------------------------------------------
 // K1s-A: one stage k < N of one lane (pass 1 of k1::scenario, with the merit
@@ -285,6 +292,16 @@ template <typename T> struct Team {
   T pad[3];
 };
 static_assert(sizeof(Team<float>) == 720 * sizeof(float), "720 words a team");
+// The float64 form keeps the layout, 720 doubles (5,760 B; the two teams of
+// a warp are its two half-warps, which the card serves apart for 8-byte
+// words, so the 16-bank offset is not needed). 4 teams and the constants
+// block in double, 27,976 B, keep the block under the 48 KB of static
+// shared memory and fit 8 blocks, 32 teams, in an SM's 228 KB; a block park
+// of 4 lanes of 8 bytes is one 32-byte sector, as 8 floats are.
+constexpr int F64_SHARED = TEAMS_F64 * (int)sizeof(Team<double>) + K_LEN * (int)sizeof(double);
+static_assert(sizeof(Team<double>) == 720 * sizeof(double), "720 doubles a team");
+static_assert(F64_SHARED <= 48 * 1024, "static shared memory of a float64 block");
+static_assert(8 * (F64_SHARED + 1024) <= 228 * 1024, "8 float64 blocks an SM");
 
 
 // component i of Jx' v (srbd_dev::stage_jxt_v)
@@ -1047,9 +1064,10 @@ HD void rollout(const T* kc, const T* pack, const T* mer, const T* term, const T
 #ifndef K1S_NO_ENTRIES
 #ifdef __CUDACC__
 
-// the constants block into shared memory, for the whole block
-#define K1S_CONSTS                                                 \
-  __shared__ float kc[k1::K_LEN];                                  \
+// the constants block into shared memory, for the whole block, in the
+// launch's scalar type T
+#define K1S_CONSTS(T)                                              \
+  __shared__ T kc[k1::K_LEN];                                      \
   for (int i = threadIdx.x; i < k1::K_LEN; i += blockDim.x) kc[i] = consts[i]; \
   __syncthreads();
 
@@ -1058,7 +1076,7 @@ __global__ void __launch_bounds__(128, 3)
                       const float* xr, const float* dxc, const float* duc,
                       const float* alpha, float* pack, float* mer, float* term, int N,
                       int B, float mu_b, float theta_b) {
-  K1S_CONSTS
+  K1S_CONSTS(float)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   k1s::plane_stage<float>(kc, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B,
@@ -1066,23 +1084,23 @@ __global__ void __launch_bounds__(128, 3)
 }
 
 // stage k's park from the whole block, between two block barriers, once
-// every team is done with the stage: thread tid writes lane b0 + tid % TEAMS
-// of words tid / TEAMS, + W, ..., so each row's 8 lanes are one 32-byte
-// sector, where the members of the two teams of a warp would write 8-byte
-// pieces of 16 rows. WORDS words of each team's array (k1s::park_word): the
-// gains and rank-6 forms' K and kv, the factor form's factor. A team past
-// the ragged edge parks nothing.
-template <typename TeamT, int WORDS>
+// every team is done with the stage: thread tid writes lane b0 + tid % NT
+// of words tid / NT, + W, ..., so each row's NT lanes are one 32-byte
+// sector (8 floats, or 4 doubles in the float64 form), where the members of
+// the two teams of a warp would write pieces of 16 rows. WORDS words of
+// each team's array (k1s::park_word): the gains and rank-6 forms' K and kv,
+// the factor form's factor. A team past the ragged edge parks nothing.
+template <typename TeamT, int WORDS, typename T = float, int NT = k1s::TEAMS>
 struct BlockPark {
   const TeamT* teams;
-  float *park0, *park1, *park2, *park3;
+  T *park0, *park1, *park2, *park3;
   int B, b0;
   __host__ __device__ void operator()(int k) const {
 #ifdef __CUDA_ARCH__
     __syncthreads();  // every team is done with stage k
-    const int sc = threadIdx.x % k1s::TEAMS;
+    const int sc = threadIdx.x % NT;
     if (b0 + sc < B)
-      for (int e = threadIdx.x / k1s::TEAMS; e < WORDS; e += k1s::W_CARD)
+      for (int e = threadIdx.x / NT; e < WORDS; e += k1s::W_CARD)
         k1s::park_row(park0, park1, park2, park3, k, e, B)[b0 + sc] =
             k1s::park_word(teams[sc], e);
     __syncthreads();  // before a team's next stage writes the parked words
@@ -1105,7 +1123,7 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
   constexpr int W = k1s::W_CARD;
   static_assert(32 % W == 0, "a team lies within one warp");
   __shared__ k1s::Team<float> teams[k1s::TEAMS];
-  K1S_CONSTS
+  K1S_CONSTS(float)
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b0 = blockIdx.x * k1s::TEAMS;
   const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
@@ -1122,7 +1140,7 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
                               float* park3, int N, int B, float reg) {
   constexpr int W = k1s::W_CARD;
   __shared__ k1s::Team<float> teams[k1s::TEAMS];
-  K1S_CONSTS
+  K1S_CONSTS(float)
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b0 = blockIdx.x * k1s::TEAMS;
   const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
@@ -1139,7 +1157,7 @@ __global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
                              float reg) {
   constexpr int W = k1s::W_CARD;
   __shared__ k1s::Team6<float> teams[k1s::TEAMS];
-  K1S_CONSTS
+  K1S_CONSTS(float)
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b0 = blockIdx.x * k1s::TEAMS;
   const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
@@ -1155,7 +1173,7 @@ __global__ void __launch_bounds__(128)
                        const float* dx0, float* dx_out, float* du_out, float* dphi,
                        float* theta, float* phi, float* maxdef, float* mincon, int N,
                        int B) {
-  K1S_CONSTS
+  K1S_CONSTS(float)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   k1s::rollout<float>(kc, pack, mer, term, park0, park1, dx0, dx_out, du_out, dphi, theta,
@@ -1169,11 +1187,57 @@ __global__ void __launch_bounds__(128)
                               const float* dx0, float* dx_out, float* du_out, float* dphi,
                               float* theta, float* phi, float* maxdef, float* mincon, int N,
                               int B) {
-  K1S_CONSTS
+  K1S_CONSTS(float)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   k1s::rollout<float, true>(kc, pack, mer, term, park0, park1, dx0, dx_out, du_out, dphi,
                             theta, phi, maxdef, mincon, N, B, b, park2, park3);
+}
+
+// The float64 forms of K1s-A, K1s-B (gains form) and K1s-C: the same
+// bodies in double, the constants block and the team array in double, 4
+// teams a block (k1s::F64_SHARED); 8 blocks of 64 threads an SM leave 128
+// registers a thread
+__global__ void __launch_bounds__(128)
+    k1s_planes_f64_kernel(const double* __restrict__ consts, const double* xa,
+                          const double* us, const double* xr, const double* dxc,
+                          const double* duc, const double* alpha, double* pack, double* mer,
+                          double* term, int N, int B, double mu_b, double theta_b) {
+  K1S_CONSTS(double)
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  k1s::plane_stage<double>(kc, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B,
+                           blockIdx.y, b, mu_b, theta_b);
+}
+
+__global__ void __launch_bounds__(k1s::TEAMS_F64 * k1s::W_CARD, 8)
+    k1s_riccati_team_f64_kernel(const double* __restrict__ consts, const double* pack,
+                                const double* term, double* park0, double* park1, int N,
+                                int B, double reg) {
+  constexpr int W = k1s::W_CARD;
+  __shared__ k1s::Team<double> teams[k1s::TEAMS_F64];
+  K1S_CONSTS(double)
+  const int team = threadIdx.x / W, lane = threadIdx.x % W;
+  const int b0 = blockIdx.x * k1s::TEAMS_F64;
+  const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
+  const BlockPark<k1s::Team<double>, k1s::G_WORDS, double, k1s::TEAMS_F64> park{
+      teams, park0, park1, nullptr, nullptr, B, b0};
+  k1s::riccati_team<double>(teams[team], kc, pack, term, park0, park1, N, B,
+                            team_lane(b0, team, B), reg, lane, W, mask, false, nullptr,
+                            nullptr, park);
+}
+
+__global__ void __launch_bounds__(128)
+    k1s_rollout_f64_kernel(const double* __restrict__ consts, const double* pack,
+                           const double* mer, const double* term, const double* park0,
+                           const double* park1, const double* dx0, double* dx_out,
+                           double* du_out, double* dphi, double* theta, double* phi,
+                           double* maxdef, double* mincon, int N, int B) {
+  K1S_CONSTS(double)
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  k1s::rollout<double>(kc, pack, mer, term, park0, park1, dx0, dx_out, du_out, dphi, theta,
+                       phi, maxdef, mincon, N, B, b);
 }
 
 constexpr int K1S_THREADS = 128;
@@ -1256,6 +1320,47 @@ extern "C" int srbd_k1s_rollout_factor_launch(const float* consts, const float* 
                               (cudaStream_t)stream>>>(consts, pack, mer, term, park0, park1,
                                                       park2, park3, dx0, dx_out, du_out,
                                                       dphi, theta, phi, maxdef, mincon, N, B);
+  return (int)cudaGetLastError();
+}
+
+// the float64 forms of the three launches, as srbd_k1s_planes_launch,
+// srbd_k1s_riccati_launch and srbd_k1s_rollout_launch in double
+extern "C" int srbd_k1s_planes_f64_launch(const double* consts, const double* xa,
+                                          const double* us, const double* xr,
+                                          const double* dxc, const double* duc,
+                                          const double* alpha, double* pack, double* mer,
+                                          double* term, int N, int B, double mu_b,
+                                          double theta_b, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const dim3 grid((B + K1S_THREADS - 1) / K1S_THREADS, N + 1);
+  k1s_planes_f64_kernel<<<grid, K1S_THREADS, 0, (cudaStream_t)stream>>>(
+      consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, mu_b, theta_b);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int srbd_k1s_riccati_f64_launch(const double* consts, const double* pack,
+                                           const double* term, double* park0, double* park1,
+                                           int N, int B, double reg, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const int blocks = (B + k1s::TEAMS_F64 - 1) / k1s::TEAMS_F64;
+  k1s_riccati_team_f64_kernel<<<blocks, k1s::TEAMS_F64 * k1s::W_CARD, 0,
+                                (cudaStream_t)stream>>>(consts, pack, term, park0, park1, N,
+                                                        B, reg);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int srbd_k1s_rollout_f64_launch(const double* consts, const double* pack,
+                                           const double* mer, const double* term,
+                                           const double* park0, const double* park1,
+                                           const double* dx0, double* dx_out, double* du_out,
+                                           double* dphi, double* theta, double* phi,
+                                           double* maxdef, double* mincon, int N, int B,
+                                           void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  k1s_rollout_f64_kernel<<<(B + K1S_THREADS - 1) / K1S_THREADS, K1S_THREADS, 0,
+                           (cudaStream_t)stream>>>(consts, pack, mer, term, park0, park1,
+                                                   dx0, dx_out, du_out, dphi, theta, phi,
+                                                   maxdef, mincon, N, B);
   return (int)cudaGetLastError();
 }
 

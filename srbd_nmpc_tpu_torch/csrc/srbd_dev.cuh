@@ -34,12 +34,15 @@ HD float k_cos(float x) { return cosf(x); }
 HD double k_cos(double x) { return cos(x); }
 HD float k_log(float x) { return logf(x); }
 HD double k_log(double x) { return log(x); }
+// on the card the library's rsqrt, as PyTorch's rsqrt on CUDA tensors (in
+// float and double); on the host the division, as its rsqrt on the CPU
 #ifdef __CUDACC__
 HD float k_rsqrt(float x) { return rsqrtf(x); }
+HD double k_rsqrt(double x) { return rsqrt(x); }
 #else
 HD float k_rsqrt(float x) { return 1.0f / sqrtf(x); }
-#endif
 HD double k_rsqrt(double x) { return 1.0 / sqrt(x); }
+#endif
 
 template <typename T> HD T theta_min_sq();
 template <> HD float theta_min_sq<float>() { return 1e-8f; }     // (1e-4)^2

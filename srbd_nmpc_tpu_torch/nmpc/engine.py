@@ -277,9 +277,20 @@ def _check_slice(cfg: NmpcConfig, state: NmpcState) -> None:
     if state.x.dim() == 2:
         return   # the single scenario runs no kernel: any dtype and device
     if (state.x.device.type == "cuda" and state.x.dtype != torch.float32
-            and _qp_route(cfg) != "xla"):
-        todo(f"{state.x.dtype} on CUDA (the kernels are float32)",
-             "Queue 2, f64 kernels")
+            and _qp_route(cfg) != "xla"
+            and not (state.x.dtype == torch.float64 and _f64_route(cfg))):
+        todo(f"{state.x.dtype} on CUDA on this route (float64 runs K1's "
+             "gains body and K2 on the speculative fused planes route; the "
+             "other kernels are float32)", '"f64 kernels"')
+
+
+def _f64_route(cfg: NmpcConfig) -> bool:
+    """Whether a float64 batch on CUDA runs kernels that have a float64
+    form: the speculative loop on the fused planes route with K1's gains
+    body (the default ``NmpcConfig``), whose trips are K1 and whose
+    compaction crossings are K2."""
+    return (cfg.speculative and _qp_route(cfg) == "fused" and cfg.planes
+            and not cfg.park_factor)
 
 
 def solve(params: srbd.SRBDParams, weights: NmpcWeights, cfg: NmpcConfig,
@@ -324,12 +335,13 @@ class _KernelConstants:
     merit: Optional[torch.Tensor] = None
 
 
-def _kernel_constants(params, weights, cfg, device, merit=True):
+def _kernel_constants(params, weights, cfg, device, merit=True,
+                      dtype=torch.float32):
     """The kernels' constants, built once per solve on CUDA (K1's and K3's
     leg-block-diagonal check costs a device read-back); None elsewhere
     (the plain versions take the parameters themselves). ``merit``: whether
     the solve's loop runs K7a (the synchronous loop does, the speculative
-    loop does not)."""
+    loop does not); ``dtype``: the batch's, K1's and K3's block's."""
     route = _qp_route(cfg)
     if route == "xla" or torch.device(device).type != "cuda":
         return None
@@ -339,7 +351,7 @@ def _kernel_constants(params, weights, cfg, device, merit=True):
     if route == "fused":
         return _KernelConstants(Ac, bc, merit=k7, fused=sqp_stage.
                                 kernel_constants(params, weights.Q, weights.Qf,
-                                                 weights.R, Ac, bc))
+                                                 weights.R, Ac, bc, dtype))
     return _KernelConstants(Ac, bc, merit=k7, linearize=srbd_linearize.
                             kernel_constants(params, weights.Q, weights.R, Ac,
                                              bc))
@@ -800,7 +812,9 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
     loop here: its condition ``n_live > thresh and trips < trip_cap`` is
     read back once per trip (one device sync per trip, the span
     ``srbd::readback``). The bootstrap and each trip are the span
-    ``srbd::trip[<width>]``, at the width the trip launches."""
+    ``srbd::trip[<width>]``, at the width the trip launches; each tier
+    crossing's K2 calls, the gather into the tier and the scatter back out
+    of it, the span ``srbd::compact[<width>]``, at the tier's width."""
     Bn = state.x.shape[0]
     dtype, dev = state.x.dtype, state.x.device
     N = cfg.N
@@ -814,7 +828,8 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
                 .to(dtype).contiguous())
 
     xra = _xra_at(Bn) if shared_ref else x_ref.permute(1, 2, 0).contiguous()
-    consts = _kernel_constants(params, weights, cfg, dev, merit=False)
+    consts = _kernel_constants(params, weights, cfg, dev, merit=False,
+                               dtype=dtype)
     Ac, bc = _constraints(params, consts)
     head = (params, weights.Q, weights.Qf, weights.R, Ac, bc)
     kw = dict(reg=cfg.reg, consts=None if consts is None else consts.fused)
@@ -1017,13 +1032,16 @@ def _solve_batched_soa_spec(params, weights, cfg, state, x0, x_ref):
             order = torch.argsort((~live_o).to(torch.int32), stable=True)
             idx = torch.sort(order[:Bc]).values
             stack.append((carry, idx))
-            carry = take_carry(carry, idx)
-            xra_p = _xra_at(Bc) if shared_ref else permute.take_lanes(xra_p, idx)
-            x0s_p = permute.take_lanes(x0s_p, idx)
+            with span("compact", Bc):
+                carry = take_carry(carry, idx)
+                xra_p = (_xra_at(Bc) if shared_ref
+                         else permute.take_lanes(xra_p, idx))
+                x0s_p = permute.take_lanes(x0s_p, idx)
             nxt = tiers[i + 1] if i + 1 < len(tiers) else 0
             carry = run_phase(carry, xra_p, x0s_p, thresh=nxt)
         for outer, idx in reversed(stack):
-            carry = scatter_carry(outer, carry, idx)
+            with span("compact", idx.shape[0]):
+                carry = scatter_carry(outer, carry, idx)
 
     (xa_f, us_f, *_), _, \
         (status_f, iters_f, _, alpha_f, alpha_cand_f,

@@ -7,8 +7,9 @@ carry into and out of each tier with these: ``idx`` is strictly increasing
 
 - ``take_lanes_ref`` / ``set_lanes_ref``: plain PyTorch versions.
 - ``take_lanes`` / ``set_lanes``: CPU tensors go to the plain versions;
-  CUDA tensors launch ``csrc/permute.cu`` (float32 data, an int32 or int64
-  ``idx`` as the caller holds it) or raise. One call is one device kernel.
+  CUDA tensors launch ``csrc/permute.cu`` (float32 data, or float64 data
+  through its 8-byte form; an int32 or int64 ``idx`` as the caller holds
+  it) or raise. One call is one device kernel.
 
 The TPU kernels' windowed one-hot matmul, its fallback and their width
 rules are TPU workarounds and are not carried over: the CUDA kernels take
@@ -55,25 +56,32 @@ def rows_per_block(R: int, lanes: int, sms: int, threads: int = THREADS) -> int:
     return max(1, rpb, -(-R // MAX_ROW_BLOCKS))
 
 
-_fns = None   # the two launch entries of csrc/permute.cu, bound at first use
+# the launch entries of csrc/permute.cu by element size in bytes, (take,
+# set) each, bound at first use
+_fns = None
 
 
-def _lib():
+def _lib(elem_bytes: int):
     global _fns
     if _fns is None:
         from srbd_nmpc_tpu_torch.utils.build import load_kernel
 
         lib = load_kernel("permute")
-        take, put = lib.srbd_take_lanes_launch, lib.srbd_set_lanes_launch
-        take.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
-                         + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2
-                         + [ctypes.c_void_p])
-        put.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-                        + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p])
-        take.restype = put.restype = ctypes.c_int
-        _fns = (take, put)
-    return _fns
+        _fns = {}
+        for size, tag in ((4, ""), (8, "8")):
+            take = getattr(lib, f"srbd_take_lanes{tag}_launch")
+            put = getattr(lib, f"srbd_set_lanes{tag}_launch")
+            take.argtypes = ([ctypes.c_void_p] * 2
+                             + [ctypes.c_int, ctypes.c_void_p]
+                             + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2
+                             + [ctypes.c_void_p])
+            put.argtypes = ([ctypes.c_void_p] * 3
+                            + [ctypes.c_int, ctypes.c_void_p]
+                            + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2
+                            + [ctypes.c_void_p])
+            take.restype = put.restype = ctypes.c_int
+            _fns[size] = (take, put)
+    return _fns[elem_bytes]
 
 
 def _cuda_index(idx: torch.Tensor, dev: int) -> None:
@@ -88,9 +96,9 @@ def _cuda_index(idx: torch.Tensor, dev: int) -> None:
 
 
 def _check(name: str, t: torch.Tensor) -> None:
-    if not t.is_cuda or t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA permute kernels take float32 CUDA "
-                        f"tensors, got {t.dtype} on {t.device}")
+    if not t.is_cuda or t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: the CUDA permute kernels take float32 or "
+                        f"float64 CUDA tensors, got {t.dtype} on {t.device}")
 
 
 _sms = {}   # SMs of each card by device index
@@ -126,7 +134,7 @@ def take_lanes(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     vec = Bc % LANES == 0 and out.data_ptr() % 16 == 0
     rpb, threads, stream = _launch_args(dev, R, Bc)
-    err = _lib()[0](
+    err = _lib(a2.element_size())[0](
         a2.data_ptr(), idx.data_ptr(), idx.element_size(), out.data_ptr(),
         R, B, Bc, rpb, int(vec), threads, stream)
     if err != 0:
@@ -142,6 +150,8 @@ def set_lanes(orig: torch.Tensor, src: torch.Tensor, idx: torch.Tensor
         return set_lanes_ref(orig, src, idx)
     _check("orig", orig)
     _check("src", src)
+    if src.dtype != orig.dtype:
+        raise TypeError(f"src is {src.dtype}, orig {orig.dtype}")
     dev = orig.get_device()
     _cuda_index(idx, dev)
     B, Bc = orig.shape[-1], idx.shape[0]
@@ -158,7 +168,7 @@ def set_lanes(orig: torch.Tensor, src: torch.Tensor, idx: torch.Tensor
     vec = (B % LANES == 0 and o2.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)
     rpb, threads, stream = _launch_args(dev, R, B)
-    err = _lib()[1](
+    err = _lib(o2.element_size())[1](
         o2.data_ptr(), s2.data_ptr(), idx.data_ptr(), idx.element_size(),
         out.data_ptr(), R, B, Bc, rpb, int(vec), threads, stream)
     if err != 0:

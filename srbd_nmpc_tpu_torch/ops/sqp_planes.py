@@ -12,8 +12,9 @@ same stage parking its factor (``factor=True``), and
   reduction over stages or rows is an explicit loop, so a lane's result
   does not depend on the batch width.
 - ``sqp_qp_solve_onepass_planes``: the public entry. CPU tensors go to the
-  plain version; CUDA tensors launch the hand-written kernels (f32 only) or
-  raise: each of the three bodies as three launches of
+  plain version; CUDA tensors launch the hand-written kernels (float32; the
+  gains body also float64) or raise: each of the three bodies as three
+  launches of
   ``csrc/sqp_planes_split.cu`` (a plane pass, a Riccati pass with a team
   of 16 threads per scenario, the rollout; the rank-6 body's Riccati pass
   is its rank-6 form, the factor body's Riccati pass and rollout their
@@ -362,13 +363,26 @@ def _split_lib():
         lib.srbd_k1s_riccati_factor_launch.argtypes = [P] * 7 + [I, I, F, P]
         lib.srbd_k1s_rollout_factor_launch.argtypes = [P] * 16 + [I, I, P]
         lib.srbd_k1s_riccati_rank6_launch.argtypes = [P] * 5 + [I, I, F, P]
+        D = ctypes.c_double
+        lib.srbd_k1s_planes_f64_launch.argtypes = [P] * 10 + [I, I, D, D, P]
+        lib.srbd_k1s_riccati_f64_launch.argtypes = [P] * 5 + [I, I, D, P]
+        lib.srbd_k1s_rollout_f64_launch.argtypes = [P] * 14 + [I, I, P]
         for fn in (lib.srbd_k1s_planes_launch, lib.srbd_k1s_riccati_launch,
                    lib.srbd_k1s_rollout_launch,
                    lib.srbd_k1s_riccati_factor_launch,
                    lib.srbd_k1s_rollout_factor_launch,
-                   lib.srbd_k1s_riccati_rank6_launch):
+                   lib.srbd_k1s_riccati_rank6_launch,
+                   lib.srbd_k1s_planes_f64_launch,
+                   lib.srbd_k1s_riccati_f64_launch,
+                   lib.srbd_k1s_rollout_f64_launch):
             fn.restype = ctypes.c_int
     return lib
+
+
+def _entry(lib, name: str, dtype: torch.dtype):
+    """The launch entry ``srbd_k1s_<name>_launch``, or its float64 form."""
+    f64 = "_f64" if dtype == torch.float64 else ""
+    return getattr(lib, f"srbd_k1s_{name}{f64}_launch")
 
 
 def _check(what: str, err: int) -> None:
@@ -380,13 +394,15 @@ def riccati_team_cuda(kc, pack, term, reg, stream):
     """K1s-B, ``k1s_riccati_team_kernel`` (``csrc/sqp_planes_split.cu``):
     the structured backward Riccati pass over a pack [N, 87, B] (``_D1`` ...
     ``_DDB``), seeded by P = Qf and p = ``term[:12]``, a team of 16 threads
-    per scenario. Returns the parked K [N,12,12,B] and kv [N,12,B]. The
-    split gains body and K3's split trip (``ops/sqp_kernel``) both run it."""
+    per scenario, in the pack's dtype (float32, or float64 through
+    ``k1s_riccati_team_f64_kernel``). Returns the parked K [N,12,12,B] and kv
+    [N,12,B]. The split gains body and K3's split trip (``ops/sqp_kernel``)
+    both run it."""
     N, Bt = pack.shape[0], pack.shape[-1]
-    park0, park1 = (torch.empty(s, dtype=torch.float32, device=pack.device)
+    park0, park1 = (torch.empty(s, dtype=pack.dtype, device=pack.device)
                     for s in park_shapes("gains", N, Bt)[:2])
     _check("sqp_planes_split Riccati pass",
-           _split_lib().srbd_k1s_riccati_launch(
+           _entry(_split_lib(), "riccati", pack.dtype)(
                kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
                park0.data_ptr(), park1.data_ptr(), N, Bt, float(reg), stream))
     return park0, park1
@@ -398,20 +414,21 @@ def _launch_split(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5,
     pass, the Riccati pass, the rollout (for the rank-6 body the rank-6 form
     of the Riccati pass; for the factor body the factor forms of the last
     two, which park and back-substitute the stage factor); each
-    launch's return code checked as it is made."""
+    launch's return code checked as it is made. In xa's dtype: float32, or
+    float64 for the gains body (the float64 forms of its three launches)."""
     N, Bt = us.shape[0], xa.shape[-1]
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=xa.device)
+        return torch.empty(shape, dtype=xa.dtype, device=xa.device)
 
     pack, mer, term = empty(N, _C, Bt), empty(N, _M_C, Bt), empty(_T_C, Bt)
     lib = _split_lib()
-    _check("sqp_planes_split plane pass", lib.srbd_k1s_planes_launch(
+    _check("sqp_planes_split plane pass", _entry(lib, "planes", xa.dtype)(
         kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
         dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
         mer.data_ptr(), term.data_ptr(), N, Bt, float(mu_b), float(theta_b),
         stream))
-    rollout = lib.srbd_k1s_rollout_launch
+    rollout = _entry(lib, "rollout", xa.dtype)
     if body == "gains":
         parks = riccati_team_cuda(kc, pack, term, reg, stream)
     elif body == "rank6":
@@ -441,6 +458,10 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
                 one_thread=False):
     N = us.shape[0]
     Bt = xa.shape[-1]
+    # float64 runs the gains body's split kernels; every other form is
+    # float32
+    f64 = xa.dtype == torch.float64 and not (rank6 or factor or one_thread)
+    dtype = torch.float64 if f64 else torch.float32
     for name, t, shape in (("xa", xa, (N + 1, NX, Bt)),
                            ("us", us, (N, NU, Bt)),
                            ("xra", xra, (N + 1, NX, Bt)),
@@ -448,9 +469,12 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
                            ("duc", duc, (N, NU, Bt)),
                            ("alpha", alpha, (Bt,)),
                            ("x0s", x0s, (NX, Bt))):
-        check_cuda_f32(name, t, shape)
+        check_cuda_f32(name, t, shape, dtype)
     if consts is None:
-        consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc)
+        consts = kernel_constants(params, Q_w, Qf_w, R_w, Ac, bc, dtype)
+    if consts.block.dtype != dtype:
+        raise TypeError(f"consts: a {consts.block.dtype} block for a "
+                        f"{dtype} batch")
     body = _body(rank6, factor, lambda: consts.rank6)
     xa, us, xra, dxc, duc, alpha, x0s = (
         t.contiguous() for t in (xa, us, xra, dxc, duc, alpha, x0s))
@@ -458,7 +482,7 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     dev = xa.device
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        return torch.empty(shape, dtype=dtype, device=dev)
 
     dx = empty(N + 1, NX, Bt)
     dx[0] = x0s - (xa[0] + alpha[None, :] * dxc[0])
@@ -525,8 +549,8 @@ def sqp_qp_solve_onepass_planes(
 ):
     """Fused SQP QP solve at the candidate (xa + alpha dxc, us + alpha duc);
     the contract of the JAX ``sqp_qp_solve_onepass_planes``. CPU tensors
-    run the plain version; CUDA tensors run the CUDA kernel (f32) or
-    raise. Requires ``Ac`` leg-block-diagonal (checked). ``consts``: the
+    run the plain version; CUDA tensors run the CUDA kernels (float32; the
+    gains body also float64) or raise. Requires ``Ac`` leg-block-diagonal (checked). ``consts``: the
     kernel's constants from ``sqp_stage.kernel_constants`` (built, with its
     checks, on each CUDA call when not given).
 

@@ -90,7 +90,8 @@ def r_leg_diagonal(R_w: torch.Tensor) -> bool:
 @dataclasses.dataclass(frozen=True)
 class KernelConstants:
     """K1's and K3's constants block and what K1 decides from it on the
-    host: ``block`` float32 [K_LEN] at the ``K_*`` offsets; ``rank6``
+    host: ``block`` [K_LEN] at the ``K_*`` offsets, in the batch's dtype
+    (float32, or float64 for K1's float64 form); ``rank6``
     whether R_w is leg-block-diagonal, so that a rank-6 launch runs the 6x6
     stage (else the 12x12 one, as the JAX kernel falls back)."""
 
@@ -98,9 +99,10 @@ class KernelConstants:
     rank6: bool
 
 
-def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc
-                     ) -> KernelConstants:
-    """The constants block of K1 and K3 on the device of ``Ac``. Checks
+def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc,
+                     dtype: torch.dtype = torch.float32) -> KernelConstants:
+    """The constants block of K1 and K3 on the device of ``Ac``, in
+    ``dtype`` (the batch's: K1 has a float64 form, K3 has not). Checks
     that ``Ac`` is leg-block-diagonal and whether ``R_w`` is (one read-back
     for both): build it once per solve and hand it to the kernel wrappers
     (``consts=``), so the read-back is not paid per launch."""
@@ -112,7 +114,7 @@ def kernel_constants(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc
              params.inertia_inv.reshape(9), params.foot_pos.reshape(6),
              Ac1.reshape(72), Ac2.reshape(72), bc.reshape(24),
              R_w.reshape(144), Q_w.reshape(144), Qf_w.reshape(144)]
-    k = torch.cat([t.to(device=Ac.device, dtype=torch.float32)
+    k = torch.cat([t.to(device=Ac.device, dtype=dtype)
                    for t in parts]).contiguous()
     assert k.numel() == K_LEN
     return KernelConstants(block=k, rank6=not r_off > 0)

@@ -145,15 +145,17 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def check_cuda_f32(name: str, t, shape) -> None:
-    """Raise unless ``t`` is a float32 CUDA tensor of shape ``shape``: what
-    every kernel wrapper checks before it hands a pointer to a kernel. The
-    shape is checked first, so a misshapen input is named on any device."""
+def check_cuda_f32(name: str, t, shape, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a CUDA tensor of shape ``shape`` in ``dtype``
+    (float32 unless the kernel has a form in another): what every kernel
+    wrapper checks before it hands a pointer to a kernel. The shape is
+    checked first, so a misshapen input is named on any device."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if t.device.type != "cuda" or t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 CUDA tensors, "
+    if t.device.type != "cuda" or t.dtype != dtype:
+        what = str(dtype).replace("torch.", "")
+        raise TypeError(f"{name}: the CUDA kernel takes {what} CUDA tensors, "
                         f"got {t.dtype} on {t.device}")
 
 

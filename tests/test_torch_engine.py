@@ -308,6 +308,40 @@ def test_configurations_outside_the_slice_raise(kw):
         engine.solve(params, weights, cfg, states, x0s, x_ref)
 
 
+@pytest.mark.parametrize("kw,passes", [
+    (dict(), True), (dict(compact=False), True),
+    (dict(qp_kernel="fused"), True),
+    (dict(qp_kernel="pallas", speculative=False), False),
+    (dict(qp_kernel="fused", speculative=False), False),
+    (dict(planes=False), False), (dict(park_factor=True), False),
+])
+def test_float64_on_cuda_runs_the_speculative_fused_route_only(kw, passes):
+    """A float64 batch on a CUDA device passes ``_check_slice`` on the
+    speculative fused planes route (K1's gains body and K2, which have
+    float64 forms) and raises on every other kernel route, naming the
+    ROADMAP item "f64 kernels"; float32 passes everywhere, float16
+    nowhere. The device is stubbed: the check reads only the state's rank,
+    device type and dtype."""
+    import types
+
+    cfg = dataclasses.replace(engine.NmpcConfig(N=5), **kw)
+
+    def state(dtype):
+        x = types.SimpleNamespace(dim=lambda: 3, dtype=dtype,
+                                  device=torch.device("cuda"))
+        return types.SimpleNamespace(x=x)
+
+    engine._check_slice(cfg, state(torch.float32))
+    if passes:
+        engine._check_slice(cfg, state(torch.float64))
+    else:
+        with pytest.raises(NotImplementedError,
+                           match='ROADMAP.md "f64 kernels"'):
+            engine._check_slice(cfg, state(torch.float64))
+    with pytest.raises(NotImplementedError, match="f64 kernels"):
+        engine._check_slice(cfg, state(torch.float16))
+
+
 @pytest.mark.parametrize("tiers", [(2, 8, 8), (np.int64(2), 8)])
 def test_compact_tiers_accept_numpy_ints_and_drop_duplicates(
         port_solves, monkeypatch, tiers):

@@ -209,12 +209,46 @@ def test_k1_rank6_split_and_one_thread_match_plain(dev, B, alpha_zero):
             assert torch.equal(g, r)
 
 
-def test_k1_rejects_float64(dev):
-    args = list(_k1_args(dev, 20, 64, True))
-    for i in range(6, 13):
-        args[i] = args[i].double()
+def _f64(args):
+    """K1's arguments with every tensor, the model parameters included, in
+    float64."""
+    p = args[0]
+    p64 = dataclasses.replace(p, **{f.name: getattr(p, f.name).double()
+                                    for f in dataclasses.fields(p)})
+    return (p64,) + tuple(a.double() if isinstance(a, torch.Tensor) else a
+                          for a in args[1:])
+
+
+@pytest.mark.parametrize("alpha_zero", [True, False])
+@pytest.mark.parametrize("B", [4096, 4093, 131072])
+def test_k1_float64_split_matches_plain(dev, B, alpha_zero):
+    """The gains body in float64 through the float64 forms of its split
+    kernels (the public entry's for a float64 batch) against the plain
+    gains body in float64, at B=4096, at a ragged width (not a multiple of
+    a float64 block's 4 teams) and at the main path's full width: equal bit
+    for bit on all seven outputs, with the parks and the constants block in
+    double."""
+    args = _f64(_k1_args(dev, 20, B, alpha_zero))
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9)
+    before = sqp_planes.launches["gains"]
+    got = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
+    torch.cuda.synchronize()
+    assert sqp_planes.launches["gains"] == before + 1
+    for g, r in zip((*got[:3], *got[3]), (*ref[:3], *ref[3])):
+        assert g.dtype == torch.float64
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, r)
+
+
+def test_k1_other_forms_reject_float64(dev):
+    """The rank-6 and factor bodies and the one-thread yardstick have no
+    float64 form: a float64 batch raises, naming float32."""
+    args = _f64(_k1_args(dev, 20, 64, True))
+    for kw in (dict(rank6=True), dict(factor=True)):
+        with pytest.raises(TypeError, match="float32"):
+            sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9, **kw)
     with pytest.raises(TypeError, match="float32"):
-        sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
+        sqp_planes._gains_cuda(*args, reg=1e-9, one_thread=True)
 
 
 # K2 cases (leading shape, B, Bc, index pattern), as chip_smoke.py phase 3
@@ -256,7 +290,30 @@ def _k2_inputs(dev, lead, B, Bc, pattern, seed=0):
 
 
 def _bits(t):
-    return t.view(torch.int32)
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("lead,B,Bc,pattern", K2_CASES)
+def test_k2_float64_bitwise(dev, lead, B, Bc, pattern, idx_dtype):
+    """K2's 8-byte form on float64 data, with -0, infinities and NaN
+    payloads among it, bitwise to the plain versions on the phase-3
+    cases."""
+    a, src, idx64 = _k2_inputs(dev, lead, B, Bc, pattern, seed=Bc + 1)
+    a, src = a.double(), src.double()
+    a.view(torch.int64).reshape(-1)[:3] = torch.tensor(
+        [-2 ** 63, 0x7FF8000000000001, 0x7FF0123456789ABC], device=dev)
+    idx = idx64.to(idx_dtype)
+    before = dict(permute.launches)
+    got = permute.take_lanes(a, idx)
+    got_s = permute.set_lanes(a, src, idx)
+    torch.cuda.synchronize()
+    assert permute.launches["take_lanes"] == before["take_lanes"] + 1
+    assert permute.launches["set_lanes"] == before["set_lanes"] + 1
+    assert got.dtype == got_s.dtype == torch.float64
+    assert torch.equal(_bits(got), _bits(permute.take_lanes_ref(a, idx64)))
+    assert torch.equal(_bits(got_s),
+                       _bits(permute.set_lanes_ref(a, src, idx64)))
 
 
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
@@ -455,10 +512,12 @@ def test_k2_leaves_inputs_untouched(dev):
 
 def test_k2_rejects_what_it_cannot_take(dev):
     a, src, idx = _k2_inputs(dev, (3, 12), 4096, 1024, "uniform")
-    with pytest.raises(TypeError, match="float32"):
-        permute.take_lanes(a.double(), idx)
-    with pytest.raises(TypeError, match="float32"):
-        permute.set_lanes(a.double(), src.double(), idx)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        permute.take_lanes(a.half(), idx)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        permute.set_lanes(a.half(), src.half(), idx)
+    with pytest.raises(TypeError, match="float64"):
+        permute.set_lanes(a.double(), src, idx)
     with pytest.raises(ValueError, match="1-D"):
         permute.take_lanes(a, idx[None])
     with pytest.raises(ValueError, match="1-D"):
@@ -488,6 +547,81 @@ def test_compacted_solve_is_bitwise_and_launches_kernels(dev):
     assert torch.equal(in_c.sqp_iters, in_f.sqp_iters)
     assert torch.equal(in_c.status, in_f.status)
     assert int(in_c.converged.sum()) >= 0.95 * B
+
+
+def _f64_problem(dev, B):
+    """The benchmark problem in float64 on the card: a cold batch of ``B``
+    with 0.01 N(0, 1) initial-state noise."""
+    params, weights, cfg = build_from_options(MpcOptions.default(),
+                                              dtype=torch.float64, device=dev)
+    x0, x_ref = engine.make_benchmark_problem(cfg, torch.float64, device=dev)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(x0.cpu().numpy()[None]
+                          + 0.01 * rng.normal(size=(B, 12)),
+                          dtype=torch.float64, device=dev)
+    states = sharded.broadcast_state(
+        engine.NmpcState.initial(cfg.N, torch.float64, device=dev), B)
+    return params, weights, cfg, states, x0s, x_ref
+
+
+def test_compacted_float64_solve_is_bitwise(dev):
+    """A float64 batch on the default route: the compacted solve (K2's
+    8-byte form at every tier crossing) equals the full-width solve bit
+    for bit, and K1's float64 launches carry its trips."""
+    params, weights, cfg, states, x0s, x_ref = _f64_problem(dev, 8192)
+    k2_before, k1_before = dict(permute.launches), sqp_planes.launches["gains"]
+    st_c, in_c, _ = sharded.solve_batch(params, weights, cfg, states, x0s,
+                                        x_ref)
+    assert permute.launches["take_lanes"] > k2_before["take_lanes"]
+    assert permute.launches["set_lanes"] > k2_before["set_lanes"]
+    assert sqp_planes.launches["gains"] > k1_before
+    st_f, in_f, _ = sharded.solve_batch(
+        params, weights, dataclasses.replace(cfg, compact=False), states,
+        x0s, x_ref)
+    assert st_c.u.dtype == torch.float64
+    assert torch.equal(st_c.u, st_f.u) and torch.equal(st_c.x, st_f.x)
+    assert torch.equal(in_c.sqp_iters, in_f.sqp_iters)
+    assert torch.equal(in_c.status, in_f.status)
+    assert int(in_c.converged.sum()) >= 0.95 * 8192
+
+
+def _f64_solve_calls(dev):
+    """One float64 solve of 8192 scenarios on the default route."""
+    params, weights, cfg, states, x0s, x_ref = _f64_problem(dev, 8192)
+    return [lambda: sharded.solve_batch(params, weights, cfg, states, x0s,
+                                        x_ref)]
+
+
+def test_float64_solve_launches_the_float64_kernels(dev):
+    """A float64 solve on the default route runs K1's three float64
+    launches and K2's 8-byte form, and none of the port's float32 kernels
+    (no plain fallback either: K1's and K2's launches carry every trip and
+    crossing)."""
+    kernels = _device_kernels("_f64_solve_calls")
+    for name in ("k1s_planes_f64_kernel", "k1s_riccati_team_f64_kernel",
+                 "k1s_rollout_f64_kernel", "take_lanes8_kernel",
+                 "set_lanes8_kernel"):
+        assert any(name in k for k in kernels), kernels
+    for name in ("k1s_planes_kernel", "k1s_riccati_team_kernel",
+                 "k1s_rollout_kernel", "take_lanes_kernel",
+                 "set_lanes_kernel", "k5s_", "k7s_", "riccati_team_kernel",
+                 "riccati_bwd_kernel", "riccati_fwd_kernel", "merit_kernel",
+                 "sqp_planes_kernel"):
+        assert not any(name in k for k in kernels), kernels
+    n = {p: sum(v for k, v in kernels.items() if p in k)
+         for p in ("k1s_planes_f64_kernel", "k1s_riccati_team_f64_kernel",
+                   "k1s_rollout_f64_kernel")}
+    assert len(set(n.values())) == 1, n
+
+
+@pytest.mark.parametrize("kw", [
+    dict(qp_kernel="pallas", speculative=False), dict(planes=False),
+    dict(park_factor=True), dict(qp_kernel="fused", speculative=False)])
+def test_float64_on_other_kernel_routes_raises(dev, kw):
+    params, weights, cfg, states, x0s, x_ref = _f64_problem(dev, 512)
+    with pytest.raises(NotImplementedError, match="f64 kernels"):
+        engine.solve(params, weights, dataclasses.replace(cfg, **kw), states,
+                     x0s, x_ref)
 
 
 def _sync_args(dev, B, seed=0):

@@ -71,41 +71,61 @@ def test_set_lanes_bitwise_vs_jax_kernel(interpret_pallas, clumpy):
 def host_k2():
     """``csrc/permute.cu``'s per-thread bodies built as host C++ (g++),
     run over an emulated grid: ``take(a, idx, rpb, vec, threads)`` and
-    ``set(orig, src, idx, rpb, vec, threads)`` on numpy arrays."""
+    ``set(orig, src, idx, rpb, vec, threads)`` on numpy arrays, through
+    the 4-byte entries for float32 data and the 8-byte ones for float64."""
     lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/permute.cu"))
-    take, put = lib.srbd_take_lanes_host, lib.srbd_set_lanes_host
-    take.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
-                     + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2)
-    put.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-                    + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2)
-    take.restype = put.restype = ctypes.c_int
+    fns = {}
+    for size, tag in ((4, ""), (8, "8")):
+        take = getattr(lib, f"srbd_take_lanes{tag}_host")
+        put = getattr(lib, f"srbd_set_lanes{tag}_host")
+        take.argtypes = ([ctypes.c_void_p] * 2
+                         + [ctypes.c_int, ctypes.c_void_p]
+                         + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2)
+        put.argtypes = ([ctypes.c_void_p] * 3
+                        + [ctypes.c_int, ctypes.c_void_p]
+                        + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2)
+        take.restype = put.restype = ctypes.c_int
+        fns[size] = (take, put)
 
     def run_take(a, idx, rpb, vec, threads):
         B, Bc = a.shape[-1], idx.shape[0]
         R = a.size // B
-        out = np.full(a.shape[:-1] + (Bc,), np.nan, np.float32)
-        assert take(a.ctypes.data, idx.ctypes.data, idx.itemsize,
-                    out.ctypes.data, R, B, Bc, rpb, vec, threads) == 0
+        out = np.full(a.shape[:-1] + (Bc,), np.nan, a.dtype)
+        assert fns[a.itemsize][0](a.ctypes.data, idx.ctypes.data,
+                                  idx.itemsize, out.ctypes.data, R, B, Bc,
+                                  rpb, vec, threads) == 0
         return out
 
     def run_set(orig, src, idx, rpb, vec, threads):
         B, Bc = orig.shape[-1], idx.shape[0]
         R = orig.size // B
         out = np.full_like(orig, np.nan)
-        assert put(orig.ctypes.data, src.ctypes.data, idx.ctypes.data,
-                   idx.itemsize, out.ctypes.data, R, B, Bc, rpb, vec,
-                   threads) == 0
+        assert fns[orig.itemsize][1](orig.ctypes.data, src.ctypes.data,
+                                     idx.ctypes.data, idx.itemsize,
+                                     out.ctypes.data, R, B, Bc, rpb, vec,
+                                     threads) == 0
         return out
 
     return run_take, run_set
 
 
-def _words(rng, shape):
-    """float32 data with -0, infinities and NaNs with payloads among it."""
-    a = rng.normal(size=shape).astype(np.float32)
-    flat = a.reshape(-1).view(np.uint32)
-    special = np.array([0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001,
-                        0xFFBADBAD, 0x7F812345], np.uint32)
+# -0, infinities and NaNs with payloads, by element type
+SPECIAL = {
+    np.float32: (np.uint32, [0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001,
+                             0xFFBADBAD, 0x7F812345]),
+    np.float64: (np.uint64, [0x8000000000000000, 0x7FF0000000000000,
+                             0xFFF0000000000000, 0x7FF8000000000001,
+                             0xFFFBADBADBADBAD5, 0x7FF0123456789ABC]),
+}
+
+
+def _words(rng, shape, dtype=np.float32):
+    """float32 (or float64) data with -0, infinities and NaNs with
+    payloads among it."""
+    bits, special = SPECIAL[dtype]
+    a = rng.normal(size=shape).astype(dtype)
+    flat = a.reshape(-1).view(bits)
+    special = np.array(special, bits)
     pos = rng.choice(flat.size, size=min(flat.size, 4 * special.size),
                      replace=False)
     flat[pos] = np.resize(special, pos.size)
@@ -135,18 +155,22 @@ def _case_idx(rng, B, Bc, pattern):
     return _sorted_idx(rng, B, Bc, pattern == "clumpy")
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
 @pytest.mark.parametrize("shape,Bc,pattern", HOST_CASES)
-def test_host_build_bitwise_vs_plain(host_k2, shape, Bc, pattern, idx_dtype):
+def test_host_build_bitwise_vs_plain(host_k2, shape, Bc, pattern, idx_dtype,
+                                     dtype):
     """The CUDA source's gather and scatter bodies, built as host C++ and
     run over the kernels' grid (the wrapper's rows per block at 132 SMs,
-    and 1 and 3 rows at 32 threads), bitwise equal to the plain versions;
-    the vector path wherever the width allows it."""
+    and 1 and 3 rows at 32 threads), bitwise equal to the plain versions,
+    on float32 data (4-byte words) and float64 data (the 8-byte form); the
+    vector path wherever the width allows it."""
     run_take, run_set = host_k2
     rng = np.random.default_rng(shape[-1] + 7 * Bc + len(pattern))
     B = shape[-1]
-    a = _words(rng, shape)
-    src = _words(rng, shape[:-1] + (Bc,))
+    bits = SPECIAL[dtype][0]
+    a = _words(rng, shape, dtype)
+    src = _words(rng, shape[:-1] + (Bc,), dtype)
     idx = _case_idx(rng, B, Bc, pattern).astype(idx_dtype)
     ti = torch.as_tensor(idx.astype(np.int64))
     ref_t = permute.take_lanes_ref(torch.as_tensor(a), ti).numpy()
@@ -159,12 +183,11 @@ def test_host_build_bitwise_vs_plain(host_k2, shape, Bc, pattern, idx_dtype):
         for vec in {0, int(Bc % 4 == 0)}:
             if Bc:
                 got = run_take(a, idx, rpb_t, vec, threads)
-                np.testing.assert_array_equal(got.view(np.uint32),
-                                              ref_t.view(np.uint32))
+                np.testing.assert_array_equal(got.view(bits),
+                                              ref_t.view(bits))
         for vec in {0, int(B % 4 == 0)}:
             got = run_set(a, src, idx, rpb_s, vec, threads)
-            np.testing.assert_array_equal(got.view(np.uint32),
-                                          ref_s.view(np.uint32))
+            np.testing.assert_array_equal(got.view(bits), ref_s.view(bits))
 
 
 @pytest.mark.parametrize("R,lanes", [(252, 65536), (240, 16384), (12, 4096),

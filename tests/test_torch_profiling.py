@@ -109,6 +109,27 @@ def test_launch_spans_count_the_solve(solves):
         assert not trips
 
 
+def test_compact_spans_hold_each_tier_crossing(solves):
+    """On the speculative route every tier crossing's gather into the tier
+    and scatter back out of it is one ``srbd::compact[<width>]`` span at
+    the tier's width, two a tier, holding the K2 calls (on the CPU their
+    plain ``index_select`` / ``index_copy``) and no trip; the synchronous
+    route compacts nothing."""
+    route, cfg, _, _, events = solves
+    compact = _spans(events, "compact")
+    if route != "spec_fused":
+        assert not compact
+        return
+    trips = _spans(events, "trip")
+    tiers = sorted({_width(e[0]) for e in trips} - {B}, reverse=True)
+    assert tiers
+    assert [_width(e[0]) for e in compact] == tiers + tiers[::-1]
+    for c in compact:
+        assert not any(_inside(t, c) for t in trips)
+        assert any(e[0] in ("aten::index_select", "aten::index_copy")
+                   and _inside(e, c) for e in events)
+
+
 def test_every_readback_of_the_solve_is_a_span(solves):
     events = solves[4]
     (solve,) = _spans(events, "solve")

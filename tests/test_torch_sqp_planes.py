@@ -441,6 +441,39 @@ def test_split_f32_host_build_rounds_as_one_thread_body(team, rev):
         assert rel <= 1e-6
 
 
+@pytest.mark.parametrize("rev", [False, True])
+def test_split_f64_card_form_matches_plain(rev):
+    """The float64 form of the three launches at the card's layout: the
+    split source's f64 host build, whose team array in double is the
+    card's (720 doubles; the source's static assertions hold 4 such teams
+    and the constants block in double within 48 KB of static shared memory
+    and 8 blocks within an SM's 228 KB, or it does not build), with the
+    card's team width (16) in either member order reproduces the plain
+    version in double on every lane."""
+    params, weights, arr = _problem(20, seed=1)
+    args = _port_args(params, weights, arr)
+    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=REG)
+    dx, du, out5 = _host_split(args, 16, rev=rev)
+    _assert_host_matches_plain((dx, du, out5), ref)
+
+
+@pytest.mark.parametrize("kw,dtype", [
+    (dict(), "float64"), (dict(one_thread=True), "float32"),
+    (dict(rank6=True), "float32"), (dict(factor=True), "float32")])
+def test_float64_takes_the_gains_split_kernels_only(kw, dtype):
+    """A float64 batch is checked against the float64 form of the gains
+    body's split kernels; the one-thread yardstick and the rank-6 and
+    factor bodies take float32 only (on CPU tensors each raises before
+    anything is built, naming the dtype it takes)."""
+    params, weights, arr = _problem(5)
+    args = _port_args(params, weights, arr)
+    one_thread = kw.pop("one_thread", False)
+    with pytest.raises(TypeError, match=f"takes {dtype} CUDA tensors"):
+        sqp_planes._solve_cuda(*args, reg=REG, rank6=kw.get("rank6", False),
+                               factor=kw.get("factor", False), consts=None,
+                               one_thread=one_thread)
+
+
 @pytest.mark.parametrize("one_thread", [False, True])
 def test_gains_designs_raise_on_what_they_cannot_take(one_thread):
     """The card-only entry of the gains body's kernels, split or one-thread,
