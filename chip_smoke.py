@@ -148,6 +148,11 @@ K1S_PASSES = {"K1s-A": "k1s_planes_kernel",
 K1FS_PASSES = {"K1s-A": "k1s_planes_kernel",
                "K1s-B factor": "k1s_riccati_factor_kernel",
                "K1s-C factor": "k1s_rollout_factor_kernel"}
+# the plane pass's ptxas reports (registers, spill stores), as PERF.md
+# records them: the float32 form's, which the float64 form's split does not
+# change, and the float64 form's (its two parts in one launch)
+K1S_A_PTXAS = (168, 36)
+K1S_A_F64_PTXAS = (128, 88)
 # K1s-B's ptxas reports (registers, spill stores) by kernel, as PERF.md
 # records them: the gains form's (with its block park), and the factor
 # form's, which does not change with the gains form's beside it
@@ -884,11 +889,89 @@ def phase_k1_f64(dev):
     return times
 
 
-def _tree_k1s_b(tree: str, tag: str):
-    """K1s-B's launch (``srbd_k1s_riccati_launch``) from ``tree``'s
-    ``srbd_nmpc_tpu_torch/csrc/sqp_planes_split.cu``, built by nvcc with
-    the port's flags into the build directory's ``trees/<tag>``, and its
-    registers and spill stores (ptxas)."""
+# K1s-A f64's recorded ms a call at B=131072 in its one-thread form
+# (plane_stage in double, 255 registers, 892 B spill stores; PERF.md), for a
+# run without the parent's tree
+K1A_F64_PARENT_MS = {B_MAIN: 6.209}
+
+
+def phase_k1a_f64(dev, parent=None):
+    """K1s-A's float64 form alone (``srbd_k1s_planes_f64_launch``: every
+    ``k1s_planes_f64*`` kernel) at K1_WIDTHS: ms a call in alternated rounds
+    (``_rounds``), beside the same launch built from ``parent`` (an unpacked
+    checkout of another commit, ``_tree_split``) on the same inputs, with
+    the pack, the merit terms and the terminal stage held bitwise to the
+    parent's at K1F_CHECK_WIDTHS and K1_WIDTHS; without ``parent``, beside
+    its recorded ms (K1A_F64_PARENT_MS). Fails unless bitwise."""
+    import ctypes
+    import os
+
+    from srbd_nmpc_tpu_torch.ops import sqp_planes
+    from srbd_nmpc_tpu_torch.ops.sqp_stage import kernel_constants
+
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fns = {"this": sqp_planes._split_lib().srbd_k1s_planes_f64_launch}
+    if parent:
+        plib, log = _tree_split(parent, "k1a_parent")
+        fns["parent"] = plib.srbd_k1s_planes_f64_launch
+        fns["parent"].argtypes = [P] * 10 + [I, I, D, D, P]
+        fns["parent"].restype = ctypes.c_int
+        for mangled, regs, stores, loads, _ in _ptxas("sqp_planes_split",
+                                                      "k1s_planes_f64", log):
+            print(f"[4 K1s-A f64] parent {os.path.basename(parent)}: "
+                  f"{mangled} {regs} registers, {stores} B spill stores, "
+                  f"{loads} B spill loads", flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(29)
+    same_all, times = True, {}
+    for B in sorted(set(K1F_CHECK_WIDTHS) | set(K1_WIDTHS)):
+        args, _ = _k1_inputs(rng, N_MAIN, B, dev, False)
+        a64 = _f64(args)
+        kc = kernel_constants(*a64[:6], torch.float64).block
+        ins = [t.data_ptr() for t in (kc, *a64[6:12])]
+        outs = {tag: [torch.full(sh, float("nan"), dtype=torch.float64,
+                                 device=dev)
+                      for sh in ((N_MAIN, sqp_planes._C, B),
+                                 (N_MAIN, sqp_planes._M_C, B),
+                                 (sqp_planes._T_C, B))] for tag in fns}
+
+        def call(tag, out=None):
+            out = outs[tag] if out is None else out
+            sqp_planes._check(f"K1s-A f64 ({tag})", fns[tag](
+                *ins, *(t.data_ptr() for t in out), N_MAIN, B,
+                float(a64[13]), float(a64[14]), stream))
+
+        for tag in fns:
+            call(tag)
+        torch.cuda.synchronize()
+        if parent:
+            same = all(torch.equal(a.view(torch.int64), b.view(torch.int64))
+                       for a, b in zip(outs["this"], outs["parent"]))
+            finite = all(bool(torch.isfinite(t).all()) for t in outs["parent"])
+            same_all = same_all and same and finite
+            print(f"[4 K1s-A f64] B={B}: pack, merit terms and terminal "
+                  f"stage bitwise the parent's {same} (all written "
+                  f"{finite})", flush=True)
+        if B in K1_WIDTHS:
+            times[B] = _rounds({tag: (lambda tag=tag: call(tag)) for tag in fns},
+                               10)
+        del args, a64, outs
+        torch.cuda.empty_cache()
+    print("[4 K1s-A f64] ms a call: " + ", ".join(
+        f"B={B} " + " / ".join(f"{tag} {v:.3f}" for tag, v in t.items())
+        + (f" ({t['this'] / t['parent']:.3f}x)" if "parent" in t else
+           f" (the parent {K1A_F64_PARENT_MS[B]:.3f}, recorded)"
+           if B in K1A_F64_PARENT_MS else "")
+        for B, t in times.items()), flush=True)
+    if not same_all:
+        raise AssertionError("K1s-A f64 differs from the parent's")
+    return times
+
+
+def _tree_split(tree: str, tag: str):
+    """``tree``'s ``srbd_nmpc_tpu_torch/csrc/sqp_planes_split.cu`` built by
+    nvcc with the port's flags into the build directory's ``trees/<tag>``:
+    the loaded library and nvcc's ``-Xptxas -v`` report."""
     import ctypes
     import os
 
@@ -903,12 +986,21 @@ def _tree_k1s_b(tree: str, tag: str):
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    fn = ctypes.CDLL(lib).srbd_k1s_riccati_launch
+    return ctypes.CDLL(lib), proc.stdout + proc.stderr
+
+
+def _tree_k1s_b(tree: str, tag: str):
+    """K1s-B's launch (``srbd_k1s_riccati_launch``) from ``tree``'s
+    ``sqp_planes_split.cu`` (``_tree_split``), and its registers and spill
+    stores (ptxas)."""
+    import ctypes
+
+    lib, log = _tree_split(tree, tag)
+    fn = lib.srbd_k1s_riccati_launch
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [P] * 5 + [I, I, F, P]
     fn.restype = ctypes.c_int
-    regs = _ptxas("sqp_planes_split", "k1s_riccati_team_kernel",
-                  proc.stdout + proc.stderr)
+    regs = _ptxas("sqp_planes_split", "k1s_riccati_team_kernel", log)
     return fn, regs[0][1:3]
 
 
@@ -3185,9 +3277,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k2-only", action="store_true",
                     help="build permute.cu and run phases 1-3 only")
-    ap.add_argument("--f64-only", action="store_true",
+    ap.add_argument("--f64-only", nargs="?", const="", metavar="PARENT",
                     help="build permute.cu and sqp_planes_split.cu and run "
-                         "phases 1-2 and the float64 phase only")
+                         "phases 1-2 and the float64 phases only; K1s-A f64 "
+                         "beside PARENT's (an unpacked checkout), if given")
     ap.add_argument("--k1s-b-trees", nargs="+", metavar="TREE",
                     help="build sqp_planes_split.cu and time K1s-B from each "
                          "TREE (an unpacked checkout) beside this tree's, "
@@ -3205,9 +3298,10 @@ def main(argv=None) -> int:
         phase_k1s_b_trees(dev, args.k1s_b_trees)
         print(smi)
         return 0
-    if args.f64_only:
+    if args.f64_only is not None:
         phase_build(("permute", "sqp_planes_split"))
         phase_k1_f64(dev)
+        phase_k1a_f64(dev, args.f64_only or None)
         print(smi)
         return 0
     _, k1_regs, k3_regs, k6_regs, k57_regs, k4_regs = phase_build()
@@ -3219,6 +3313,7 @@ def main(argv=None) -> int:
     k1f_err, k1f_t, k1f_passes, k1f_floor = phase_k1_factor_designs(dev)
     k1r = phase_k1_rank6_designs(dev)
     phase_k1_f64(dev)
+    phase_k1a_f64(dev)
     st, info, prob, launches, spec = phase_cold(dev, f"{smi}")
     phase_warm(dev, st, prob)
     phase_compaction(dev)

@@ -69,12 +69,39 @@ constexpr int K_R = 185, K_Q = 329, K_QF = 473, K_LEN = 617;
 constexpr int P_D1 = 0, P_D2 = 9, P_SF = 18, P_SR = 21, P_SL = 24;
 constexpr int P_B = 27, P_Q = 39, P_RF = 51, P_DDB = 63, P_C = 87;
 
+// A lane's values kept in a staging area (row i at p[i * stride]) and read
+// anew at each use: volatile, so that the compiler keeps none of them in
+// registers between uses. The RK4 step takes x, u and I^-1 as arrays or as
+// Staged (the float64 plane pass, k1s::plane_dyn).
+template <typename T> struct Staged {
+#ifdef SRBD_OPCOUNT
+  const T* p;  // the operation counter's scalar is a class: read as it is
+#else
+  const volatile T* p;
+#endif
+  int stride;
+  HD T operator[](int i) const { return p[i * stride]; }
+  HD Staged operator+(int o) const { return {p + o * stride, stride}; }
+};
+
+// I^-1 as the dynamics take it: the matrix itself, or read anew from a
+// staged constants block (I^-1's 9 entries row-major)
+template <typename T> HD const M3<T>& iinv_at(const M3<T>& Iinv) { return Iinv; }
+template <typename T> HD M3<T> iinv_at(const Staged<T>& s) {
+  M3<T> I;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) I.m[i][j] = s[3 * i + j];
+  return I;
+}
+
 // dx/dt of the SRBD (srbd_planes._deriv)
-template <typename T>
-HD void dynamics(const T* kc, const M3<T>& Iinv, const T* x, const T* u, T* out) {
+template <typename T, typename IV = M3<T>, typename UV = const T*>
+HD void dynamics(const T* kc, const IV& Iinv, const T* x, UV u, T* out) {
   M3<T> R, Jlt;
   chain_lite(x, R, Jlt);
-  const M3<T> A = rirt(R, Iinv);
+  const M3<T> A = rirt(R, iinv_at(Iinv));
   T w[3];
   mv3(A, x + 3, w);
   mv3(Jlt, w, out);
@@ -99,12 +126,12 @@ HD void dynamics(const T* kc, const M3<T>& Iinv, const T* x, const T* u, T* out)
   out[11] = inv_m * (u[2] + u[8]) + T(-9.8);
 }
 
-// Euler Jacobian blocks D1, D2 (row-major), skew generators sF, sr, sl and
-// the RK4 step x_next (srbd_planes.linearize_stage)
+// The pieces of srbd_planes.linearize_stage, in its order (linearize_stage
+// below runs them one after another). stage_chain: the Euler Jacobian
+// blocks D1, D2 (row-major) and Jw = Jl^-1 (R I^-1 R' l), the rotation rows
+// of the RK4 step's k1; it reads x's r and l (x[0..5]) alone
 template <typename T>
-HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
-                        T* D1, T* D2, T* sF, T* sr, T* sl, T* x_next) {
-  const T dt = kc[K_DT];
+HD void stage_chain(const M3<T>& Iinv, const T* x, T* D1, T* D2, T* Jw) {
   const T* r = x;
   const T* l = x + 3;
 
@@ -149,7 +176,6 @@ HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
   const M3<T> A = rirt(R, Iinv);
   T w[3];
   mv3(A, l, w);
-  T Jw[3];
   mv3(Jlt, w, Jw);
 
   // djlt_a w = -(Jlt (djl_a (Jlt w))), with
@@ -201,7 +227,11 @@ HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
       D1[3 * i + a] = djw[a][i] + core.m[i][a];
       D2[3 * i + a] = D2m.m[i][a];
     }
+}
 
+// the skew generators sF, sr, sl of the stage
+template <typename T>
+HD void stage_skews(const T* kc, const T* x, const T* u, T* sF, T* sr, T* sl) {
   const T* pf0 = kc + K_FOOT;
   const T* pf1 = kc + K_FOOT + 3;
 #pragma unroll
@@ -210,8 +240,17 @@ HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
     sr[i] = pf0[i] - x[6 + i];
     sl[i] = pf1[i] - x[6 + i];
   }
+}
 
-  // ---- RK4 with k1 from the shared chain ---------------------------------
+// the RK4 step x_next over dt, k1 from the chain's Jw and the stage's sr,
+// sl (x, u and I^-1 as arrays or Staged). kRunning keeps the sum of the k's
+// as a running sum, s = k1 + 2 k2, then s + 2 k3, then s + k4: the same
+// operations in the same order, so the same rounding, with each k dropped
+// as it is added
+template <typename T, bool kRunning = false, typename IV = M3<T>, typename XV = const T*,
+          typename UV = const T*>
+HD void rk4_step(const T* kc, T dt, const IV& Iinv, XV x, UV u, const T* Jw, const T* sr,
+                 const T* sl, T* x_next) {
   T k1[12], k2[12], k3[12], k4[12], xs[12];
   T c0[3], cc1[3];
   cross3(sr, u, c0);
@@ -233,14 +272,35 @@ HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
   dynamics(kc, Iinv, xs, u, k2);
 #pragma unroll
   for (int i = 0; i < 12; ++i) xs[i] = x[i] + hdt * k2[i];
+  if constexpr (kRunning) {
+#pragma unroll
+    for (int i = 0; i < 12; ++i) k1[i] = k1[i] + T(2) * k2[i];
+  }
   dynamics(kc, Iinv, xs, u, k3);
 #pragma unroll
   for (int i = 0; i < 12; ++i) xs[i] = x[i] + dt * k3[i];
+  if constexpr (kRunning) {
+#pragma unroll
+    for (int i = 0; i < 12; ++i) k1[i] = k1[i] + T(2) * k3[i];
+  }
   dynamics(kc, Iinv, xs, u, k4);
   const T dt6 = dt / T(6);
 #pragma unroll
   for (int i = 0; i < 12; ++i)
-    x_next[i] = x[i] + dt6 * (((k1[i] + T(2) * k2[i]) + T(2) * k3[i]) + k4[i]);
+    x_next[i] = kRunning ? x[i] + dt6 * (k1[i] + k4[i])
+                         : x[i] + dt6 * (((k1[i] + T(2) * k2[i]) + T(2) * k3[i]) + k4[i]);
+}
+
+// Euler Jacobian blocks D1, D2 (row-major), skew generators sF, sr, sl and
+// the RK4 step x_next (srbd_planes.linearize_stage)
+template <typename T>
+HD void linearize_stage(const T* kc, const M3<T>& Iinv, const T* x, const T* u,
+                        T* D1, T* D2, T* sF, T* sr, T* sl, T* x_next) {
+  const T dt = kc[K_DT];
+  T Jw[3];
+  stage_chain(Iinv, x, D1, D2, Jw);
+  stage_skews(kc, x, u, sF, sr, sl);
+  rk4_step(kc, dt, Iinv, x, u, Jw, sr, sl, x_next);
 }
 
 // ---------------------------------------------------------------------------

@@ -115,10 +115,28 @@
 //   multiply-adds a stage, one thread a lane.
 // - The float64 forms (k1s_planes_f64_kernel, k1s_riccati_team_f64_kernel,
 //   k1s_rollout_f64_kernel; the gains body only) instantiate the same
-//   bodies in double: the constants block, the team array and the parks in
-//   double, the team array's layout kept, 4 teams a block so that the block
-//   stays in static shared memory and its park rows stay 32-byte sectors
-//   (F64_SHARED below). The float32 kernels are unchanged.
+//   Riccati and rollout bodies in double: the constants block, the team
+//   array and the parks in double, the team array's layout kept, 4 teams a
+//   block so that the block stays in static shared memory and its park rows
+//   stay 32-byte sectors (F64_SHARED below). The plane pass in double is
+//   not plane_stage's one thread a (stage, lane): that held the whole
+//   stage's live set in 255 registers with 892 B of spill stores, two
+//   blocks of 128 an SM, 4.3x its float32 form on the H100 where the other
+//   two launches cost 2x. Its float64 form splits a (stage, lane) between
+//   two threads (plane_part), each forming and storing its own channels
+//   with plane_stage's expressions and sum order, so that the pass writes
+//   plane_stage's pack, merit terms and terminal stage bit for bit: the
+//   dynamics (the chain's blocks stored as formed, then the RK4 defect with
+//   its sum kept as a running sum and x, u and I^-1 read anew at each use
+//   from shared memory: held in registers, the step spilled at 128) and
+//   the costs (the barrier rows leg by leg in a loop, rf's barrier sums kept
+//   as running sums: unrolled with the 24 db held, the part spilled 1.8 KB
+//   at 128 registers). One launch at 128 registers, four blocks (16 warps)
+//   an SM, the two parts' blocks interleaved so that every wave mixes them:
+//   6.2 -> 1.70 ms a call at B=131072 (PERF.md). ptxas spills 88 B there;
+//   the parts as two launches without spills (the dynamics also reading
+//   the feet, mass and dt anew) took 1.86 ms. The float32 plane pass keeps
+//   plane_stage and its machine code.
 // No operation crosses scenarios, so a compacted launch gives bitwise the
 // full-width result.
 //
@@ -271,6 +289,187 @@ HD void plane_stage(const T* kc, const T* xa, const T* us, const T* xr, const T*
 #undef MK
 #undef PK
 #undef AT
+}
+
+// The float64 plane pass: a stage of a lane split between two threads
+// (plane_part), each forming and storing its own channels with plane_stage's
+// expressions and sum order (no sum split between them), so that neither
+// holds the whole stage's live set. Pack, mer and term are plane_stage's bit
+// for bit.
+//
+// plane_dyn, the dynamics part of stage k < N: D1, D2, sF, sr, sl (pack
+// channels 0-26), each stored as soon as it is formed, before the RK4 step
+// starts; then the defect x_next - x_{k+1} (channels 27-38), the RK4 sum
+// kept as a running sum, the step reading x and u from the lane's staging
+// area st (24 rows, stride ss) and I^-1 from the constants block anew at each
+// use (k1::Staged). x's r and l are read first, the rest of x and u after
+// the chain's stores.
+template <typename T>
+HD void plane_dyn(const T* kc, const T* xa, const T* us, const T* dxc, const T* duc,
+                  const T* alpha, T* pack, int N, int B, int k, int b, T* st, int ss) {
+#define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
+  if (k >= N) return;
+  const T a = alpha[b];
+  M3<T> Iinv;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) Iinv.m[i][j] = kc[K_IINV + 3 * i + j];
+  T* pk = pack + (size_t)k * P_C * B;
+#define PK(c) pk[(size_t)(c) * B + b]
+  T x[12], u[12];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) x[i] = AT(xa, k * 12 + i) + a * AT(dxc, k * 12 + i);
+  T D1[9], D2[9], Jw[3];
+  stage_chain(Iinv, x, D1, D2, Jw);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    PK(P_D1 + i) = D1[i];
+    PK(P_D2 + i) = D2[i];
+  }
+#pragma unroll
+  for (int i = 6; i < 12; ++i) x[i] = AT(xa, k * 12 + i) + a * AT(dxc, k * 12 + i);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) u[i] = AT(us, k * 12 + i) + a * AT(duc, k * 12 + i);
+  T sF[3], sr[3], sl[3];
+  stage_skews(kc, x, u, sF, sr, sl);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    PK(P_SF + i) = sF[i];
+    PK(P_SR + i) = sr[i];
+    PK(P_SL + i) = sl[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    st[i * ss] = x[i];
+    st[(12 + i) * ss] = u[i];
+  }
+  T xnext[12];
+  rk4_step<T, true>(kc, kc[K_DT], Staged<T>{kc + K_IINV, 1}, Staged<T>{st, ss},
+                    Staged<T>{st + 12 * ss, ss}, Jw, sr, sl, xnext);
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+    PK(P_B + i) = xnext[i] - (AT(xa, (k + 1) * 12 + i) + a * AT(dxc, (k + 1) * 12 + i));
+#undef PK
+#undef AT
+}
+
+// plane_cost, the cost part of stage k: q and e_i (Q e)_i first (e then
+// dies), then the barrier rows leg by leg in a loop (ddb, the barrier sum,
+// the least constraint) with rf's barrier sums sum_g Ac[g][i] db[g] kept as
+// running sums in g, so that no db is held, then u_i (R u)_i and rf; at
+// k == N the terminal stage. It reads x, x_ref and u of the stage and the
+// constants alone.
+template <typename T>
+HD void plane_cost(const T* kc, const T* xa, const T* us, const T* xr, const T* dxc,
+                   const T* duc, const T* alpha, T* pack, T* mer, T* term, int N, int B,
+                   int k, int b, T mu_b, T theta_b) {
+#define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
+  const T a = alpha[b];
+  if (k == N) {
+    const T* Qf = kc + K_QF;
+    T eN[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i)
+      eN[i] = AT(xa, N * 12 + i) + a * AT(dxc, N * 12 + i) - AT(xr, N * 12 + i);
+    T pn = T(0);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      T acc = Qf[12 * i] * eN[0];
+#pragma unroll
+      for (int j = 1; j < 12; ++j) acc = acc + Qf[12 * i + j] * eN[j];
+      AT(term, i) = acc;
+      pn = (i == 0) ? eN[0] * acc : pn + eN[i] * acc;
+    }
+    AT(term, T_PN) = pn;
+    return;
+  }
+  const T* Rw = kc + K_R;
+  const T* Qw = kc + K_Q;
+  T* pk = pack + (size_t)k * P_C * B;
+  T* mk = mer + (size_t)k * M_C * B;
+#define PK(c) pk[(size_t)(c) * B + b]
+#define MK(c) mk[(size_t)(c) * B + b]
+  T e[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+    e[i] = (AT(xa, k * 12 + i) + a * AT(dxc, k * 12 + i)) - AT(xr, k * 12 + i);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    T qi = Qw[12 * i] * e[0];
+#pragma unroll
+    for (int j = 1; j < 12; ++j) qi = qi + Qw[12 * i + j] * e[j];
+    MK(M_EQ + i) = e[i] * qi;
+    PK(P_Q + i) = qi;
+  }
+  T u[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) u[i] = AT(us, k * 12 + i) + a * AT(duc, k * 12 + i);
+  const T log_th = k_log(theta_b);
+  const T ddb_quad = mu_b / (theta_b * theta_b);
+  const T* bc = kc + K_BC;
+  T s_bar = T(0), mincon = T(0), rb[12];
+#pragma unroll
+  for (int leg = 0; leg < 2; ++leg) {
+    const T* Ac = kc + (leg == 0 ? K_AC1 : K_AC2);
+    const T* ul = u + 6 * leg;
+#pragma unroll 1
+    for (int r = 0; r < 12; ++r) {
+      const int g = 12 * leg + r;
+      const T* arow = Ac + 6 * r;
+      T con = arow[0] * ul[0];
+#pragma unroll
+      for (int j = 1; j < 6; ++j) con = con + arow[j] * ul[j];
+      con = con + bc[g];
+      mincon = (g == 0) ? con : (con < mincon || con != con ? con : mincon);
+      const bool in_log = con > theta_b;
+      const T vs = in_log ? con : theta_b;
+      T bb, d, dd;
+      if (in_log) {
+        bb = -mu_b * k_log(vs);
+        d = -mu_b / vs;
+        dd = mu_b / (vs * vs);
+      } else {
+        const T z = (con - T(2) * theta_b) / theta_b;
+        bb = T(0.5) * mu_b * (z * z - T(1)) - mu_b * log_th;
+        d = mu_b * (con - T(2) * theta_b) / (theta_b * theta_b);
+        dd = ddb_quad;
+      }
+      s_bar = (g == 0) ? bb : s_bar + bb;
+      PK(P_DDB + g) = dd;
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+        rb[6 * leg + i] = (r == 0) ? arow[i] * d : rb[6 * leg + i] + arow[i] * d;
+    }
+  }
+  MK(M_BAR) = s_bar;
+  MK(M_CON) = mincon;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    T ri = Rw[12 * i] * u[0];
+#pragma unroll
+    for (int j = 1; j < 12; ++j) ri = ri + Rw[12 * i + j] * u[j];
+    MK(M_UR + i) = u[i] * ri;
+    PK(P_RF + i) = ri + rb[i];
+  }
+#undef MK
+#undef PK
+#undef AT
+}
+
+// the float64 plane pass's parts, a thread each per (stage, lane): 0 the
+// dynamics (st, ss: the lane's staging area), 1 the costs and the terminal
+// stage
+constexpr int F64_PARTS = 2;
+
+template <typename T>
+HD void plane_part(int part, const T* kc, const T* xa, const T* us, const T* xr,
+                   const T* dxc, const T* duc, const T* alpha, T* pack, T* mer, T* term, int N,
+                   int B, int k, int b, T mu_b, T theta_b, T* st, int ss) {
+  if (part == 0)
+    plane_dyn(kc, xa, us, dxc, duc, alpha, pack, N, B, k, b, st, ss);
+  else
+    plane_cost(kc, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, k, b, mu_b, theta_b);
 }
 
 // ---------------------------------------------------------------------------
@@ -1194,20 +1393,27 @@ __global__ void __launch_bounds__(128)
                             theta, phi, maxdef, mincon, N, B, b, park2, park3);
 }
 
-// The float64 forms of K1s-A, K1s-B (gains form) and K1s-C: the same
-// bodies in double, the constants block and the team array in double, 4
-// teams a block (k1s::F64_SHARED); 8 blocks of 64 threads an SM leave 128
-// registers a thread
-__global__ void __launch_bounds__(128)
+// The float64 forms of K1s-A, K1s-B (gains form) and K1s-C. K1s-A's: the
+// two parts of a (stage, lane) (k1s::plane_part) on interleaved blocks,
+// block x running part x % F64_PARTS of lanes 128 (x / F64_PARTS) ..., so
+// that every wave mixes the chain-bound dynamics and the store-bound costs;
+// 128 registers, four blocks (16 warps) an SM, the dynamics' x and u staged
+// in shared memory (24 rows a thread, 24,576 B a block). K1s-B's and
+// K1s-C's: the same bodies in double, the constants block and the team
+// array in double, 4 teams a block (k1s::F64_SHARED); 8 blocks of 64
+// threads an SM leave 128 registers a thread
+__global__ void __launch_bounds__(128, 4)
     k1s_planes_f64_kernel(const double* __restrict__ consts, const double* xa,
                           const double* us, const double* xr, const double* dxc,
                           const double* duc, const double* alpha, double* pack, double* mer,
                           double* term, int N, int B, double mu_b, double theta_b) {
   K1S_CONSTS(double)
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ double st[24 * 128];
+  const int part = blockIdx.x % k1s::F64_PARTS;
+  const int b = (blockIdx.x / k1s::F64_PARTS) * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  k1s::plane_stage<double>(kc, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B,
-                           blockIdx.y, b, mu_b, theta_b);
+  k1s::plane_part<double>(part, kc, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B,
+                          blockIdx.y, b, mu_b, theta_b, st + threadIdx.x, 128);
 }
 
 __global__ void __launch_bounds__(k1s::TEAMS_F64 * k1s::W_CARD, 8)
@@ -1332,7 +1538,7 @@ extern "C" int srbd_k1s_planes_f64_launch(const double* consts, const double* xa
                                           double* term, int N, int B, double mu_b,
                                           double theta_b, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  const dim3 grid((B + K1S_THREADS - 1) / K1S_THREADS, N + 1);
+  const dim3 grid(k1s::F64_PARTS * ((B + K1S_THREADS - 1) / K1S_THREADS), N + 1);
   k1s_planes_f64_kernel<<<grid, K1S_THREADS, 0, (cudaStream_t)stream>>>(
       consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, mu_b, theta_b);
   return (int)cudaGetLastError();
@@ -1366,10 +1572,32 @@ extern "C" int srbd_k1s_rollout_f64_launch(const double* consts, const double* p
 
 #else  // host build: the three passes over every lane
 
+#include <type_traits>
+
 using srbd_dev::host_t;
 
+// K1s-A over every stage and lane: the one-thread plane_stage, or (split)
+// the float64 form's parts, each over every stage and lane, in part order
+// or (rev) in reverse
+static void planes_host(bool split, bool rev, const host_t* consts, const host_t* xa,
+                        const host_t* us, const host_t* xr, const host_t* dxc,
+                        const host_t* duc, const host_t* alpha, host_t* pack, host_t* mer,
+                        host_t* term, int N, int B, host_t mu, host_t th) {
+  host_t st[24];
+  for (int p = 0; p < (split ? k1s::F64_PARTS : 1); ++p)
+    for (int k = 0; k <= N; ++k)
+      for (int b = 0; b < B; ++b)
+        if (split)
+          k1s::plane_part(rev ? k1s::F64_PARTS - 1 - p : p, consts, xa, us, xr, dxc, duc, alpha,
+                          pack, mer, term, N, B, k, b, mu, th, st, 1);
+        else
+          k1s::plane_stage(consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, k, b, mu,
+                           th);
+}
+
 // the arguments of the three launches together, for the gains, rank-6 or
-// factor body (k1::Body)
+// factor body (k1::Body); the gains body's plane pass in double as the
+// card's float64 form runs it (its parts in member order, rev)
 template <int kBody>
 static int split_host(int team, int rev, const host_t* consts, const host_t* xa,
                       const host_t* us, const host_t* xr, const host_t* dxc,
@@ -1382,10 +1610,8 @@ static int split_host(int team, int rev, const host_t* consts, const host_t* xa,
   if (team < 8 || team > 32) return 1;  // x0, kcol: two columns a member
   constexpr bool kFactor = kBody == k1::kFactor;
   const host_t mu(mu_b), th(theta_b), rg(reg);
-  for (int k = 0; k <= N; ++k)
-    for (int b = 0; b < B; ++b)
-      k1s::plane_stage(consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, k, b, mu,
-                       th);
+  planes_host(kBody == k1::kGains && std::is_same<host_t, double>::value, rev != 0, consts, xa,
+              us, xr, dxc, duc, alpha, pack, mer, term, N, B, mu, th);
   for (int b = 0; b < B; ++b) {
     if constexpr (kBody == k1::kRank6) {
       k1s::Team6<host_t> s;
@@ -1400,6 +1626,19 @@ static int split_host(int team, int rev, const host_t* consts, const host_t* xa,
   for (int b = 0; b < B; ++b)
     k1s::rollout<host_t, kFactor>(consts, pack, mer, term, park0, park1, dx0, dx_out, du_out,
                                   dphi, theta, phi, maxdef, mincon, N, B, b, park2, park3);
+  return 0;
+}
+
+// K1s-A alone: pack [N, 87, B], mer [N, 26, B], term [13, B] by the
+// one-thread plane_stage or (split) by the float64 form's parts, in either
+// order (rev)
+extern "C" int srbd_k1s_planes_host(int split, int rev, const host_t* consts, const host_t* xa,
+                                    const host_t* us, const host_t* xr, const host_t* dxc,
+                                    const host_t* duc, const host_t* alpha, host_t* pack,
+                                    host_t* mer, host_t* term, int N, int B, double mu_b,
+                                    double theta_b) {
+  planes_host(split != 0, rev != 0, consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B,
+              host_t(mu_b), host_t(theta_b));
   return 0;
 }
 

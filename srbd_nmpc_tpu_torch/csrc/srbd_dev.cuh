@@ -125,8 +125,9 @@ HD void mv3(const M3<T>& A, const T* v, T* out) {
     out[i] = A.m[i][0] * v[0] + A.m[i][1] * v[1] + A.m[i][2] * v[2];
 }
 
-template <typename T>
-HD void cross3(const T* a, const T* b, T* out) {
+// a x b; b a pointer, or any type read by b[i] (k1::Staged)
+template <typename T, typename BV>
+HD void cross3(const T* a, BV b, T* out) {
   out[0] = a[1] * b[2] - a[2] * b[1];
   out[1] = a[2] * b[0] - a[0] * b[2];
   out[2] = a[0] * b[1] - a[1] * b[0];

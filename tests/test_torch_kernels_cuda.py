@@ -240,6 +240,59 @@ def test_k1_float64_split_matches_plain(dev, B, alpha_zero):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("B", [4096, 4093, 131072])
+def test_k1a_float64_pack_matches_plain(dev, B):
+    """K1s-A's float64 form alone (a stage of a lane spread over the
+    threads of its parts, ``k1s::plane_part``) against the plain plane
+    phase in float64: its pack of 87 channels and the terminal stage's qN
+    equal bit for bit, at B=4096, at a ragged width and at the main path's
+    full width. (Its merit terms reach K1's outputs, which
+    ``test_k1_float64_split_matches_plain`` holds bitwise.)"""
+    from srbd_nmpc_tpu_torch.ops import sqp_stage
+
+    args = _f64(_k1_args(dev, 20, B, False))
+    tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha = args[:12]
+    mu_b, theta_b = args[13:15]
+    N = us.shape[0]
+    kc = sqp_stage.kernel_constants(tp, Q, Qf, R, Ac, bc, torch.float64).block
+    outs = [torch.full(s, float("nan"), dtype=torch.float64, device=dev)
+            for s in ((N, sqp_planes._C, B), (N, sqp_planes._M_C, B),
+                      (sqp_planes._T_C, B))]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sqp_planes._check("K1s-A f64", sqp_planes._entry(
+        sqp_planes._split_lib(), "planes", torch.float64)(
+        *(t.data_ptr() for t in (kc, xa, us, xra, dxc, duc, alpha, *outs)),
+        N, B, float(mu_b), float(theta_b), stream))
+    Ac1, Ac2 = sqp_stage._split_leg_blocks(Ac)
+    _, pack, _, qN = sqp_planes._planes_phase(
+        tp, Q, Qf, R, Ac1, Ac2, bc, xa, us, xra, dxc, duc, alpha, mu_b,
+        theta_b)
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.isfinite(o).all()
+    assert torch.equal(outs[0].permute(1, 0, 2), pack)
+    assert torch.equal(outs[2][:12], qN)
+
+
+def test_k1a_float64_ptxas(dev):
+    """ptxas of K1s-A's float64 form as PERF.md records it
+    (``chip_smoke.K1S_A_F64_PTXAS``): one kernel of 128 registers, so that
+    four blocks of 128 threads, 16 warps, fit an SM, and 88 B of spill
+    stores (the one-thread form: 255 registers, 892 B, 8 warps); the
+    float32 plane pass ``k1s_planes_kernel`` keeps its 168 registers and
+    36 B (``chip_smoke.K1S_A_PTXAS``)."""
+    import chip_smoke
+
+    from srbd_nmpc_tpu_torch.utils import build
+
+    build.load_kernel("sqp_planes_split")
+    f64 = chip_smoke._ptxas("sqp_planes_split", "k1s_planes_f64")
+    assert [r[1:3] for r in f64] == [chip_smoke.K1S_A_F64_PTXAS]
+    assert 4 * 128 * f64[0][1] <= 65536
+    f32 = chip_smoke._ptxas("sqp_planes_split", "k1s_planes_kernel")
+    assert [r[1:3] for r in f32] == [chip_smoke.K1S_A_PTXAS]
+
+
 def test_k1_other_forms_reject_float64(dev):
     """The rank-6 and factor bodies and the one-thread yardstick have no
     float64 form: a float64 batch raises, naming float32."""

@@ -447,14 +447,62 @@ def test_split_f64_card_form_matches_plain(rev):
     split source's f64 host build, whose team array in double is the
     card's (720 doubles; the source's static assertions hold 4 such teams
     and the constants block in double within 48 KB of static shared memory
-    and 8 blocks within an SM's 228 KB, or it does not build), with the
-    card's team width (16) in either member order reproduces the plain
-    version in double on every lane."""
+    and 8 blocks within an SM's 228 KB, or it does not build), and whose
+    plane pass runs as the card's float64 form does (a stage of a lane
+    spread over the threads of its parts, ``plane_part``), with
+    the card's team width (16) in either member order and the plane pass's
+    parts in either order reproduces the plain version in double on every
+    lane."""
     params, weights, arr = _problem(20, seed=1)
     args = _port_args(params, weights, arr)
     ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=REG)
     dx, du, out5 = _host_split(args, 16, rev=rev)
     _assert_host_matches_plain((dx, du, out5), ref)
+
+
+def _host_planes(args, split, rev):
+    """K1s-A alone from the split source's f64 host build
+    (``srbd_k1s_planes_host``) on every stage and lane of K1's arguments
+    ``args``: (pack, mer, term), by the one-thread ``plane_stage`` or
+    (``split``) by the float64 form's parts, in part order or (``rev``) in
+    reverse. Every output starts NaN, so that an entry no part writes
+    shows."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes_split.cu",
+                                       flags=("-O2", "-ffp-contract=off")))
+    fn = lib.srbd_k1s_planes_host
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 2 + [ctypes.c_double] * 2)
+    fn.restype = ctypes.c_int
+    tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha = args[:12]
+    N, B = us.shape[0], xa.shape[-1]
+    consts = _host_consts(tp, Q, Qf, R, Ac, bc, F64)
+    outs = [torch.full(s, float("nan"), dtype=F64) for s in (
+        (N, sqp_planes._C, B), (N, sqp_planes._M_C, B), (sqp_planes._T_C, B))]
+    ptrs = [t.data_ptr() for t in (consts, xa, us, xra, dxc, duc, alpha, *outs)]
+    assert fn(int(split), int(rev), *ptrs, N, B, *args[13:15]) == 0
+    return outs
+
+
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("N", [5, 20])
+def test_split_f64_plane_pass_writes_the_one_thread_stage(N, case, rev):
+    """The float64 plane pass spread over a thread for each of its parts a
+    (stage, lane), the parts run in either order, writes the one-thread
+    ``plane_stage<double>``'s pack, merit terms and terminal stage bit for
+    bit, on every channel: each entry keeps its expression and sum order,
+    and no sum is split between the threads."""
+    params, weights, arr = _problem(N, seed=3)
+    args = _port_args(params, weights, arr)
+    one = _host_planes(args, False, False)
+    split = _host_planes(args, True, rev)
+    lanes = CASES[case]
+    for name, o, g in zip(("pack", "mer", "term"), one, split):
+        o, g = o[..., lanes], g[..., lanes]
+        assert torch.isfinite(o).all(), name
+        assert torch.equal(g.view(torch.int64), o.view(torch.int64)), name
 
 
 @pytest.mark.parametrize("kw,dtype", [
