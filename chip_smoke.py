@@ -3,27 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``srbd_nmpc_tpu_torch/csrc`` (phase 2
-prints K1's ptxas registers and spills for each of its three one-launch
-stage bodies and for each launch of the split gains, rank-6 and factor
-bodies, ``sqp_planes_split.cu``, K3's for its one-thread body and each
-launch of its split trip, ``sqp_onepass_split.cu``, K6's for the two
-instantiations of its backward team kernel and of the one-thread body,
-``riccati.cu``, and K4a's for its one-thread body and each launch of its
-split, and says whether K1s-B's gains and factor forms and K6's team
-kernel read as recorded), checks each against its plain PyTorch version at
-the main path's shapes (phase 4: K1's gains, rank-6 and factor bodies, each
-timed at the four widths the main path launches; then the gains body's
-split kernels and its one-thread kernel against the plain version at
-B=4096 and B=131072, timed against each other in alternated rounds with
-each split launch's device ms, and the split kernels, the main path's,
-held to be no slower than the one-thread body; then the same for the
-factor body's split kernels and its one-thread kernel, at B=4096, 4093 (a
-ragged edge) and 131072, timed in the same rounds as the gains body's split
-kernels, with the byte floor of both splits; then the rank-6 body's split
-kernels and its
-one-thread kernel, bitwise to plain at B=4096, 4093 and 131072, timed in
-alternated rounds at B=131072 and 4096 with each split launch's device ms,
-reported as they are; phase 3: the
+prints the ptxas registers and spills of each launch of K1's gains, rank-6
+and factor bodies, ``sqp_planes.cu``, of K3's trip, ``sqp_onepass.cu``, of
+the two instantiations of K6's backward team kernel, ``riccati.cu``, and of
+K4a's four launches, and says whether K1s-B's gains and factor forms and
+K6's team kernel read as recorded), checks each against its plain PyTorch
+version at the main path's shapes (phase 4: K1's gains, rank-6 and factor
+bodies, each timed at the four widths the main path launches; then the
+gains body's launches against the plain version at B=4096, 4093 and
+131072, timed at the four widths with each launch's device ms; then the
+same for the factor body's launches, timed in alternated rounds with the
+gains body's, with the byte floor of both; then the rank-6 body's
+launches, bitwise to plain at B=4096, 4093 and 131072, timed at B=131072
+and 4096 with each launch's device ms, reported as they are; phase 3: the
 lane permutes K2a/K2b bitwise on the engine's shapes and the edge cases,
 timed per call and on the device beside ``index_select`` / ``index_copy``
 at every compaction crossing of the cold solve), then drives the
@@ -34,26 +26,21 @@ device time by launch), and checks the results: convergence, compaction
 bitwise on the card, the kernel path against the plain path on the CPU, and
 the independent f64 C++ oracle (``native/srbd_oracle.cpp``). Phases 10-12 do
 the same for the iteration-synchronous loop: its kernels (K5, K6, K7a)
-against their plain versions; phase 10b K6's backward pass by its team
-kernel (the ``pallas`` route's) and the one-thread body it replaced, each
-against plain at B=4096, 4093 (a ragged edge) and 131072, timed against
-each other in alternated rounds at the four widths with the team kernel's
-device ms, the team kernel held to be no slower; phase 10c K5's and K7a's
-split designs and their one-thread bodies the same way (bitwise to plain at
-B=4096, 4093 and 131072; timed at B=131072 and 4096); cold B=131072 solves on
-its ``pallas`` and ``fused`` routes against the speculative path (the
-``pallas`` solve profiled: K6a's device ms and share), and each kernel
-route against the plain ``xla`` route. Phases 13-14 do it for the dense one-pass route
-(``planes=False``): its kernels (K3a, K3b: the split kernels, and the
-one-thread body they replaced, timed against each other in alternated
-rounds at the four widths with each split launch's device ms, the split
-held to be no slower) and the two-pass oracle (K4a, K4b) against their
-plain versions (at B=4096 and at B=131072), K4a by its split (four
-launches: K5's two, a merit pass, K6a's team pass writing Acl and bcl)
-and its one-thread kernel, bitwise to plain at B=4096, 4093 and 131072,
-timed the same way with each split launch's device ms beside K6a's own
-team kernel on the same stage inputs, K3b against K4 on the inputs
-the JAX tests' f32 tolerances were set on, and cold B=131072 solves of the
+against their plain versions; phase 10b K6's backward team kernel (the
+``pallas`` route's) against plain at B=4096, 4093 (a ragged edge) and
+131072, timed at the four widths with its device ms; phase 10c K5's and
+K7a's launches the same way (bitwise to plain at B=4096, 4093 and 131072;
+timed at B=131072 and 4096); cold B=131072 solves on its ``pallas`` and
+``fused`` routes against the speculative path (the ``pallas`` solve
+profiled: K6a's device ms and share), and each kernel route against the
+plain ``xla`` route. Phases 13-14 do it for the dense one-pass route
+(``planes=False``): its kernels (K3a, K3b: timed at the four widths with
+each launch's device ms) and the two-pass oracle (K4a, K4b) against their
+plain versions (at B=4096 and at B=131072), K4a's four launches (K5's two,
+a merit pass, K6a's team pass writing Acl and bcl) bitwise to plain at
+B=4096, 4093 and 131072, timed with each launch's device ms beside K6a's
+own team kernel on the same stage inputs, K3b against K4 on the inputs the
+JAX tests' f32 tolerances were set on, and cold B=131072 solves of the
 dense route on both loops. Phase 15 checks the batched merit with diagnostics
 (K7b, with and without gradients) against its plain version at B=4096 and
 B=131072 and drives it through ``engine._merit_fast``; phase 16 drives the
@@ -64,17 +51,16 @@ and with exact sensitivities, and times its cold and warm solves; phase 16b
 runs the batched exact-sensitivity (``xla``) route at B=4096 against the
 CPU; phase 17 runs the cold B=131072 problem with ``park_factor=True`` (K1's
 factor body) on the speculative loop and the synchronous ``fused`` route,
-each p50 beside the one-thread factor body's, and profiles one solve of
-each (the factor split's device time by launch).
+and profiles one solve of each (the factor body's device time by launch).
 Each path's launch counts are set to 0 just before it is driven and read
 just after; K1's rank-6 body, which no engine route takes (as in JAX), is
 driven by direct calls of the op in phase 4, and K4, which none takes
 either, by a direct ``sqp_qp_solve`` call in phase 13.
 
 The ``kernels`` line gives, for each of the 16 kernel bodies behind the 12
-TPU call sites (K1's gains, rank-6 and factor rows, K3a's, K3b's and
-K4a's on their split kernels, each with a row for each of its launches; K6a's and K6b's on the team
-kernel, with the one-thread body's ms beside it), its launches on its
+TPU call sites (K1's gains, rank-6 and factor rows, K3a's, K3b's, K4a's,
+K5's and K7a's each with a row for each of its launches; K6a's and K6b's
+on the team kernel), its launches on its
 path, its largest difference from the plain version, ms per launch (kernel,
 plain, and the one PyTorch call that computes the same function where there
 is one) at the main path's shapes, timed over eager calls as the path makes
@@ -82,7 +68,7 @@ them (K2's entries add ``device_ms`` and ``library_device_ms``, the device
 alone, from CUDA graphs), and its bound: the larger of the bytes it
 must move over the HBM rate and its operations over the FP32 rate. The
 operations are the kernel's own arithmetic on this run's inputs
-(``utils.opcount``: its per-thread body built as host C++ with a counting
+(``utils.opcount``: its launches' bodies built as host C++ with a counting
 scalar, run on 1,024 lanes spread over the batch, scaled to the width).
 
 Every phase prints one line and raises on failure (non-zero exit). The line
@@ -99,7 +85,7 @@ unpacked older commit times that commit's K2 on the same card.
 
     python3 chip_smoke.py --k1s-b-trees build/parent [build/other ...]
 
-runs phases 1-2 for ``sqp_planes_split.cu`` alone and builds K1s-B
+runs phases 1-2 for ``sqp_planes.cu`` alone and builds K1s-B
 (``k1s_riccati_team_kernel``) from each named tree's source (an unpacked
 checkout, such as ``git archive <commit> | tar -x -C build/parent``): each
 build's parks against this tree's at B=4093 and the speculative loop's
@@ -121,9 +107,8 @@ B_MAIN = 131072
 N_MAIN = 20
 REL_TOL = 1e-4
 ORACLE_TOL = 1e-3
-SOURCES = ("permute", "sqp_planes", "sqp_planes_split", "linearize",
-           "riccati", "merit", "sqp_onepass", "sqp_onepass_split",
-           "sqp_twopass")
+SOURCES = ("permute", "sqp_planes", "linearize", "riccati", "merit",
+           "sqp_onepass", "sqp_twopass")
 # the synchronous routes: converged within 0.5 % of B and mean SQP
 # iterations within 0.1 of the speculative path's cold solve
 SYNC_ROUTES = {"pallas": dict(qp_kernel="pallas"),
@@ -136,15 +121,12 @@ DENSE_ROUTES = {"spec": dict(planes=False),
 K1_BODIES = {"sqp_planes": {}, "sqp_planes_rank6": dict(rank6=True),
              "sqp_planes_factor": dict(factor=True)}
 K1_WIDTHS = (B_MAIN, B_MAIN // 2, B_MAIN // 8, B_MAIN // 32)
-# the gains body's kernels on the card by sqp_planes._gains_cuda's
-# one_thread: the one-thread yardstick and the split kernels (the main path's)
-K1_DESIGNS = {"one-thread": True, "split": False}
-# the split kernels' launches by their device kernel names
+# the gains body's launches by their device kernel names
 K1S_PASSES = {"K1s-A": "k1s_planes_kernel",
               "K1s-B": "k1s_riccati_team_kernel",
               "K1s-C": "k1s_rollout_kernel"}
-# the factor body's split launches: the same plane pass, the factor forms of
-# the Riccati pass and of the rollout
+# the factor body's launches: the same plane pass, the factor forms of the
+# Riccati pass and of the rollout
 K1FS_PASSES = {"K1s-A": "k1s_planes_kernel",
                "K1s-B factor": "k1s_riccati_factor_kernel",
                "K1s-C factor": "k1s_rollout_factor_kernel"}
@@ -162,18 +144,13 @@ K1S_B_PTXAS = {"k1s_riccati_team_kernel": (64, 0),
 # three widths the speculative loop launches it at (its parks are also
 # checked at 4093, a ragged edge)
 K1S_B_TREE_WIDTHS = (B_MAIN, B_MAIN // 2, B_MAIN // 32)
-# the factor body on the card by sqp_planes._factor_cuda's one_thread, and
-# the gains body's split kernels timed in the same rounds
-K1F_DESIGNS = {"factor one-thread": ("factor", True),
-               "factor split": ("factor", False),
-               "gains split": ("gains", False)}
-# widths of the factor designs' checks against plain: a ragged edge (lanes
-# not a multiple of a block's teams) beside B=4096 and B=131072
+# the factor body's kernels on the card, and the gains body's timed in the
+# same rounds
+K1F_BODIES = ("factor", "gains")
+# widths of K1's checks against plain: a ragged edge (lanes not a multiple
+# of a block's teams) beside B=4096 and B=131072
 K1F_CHECK_WIDTHS = (4096, 4093, B_MAIN)
-# the rank-6 body on the card by sqp_planes._rank6_cuda's one_thread: the
-# one-thread yardstick and the split kernels (the path's)
-K1R_DESIGNS = {"one-thread": True, "split": False}
-# the rank-6 split's launches: the gains body's plane pass and rollout, the
+# the rank-6 body's launches: the gains body's plane pass and rollout, the
 # rank-6 form of the Riccati pass
 K1RS_PASSES = {"K1s-A": "k1s_planes_kernel",
                "K1s-B rank-6": "k1s_riccati_rank6_kernel",
@@ -183,55 +160,38 @@ K1RS_PASSES = {"K1s-A": "k1s_planes_kernel",
 K1S_F64_PASSES = {"K1s-A f64": "k1s_planes_f64_kernel",
                   "K1s-B f64": "k1s_riccati_team_f64_kernel",
                   "K1s-C f64": "k1s_rollout_f64_kernel"}
-# widths of the rank-6 and K4a design sections' alternated rounds (their
-# checks against plain run at K1F_CHECK_WIDTHS)
+# widths of the rank-6 and K4a sections' timed rounds (their checks against
+# plain run at K1F_CHECK_WIDTHS)
 DESIGN_WIDTHS = (B_MAIN, 4096)
-# K4a on the card by sqp_kernel._k4a_cuda's one_thread, and the split's
-# launches by their device kernel names
-K4A_DESIGNS = {"one-thread": True, "split": False}
+# K4a's launches by their device kernel names
 K4AS_PASSES = {"K5 stage": "k5s_stage_kernel", "K5 dense": "k5s_dense_kernel",
                "merit": "k4s_merit_kernel", "team": "riccati_team_acl_kernel"}
 # K6's team kernel's ptxas report (registers, spill stores) by
 # instantiation, as PERF.md records it: K4a's Acl form beside it does not
 # change it
 K6_TEAM_PTXAS = {"team <true>": (128, 0), "team <false>": (148, 0)}
-# K3 (the dense route's one-pass trip) by its counter names, and its kernels
-# on the card by sqp_kernel._k3a_cuda / _k3b_cuda's one_thread: the
-# one-thread yardstick and the split kernels (the dense route's)
+# K3 (the dense route's one-pass trip) by its counter names
 K3_NAMES = ("sqp_onepass_cand", "sqp_onepass")
-K3_DESIGNS = K1_DESIGNS
-# the split K3's launches by their device kernel names (K3s-B is K1s-B's
-# kernel, launched through sqp_planes_split.cu)
+# K3's launches by their device kernel names (K3s-B is K1s-B's kernel,
+# launched through sqp_planes.cu)
 K3S_PASSES = {"K3s-A": "k3s_planes_kernel",
               "K3s-B": "k1s_riccati_team_kernel",
               "K3s-C": "k3s_rollout_kernel"}
-# K6's backward pass on the card by riccati_kernel._lqr_backward_cuda's
-# arguments: the one-thread yardstick and the team kernel (the pallas
-# route's), and K6's two instantiations by the port's counter names
-K6_DESIGNS = {"one-thread": dict(one_thread=True), "team": {}}
+# K6's two instantiations by the port's counter names
 K6_NAMES = ("riccati_bwd_constq", "riccati_bwd")
 # widths of the K6 designs' checks against plain: a ragged edge (lanes not a
 # multiple of a block's teams) beside the two of phase 13's checks
 K6_CHECK_WIDTHS = (4096, 4093, B_MAIN)
-# K5 and K7a on the card by the keyword arguments of
-# srbd_linearize._linearize_cuda / merit_kernel._merit_alpha_cuda: the
-# one-thread yardsticks and the new designs (the path's)
-K5_DESIGNS = {"one-thread": dict(one_thread=True), "split": {}}
-K7A_DESIGNS = {"one-thread": dict(one_thread=True), "split": {}}
-# each design's launches by their device kernel names
-K5_PASSES = {"one-thread": {"one-thread": "linearize_kernel"},
-             "split": {"stage": "k5s_stage_kernel",
-                       "dense": "k5s_dense_kernel"}}
-K7A_PASSES = {"one-thread": {"one-thread": "merit_alpha_kernel"},
-              "split": {"stage": "k7s_stage_kernel",
-                        "reduce": "k7s_reduce_kernel"}}
-# words per lane that a design moves beyond its inputs read once and its
-# outputs written once, at N=20: K5's split writes and reads the ddb
-# hand-off [N, 24, B], and its dense write reads x (rows 0-8) and u (rows
-# 0-2, 6-8) again for A and x (rows 6-8) for B; K7a's writes and reads its
-# terms [3N + 1, B]
-K5_EXTRA_WORDS = {"split": (2 * 24 + 18) * N_MAIN}
-K7A_EXTRA_WORDS = {"split": 2 * (3 * N_MAIN + 1)}
+# K5's and K7a's launches by their device kernel names
+K5_PASSES = {"stage": "k5s_stage_kernel", "dense": "k5s_dense_kernel"}
+K7A_PASSES = {"stage": "k7s_stage_kernel", "reduce": "k7s_reduce_kernel"}
+# words per lane that the launches move beyond their inputs read once and
+# their outputs written once, at N=20: K5's write and read the ddb hand-off
+# [N, 24, B], and its dense write reads x (rows 0-8) and u (rows 0-2, 6-8)
+# again for A and x (rows 6-8) for B; K7a's write and read its terms
+# [3N + 1, B]
+K5_EXTRA_WORDS = (2 * 24 + 18) * N_MAIN
+K7A_EXTRA_WORDS = 2 * (3 * N_MAIN + 1)
 # widths of phase 10c's checks against plain (a ragged edge: no multiple of
 # a block's 128 lanes) and of its timed rounds
 K5K7_CHECK_WIDTHS = (4096, 4093, B_MAIN)
@@ -239,21 +199,11 @@ K5K7_WIDTHS = (B_MAIN, 4096)
 # seconds the profiler's window is held open on either side of a profiled
 # call (_device_ms)
 PROFILE_PAD_S = 3.0
-# the synchronous routes' cold p50 (ms) on the one-thread K5 and K7a, from
-# the final run of K1's factor redesign (PERF.md section 5), printed beside
-# phase 11's
-SYNC_P50_BEFORE = {"pallas": 547.252, "fused": 248.551, "dense": 302.808}
-# the dense route's cold p50 (ms) on the one-thread K3, from the final run
-# of the gains redesign (PERF.md section 5), printed beside phase 14's
-DENSE_P50_BEFORE = {"spec": 402.243, "sync": 515.165}
 # the default cold B=131072 solve as every run of the port has read it
 # (PRs 1-7): converged, mean SQP iterations, speculative trips
 COLD_REF = (128135, 11.4225, 17)
 FACTOR_ROUTES = {"spec": dict(park_factor=True),
                  "sync": dict(SYNC_ROUTES["fused"], park_factor=True)}
-# phase 17's cold p50 (ms) on the one-thread factor body, from the final run
-# of K6's redesign (PERF.md section 5), printed beside phase 17's
-FACTOR_P50_BEFORE = {"spec": 224.867, "sync": 320.641}
 SYNC_CONV_FRAC = 0.005
 SYNC_ITER_TOL = 0.1
 PARITY_FLIP_FRAC = 0.005
@@ -367,21 +317,19 @@ def phase_build(sources=SOURCES):
     for name, lines in spills.items():
         for ln in lines:
             print(f"[2 build] {name}: {ln}", flush=True)
-    k1 = _k1_ptxas() if "sqp_planes" in sources else {}
-    if "sqp_planes_split" in sources:
-        k1.update(_k1s_ptxas())
-    k3 = (_k3_ptxas(k1) if {"sqp_onepass", "sqp_onepass_split",
-                            "sqp_planes_split"} <= set(sources) else {})
+    k1 = _k1s_ptxas() if "sqp_planes" in sources else {}
+    k3 = (_k3_ptxas(k1) if {"sqp_onepass", "sqp_planes"} <= set(sources)
+          else {})
     k6 = _k6_ptxas() if "riccati" in sources else {}
     k57 = (_k5_k7a_ptxas() if {"linearize", "merit"} <= set(sources)
            else {})
     k4 = (_k4a_ptxas() if {"linearize", "sqp_twopass", "riccati"}
           <= set(sources) else {})
-    for what, regs in (("K1 ptxas by stage body and split launch", k1),
-                       ("K3 ptxas by body and split launch", k3),
-                       ("K6 backward ptxas by body", k6),
-                       ("K5 and K7a ptxas by design and launch", k57),
-                       ("K4a ptxas by body and split launch", k4)):
+    for what, regs in (("K1 ptxas by launch", k1),
+                       ("K3 ptxas by launch", k3),
+                       ("K6 backward ptxas", k6),
+                       ("K5 and K7a ptxas by launch", k57),
+                       ("K4a ptxas by launch", k4)):
         if regs:
             print(f"[2 build] {what}: "
                   + "; ".join(f"{n} {r} registers, {st} B spill stores, "
@@ -735,73 +683,49 @@ def _k1_err(got, ref):
 
 
 def phase_k1_designs(dev):
-    """The gains body's kernels (K1_DESIGNS) at N=20: each against the
-    plain version at K1F_CHECK_WIDTHS (alpha 0 and random alpha at B=4096,
-    random alpha at the others), max |diff| printed, bitwise expected; ms
-    per call at the main path's four widths, in alternated rounds in this
-    call; each split launch's device ms (torch.profiler) at each width."""
+    """The gains body's three launches at N=20: against the plain version
+    at K1F_CHECK_WIDTHS (alpha 0 and random alpha at B=4096, random alpha
+    at the others), max |diff| printed, bitwise expected; ms per call at the
+    main path's four widths (four rounds of 10 calls); each launch's device
+    ms (torch.profiler) at each width."""
     from srbd_nmpc_tpu_torch.ops import sqp_planes
 
     rng = np.random.default_rng(1)
-    err = {name: ({}, 0.0, True) for name in K1_DESIGNS}
+    err = ({}, 0.0, True)
     for B, az in [(4096, True)] + [(B, False) for B in K1F_CHECK_WIDTHS]:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, az)
         ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg)
-        for name, one in K1_DESIGNS.items():
-            got = sqp_planes._gains_cuda(*args, reg=reg, one_thread=one)
-            torch.cuda.synchronize()
-            w, mx, same = _k1_err(got, ref)
-            print(f"[4 K1] gains {name} vs plain at B={B}, alpha "
-                  f"{'0' if az else 'random'}: " + ", ".join(
-                      f"{k} {v:.3e}" for k, v in w.items())
-                  + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
-                  f"{same}", flush=True)
-            w0, mx0, same0 = err[name]
-            err[name] = ({k: max(v, w0.get(k, 0.0)) for k, v in w.items()},
-                         max(mx, mx0), same and same0)
-            del got
-        del args, ref
+        got = sqp_planes._gains_cuda(*args, reg=reg)
+        torch.cuda.synchronize()
+        w, mx, same = _k1_err(got, ref)
+        print(f"[4 K1] gains vs plain at B={B}, alpha "
+              f"{'0' if az else 'random'}: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in w.items())
+              + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
+              f"{same}", flush=True)
+        err = ({k: max(v, err[0].get(k, 0.0)) for k, v in w.items()},
+               max(mx, err[1]), same and err[2])
+        del got, args, ref
         torch.cuda.empty_cache()
-    bad = {n: w for n, (w, _, _) in err.items()
-           if not all(v < REL_TOL for v in w.values())}
-    if bad:
-        raise AssertionError(f"a gains design disagrees with plain: {bad}")
+    if not all(v < REL_TOL for v in err[0].values()):
+        raise AssertionError(f"the gains kernels disagree with plain: "
+                             f"{err[0]}")
 
-    # ms per call in four alternated rounds (_rounds, 10 calls each); then
-    # each split launch's device ms
-    times = {name: {} for name in K1_DESIGNS}
-    passes = {"split": {}}
+    # ms per call in four rounds (_rounds, 10 calls each); then each
+    # launch's device ms
+    times, passes = {}, {}
     for B in K1_WIDTHS:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
-        ms = _rounds({name: (lambda o=o: sqp_planes._gains_cuda(
-            *args, reg=reg, one_thread=o)) for name, o in K1_DESIGNS.items()},
-            10)
-        for name in K1_DESIGNS:
-            times[name][B] = ms[name]
-        for name in passes:
-            passes[name][B] = _launch_ms(lambda: sqp_planes._gains_cuda(
-                *args, reg=reg, one_thread=K1_DESIGNS[name]), K1S_PASSES)
-        del args
+        call = lambda: sqp_planes._gains_cuda(*args, reg=reg)  # noqa: E731
+        times[B] = _rounds({"gains": call}, 10)["gains"]
+        passes[B] = _launch_ms(call, K1S_PASSES)
+        del args, call
         torch.cuda.empty_cache()
-    one = times["one-thread"]
-    for name in K1_DESIGNS:
-        print(f"[4 K1] gains {name} ms per call: " + ", ".join(
-            f"B={B} {ms:.3f} ({ms / one[B]:.3f}x one-thread)"
-            for B, ms in times[name].items()), flush=True)
-        for B, by in passes.get(name, {}).items():
-            print(f"[4 K1] gains {name} device ms per launch at B={B}: "
-                  + ", ".join(f"{p} {v:.3f}" for p, v in by.items()),
-                  flush=True)
-    # the main path's split kernels must be no slower than the one-thread
-    # body at full width and at the last tier
-    ratio = {B: times["split"][B] / one[B] for B in (B_MAIN, B_MAIN // 32)}
-    print("[4 K1] the main path's gains kernels (split) against the "
-          "one-thread body: " + ", ".join(f"B={B} {r:.3f}x"
-                                          for B, r in ratio.items()),
-          flush=True)
-    if max(ratio.values()) > 1.0:
-        raise AssertionError(f"the split gains kernels are slower than the "
-                             f"one-thread body: {ratio}")
+    print("[4 K1] gains ms per call: " + ", ".join(
+        f"B={B} {ms:.3f}" for B, ms in times.items()), flush=True)
+    for B, by in passes.items():
+        print(f"[4 K1] gains device ms per launch at B={B}: "
+              + ", ".join(f"{p} {v:.3f}" for p, v in by.items()), flush=True)
     return err, times, passes
 
 
@@ -889,7 +813,7 @@ def phase_k1_f64(dev):
     return times
 
 
-# K1s-A f64's recorded ms a call at B=131072 in its one-thread form
+# K1s-A f64's recorded ms a call at B=131072 as one thread a (stage, lane)
 # (plane_stage in double, 255 registers, 892 B spill stores; PERF.md), for a
 # run without the parent's tree
 K1A_F64_PARENT_MS = {B_MAIN: 6.209}
@@ -910,13 +834,13 @@ def phase_k1a_f64(dev, parent=None):
     from srbd_nmpc_tpu_torch.ops.sqp_stage import kernel_constants
 
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fns = {"this": sqp_planes._split_lib().srbd_k1s_planes_f64_launch}
+    fns = {"this": sqp_planes._lib().srbd_k1s_planes_f64_launch}
     if parent:
         plib, log = _tree_split(parent, "k1a_parent")
         fns["parent"] = plib.srbd_k1s_planes_f64_launch
         fns["parent"].argtypes = [P] * 10 + [I, I, D, D, P]
         fns["parent"].restype = ctypes.c_int
-        for mangled, regs, stores, loads, _ in _ptxas("sqp_planes_split",
+        for mangled, regs, stores, loads, _ in _ptxas("sqp_planes",
                                                       "k1s_planes_f64", log):
             print(f"[4 K1s-A f64] parent {os.path.basename(parent)}: "
                   f"{mangled} {regs} registers, {stores} B spill stores, "
@@ -969,19 +893,23 @@ def phase_k1a_f64(dev, parent=None):
 
 
 def _tree_split(tree: str, tag: str):
-    """``tree``'s ``srbd_nmpc_tpu_torch/csrc/sqp_planes_split.cu`` built by
-    nvcc with the port's flags into the build directory's ``trees/<tag>``:
-    the loaded library and nvcc's ``-Xptxas -v`` report."""
+    """``tree``'s K1s source built by nvcc with the port's flags into the
+    build directory's ``trees/<tag>``: the loaded library and nvcc's
+    ``-Xptxas -v`` report. The source is ``csrc/sqp_planes.cu``, or in a
+    tree that still holds it ``csrc/sqp_planes_split.cu`` (there
+    ``sqp_planes.cu`` is the one-thread body)."""
     import ctypes
     import os
 
     from srbd_nmpc_tpu_torch.utils import build
 
-    src = os.path.join(tree, "srbd_nmpc_tpu_torch", "csrc",
-                       "sqp_planes_split.cu")
+    csrc = os.path.join(tree, "srbd_nmpc_tpu_torch", "csrc")
+    src = os.path.join(csrc, "sqp_planes_split.cu")
+    if not os.path.exists(src):
+        src = os.path.join(csrc, "sqp_planes.cu")
     out = os.path.join(build.BUILD_DIR, "trees", tag)
     os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, "libsqp_planes_split.so")
+    lib = os.path.join(out, "libsqp_planes.so")
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
@@ -990,9 +918,9 @@ def _tree_split(tree: str, tag: str):
 
 
 def _tree_k1s_b(tree: str, tag: str):
-    """K1s-B's launch (``srbd_k1s_riccati_launch``) from ``tree``'s
-    ``sqp_planes_split.cu`` (``_tree_split``), and its registers and spill
-    stores (ptxas)."""
+    """K1s-B's launch (``srbd_k1s_riccati_launch``) from ``tree``'s K1s
+    source (``_tree_split``), and its registers and spill stores
+    (ptxas)."""
     import ctypes
 
     lib, log = _tree_split(tree, tag)
@@ -1000,12 +928,12 @@ def _tree_k1s_b(tree: str, tag: str):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [P] * 5 + [I, I, F, P]
     fn.restype = ctypes.c_int
-    regs = _ptxas("sqp_planes_split", "k1s_riccati_team_kernel", log)
+    regs = _ptxas("sqp_planes", "k1s_riccati_team_kernel", log)
     return fn, regs[0][1:3]
 
 
 def phase_k1s_b_trees(dev, trees):
-    """Phases 1-2 for sqp_planes_split.cu, and K1s-B as built from each of
+    """Phases 1-2 for sqp_planes.cu, and K1s-B as built from each of
     ``trees`` (unpacked checkouts of other commits, or variants) beside
     this tree's, on this tree's K1s-A pack of the same inputs: each tree's
     parks K and kv against this tree's at K1S_B_TREE_WIDTHS and at B=4093
@@ -1022,10 +950,10 @@ def phase_k1s_b_trees(dev, trees):
     tags = [os.path.basename(os.path.normpath(t)) for t in trees]
     with ThreadPoolExecutor(len(trees)) as pool:
         pending = pool.map(_tree_k1s_b, trees, tags)
-        phase_build(("sqp_planes_split",))
-        lib = sqp_planes._split_lib()
+        phase_build(("sqp_planes",))
+        lib = sqp_planes._lib()
         built = [(lib.srbd_k1s_riccati_launch,
-                  _ptxas("sqp_planes_split",
+                  _ptxas("sqp_planes",
                          "k1s_riccati_team_kernel")[0][1:3])] + list(pending)
     tags = ["this"] + tags
     for tag, (_, (regs, stores)) in zip(tags, built):
@@ -1091,171 +1019,131 @@ def _k1_split_bytes(N, B, factor):
     return 4 * B * words
 
 
-def _k1_factor_call(design, args, reg):
-    """One call of K1F_DESIGNS' ``design`` on ``_k1_inputs``' arguments."""
+def _k1_body_call(body, args, reg):
+    """One call of K1's ``body`` ("factor" or "gains") on ``_k1_inputs``'
+    arguments."""
     from srbd_nmpc_tpu_torch.ops import sqp_planes
 
-    body, one = K1F_DESIGNS[design]
     fn = sqp_planes._factor_cuda if body == "factor" else sqp_planes._gains_cuda
-    return lambda: fn(*args, reg=reg, one_thread=one)
+    return lambda: fn(*args, reg=reg)
 
 
 def phase_k1_factor_designs(dev):
-    """The factor body's kernels at N=20: the split kernels (the
-    park_factor path's) and the one-thread yardstick, each against the
-    plain factor body at K1F_CHECK_WIDTHS (alpha 0 and random alpha at
-    B=4096, random alpha at the others), max |diff| printed, bitwise
-    expected; ms per call at the main path's four widths in alternated
-    rounds with the gains body's split kernels; each split launch's device
+    """The factor body's three launches (the park_factor path's) at N=20:
+    against the plain factor body at K1F_CHECK_WIDTHS (alpha 0 and random
+    alpha at B=4096, random alpha at the others), max |diff| printed,
+    bitwise expected; ms per call at the main path's four widths in
+    alternated rounds with the gains body's launches; each launch's device
     ms (torch.profiler), factor and gains, at each width; the byte floor of
-    both splits. Fails if the factor split is slower than the one-thread
-    body at B=131072 or at B=4096."""
+    both."""
     from srbd_nmpc_tpu_torch.ops import sqp_planes
 
     rng = np.random.default_rng(17)
-    checked = [d for d, (body, _) in K1F_DESIGNS.items() if body == "factor"]
-    err = {d: ({}, 0.0, True) for d in checked}
+    err = ({}, 0.0, True)
     for B, az in [(4096, True)] + [(B, False) for B in K1F_CHECK_WIDTHS]:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, az)
         ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg,
                                                          factor=True)
-        for d in checked:
-            got = _k1_factor_call(d, args, reg)()
-            torch.cuda.synchronize()
-            w, mx, same = _k1_err(got, ref)
-            print(f"[4 K1 factor] {d} vs plain at B={B}, alpha "
-                  f"{'0' if az else 'random'}: " + ", ".join(
-                      f"{k} {v:.3e}" for k, v in w.items())
-                  + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
-                  f"{same}", flush=True)
-            w0, mx0, same0 = err[d]
-            err[d] = ({k: max(v, w0.get(k, 0.0)) for k, v in w.items()},
-                      max(mx, mx0), same and same0)
-            del got
-        del args, ref
+        got = _k1_body_call("factor", args, reg)()
+        torch.cuda.synchronize()
+        w, mx, same = _k1_err(got, ref)
+        print(f"[4 K1 factor] factor vs plain at B={B}, alpha "
+              f"{'0' if az else 'random'}: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in w.items())
+              + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
+              f"{same}", flush=True)
+        err = ({k: max(v, err[0].get(k, 0.0)) for k, v in w.items()},
+               max(mx, err[1]), same and err[2])
+        del got, args, ref
         torch.cuda.empty_cache()
-    bad = {d: w for d, (w, _, _) in err.items()
-           if not all(v < REL_TOL for v in w.values())}
-    if bad:
-        raise AssertionError(f"a factor design disagrees with plain: {bad}")
+    if not all(v < REL_TOL for v in err[0].values()):
+        raise AssertionError(f"the factor kernels disagree with plain: "
+                             f"{err[0]}")
 
     # ms per call in four alternated rounds (_rounds, 10 calls each); then
-    # each split launch's device ms
-    times = {d: {} for d in K1F_DESIGNS}
-    passes = {"factor split": {}, "gains split": {}}
+    # each launch's device ms
+    times = {body: {} for body in K1F_BODIES}
+    passes = {body: {} for body in K1F_BODIES}
     for B in K1_WIDTHS:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
-        ms = _rounds({d: _k1_factor_call(d, args, reg) for d in K1F_DESIGNS},
-                     10)
-        for d in K1F_DESIGNS:
-            times[d][B] = ms[d]
-        for d, by_pass in (("factor split", K1FS_PASSES),
-                           ("gains split", K1S_PASSES)):
-            passes[d][B] = _launch_ms(_k1_factor_call(d, args, reg),
-                                      by_pass)
+        ms = _rounds({body: _k1_body_call(body, args, reg)
+                      for body in K1F_BODIES}, 10)
+        for body in K1F_BODIES:
+            times[body][B] = ms[body]
+        for body, by_pass in (("factor", K1FS_PASSES), ("gains", K1S_PASSES)):
+            passes[body][B] = _launch_ms(_k1_body_call(body, args, reg),
+                                         by_pass)
         del args
         torch.cuda.empty_cache()
-    one, gains = times["factor one-thread"], times["gains split"]
-    for d in K1F_DESIGNS:
-        print(f"[4 K1 factor] {d} ms per call: " + ", ".join(
-            f"B={B} {ms:.3f} ({ms / one[B]:.3f}x factor one-thread, "
-            f"{ms / gains[B]:.3f}x gains split)"
-            for B, ms in times[d].items()), flush=True)
-    for d, by_B in passes.items():
+    gains = times["gains"]
+    for body in K1F_BODIES:
+        print(f"[4 K1 factor] {body} ms per call: " + ", ".join(
+            f"B={B} {ms:.3f} ({ms / gains[B]:.3f}x gains)"
+            for B, ms in times[body].items()), flush=True)
+    for body, by_B in passes.items():
         for B, by in by_B.items():
-            print(f"[4 K1 factor] {d} device ms per launch at B={B}: "
+            print(f"[4 K1 factor] {body} device ms per launch at B={B}: "
                   + ", ".join(f"{p} {v:.3f}" for p, v in by.items()),
                   flush=True)
     floor = {body: _k1_split_bytes(N_MAIN, B_MAIN, body == "factor")
-             for body in ("factor", "gains")}
-    print(f"[4 K1 factor] bytes each split design moves per call at "
+             for body in K1F_BODIES}
+    print(f"[4 K1 factor] bytes each body's launches move per call at "
           f"B={B_MAIN}: " + ", ".join(
               f"{body} {b / 1e9:.3f} GB, a floor of "
               f"{b / PEAK_BYTES * 1e3:.3f} ms at {PEAK_BYTES / 1e12:g} TB/s"
               for body, b in floor.items()), flush=True)
-    ratio = {B: times["factor split"][B] / one[B]
-             for B in (B_MAIN, B_MAIN // 32)}
-    print("[4 K1 factor] the park_factor path's kernels (factor split) "
-          "against the one-thread factor body: " + ", ".join(
-              f"B={B} {r:.3f}x" for B, r in ratio.items())
-          + "; against the gains split (the factor split faster where below "
-          "1): " + ", ".join(f"B={B} {times['factor split'][B] / gains[B]:.3f}x"
-                             for B in K1_WIDTHS), flush=True)
-    if max(ratio.values()) > 1.0:
-        raise AssertionError(f"the split factor kernels are slower than the "
-                             f"one-thread body: {ratio}")
     return err, times, passes, floor
 
 
 def phase_k1_rank6_designs(dev):
-    """The rank-6 body's kernels (K1R_DESIGNS) at N=20: each against the
-    plain rank-6 body at K1F_CHECK_WIDTHS (alpha 0 and random alpha at
-    B=4096, random alpha at the others), max |diff| and a bitwise flag
-    printed; ms per call in four alternated rounds at DESIGN_WIDTHS; each
-    split launch's device ms (one profile a width); the split's byte floor.
-    Fails unless the split is bitwise equal to plain on all seven outputs
-    at every width. The times are reported as they are."""
+    """The rank-6 body's three launches at N=20: against the plain rank-6
+    body at K1F_CHECK_WIDTHS (alpha 0 and random alpha at B=4096, random
+    alpha at the others), max |diff| and a bitwise flag printed; ms per call
+    in four rounds at DESIGN_WIDTHS; each launch's device ms (one profile a
+    width); the launches' byte floor. Fails unless they are bitwise equal to
+    plain on all seven outputs at every width. The times are reported as
+    they are."""
     from srbd_nmpc_tpu_torch.ops import sqp_planes
 
     rng = np.random.default_rng(19)
-    err = {d: ({}, 0.0, True) for d in K1R_DESIGNS}
+    err = ({}, 0.0, True)
     for B, az in [(4096, True)] + [(B, False) for B in K1F_CHECK_WIDTHS]:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, az)
         ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=reg,
                                                          rank6=True)
-        for d, one_thread in K1R_DESIGNS.items():
-            got = sqp_planes._rank6_cuda(*args, reg=reg,
-                                         one_thread=one_thread)
-            torch.cuda.synchronize()
-            w, mx, same = _k1_err(got, ref)
-            # the one-thread body sums theta and phi stage by stage
-            five = all(torch.equal(g, r) for g, r in zip(
-                (*got[:3], got[3][2], got[3][3]),
-                (*ref[:3], ref[3][2], ref[3][3])))
-            print(f"[4 K1 rank-6] {d} vs plain at B={B}, alpha "
-                  f"{'0' if az else 'random'}: " + ", ".join(
-                      f"{k} {v:.3e}" for k, v in w.items())
-                  + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
-                  f"{same} (dx, du, dphi, max|defect|, min constraint "
-                  f"{five})", flush=True)
-            w0, mx0, same0 = err[d]
-            err[d] = ({k: max(v, w0.get(k, 0.0)) for k, v in w.items()},
-                      max(mx, mx0), same and same0)
-            del got
-        del args, ref
+        got = sqp_planes._rank6_cuda(*args, reg=reg)
+        torch.cuda.synchronize()
+        w, mx, same = _k1_err(got, ref)
+        print(f"[4 K1 rank-6] rank-6 vs plain at B={B}, alpha "
+              f"{'0' if az else 'random'}: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in w.items())
+              + f" (limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
+              f"{same}", flush=True)
+        err = ({k: max(v, err[0].get(k, 0.0)) for k, v in w.items()},
+               max(mx, err[1]), same and err[2])
+        del got, args, ref
         torch.cuda.empty_cache()
-    bad = {d: e for d, e in err.items()
-           if not all(v < REL_TOL for v in e[0].values())
-           or (d != "one-thread" and not e[2])}
-    if bad:
-        raise AssertionError(f"a rank-6 design disagrees with plain or a "
-                             f"split is not bitwise equal to it: {bad}")
+    if not all(v < REL_TOL for v in err[0].values()) or not err[2]:
+        raise AssertionError(f"the rank-6 kernels disagree with plain or are "
+                             f"not bitwise equal to it: {err}")
 
-    times, passes = {d: {} for d in K1R_DESIGNS}, {}
+    times, passes = {}, {}
     for B in DESIGN_WIDTHS:
         args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
-        calls = {d: (lambda o=o: sqp_planes._rank6_cuda(
-            *args, reg=reg, one_thread=o)) for d, o in K1R_DESIGNS.items()}
-        for d, ms in _rounds(calls, 10).items():
-            times[d][B] = ms
-        passes[B] = _launch_ms(calls["split"], K1RS_PASSES)
-        del calls, args
+        call = lambda: sqp_planes._rank6_cuda(*args, reg=reg)  # noqa: E731
+        times[B] = _rounds({"rank6": call}, 10)["rank6"]
+        passes[B] = _launch_ms(call, K1RS_PASSES)
+        del call, args
         torch.cuda.empty_cache()
-    one = times["one-thread"]
-    for d in K1R_DESIGNS:
-        print(f"[4 K1 rank-6] {d} ms per call: " + ", ".join(
-            f"B={B} {ms:.3f} ({ms / one[B]:.3f}x one-thread)"
-            for B, ms in times[d].items()), flush=True)
+    print("[4 K1 rank-6] ms per call: " + ", ".join(
+        f"B={B} {ms:.3f}" for B, ms in times.items()), flush=True)
     for B, by in passes.items():
-        print(f"[4 K1 rank-6] split device ms per launch at B={B}: "
+        print(f"[4 K1 rank-6] device ms per launch at B={B}: "
               + ", ".join(f"{p} {v:.3f}" for p, v in by.items()), flush=True)
     floor = _k1_split_bytes(N_MAIN, B_MAIN, False)
-    print(f"[4 K1 rank-6] bytes the split moves per call at B={B_MAIN}: "
+    print(f"[4 K1 rank-6] bytes the launches move per call at B={B_MAIN}: "
           f"{floor / 1e9:.3f} GB, a floor of {floor / PEAK_BYTES * 1e3:.3f} "
-          f"ms at {PEAK_BYTES / 1e12:g} TB/s; the split against the "
-          "one-thread body: " + ", ".join(
-              f"B={B} {times['split'][B] / one[B]:.3f}x" for B in one),
-          flush=True)
+          f"ms at {PEAK_BYTES / 1e12:g} TB/s", flush=True)
     return err, times, passes, floor
 
 
@@ -1347,14 +1235,9 @@ def phase_cold(dev, card):
     k1 = {p: (sum(v for k, v in by_name.items() if key in k),
               sum(c for k, c in n_by.items() if key in k))
           for p, key in K1S_PASSES.items()}
-    k1["one-thread"] = (sum(v for k, v in by_name.items()
-                            if "sqp_planes_kernel" in k),
-                        sum(c for k, c in n_by.items()
-                            if "sqp_planes_kernel" in k))
     k1_ms = sum(v for v, _ in k1.values())
     k1_n = sum(c for _, c in k1.values())
-    rest = sorted(((k, v) for k, v in by_name.items()
-                   if "k1s_" not in k and "sqp_planes_kernel" not in k),
+    rest = sorted(((k, v) for k, v in by_name.items() if "k1s_" not in k),
                   key=lambda kv: -kv[1])[:3]
     print(f"[5 cold] profiled cold solve: {n} device kernels, device busy "
           f"{busy:.3f} ms ({100 * busy / p50:.1f} % of the p50, so idle "
@@ -1364,8 +1247,7 @@ def phase_cold(dev, card):
                       for p, (v, c) in k1.items() if c)
           + "; next kernels " + ", ".join(f"{k[:40]} {v:.3f}"
                                           for k, v in rest), flush=True)
-    want = {p: 0 if p == "one-thread" else launches["sqp_planes"]
-            for p in k1}
+    want = {p: launches["sqp_planes"] for p in k1}
     if {p: c for p, (_, c) in k1.items()} != want:
         raise AssertionError(f"K1 device kernels {k1}, expected {want}")
     return st, info, prob, launches, (n_conv, mean_it)
@@ -1647,84 +1529,59 @@ def _k6_args(L, name, B):
 
 
 def phase_k6_designs(dev):
-    """K6a and K6b's backward pass by design (K6_DESIGNS) at N=20 on the
-    benchmark problem's LQR data: each against the plain version at
-    K6_CHECK_WIDTHS, max |diff| printed, bitwise expected; ms per call at
-    the main path's four widths in alternated rounds in this call; the team
-    kernel's device ms (CUDA graphs) at each width. Fails if the team
-    kernel (the pallas route's) is slower than the one-thread body at
-    B=131072 or at B=4096."""
+    """K6a and K6b's backward pass by the team kernel (the pallas route's)
+    at N=20 on the benchmark problem's LQR data: against the plain version
+    at K6_CHECK_WIDTHS, max |diff| printed, bitwise expected; ms per call at
+    the main path's four widths (four rounds of 5 calls); its device ms
+    (CUDA graphs) at each width."""
     from srbd_nmpc_tpu_torch.ops import riccati_kernel as rk
     from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
 
     _, L, _, _ = _sync_kernel_inputs(np.random.default_rng(16), B_MAIN, dev)
     reg = L["reg"]
-    err = {(n, d): (0.0, 0.0, True) for n in K6_NAMES for d in K6_DESIGNS}
+    err = {n: (0.0, 0.0, True) for n in K6_NAMES}
     for B in K6_CHECK_WIDTHS:
         for name in K6_NAMES:
             args = _k6_args(L, name, B)
             ref = rk.lqr_backward_ref(*args, reg)
-            for design, kw in K6_DESIGNS.items():
-                got = rk._lqr_backward_cuda(*args, reg, **kw)
-                torch.cuda.synchronize()
-                if not all(bool(torch.isfinite(g).all()) for g in got):
-                    raise AssertionError(f"{name} {design}: not finite")
-                rel = max(parity_metric(g.cpu().numpy().astype(np.float64),
-                                        r.cpu().numpy().astype(np.float64))
-                          for g, r in zip(got, ref))
-                mx = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                same = all(torch.equal(g, r) for g, r in zip(got, ref))
-                print(f"[10b K6 designs] {KERNEL_IDS[name]} {design} vs "
-                      f"plain at B={B}: {rel:.3e} (limit {REL_TOL:g}); max "
-                      f"|diff| {mx:.3e}; bitwise {same}", flush=True)
-                r0, m0, s0 = err[(name, design)]
-                err[(name, design)] = (max(rel, r0), max(mx, m0), same and s0)
-                del got
-            del args, ref
+            got = rk._lqr_backward_cuda(*args, reg)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"{name}: not finite")
+            rel = max(parity_metric(g.cpu().numpy().astype(np.float64),
+                                    r.cpu().numpy().astype(np.float64))
+                      for g, r in zip(got, ref))
+            mx = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            same = all(torch.equal(g, r) for g, r in zip(got, ref))
+            print(f"[10b K6 team] {KERNEL_IDS[name]} vs plain at B={B}: "
+                  f"{rel:.3e} (limit {REL_TOL:g}); max |diff| {mx:.3e}; "
+                  f"bitwise {same}", flush=True)
+            r0, m0, s0 = err[name]
+            err[name] = (max(rel, r0), max(mx, m0), same and s0)
+            del got, args, ref
     bad = {k: v for k, v in err.items() if not v[0] < REL_TOL}
     if bad:
-        raise AssertionError(f"a K6 design disagrees with plain: {bad}")
+        raise AssertionError(f"the K6 team kernel disagrees with plain: {bad}")
 
-    # ms per call in four alternated rounds (_rounds, 5 calls each); then
-    # the team kernel's device ms (CUDA graphs of 5 calls: the call launches
-    # the team kernel alone)
-    times = {(n, d): {} for n in K6_NAMES for d in K6_DESIGNS}
+    # ms per call in four rounds (_rounds, 5 calls each); then its device
+    # ms (CUDA graphs of 5 calls: the call launches the team kernel alone)
+    times = {n: {} for n in K6_NAMES}
     dev_ms = {n: {} for n in K6_NAMES}
     for B in K1_WIDTHS:
         for name in K6_NAMES:
             args = _k6_args(L, name, B)
-            ms = _rounds({d: (lambda kw=kw: rk._lqr_backward_cuda(
-                *args, reg, **kw)) for d, kw in K6_DESIGNS.items()}, 5)
-            for design in K6_DESIGNS:
-                times[(name, design)][B] = ms[design]
-            dev_ms[name][B] = _graph_ms(lambda: rk._lqr_backward_cuda(
-                *args, reg, **K6_DESIGNS["team"]), reps=10, per_graph=5)
-            del args
+            call = lambda: rk._lqr_backward_cuda(*args, reg)  # noqa: E731
+            times[name][B] = _rounds({"team": call}, 5)["team"]
+            dev_ms[name][B] = _graph_ms(call, reps=10, per_graph=5)
+            del args, call
     del L
     torch.cuda.empty_cache()
-    ratio = {}
     for name in K6_NAMES:
-        one_t = times[(name, "one-thread")]
-        for design in K6_DESIGNS:
-            print(f"[10b K6 designs] {KERNEL_IDS[name]} {design} ms per call: "
-                  + ", ".join(f"B={B} {ms:.3f} ({ms / one_t[B]:.3f}x "
-                              "one-thread)"
-                              for B, ms in times[(name, design)].items()),
-                  flush=True)
-        print(f"[10b K6 designs] {KERNEL_IDS[name]} team device ms per "
-              "launch: " + ", ".join(f"B={B} {v:.3f}"
-                                     for B, v in dev_ms[name].items()),
-              flush=True)
-        for B in (B_MAIN, B_MAIN // 32):
-            ratio[(KERNEL_IDS[name], B)] = (times[(name, "team")][B]
-                                            / one_t[B])
-    print("[10b K6 designs] the pallas route's K6 backward (team) against "
-          "the one-thread body: " + ", ".join(f"{k} B={B} {r:.3f}x"
-                                              for (k, B), r in ratio.items()),
-          flush=True)
-    if max(ratio.values()) > 1.0:
-        raise AssertionError(f"the team K6 kernel is slower than the "
-                             f"one-thread body: {ratio}")
+        print(f"[10b K6 team] {KERNEL_IDS[name]} ms per call: " + ", ".join(
+            f"B={B} {ms:.3f}" for B, ms in times[name].items())
+            + "; device ms per launch: " + ", ".join(
+                f"B={B} {v:.3f}" for B, v in dev_ms[name].items()),
+            flush=True)
     return err, times, dev_ms
 
 
@@ -1735,136 +1592,104 @@ def _cut_lanes(args, lo, hi, B):
                  B != a.shape[-1] else a for i, a in enumerate(args))
 
 
-def _k5_k7a_call(kid, design, args):
-    """One call of K5's or K7a's ``design`` on its arguments, with the
+def _k5_k7a_call(kid, args):
+    """One call of K5's or K7a's launches on its arguments, with the
     constants block built beforehand, as the engine builds it once per
     solve."""
     from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
 
     if kid == "K5":
         kc = srbd_linearize.kernel_constants(*args[:5]).to(args[5].device)
-        return lambda: srbd_linearize._linearize_cuda(
-            *args, consts=kc, **K5_DESIGNS[design])
+        return lambda: srbd_linearize._linearize_cuda(*args, consts=kc)
     kc = merit_kernel.kernel_constants(*args[:6]).to(args[6].device)
-    return lambda: merit_kernel._merit_alpha_cuda(
-        *args, consts=kc, **K7A_DESIGNS[design])
+    return lambda: merit_kernel._merit_alpha_cuda(*args, consts=kc)
 
 
 def _k5_k7a_inputs(dev):
-    """Phase 10c's designs by id: (designs, passes, the plain version, the
-    arguments at a width), on phase 10's inputs."""
+    """Phase 10c's kernels by id: (launches, the plain version, the
+    arguments at a width, extra words), on phase 10's inputs."""
     from srbd_nmpc_tpu_torch.models import merit_kernel, srbd_linearize
 
     lin_full, _, _, merit_full = _sync_kernel_inputs(
         np.random.default_rng(18), B_MAIN, dev)
     return {
-        "K5": (K5_DESIGNS, K5_PASSES, srbd_linearize.linearize_ref,
-               lambda B: _cut_lanes(lin_full, 5, 9, B)),
-        "K7a": (K7A_DESIGNS, K7A_PASSES, merit_kernel.merit_alpha_ref,
-                lambda B: _cut_lanes(merit_full, 6, 12, B))}
+        "K5": (K5_PASSES, srbd_linearize.linearize_ref,
+               lambda B: _cut_lanes(lin_full, 5, 9, B), K5_EXTRA_WORDS),
+        "K7a": (K7A_PASSES, merit_kernel.merit_alpha_ref,
+                lambda B: _cut_lanes(merit_full, 6, 12, B), K7A_EXTRA_WORDS)}
 
 
 def phase_k5_k7a_designs(dev):
-    """K5 and K7a, each through its new design (the path's ``split``) and
-    its one-thread yardstick, at N=20 on phase 10's inputs: each against
+    """K5's and K7a's launches at N=20 on phase 10's inputs: each against
     the plain version at K5K7_CHECK_WIDTHS, bitwise flag and max |diff|
-    printed; ms per call in four alternated rounds at K5K7_WIDTHS; each
-    launch's device ms (torch.profiler over 5 calls of each design, one
-    profile a width); the byte floor of each design. Fails if a design is not bitwise equal to plain at any
-    width, or if a split design is slower than its one-thread body at
-    B=131072 or at B=4096."""
+    printed; ms per call in four rounds at K5K7_WIDTHS; each launch's
+    device ms (torch.profiler over 5 calls of each, one profile a width);
+    the byte floor of each. Fails if either is not bitwise equal to plain
+    at any width."""
     from srbd_nmpc_tpu_torch.utils.metrics import parity_metric
 
     kernels = _k5_k7a_inputs(dev)
-    err = {(k, d): (0.0, 0.0, True) for k, v in kernels.items() for d in v[0]}
+    err = {k: (0.0, 0.0, True) for k in kernels}
     for B in K5K7_CHECK_WIDTHS:
-        for kid, (designs, _, plain, args_at) in kernels.items():
+        for kid, (_, plain, args_at, _) in kernels.items():
             args = args_at(B)
             ref = plain(*args)
-            for design in designs:
-                got = _k5_k7a_call(kid, design, args)()
-                torch.cuda.synchronize()
-                if not all(bool(torch.isfinite(g).all()) for g in got):
-                    raise AssertionError(f"{kid} {design}: not finite")
-                rel = max(parity_metric(g.cpu().numpy().astype(np.float64),
-                                        r.cpu().numpy().astype(np.float64))
-                          for g, r in zip(got, ref))
-                mx = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                same = all(torch.equal(g, r) for g, r in zip(got, ref))
-                print(f"[10c K5/K7a designs] {kid} {design} vs plain at B={B}: "
-                      f"{rel:.3e} (limit {REL_TOL:g}); max |diff| {mx:.3e}; "
-                      f"bitwise {same}", flush=True)
-                r0, m0, s0 = err[(kid, design)]
-                err[(kid, design)] = (max(rel, r0), max(mx, m0), same and s0)
-                del got
-            del args, ref
+            got = _k5_k7a_call(kid, args)()
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"{kid}: not finite")
+            rel = max(parity_metric(g.cpu().numpy().astype(np.float64),
+                                    r.cpu().numpy().astype(np.float64))
+                      for g, r in zip(got, ref))
+            mx = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            same = all(torch.equal(g, r) for g, r in zip(got, ref))
+            print(f"[10c K5/K7a] {kid} vs plain at B={B}: {rel:.3e} (limit "
+                  f"{REL_TOL:g}); max |diff| {mx:.3e}; bitwise {same}",
+                  flush=True)
+            r0, m0, s0 = err[kid]
+            err[kid] = (max(rel, r0), max(mx, m0), same and s0)
+            del got, args, ref
             torch.cuda.empty_cache()
     bad = {k: v for k, v in err.items() if not (v[0] < REL_TOL and v[2])}
     if bad:
-        raise AssertionError(f"a K5/K7a design is not bitwise equal to plain "
+        raise AssertionError(f"K5/K7a is not bitwise equal to plain "
                              f"(rel, max |diff|, bitwise): {bad}")
 
-    # ms per call in four alternated rounds (_rounds, 5 calls each); then
-    # each launch's device ms
-    times = {k: {d: {} for d in v[0]} for k, v in kernels.items()}
-    dev_ms = {k: {d: {} for d in v[0]} for k, v in kernels.items()}
-    floor = {k: {} for k in kernels}
+    # ms per call in four rounds (_rounds, 5 calls each); then each
+    # launch's device ms
+    times = {k: {} for k in kernels}
+    dev_ms = {k: {} for k in kernels}
+    floor = {}
     for B in K5K7_WIDTHS:
-        launch_calls = {}
-        for kid, (designs, _, _, args_at) in kernels.items():
+        calls = {}
+        for kid, (_, _, args_at, extra) in kernels.items():
             args = args_at(B)
-            order = list(designs)
-            calls = {d: _k5_k7a_call(kid, d, args) for d in designs}
-            for design, ms in _rounds(calls, 5).items():
-                times[kid][design][B] = ms
-            launch_calls[kid] = calls
+            calls[kid] = _k5_k7a_call(kid, args)
             if B == B_MAIN:
-                # each input read once, each output written once; a split
-                # design also moves its extra words per lane (K5_EXTRA_WORDS,
-                # K7A_EXTRA_WORDS)
-                hi = 9 if kid == "K5" else 12
-                lo = 5 if kid == "K5" else 6
-                io = _nbytes(args[lo:hi], _k5_k7a_call(kid, order[0], args)())
-                extra = (K5_EXTRA_WORDS if kid == "K5" else K7A_EXTRA_WORDS)
-                for design in designs:
-                    floor[kid][design] = io + 4 * B * extra.get(design, 0)
+                # each input read once, each output written once, and the
+                # launches' extra words per lane
+                lo, hi = (5, 9) if kid == "K5" else (6, 12)
+                floor[kid] = _nbytes(args[lo:hi], calls[kid]()) + 4 * B * extra
             del args
-        # one profile of both kernels' designs (their kernels' names differ)
-        tagged = {(kid, d, p): key for kid, v in kernels.items()
-                  for d, by in v[1].items() for p, key in by.items()}
-        got = _launch_ms(lambda: [c() for by in launch_calls.values()
-                                  for c in by.values()],
+        for kid, ms in _rounds(calls, 5).items():
+            times[kid][B] = ms
+        # one profile of both kernels' launches (their kernels' names differ)
+        tagged = {(kid, p): key for kid, v in kernels.items()
+                  for p, key in v[0].items()}
+        got = _launch_ms(lambda: [c() for c in calls.values()],
                          {"/".join(t): key for t, key in tagged.items()})
-        for (kid, d, p) in tagged:
-            dev_ms[kid][d].setdefault(B, {})[p] = got[f"{kid}/{d}/{p}"]
-        del launch_calls
+        for (kid, p) in tagged:
+            dev_ms[kid].setdefault(B, {})[p] = got[f"{kid}/{p}"]
+        del calls
         torch.cuda.empty_cache()
-    ratio = {}
-    for kid, (designs, _, _, _) in kernels.items():
-        one = times[kid]["one-thread"]
-        for design in designs:
-            print(f"[10c K5/K7a designs] {kid} {design} ms per call: "
-                  + ", ".join(f"B={B} {ms:.3f} ({ms / one[B]:.3f}x "
-                              "one-thread)"
-                              for B, ms in times[kid][design].items())
-                  + "; device ms per launch: " + "; ".join(
-                      f"B={B} " + ", ".join(f"{p} {v:.3f}" for p, v in
-                                            by.items())
-                      for B, by in dev_ms[kid][design].items()), flush=True)
-        print(f"[10c K5/K7a designs] {kid} bytes each design moves per call "
-              f"at B={B_MAIN}: " + ", ".join(
-                  f"{d} {b / 1e9:.3f} GB, a floor of "
-                  f"{b / PEAK_BYTES * 1e3:.3f} ms"
-                  for d, b in floor[kid].items()), flush=True)
-        for B in K5K7_WIDTHS:
-            ratio[(kid, B)] = times[kid]["split"][B] / one[B]
-    print("[10c K5/K7a designs] the split designs against the one-thread "
-          "bodies: " + ", ".join(f"{k} B={B} {r:.3f}x"
-                                 for (k, B), r in ratio.items()),
-          flush=True)
-    if max(ratio.values()) > 1.0:
-        raise AssertionError(f"a split K5/K7a design is slower than the "
-                             f"one-thread body: {ratio}")
+    for kid in kernels:
+        print(f"[10c K5/K7a] {kid} ms per call: " + ", ".join(
+            f"B={B} {ms:.3f}" for B, ms in times[kid].items())
+            + "; device ms per launch: " + "; ".join(
+                f"B={B} " + ", ".join(f"{p} {v:.3f}" for p, v in by.items())
+                for B, by in dev_ms[kid].items())
+            + f"; bytes per call at B={B_MAIN}: {floor[kid] / 1e9:.3f} GB, a "
+            f"floor of {floor[kid] / PEAK_BYTES * 1e3:.3f} ms", flush=True)
     return err, times, dev_ms, floor
 
 
@@ -1879,8 +1704,8 @@ def phase_sync(dev, card, spec):
     """Cold B=131072 solves of the iteration-synchronous loop on its kernel
     routes (``pallas``, ``fused``, and the dense ``fused`` with
     ``planes=False``), each read against the speculative path's cold solve,
-    each p50 beside the one-thread K5's and K7a's, each profiled (K5's,
-    K7a's and on ``pallas`` K6a's device ms and share)."""
+    each profiled (K5's, K7a's and on ``pallas`` K6a's device ms and
+    share)."""
     from srbd_nmpc_tpu_torch.parallel import sharded
 
     n_spec, it_spec = spec
@@ -1910,13 +1735,11 @@ def phase_sync(dev, card, spec):
             times.append((time.perf_counter() - t0) * 1e3)
         p50 = float(np.percentile(times, 50))
         d_conv, d_it = n_conv - n_spec, mean_it - it_spec
-        before = (f" ({SYNC_P50_BEFORE[route]:.3f} on the one-thread K5 and "
-                  "K7a)")
         print(f"[11 sync] {route} ({kw}) B={B_MAIN}: converged "
               f"{n_conv}/{B_MAIN} ({d_conv:+d} vs speculative), mean SQP "
               f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
               f"line-search trips {ls}, host syncs {syncs}, launches "
-              f"{launches}; p50 {p50:.3f} ms per solve{before}, "
+              f"{launches}; p50 {p50:.3f} ms per solve, "
               f"{B_MAIN / p50 * 1e3:.1f} solves/s (times "
               f"{[round(t, 3) for t in times]}) on {card}", flush=True)
         # where the time goes: one more solve under the profiler
@@ -1927,25 +1750,23 @@ def phase_sync(dev, card, spec):
             return sum(v for k, v in by_name.items()
                        if any(key in k for key in keys))
 
-        shares = {"K5": dev_of(K5_PASSES["split"].values()),
-                  "K7a": dev_of(K7A_PASSES["split"].values()),
+        shares = {"K5": dev_of(K5_PASSES.values()),
+                  "K7a": dev_of(K7A_PASSES.values()),
                   # K6a's team kernel (K1s-B, k1s_riccati_team_kernel,
                   # runs on the other routes)
                   "K6a": (dev_of(("riccati_team_kernel",))
                           if route == "pallas" else 0.0)}
-        old = dev_of(("linearize_kernel", "merit_alpha_kernel"))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(f"[11 sync] {route} profiled solve: device busy {busy:.3f} ms "
               f"({100 * busy / p50:.1f} % of the p50, so idle "
               f"{100 * (1 - busy / p50):.1f} %), " + ", ".join(
                   f"{k} {v:.3f} ms ({100 * v / busy:.1f} % of device time)"
                   for k, v in shares.items() if v)
-              + f", one-thread K5/K7a {old:.3f} ms; top kernels "
+              + "; top kernels "
               + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top), flush=True)
         want = ("K5", "K7a", "K6a") if route == "pallas" else ("K7a",)
-        if old > 0.0 or not all(shares[k] > 0.0 for k in want):
-            raise AssertionError(f"{route}: profiled device ms {shares}, "
-                                 f"one-thread K5/K7a {old}")
+        if not all(shares[k] > 0.0 for k in want):
+            raise AssertionError(f"{route}: profiled device ms {shares}")
         missing = [k for k in need[route] if not launches.get(k)]
         if missing:
             raise AssertionError(f"{route}: kernels never launched: {missing}")
@@ -2189,19 +2010,18 @@ def phase_dense_kernels(dev):
     return max_abs, times, bounds, k4_launches
 
 
-def _k3_call(name, design, cand, one, reg):
-    """K3a (``name`` "sqp_onepass_cand") or K3b on the card by design
-    (K3_DESIGNS) on ``_k3_args``' arguments."""
+def _k3_call(name, cand, one, reg):
+    """K3a (``name`` "sqp_onepass_cand") or K3b on the card on
+    ``_k3_args``' arguments."""
     from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
 
-    one_thread = K3_DESIGNS[design]
     if name == "sqp_onepass_cand":
-        return lambda: sk._k3a_cuda(*cand, reg=reg, one_thread=one_thread)
-    return lambda: sk._k3b_cuda(*one, reg=reg, one_thread=one_thread)
+        return lambda: sk._k3a_cuda(*cand, reg=reg)
+    return lambda: sk._k3b_cuda(*one, reg=reg)
 
 
 def _k3_split_bytes(N, B, cand):
-    """Bytes the split K3 must move per call in float32, each array read
+    """Bytes K3's launches must move per call in float32, each array read
     once and written once by each launch that touches it: K3s-A reads the
     inputs (xa, us, xra; dxc, duc, alpha under cand) and writes the pack
     [N,87,B], the merit terms [N,4,B] and the terminal rows [13,B]; K3s-B
@@ -2216,91 +2036,69 @@ def _k3_split_bytes(N, B, cand):
 
 
 def phase_k3_designs(dev):
-    """K3a and K3b by design (K3_DESIGNS) at N=20: each against its plain
-    version at B=4096 and B=131072, max |diff| printed, bitwise expected;
-    ms per call at the main path's four widths in alternated rounds in this
-    call; each split launch's device ms (torch.profiler) at each width.
-    Fails if the split kernels (the dense route's) are slower than the
-    one-thread body at B=131072 or at B=4096."""
+    """K3a and K3b at N=20: each against its plain version at B=4096 and
+    B=131072, max |diff| printed, bitwise expected; ms per call at the main
+    path's four widths (four rounds of 5 calls); each launch's device ms
+    (torch.profiler) at each width; the launches' byte floor."""
     from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
 
     rng = np.random.default_rng(15)
-    err = {(n, d): (0.0, 0.0, True) for n in K3_NAMES for d in K3_DESIGNS}
+    err = {n: (0.0, 0.0, True) for n in K3_NAMES}
     for B in (4096, B_MAIN):
         cand, one, _, reg = _k3_args(rng, B, dev)
         for name in K3_NAMES:
             ref = (sk.sqp_qp_solve_onepass_cand_ref(*cand, reg=reg)
                    if name == "sqp_onepass_cand"
                    else sk.sqp_qp_solve_onepass_ref(*one, reg=reg))
-            for design in K3_DESIGNS:
-                got = _k3_call(name, design, cand, one, reg)()
-                torch.cuda.synchronize()
-                rel, mx = _diff(got, ref)
-                same = all(torch.equal(g, r)
-                           for g, r in zip(_flat(got), _flat(ref)))
-                print(f"[13 K3 designs] {KERNEL_IDS[name]} {design} vs plain "
-                      f"at B={B}: {rel:.3e} (limit {REL_TOL:g}); max |diff| "
-                      f"{mx:.3e}; bitwise {same}", flush=True)
-                r0, m0, s0 = err[(name, design)]
-                err[(name, design)] = (max(rel, r0), max(mx, m0), same and s0)
-                del got
-            del ref
+            got = _k3_call(name, cand, one, reg)()
+            torch.cuda.synchronize()
+            rel, mx = _diff(got, ref)
+            same = all(torch.equal(g, r)
+                       for g, r in zip(_flat(got), _flat(ref)))
+            print(f"[13 K3] {KERNEL_IDS[name]} vs plain at B={B}: {rel:.3e} "
+                  f"(limit {REL_TOL:g}); max |diff| {mx:.3e}; bitwise "
+                  f"{same}", flush=True)
+            r0, m0, s0 = err[name]
+            err[name] = (max(rel, r0), max(mx, m0), same and s0)
+            del got, ref
         del cand, one
         torch.cuda.empty_cache()
     bad = {k: v for k, v in err.items() if not v[0] < REL_TOL}
     if bad:
-        raise AssertionError(f"a K3 design disagrees with plain: {bad}")
+        raise AssertionError(f"K3 disagrees with plain: {bad}")
 
-    # ms per call in four alternated rounds (_rounds, 5 calls each); then
-    # each split launch's device ms
-    times = {(n, d): {} for n in K3_NAMES for d in K3_DESIGNS}
+    # ms per call in four rounds (_rounds, 5 calls each); then each
+    # launch's device ms
+    times = {n: {} for n in K3_NAMES}
     passes = {n: {} for n in K3_NAMES}
     for B in K1_WIDTHS:
         cand, one, _, reg = _k3_args(rng, B, dev)
         for name in K3_NAMES:
-            ms = _rounds({d: _k3_call(name, d, cand, one, reg)
-                          for d in K3_DESIGNS}, 5)
-            for design in K3_DESIGNS:
-                times[(name, design)][B] = ms[design]
-            passes[name][B] = _launch_ms(
-                _k3_call(name, "split", cand, one, reg), K3S_PASSES)
+            call = _k3_call(name, cand, one, reg)
+            times[name][B] = _rounds({name: call}, 5)[name]
+            passes[name][B] = _launch_ms(call, K3S_PASSES)
+            del call
         del cand, one
         torch.cuda.empty_cache()
-    ratio = {}
     for name in K3_NAMES:
-        one_t = times[(name, "one-thread")]
-        for design in K3_DESIGNS:
-            print(f"[13 K3 designs] {KERNEL_IDS[name]} {design} ms per call: "
-                  + ", ".join(f"B={B} {ms:.3f} ({ms / one_t[B]:.3f}x "
-                              "one-thread)"
-                              for B, ms in times[(name, design)].items()),
-                  flush=True)
+        print(f"[13 K3] {KERNEL_IDS[name]} ms per call: " + ", ".join(
+            f"B={B} {ms:.3f}" for B, ms in times[name].items()), flush=True)
         for B, by in passes[name].items():
-            print(f"[13 K3 designs] {KERNEL_IDS[name]} split device ms per "
-                  f"launch at B={B}: " + ", ".join(
+            print(f"[13 K3] {KERNEL_IDS[name]} device ms per launch at "
+                  f"B={B}: " + ", ".join(
                       f"{p} {v:.3f}" for p, v in by.items()), flush=True)
-        for B in (B_MAIN, B_MAIN // 32):
-            ratio[(KERNEL_IDS[name], B)] = (times[(name, "split")][B]
-                                            / one_t[B])
-    print("[13 K3 designs] the dense route's K3 kernels (split) against the "
-          "one-thread body: " + ", ".join(f"{k} B={B} {r:.3f}x"
-                                          for (k, B), r in ratio.items()),
-          flush=True)
     floor = {name: _k3_split_bytes(N_MAIN, B_MAIN, name == "sqp_onepass_cand")
              for name in K3_NAMES}
-    print(f"[13 K3 designs] bytes the split design moves per call at "
-          f"B={B_MAIN}: " + ", ".join(
-              f"{KERNEL_IDS[n]} {b / 1e9:.3f} GB, a floor of "
-              f"{b / PEAK_BYTES * 1e3:.3f} ms at {PEAK_BYTES / 1e12:g} TB/s"
-              for n, b in floor.items()), flush=True)
-    if max(ratio.values()) > 1.0:
-        raise AssertionError(f"the split K3 kernels are slower than the "
-                             f"one-thread body: {ratio}")
+    print(f"[13 K3] bytes the launches move per call at B={B_MAIN}: "
+          + ", ".join(f"{KERNEL_IDS[n]} {b / 1e9:.3f} GB, a floor of "
+                      f"{b / PEAK_BYTES * 1e3:.3f} ms at "
+                      f"{PEAK_BYTES / 1e12:g} TB/s" for n, b in floor.items()),
+          flush=True)
     return err, times, passes, floor
 
 
 def _k4a_split_bytes(N, B):
-    """Bytes K4a's split must move per call in float32, each array read
+    """Bytes K4a's launches must move per call in float32, each array read
     once and written once by each launch that touches it: K5's stage pass
     reads x, x_next, u, x_ref (48 words a stage) and writes b, q, r_eff
     (36), the merit rows (8) and the ddb hand-off (24); its dense write
@@ -2316,7 +2114,7 @@ def _k4a_split_bytes(N, B):
 
 def _k6a_on_k4a_inputs(bwd, reg):
     """A call of K6a (``riccati_kernel.lqr_backward`` with (Q, Qf)) on the
-    stage inputs that K4a's split hands its team pass, built once here:
+    stage inputs that K4a hands its team pass, built once here:
     K5's A, B, b, q, r_eff and R_eff at (xa, us), q_N appended to q."""
     from srbd_nmpc_tpu_torch.models import srbd_linearize
     from srbd_nmpc_tpu_torch.ops import riccati_kernel
@@ -2333,78 +2131,60 @@ def _k6a_on_k4a_inputs(bwd, reg):
 
 
 def phase_k4a_designs(dev):
-    """K4a by design (K4A_DESIGNS) at N=20: each against the plain version
-    at K1F_CHECK_WIDTHS on all eleven outputs, max |diff| and a bitwise flag
-    printed; ms per call in four alternated rounds at DESIGN_WIDTHS; each
-    split launch's device ms (one profile a width); the split's byte floor
-    beside the one-thread body's. Fails unless the split is bitwise equal
-    to plain at every width. The times are reported as they are."""
+    """K4a's four launches at N=20: against the plain version at
+    K1F_CHECK_WIDTHS on all eleven outputs, max |diff| and a bitwise flag
+    printed; ms per call in four rounds at DESIGN_WIDTHS; each launch's
+    device ms (one profile a width); the launches' byte floor. Fails unless
+    they are bitwise equal to plain at every width. The times are reported
+    as they are."""
     from srbd_nmpc_tpu_torch.ops import sqp_kernel as sk
 
     rng = np.random.default_rng(21)
-    err = {d: (0.0, 0.0, True) for d in K4A_DESIGNS}
+    err = (0.0, 0.0, True)
     for B in K1F_CHECK_WIDTHS:
         _, _, bwd, reg = _k3_args(rng, B, dev)
         ref = sk.sqp_qp_backward_ref(*bwd, reg=reg)
-        for d, one in K4A_DESIGNS.items():
-            got = sk._k4a_cuda(*bwd, reg=reg, one_thread=one)
-            torch.cuda.synchronize()
-            rel, mx = _diff(got, ref)
-            same = all(torch.equal(g, r)
-                       for g, r in zip(_flat(got), _flat(ref)))
-            print(f"[13 K4a designs] {d} vs plain at B={B}: {rel:.3e} (limit "
-                  f"{REL_TOL:g}); max |diff| {mx:.3e}; bitwise {same} (all "
-                  "eleven outputs)", flush=True)
-            r0, m0, s0 = err[d]
-            err[d] = (max(rel, r0), max(mx, m0), same and s0)
-            del got
-        del bwd, ref
+        got = sk._k4a_cuda(*bwd, reg=reg)
+        torch.cuda.synchronize()
+        rel, mx = _diff(got, ref)
+        same = all(torch.equal(g, r) for g, r in zip(_flat(got), _flat(ref)))
+        print(f"[13 K4a] vs plain at B={B}: {rel:.3e} (limit {REL_TOL:g}); "
+              f"max |diff| {mx:.3e}; bitwise {same} (all eleven outputs)",
+              flush=True)
+        err = (max(rel, err[0]), max(mx, err[1]), same and err[2])
+        del got, bwd, ref
         torch.cuda.empty_cache()
-    bad = {d: e for d, e in err.items()
-           if not e[0] < REL_TOL or (d == "split" and not e[2])}
-    if bad:
-        raise AssertionError(f"a K4a design disagrees with plain or the "
-                             f"split is not bitwise equal to it: {bad}")
+    if not err[0] < REL_TOL or not err[2]:
+        raise AssertionError(f"K4a disagrees with plain or is not bitwise "
+                             f"equal to it: {err}")
 
-    # ms per call in four alternated rounds (_rounds, 5 calls each); then
-    # each split launch's device ms, and in the same profile K6a's own team
-    # kernel on the same stage inputs: the Acl and bcl writes' cost
-    times, passes = {d: {} for d in K4A_DESIGNS}, {}
+    # ms per call in four rounds (_rounds, 5 calls each); then each
+    # launch's device ms, and in the same profile K6a's own team kernel on
+    # the same stage inputs: the Acl and bcl writes' cost
+    times, passes = {}, {}
     k6a = {"K6a team": "riccati_team_kernel"}
     for B in DESIGN_WIDTHS:
         bwd, reg = _k3_args(rng, B, dev)[2:]
-        calls = {d: (lambda o=o: sk._k4a_cuda(*bwd, reg=reg, one_thread=o))
-                 for d, o in K4A_DESIGNS.items()}
-        for d, ms in _rounds(calls, 5).items():
-            times[d][B] = ms
+        call = lambda: sk._k4a_cuda(*bwd, reg=reg)  # noqa: E731
+        times[B] = _rounds({"K4a": call}, 5)["K4a"]
         k6a_call = _k6a_on_k4a_inputs(bwd, reg)
-        passes[B] = _launch_ms(lambda: (calls["split"](), k6a_call()),
+        passes[B] = _launch_ms(lambda: (call(), k6a_call()),
                                {**K4AS_PASSES, **k6a})
-        if B == B_MAIN:
-            io = _nbytes(bwd[6:9], calls["one-thread"]())
-        del calls, k6a_call, bwd
+        del call, k6a_call, bwd
         torch.cuda.empty_cache()
-    one = times["one-thread"]
-    for d in K4A_DESIGNS:
-        print(f"[13 K4a designs] {d} ms per call: " + ", ".join(
-            f"B={B} {ms:.3f} ({ms / one[B]:.3f}x one-thread)"
-            for B, ms in times[d].items()), flush=True)
+    print("[13 K4a] ms per call: " + ", ".join(
+        f"B={B} {ms:.3f}" for B, ms in times.items()), flush=True)
     for B, by in passes.items():
         k6a_ms = by.pop("K6a team")
-        print(f"[13 K4a designs] split device ms per launch at B={B}: "
+        print(f"[13 K4a] device ms per launch at B={B}: "
               + ", ".join(f"{p} {v:.3f}" for p, v in by.items())
               + f"; K6a's own team kernel on the same stage inputs {k6a_ms:.3f}"
               f", so Acl and bcl cost the team pass "
               f"{by['team'] - k6a_ms:.3f} ms", flush=True)
-    floor = {"split": _k4a_split_bytes(N_MAIN, B_MAIN), "one-thread": io}
-    print(f"[13 K4a designs] bytes each design moves per call at "
-          f"B={B_MAIN}: " + ", ".join(
-              f"{d} {b / 1e9:.3f} GB, a floor of "
-              f"{b / PEAK_BYTES * 1e3:.3f} ms" for d, b in floor.items())
-          + f" at {PEAK_BYTES / 1e12:g} TB/s; the split against the "
-          "one-thread body: " + ", ".join(
-              f"B={B} {times['split'][B] / one[B]:.3f}x" for B in one),
-          flush=True)
+    floor = _k4a_split_bytes(N_MAIN, B_MAIN)
+    print(f"[13 K4a] bytes the launches move per call at B={B_MAIN}: "
+          f"{floor / 1e9:.3f} GB, a floor of {floor / PEAK_BYTES * 1e3:.3f} "
+          f"ms at {PEAK_BYTES / 1e12:g} TB/s", flush=True)
     return err, times, passes, floor
 
 
@@ -2437,11 +2217,10 @@ def phase_dense(dev, card, spec):
         # where the time goes: one more solve under the profiler
         by_name, _ = _device_ms(lambda: sharded.solve_batch(*prob))
         busy = sum(by_name.values())
-        # K3's device kernels: the split launches (K3s-B is K1s-B's kernel,
-        # which this route runs for K3 alone) and the one-thread body
+        # K3's device kernels: its launches (K3s-B is K1s-B's kernel, which
+        # this route runs for K3 alone)
         k3 = {k: v for k, v in by_name.items()
-              if "sqp_onepass" in k
-              or any(key in k for key in K3S_PASSES.values())}
+              if any(key in k for key in K3S_PASSES.values())}
         d_conv, d_it = n_conv - n_spec, mean_it - it_spec
         what = ("trips (bootstrap included)" if loop == "spec"
                 else "line-search trips")
@@ -2449,7 +2228,7 @@ def phase_dense(dev, card, spec):
               f"{n_conv}/{B_MAIN} ({d_conv:+d} vs phase 5), mean SQP "
               f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
               f"{what} {trips}, launches {launches}; p50 {p50:.3f} ms per "
-              f"solve ({DENSE_P50_BEFORE[loop]:.3f} on the one-thread K3), "
+              "solve, "
               f"{B_MAIN / p50 * 1e3:.1f} solves/s (times "
               f"{[round(t, 3) for t in times]}) on {card}", flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
@@ -2823,64 +2602,38 @@ def phase_exact_batched(dev, card):
     return dict(n_conv=n_conv, ms=ms)
 
 
-def _k1_ptxas():
-    """(registers, spill stores, spill loads, stack bytes) of each K1
-    instantiation, by the port's counter name (template argument 0, 1, 2:
-    gains, rank-6, factor)."""
-    import re
-
-    names = {"0": "sqp_planes", "1": "sqp_planes_rank6",
-             "2": "sqp_planes_factor"}
-    out = {}
-    for mangled, regs, stores, loads, stack in _ptxas("sqp_planes",
-                                                      "sqp_planes_kernel"):
-        m = re.search(r"ILi(\d)E", mangled)
-        out[names[m.group(1)]] = (regs, stores, loads, stack)
-    if sorted(out) != sorted(K1_BODIES):
-        raise AssertionError(f"K1 instantiations in the ptxas report: {out}")
-    return out
-
-
 def _k3_ptxas(k1):
-    """(registers, spill stores, spill loads, stack bytes) of K3's kernels:
-    the one-thread body (sqp_onepass.cu, K3a <true>, K3b <false>) and the
-    split launches (sqp_onepass_split.cu's K3s-A <true>/<false> and K3s-C;
-    K3s-B is K1s-B, from ``k1``)."""
+    """(registers, spill stores, spill loads, stack bytes) of K3's launches
+    (sqp_onepass.cu's K3s-A <true>/<false> and K3s-C; K3s-B is K1s-B, from
+    ``k1``)."""
     out = {}
-    for mangled, regs, stores, loads, stack in _ptxas("sqp_onepass",
-                                                      "sqp_onepass_kernel"):
-        tag = "true" if "ILb1E" in mangled else "false"
-        out[f"one-thread <{tag}>"] = (regs, stores, loads, stack)
-    for mangled, regs, stores, loads, stack in _ptxas("sqp_onepass_split",
-                                                      "k3s_"):
+    for mangled, regs, stores, loads, stack in _ptxas("sqp_onepass", "k3s_"):
         tag = "true" if "ILb1E" in mangled else "false"
         name = ("K3s-A <" + tag + ">" if "k3s_planes_kernel" in mangled
                 else "K3s-C")
         out[name] = (regs, stores, loads, stack)
     out["K3s-B"] = k1["K1s-B"]
-    want = {"one-thread <true>", "one-thread <false>", "K3s-A <true>",
-            "K3s-A <false>", "K3s-B", "K3s-C"}
+    want = {"K3s-A <true>", "K3s-A <false>", "K3s-B", "K3s-C"}
     if set(out) != want:
         raise AssertionError(f"K3 kernels in the ptxas report: {out}")
     return out
 
 
 def _k1s_ptxas():
-    """(registers, spill stores, spill loads, stack bytes) of each split
-    kernel of the three bodies (sqp_planes_split.cu): K1s-A, K1s-B, K1s-C,
-    the factor forms of the last two, the rank-6 form of K1s-B and the
-    float64 forms of the gains body's three."""
+    """(registers, spill stores, spill loads, stack bytes) of each kernel of
+    K1's three bodies (sqp_planes.cu): K1s-A, K1s-B, K1s-C, the factor forms
+    of the last two, the rank-6 form of K1s-B and the float64 forms of the
+    gains body's three."""
     passes = {**K1S_PASSES, **K1FS_PASSES,
               "K1s-B rank-6": K1RS_PASSES["K1s-B rank-6"], **K1S_F64_PASSES}
     out = {}
-    for mangled, regs, stores, loads, stack in _ptxas("sqp_planes_split",
-                                                      "k1s_"):
+    for mangled, regs, stores, loads, stack in _ptxas("sqp_planes", "k1s_"):
         name = next((p for p, key in passes.items() if key in mangled),
                     mangled)
         out[name] = (regs, stores, loads, stack)
     want = set(passes)
     if set(out) != want:
-        raise AssertionError(f"split kernels in the ptxas report: {out}")
+        raise AssertionError(f"K1 kernels in the ptxas report: {out}")
     for p, key in passes.items():
         if key in K1S_B_PTXAS:
             regs, stores = out[p][:2]
@@ -2893,16 +2646,14 @@ def _k1s_ptxas():
 
 def _k6_ptxas():
     """(registers, spill stores, spill loads, stack bytes) of K6's backward
-    kernels (riccati.cu): the one-thread body and the team kernel, each
-    <true> (K6a, const Q) and <false> (K6b, per-stage Q)."""
+    team kernel (riccati.cu), <true> (K6a, const Q) and <false> (K6b,
+    per-stage Q)."""
     out = {}
-    for needle, what in (("riccati_bwd_kernel", "one-thread"),
-                         ("riccati_team_kernel", "team")):
-        for mangled, regs, stores, loads, stack in _ptxas("riccati", needle):
-            tag = "true" if "ILb1E" in mangled else "false"
-            out[f"{what} <{tag}>"] = (regs, stores, loads, stack)
-    if sorted(out) != ["one-thread <false>", "one-thread <true>",
-                       "team <false>", "team <true>"]:
+    for mangled, regs, stores, loads, stack in _ptxas("riccati",
+                                                      "riccati_team_kernel"):
+        tag = "true" if "ILb1E" in mangled else "false"
+        out[f"team <{tag}>"] = (regs, stores, loads, stack)
+    if sorted(out) != ["team <false>", "team <true>"]:
         raise AssertionError(f"K6 kernels in the ptxas report: {out}")
     print("[2 build] K6's team kernel against the recorded ptxas: " + ", ".join(
         f"{n} {out[n][0]} registers, {out[n][1]} B spill stores (recorded "
@@ -2913,15 +2664,13 @@ def _k6_ptxas():
 
 def _k4a_ptxas():
     """(registers, spill stores, spill loads, stack bytes) of K4a's
-    kernels: the one-thread body and the split's launches (K5's two from
-    linearize.cu, the merit pass from sqp_twopass.cu, the team pass from
-    riccati.cu)."""
+    launches (K5's two from linearize.cu, the merit pass from
+    sqp_twopass.cu, the team pass from riccati.cu)."""
     out = {}
     for name, source, key in (
-            [("one-thread", "sqp_twopass", "sqp_twopass_bwd_kernel")]
-            + [(p, "linearize" if p.startswith("K5") else
-                "sqp_twopass" if p == "merit" else "riccati", key)
-               for p, key in K4AS_PASSES.items()]):
+            (p, "linearize" if p.startswith("K5") else
+             "sqp_twopass" if p == "merit" else "riccati", key)
+            for p, key in K4AS_PASSES.items()):
         found = _ptxas(source, key)
         if len(found) != 1:
             raise AssertionError(f"{key} in the ptxas report: {found}")
@@ -2931,18 +2680,15 @@ def _k4a_ptxas():
 
 def _k5_k7a_ptxas():
     """(registers, spill stores, spill loads, stack bytes) of K5's and K7a's
-    kernels (linearize.cu, merit.cu) by "<id> <design> <pass>": the
-    one-thread yardsticks and each launch of the new designs."""
+    launches (linearize.cu, merit.cu) by "<id> <pass>"."""
     out = {}
-    for kid, source, designs in (("K5", "linearize", K5_PASSES),
-                                 ("K7a", "merit", K7A_PASSES)):
-        for design, passes in designs.items():
-            for p, key in passes.items():
-                found = _ptxas(source, key)
-                if len(found) != 1:
-                    raise AssertionError(f"{key} in the ptxas report: {found}")
-                name = f"{kid} {design}" + ("" if p == design else f" {p}")
-                out[name] = found[0][1:]
+    for kid, source, passes in (("K5", "linearize", K5_PASSES),
+                                ("K7a", "merit", K7A_PASSES)):
+        for p, key in passes.items():
+            found = _ptxas(source, key)
+            if len(found) != 1:
+                raise AssertionError(f"{key} in the ptxas report: {found}")
+            out[f"{kid} {p}"] = found[0][1:]
     return out
 
 
@@ -2979,18 +2725,16 @@ def phase_factor(dev, card, spec):
               f"{n_conv}/{B_MAIN} ({d_conv:+d} vs phase 5), mean SQP "
               f"iterations {mean_it:.4f} ({d_it:+.4f}), SQP loops {loops}, "
               f"{what} {trips}, launches {launches}; p50 {p50:.3f} ms per "
-              f"solve (on the one-thread factor body "
-              f"{FACTOR_P50_BEFORE[loop]:.3f}), {B_MAIN / p50 * 1e3:.1f} "
-              f"solves/s (times {[round(t, 3) for t in times]}) on {card}",
-              flush=True)
+              f"solve, {B_MAIN / p50 * 1e3:.1f} solves/s (times "
+              f"{[round(t, 3) for t in times]}) on {card}", flush=True)
         # where the time goes: one more solve under the profiler, the
-        # factor split's device time by launch
+        # factor body's device time by launch
         by_name, n = _device_ms(lambda: sharded.solve_batch(*prob))
         busy = sum(by_name.values())
         k1 = {p: sum(v for k, v in by_name.items() if key in k)
               for p, key in K1FS_PASSES.items()}
         print(f"[17 factor] {loop} profiled solve: {n} device kernels, busy "
-              f"{busy:.3f} ms; K1 (factor split) {sum(k1.values()):.3f} ms "
+              f"{busy:.3f} ms; K1 (factor) {sum(k1.values()):.3f} ms "
               f"({100 * sum(k1.values()) / busy:.1f} % of device time): "
               + ", ".join(f"{p} {v:.3f} ({100 * v / busy:.1f} %)"
                           for p, v in k1.items()), flush=True)
@@ -3022,7 +2766,7 @@ def _device_ms(fn, counts=None):
     moved from the card's clock to the host's, fall inside its window, and
     on the card's machine those times can sit a second away from the
     launches: the window is held open PROFILE_PAD_S on either side of
-    ``fn()`` (``chip_profile_probe.py`` measures the losses)."""
+    ``fn()`` (``_launch_ms`` counts the kernels it keeps)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3071,9 +2815,9 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 
 
 def _launch_rows(passes, by_width, regs):
-    """A row for each launch of a split design (``passes``: pass name to
-    kernel name): device ms at full width and by width (``by_width``: width
-    to ms by pass) and its ptxas report (``regs`` by pass)."""
+    """A row for each launch of a kernel (``passes``: pass name to kernel
+    name): device ms at full width and by width (``by_width``: width to ms
+    by pass) and its ptxas report (``regs`` by pass)."""
     return [{"pass": p, "kernel": key, "ms": by_width[B_MAIN][p],
              "ms_by_width": {str(B): by[p] for B, by in by_width.items()},
              "registers": r, "spill_stores": st, "spill_loads": ld,
@@ -3081,117 +2825,81 @@ def _launch_rows(passes, by_width, regs):
             for p, key in passes.items() for r, st, ld, sk in [regs[p]]]
 
 
-def _k1_entry(launches, err, t, plain, bound, regs, d_err, d_t, d_passes):
-    """K1's row: the default gains path (the split kernels), timed through
-    the public entry in phase 4, its largest difference from the plain
-    version over phase 4's checks, and a row for each of its launches
-    (device ms by width, ptxas report); registers and spills of the row are
-    the largest of its launches'. The one-thread body's ms beside it."""
-    per = _launch_rows(K1S_PASSES, d_passes["split"], regs)
-    return _entry("sqp_planes", "sqp_planes_split.cu", "ops/sqp_planes.py:301",
-                  launches, max(err, d_err["split"][1]), t[B_MAIN], plain,
-                  bound, design="split",
+def _worst(per):
+    """The row's registers and spills: the largest of its launches'."""
+    return {k: max(e[k] for e in per)
+            for k in ("registers", "spill_stores", "spill_loads")}
+
+
+def _k1_entry(launches, err, t, plain, bound, regs, d_err, d_passes):
+    """K1's row: the default gains path, timed through the public entry in
+    phase 4, its largest difference from the plain version over phase 4's
+    checks, and a row for each of its launches (device ms by width, ptxas
+    report)."""
+    per = _launch_rows(K1S_PASSES, d_passes, regs)
+    return _entry("sqp_planes", "sqp_planes.cu", "ops/sqp_planes.py:301",
+                  launches, max(err, d_err[1]), t[B_MAIN], plain, bound,
                   ms_by_width={str(B): v for B, v in t.items()},
-                  one_thread_ms_by_width={str(B): v for B, v in
-                                          d_t["one-thread"].items()},
-                  registers=max(e["registers"] for e in per),
-                  spill_stores=max(e["spill_stores"] for e in per),
-                  spill_loads=max(e["spill_loads"] for e in per),
-                  launches_per_call=per)
+                  **_worst(per), launches_per_call=per)
 
 
 def _k1_factor_entry(launches, err, t, plain, bound, regs, d_err, d_t,
                      d_passes, floor):
-    """K1_factor's row: the park_factor path (the split factor kernels),
-    timed through the public entry in phase 4, its largest difference from
-    the plain version over phase 4's checks, and a row for each of its
-    launches (device ms by width, ptxas report); registers and spills of
-    the row are the largest of its launches'. The one-thread body's ms and
-    ptxas report, the gains split's ms and the floor that the bytes of the
-    split design put under it beside them."""
-    per = _launch_rows(K1FS_PASSES, d_passes["factor split"], regs)
-    return _entry("sqp_planes_factor", "sqp_planes_split.cu",
-                  "ops/sqp_planes.py:373", launches,
-                  max(err, d_err["factor split"][1]), t[B_MAIN], plain, bound,
-                  design="split",
+    """K1_factor's row: the park_factor path, timed through the public
+    entry in phase 4, its largest difference from the plain version over
+    phase 4's checks, and a row for each of its launches (device ms by
+    width, ptxas report). The gains body's ms and the floor that the bytes
+    of its launches put under it beside them."""
+    per = _launch_rows(K1FS_PASSES, d_passes["factor"], regs)
+    return _entry("sqp_planes_factor", "sqp_planes.cu",
+                  "ops/sqp_planes.py:373", launches, max(err, d_err[1]),
+                  t[B_MAIN], plain, bound,
                   ms_by_width={str(B): v for B, v in t.items()},
-                  one_thread_ms_by_width={
-                      str(B): v for B, v in d_t["factor one-thread"].items()},
-                  gains_split_ms_by_width={
-                      str(B): v for B, v in d_t["gains split"].items()},
-                  registers=max(e["registers"] for e in per),
-                  spill_stores=max(e["spill_stores"] for e in per),
-                  spill_loads=max(e["spill_loads"] for e in per),
-                  one_thread_registers=regs["sqp_planes_factor"][0],
-                  one_thread_spill_stores=regs["sqp_planes_factor"][1],
-                  split_bytes=floor["factor"],
+                  gains_ms_by_width={
+                      str(B): v for B, v in d_t["gains"].items()},
+                  **_worst(per), split_bytes=floor["factor"],
                   split_bytes_floor_ms=floor["factor"] / PEAK_BYTES * 1e3,
                   launches_per_call=per)
 
 
 def _k1_rank6_entry(launches, err, t, plain, bound, regs, d_err, d_t,
                     d_passes, floor):
-    """K1_rank6's row: ``rank6=True`` (the split kernels, K and kv written
-    by the block), timed through the public entry in phase 4, its largest
-    difference from the plain version over phase 4's checks, and a row for
-    each of its launches (device ms at DESIGN_WIDTHS, ptxas report);
-    registers and spills of the row are the largest of its launches'. The
-    one-thread body's ms and ptxas report, and the split's byte floor
+    """K1_rank6's row: ``rank6=True`` (K and kv written by the block), timed
+    through the public entry in phase 4, its largest difference from the
+    plain version over phase 4's checks, and a row for each of its launches
+    (device ms at DESIGN_WIDTHS, ptxas report); the launches' byte floor
     beside them."""
     per = _launch_rows(K1RS_PASSES, d_passes, regs)
-    return _entry("sqp_planes_rank6", "sqp_planes_split.cu",
-                  "ops/sqp_planes.py:77", launches,
-                  max(err, d_err["split"][1]),
-                  t[B_MAIN], plain, bound, design="split",
+    return _entry("sqp_planes_rank6", "sqp_planes.cu", "ops/sqp_planes.py:77",
+                  launches, max(err, d_err[1]), t[B_MAIN], plain, bound,
                   ms_by_width={str(B): v for B, v in t.items()},
-                  one_thread_ms_by_width={
-                      str(B): v for B, v in d_t["one-thread"].items()},
-                  registers=max(e["registers"] for e in per),
-                  spill_stores=max(e["spill_stores"] for e in per),
-                  spill_loads=max(e["spill_loads"] for e in per),
-                  one_thread_registers=regs["sqp_planes_rank6"][0],
-                  one_thread_spill_stores=regs["sqp_planes_rank6"][1],
-                  split_bytes=floor,
+                  **_worst(per), split_bytes=floor,
                   split_bytes_floor_ms=floor / PEAK_BYTES * 1e3,
                   launches_per_call=per)
 
 
 def _k4a_extra(regs, d_err, d_t, d_passes, floor):
-    """The keys that K4a's row adds: the split (the path's) with a row for
-    each of its launches (device ms at DESIGN_WIDTHS, ptxas report;
-    registers and spills of the row are the largest of its launches'),
-    their sources, its byte floor and largest difference from plain over
-    the design section's checks (``design_err``, folded into the row's
-    max_abs_err), the one-thread body's ms by width and ptxas report."""
+    """The keys that K4a's row adds: a row for each of its launches (device
+    ms at DESIGN_WIDTHS, ptxas report), their sources, its byte floor and
+    largest difference from plain over the K4a section's checks
+    (``design_err``, folded into the row's max_abs_err)."""
     per = _launch_rows(K4AS_PASSES, d_passes, regs)
-    one = regs["one-thread"]
-    return dict(design="split",
-                split_sources=[f"srbd_nmpc_tpu_torch/csrc/{n}" for n in
+    return dict(split_sources=[f"srbd_nmpc_tpu_torch/csrc/{n}" for n in
                                ("linearize.cu", "sqp_twopass.cu",
                                 "riccati.cu")],
-                ms_by_width={str(B): v for B, v in d_t["split"].items()},
-                one_thread_ms_by_width={
-                    str(B): v for B, v in d_t["one-thread"].items()},
-                registers=max(e["registers"] for e in per),
-                spill_stores=max(e["spill_stores"] for e in per),
-                spill_loads=max(e["spill_loads"] for e in per),
-                one_thread_registers=one[0], one_thread_spill_stores=one[1],
-                split_bytes=floor["split"],
-                split_bytes_floor_ms=floor["split"] / PEAK_BYTES * 1e3,
-                one_thread_bytes_floor_ms=floor["one-thread"] / PEAK_BYTES * 1e3,
-                launches_per_call=per,
-                design_err=max(d_err["split"][1], d_err["one-thread"][1]))
+                ms_by_width={str(B): v for B, v in d_t.items()},
+                **_worst(per), split_bytes=floor,
+                split_bytes_floor_ms=floor / PEAK_BYTES * 1e3,
+                launches_per_call=per, design_err=d_err[1])
 
 
 def _k3_entry(name, replaces, launches, err, t, plain, bound, regs, d_err,
               d_t, d_passes, floor):
-    """K3a's or K3b's row: the dense route's path (the split kernels), timed
-    through the public entry in phase 13, its largest difference from the
-    plain version over phase 13's checks, and a row for each of its
-    launches (device ms by width, ptxas report); registers and spills of
-    the row are the largest of its launches'. The one-thread body's ms
-    beside it, and the floor that the bytes of the split design put under
-    it."""
+    """K3a's or K3b's row: the dense route's path, timed through the public
+    entry in phase 13, its largest difference from the plain version over
+    phase 13's checks, and a row for each of its launches (device ms by
+    width, ptxas report); the floor that the bytes of its launches put
+    under it."""
     tag = "true" if name == "sqp_onepass_cand" else "false"
     per = [{"pass": p, "kernel": key, "ms": d_passes[name][B_MAIN][p],
             "ms_by_width": {str(B): by[p]
@@ -3201,17 +2909,10 @@ def _k3_entry(name, replaces, launches, err, t, plain, bound, regs, d_err,
            for p, key in K3S_PASSES.items()
            for r, st, ld, sk in [regs[f"{p} <{tag}>" if p == "K3s-A"
                                       else p]]]
-    return _entry(name, "sqp_onepass_split.cu", replaces, launches,
-                  max(err, d_err[(name, "split")][1]), t, plain, bound,
-                  design="split",
-                  ms_by_width={str(B): v for B, v in
-                               d_t[(name, "split")].items()},
-                  one_thread_ms_by_width={str(B): v for B, v in
-                                          d_t[(name, "one-thread")].items()},
-                  registers=max(e["registers"] for e in per),
-                  spill_stores=max(e["spill_stores"] for e in per),
-                  spill_loads=max(e["spill_loads"] for e in per),
-                  split_bytes=floor[name],
+    return _entry(name, "sqp_onepass.cu", replaces, launches,
+                  max(err, d_err[name][1]), t, plain, bound,
+                  ms_by_width={str(B): v for B, v in d_t[name].items()},
+                  **_worst(per), split_bytes=floor[name],
                   split_bytes_floor_ms=floor[name] / PEAK_BYTES * 1e3,
                   launches_per_call=per)
 
@@ -3220,44 +2921,30 @@ def _k6_extra(name, regs, d_err, d_t, d_dev):
     """The keys that K6a's or K6b's row adds: the team kernel's (the pallas
     route's) ms and device ms by width, ptxas report and largest difference
     from plain over phase 10b's checks (``design_err``, folded into the
-    row's max_abs_err), and the one-thread body's ms by width beside it."""
+    row's max_abs_err)."""
     tag = "true" if name == "riccati_bwd_constq" else "false"
     r, st, ld, sk = regs[f"team <{tag}>"]
     return dict(design="team",
-                ms_by_width={str(B): v for B, v in d_t[(name, "team")].items()},
+                ms_by_width={str(B): v for B, v in d_t[name].items()},
                 device_ms_by_width={str(B): v for B, v in d_dev[name].items()},
-                one_thread_ms_by_width={
-                    str(B): v for B, v in d_t[(name, "one-thread")].items()},
                 registers=r, spill_stores=st, spill_loads=ld, stack=sk,
-                one_thread_registers=regs[f"one-thread <{tag}>"][0],
-                one_thread_spill_stores=regs[f"one-thread <{tag}>"][1],
-                design_err=d_err[(name, "team")][1])
+                design_err=d_err[name][1])
 
 
 def _k5_k7a_extra(name, regs, d_err, d_t, d_dev, floor):
-    """The keys that K5's or K7a's row adds: the path's design (the split),
-    its ms by width, a row for each of its launches (device ms by width,
-    ptxas report; registers and spills of the row are the largest of its
-    launches'), its byte floor and largest difference from plain over
-    phase 10c's checks (``design_err``, folded into the row's max_abs_err),
-    the one-thread body's ms by width and ptxas report beside it."""
+    """The keys that K5's or K7a's row adds: its ms by width, a row for each
+    of its launches (device ms by width, ptxas report), its byte floor and
+    largest difference from plain over phase 10c's checks (``design_err``,
+    folded into the row's max_abs_err)."""
     kid, passes = (("K5", K5_PASSES) if name == "linearize"
                    else ("K7a", K7A_PASSES))
-    per = _launch_rows(passes["split"], d_dev[kid]["split"], {
-        p: regs[f"{kid} split {p}"] for p in passes["split"]})
-    one = regs[f"{kid} one-thread"]
-    return dict(design="split",
-                ms_by_width={str(B): v for B, v in d_t[kid]["split"].items()},
-                split_bytes=floor[kid]["split"],
-                split_bytes_floor_ms=floor[kid]["split"] / PEAK_BYTES * 1e3,
-                launches_per_call=per,
-                one_thread_ms_by_width={
-                    str(B): v for B, v in d_t[kid]["one-thread"].items()},
-                registers=max(e["registers"] for e in per),
-                spill_stores=max(e["spill_stores"] for e in per),
-                spill_loads=max(e["spill_loads"] for e in per),
-                one_thread_registers=one[0], one_thread_spill_stores=one[1],
-                design_err=d_err[(kid, "split")][1])
+    per = _launch_rows(passes, d_dev[kid],
+                       {p: regs[f"{kid} {p}"] for p in passes})
+    return dict(ms_by_width={str(B): v for B, v in d_t[kid].items()},
+                split_bytes=floor[kid],
+                split_bytes_floor_ms=floor[kid] / PEAK_BYTES * 1e3,
+                launches_per_call=per, **_worst(per),
+                design_err=d_err[kid][1])
 
 
 # the TPU kernels' ids (PERF.md's table) by the port's counter names
@@ -3278,11 +2965,11 @@ def main(argv=None) -> int:
     ap.add_argument("--k2-only", action="store_true",
                     help="build permute.cu and run phases 1-3 only")
     ap.add_argument("--f64-only", nargs="?", const="", metavar="PARENT",
-                    help="build permute.cu and sqp_planes_split.cu and run "
+                    help="build permute.cu and sqp_planes.cu and run "
                          "phases 1-2 and the float64 phases only; K1s-A f64 "
                          "beside PARENT's (an unpacked checkout), if given")
     ap.add_argument("--k1s-b-trees", nargs="+", metavar="TREE",
-                    help="build sqp_planes_split.cu and time K1s-B from each "
+                    help="build sqp_planes.cu and time K1s-B from each "
                          "TREE (an unpacked checkout) beside this tree's, "
                          "phases 1-2 and this one only")
     args = ap.parse_args(argv)
@@ -3299,7 +2986,7 @@ def main(argv=None) -> int:
         print(smi)
         return 0
     if args.f64_only is not None:
-        phase_build(("permute", "sqp_planes_split"))
+        phase_build(("permute", "sqp_planes"))
         phase_k1_f64(dev)
         phase_k1a_f64(dev, args.f64_only or None)
         print(smi)
@@ -3309,7 +2996,7 @@ def main(argv=None) -> int:
     if (per_call["take_lanes"], per_call["set_lanes"]) != (1, 1):
         raise AssertionError(f"a K2 call ran more than one kernel: {per_call}")
     k1_err, k1_t, k1_plain, k1_b, r6_launches = phase_k1(dev)
-    k1d_err, k1d_t, k1d_passes = phase_k1_designs(dev)
+    k1d_err, _, k1d_passes = phase_k1_designs(dev)
     k1f_err, k1f_t, k1f_passes, k1f_floor = phase_k1_factor_designs(dev)
     k1r = phase_k1_rank6_designs(dev)
     phase_k1_f64(dev)
@@ -3345,8 +3032,7 @@ def main(argv=None) -> int:
                        factor["spec"]["launches"]["sqp_planes_factor"]}
     kernels = [_k1_entry(k1_launches["sqp_planes"], k1_err["sqp_planes"],
                          k1_t["sqp_planes"], k1_plain["sqp_planes"],
-                         k1_b["sqp_planes"], k1_regs, k1d_err, k1d_t,
-                         k1d_passes)]
+                         k1_b["sqp_planes"], k1_regs, k1d_err, k1d_passes)]
     kernels.append(_k1_rank6_entry(
         k1_launches["sqp_planes_rank6"], k1_err["sqp_planes_rank6"],
         k1_t["sqp_planes_rank6"], k1_plain["sqp_planes_rank6"],

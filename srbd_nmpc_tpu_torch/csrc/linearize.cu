@@ -16,19 +16,19 @@
 // (A, B, R_eff: 1,728 bytes per stage and scenario in f32, structural zeros
 // included, as the contract asks; 5.5 GB a call at N=20, B=131072, 1.64 ms
 // at 3.35 TB/s). In one thread per (stage, lane) that forms all 432 entries
-// beside the chain (linearize_kernel, kept as the yardstick), the chain's
-// state and the fully unrolled R_eff sums are live together: 255 registers,
-// ~5 KB of spill stores per thread, more local-memory traffic than output.
+// beside the chain, the chain's state and the fully unrolled R_eff sums are
+// live together: 255 registers, ~5 KB of spill stores per thread, more
+// local-memory traffic than output (PERF.md).
 //
 // What this design does about it: the dense matrices leave the stage's
 // thread.
 // - The stage pass (k5::stage_pass, one thread per (stage, lane)) runs the
-//   one-thread body's own stage code (load_stage, stage_vectors: the RK4
+//   stage code (load_stage, stage_vectors: the RK4
 //   defect, the constraint rows and barrier, r_eff, q), writes b, q, r_eff
 //   and the merit partials (44 words) and hands on ddb (24 words), each
 //   word as it is formed (Ac' db is summed row by row as the rows come).
-// - The dense write forms each entry of one lane with the one-thread body's
-//   own expression: A = (i == j) + dt J_fx(i, j) from the Jacobian blocks
+// - The dense write forms each entry of one lane with the plain version's
+//   expression: A = (i == j) + dt J_fx(i, j) from the Jacobian blocks
 //   (k5::dense_a runs soa_jacobian_blocks itself, from x and u), B =
 //   dt J_fu(i, j) from the lever arms (k5::dense_b), and R_eff = R(i, j) +
 //   the sum over r = 0..23, in order, of Ac(r, i) (Ac(r, j) ddb(r))
@@ -50,12 +50,12 @@
 // width: PERF.md.)
 // No operation crosses scenarios. Constants (model, Ac, bc, R, Q) sit in
 // shared memory. Sums keep the plain version's order and the build uses
-// -fmad=false, so the design and the yardstick round like the plain version.
+// -fmad=false, so the two launches round like the plain version.
 //
 // The per-lane bodies compile as host C++ (without __CUDACC__): the host
-// entries run the one-thread body or the two launches, so that tests hold
-// them to the plain version (f64) and to each other (f32, -DSRBD_HOST_F32)
-// without a card.
+// entry runs the two launches over every (stage, lane), so that tests hold
+// it to the plain version (f64) and its f32 build (-DSRBD_HOST_F32) to
+// stored digests of its outputs without a card.
 
 #include "srbd_dev.cuh"
 
@@ -174,51 +174,8 @@ HD void stage_vectors(const Model<T>& md, const T* kc, const T* x, const T* xnx,
 }
 
 // ---------------------------------------------------------------------------
-// The one-thread body (linearize_kernel, the yardstick): a thread per (stage,
-// lane) forms every output
-// ---------------------------------------------------------------------------
-template <typename T>
-HD void stage(const T* kc, const T* xs, const T* xn, const T* us, const T* xr, T* Ao,
-              T* Bo, T* bo, T* Reffo, T* reffo, T* qo, T* mer, int B, int g, int b,
-              T mu_b, T theta_b) {
-  const Model<T> md = load_model(kc);
-  const T* Ac = kc + K_AC;
-  const T* Rw = kc + K_R;
-
-  T x[12], xnx[12], u[12], ex[12];
-  load_stage(xs, xn, us, xr, B, g, b, x, xnx, u, ex);
-
-  // ---- Euler sensitivities -------------------------------------------------
-  M3<T> D1, D2;
-  T sF[3], sr[3], sl[3];
-  soa_jacobian_blocks(md, x, u, D1, D2, sF, sr, sl);
-  const T dt = md.dt;
-  const T inv_m = T(1) / md.mass;
-#pragma unroll
-  for (int i = 0; i < 12; ++i)
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      M12(Ao, i, j) = a_entry(D1, D2, sF, dt, i, j);
-      M12(Bo, i, j) = b_entry(sr, sl, inv_m, dt, i, j);
-    }
-
-  T ddb[24];
-  stage_vectors(md, kc, x, xnx, u, ex, bo, reffo, qo, mer, B, g, b, mu_b, theta_b,
-                ddb, 1);
-#pragma unroll
-  for (int i = 0; i < 12; ++i)
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      T acc = Ac[i] * (Ac[j] * ddb[0]);
-#pragma unroll
-      for (int r = 1; r < 24; ++r) acc = acc + Ac[12 * r + i] * (Ac[12 * r + j] * ddb[r]);
-      M12(Reffo, i, j) = Rw[12 * i + j] + acc;
-    }
-}
-
-// ---------------------------------------------------------------------------
-// The new design: the stage pass with its hand-off at h[r * hs], and the
-// dense write of each matrix
+// The stage pass with its hand-off at h[r * hs], and the dense write of
+// each matrix
 // ---------------------------------------------------------------------------
 template <typename T>
 HD void stage_pass(const T* kc, const T* xs, const T* xn, const T* us, const T* xr,
@@ -269,8 +226,7 @@ HD void dense_b(const Model<T>& md, const T* xs, T* Bo, int B, int g, int b) {
 }
 
 // R_eff R_G rows at a time: entry (i, j) is R(i, j) + acc(i, j), acc(i, j)
-// summing Ac(r, i) (Ac(r, j) ddb(r)) over r = 0..23 in order, as the
-// one-thread body. The product Ac(r, j) ddb(r) is formed once for the R_G
+// summing Ac(r, i) (Ac(r, j) ddb(r)) over r = 0..23 in order. The product Ac(r, j) ddb(r) is formed once for the R_G
 // rows of a group (it is the same number in each). Neither the loop over
 // the groups nor the one over r is unrolled, and ddb(r) is read from the
 // hand-off at each step: unrolled, the 288 products, the same for every
@@ -316,20 +272,6 @@ HD void dense_r(const T* Ac, const T* Rw, const T* h, size_t hs, T* Ro, int B, i
 }  // namespace k5
 
 #ifdef __CUDACC__
-
-// the one-thread body, kept as the yardstick
-__global__ void linearize_kernel(const float* __restrict__ consts, const float* xs,
-                                 const float* xn, const float* us, const float* xr,
-                                 float* A, float* Bm, float* b, float* Reff, float* reff,
-                                 float* q, float* mer, int B, float mu_b, float theta_b) {
-  __shared__ float kc[k5::K_LEN];
-  for (int i = threadIdx.x; i < k5::K_LEN; i += blockDim.x) kc[i] = consts[i];
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  k5::stage<float>(kc, xs, xn, us, xr, A, Bm, b, Reff, reff, q, mer, B, blockIdx.y, lane,
-                   mu_b, theta_b);
-}
 
 // Ac [24,12] then R [12,12] of the constants block, 16-byte aligned in
 // shared memory for the dense write of R_eff
@@ -380,23 +322,16 @@ __global__ void __launch_bounds__(k5::LANES, 4)
                        g, lane);
 }
 
-// one_thread != 0: the one-thread body; else the stage pass and the dense
-// write through `hand` [N, 24, B] (unused by the one-thread body). Each
+// the stage pass and the dense write through `hand` [N, 24, B]. Each
 // launch's error is returned as it is made.
-extern "C" int srbd_linearize_launch(int one_thread, const float* consts, const float* xs,
-                                     const float* xn, const float* us, const float* xr,
-                                     float* A, float* Bm, float* b, float* Reff,
-                                     float* reff, float* q, float* mer, float* hand,
-                                     int N, int B, float mu_b, float theta_b,
-                                     void* stream) {
+extern "C" int srbd_linearize_launch(const float* consts, const float* xs, const float* xn,
+                                     const float* us, const float* xr, float* A, float* Bm,
+                                     float* b, float* Reff, float* reff, float* q,
+                                     float* mer, float* hand, int N, int B, float mu_b,
+                                     float theta_b, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((B + k5::LANES - 1) / k5::LANES, N);
-  if (one_thread) {
-    linearize_kernel<<<grid, k5::LANES, 0, s>>>(consts, xs, xn, us, xr, A, Bm, b, Reff,
-                                                reff, q, mer, B, mu_b, theta_b);
-    return (int)cudaGetLastError();
-  }
   k5s_stage_kernel<<<grid, k5::LANES, 0, s>>>(consts, xs, xn, us, xr, b, reff, q, mer,
                                               hand, B, mu_b, theta_b);
   const int err = (int)cudaGetLastError();
@@ -410,21 +345,8 @@ extern "C" int srbd_linearize_launch(int one_thread, const float* consts, const 
 
 using srbd_dev::host_t;  // double, float, or the op counter under -DSRBD_OPCOUNT
 
-// the one-thread body
-extern "C" int srbd_linearize_host_f64(const host_t* consts, const host_t* xs,
-                                       const host_t* xn, const host_t* us,
-                                       const host_t* xr, host_t* A, host_t* Bm, host_t* b,
-                                       host_t* Reff, host_t* reff, host_t* q, host_t* mer,
-                                       int N, int B, double mu_b, double theta_b) {
-  for (int g = 0; g < N; ++g)
-    for (int lane = 0; lane < B; ++lane)
-      k5::stage<host_t>(consts, xs, xn, us, xr, A, Bm, b, Reff, reff, q, mer, B, g, lane,
-                        mu_b, theta_b);
-  return 0;
-}
-
-// the new design: the stage pass over every (stage, lane) into a
-// [N, 24, B] hand-off, then the dense write of each matrix
+// the stage pass over every (stage, lane) into a [N, 24, B] hand-off, then
+// the dense write of each matrix
 extern "C" int srbd_linearize_split_host(const host_t* consts, const host_t* xs,
                                          const host_t* xn, const host_t* us,
                                          const host_t* xr, host_t* A, host_t* Bm,

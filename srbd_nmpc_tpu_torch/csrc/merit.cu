@@ -1,5 +1,6 @@
-// K7a · merit (theta, phi) at a line-search candidate, and K7b · merit with
-// diagnostics and (optionally) gradients; one thread per scenario.
+// K7a · merit (theta, phi) at a line-search candidate, a stage pass and a
+// reduction; and K7b · merit with diagnostics and (optionally) gradients,
+// one thread per scenario.
 //
 // K7a replaces the TPU kernel srbd_nmpc_tpu/models/merit_pallas.py::
 // _kernel_alpha (through merit_alpha_pallas); contract: the plain PyTorch
@@ -16,22 +17,21 @@
 // What bounds K7a on the H100: the RK4 chain (four SO(3) chain evaluations
 // per stage) and reading the candidate's inputs (x, dx, u, du, x_ref: ~250
 // bytes per stage and scenario, 0.65 GB a call at N=20, B=131072). In one
-// thread per scenario (scenario, merit_alpha_kernel, kept as the yardstick)
-// the stages run in series: 255 registers, ~1.8 KB of spill stores, and only
-// 131,072 threads, 8 warps an SM.
+// thread per scenario the stages run in series: 255 registers, ~1.8 KB of
+// spill stores, and only 131,072 threads, 8 warps an SM (PERF.md).
 //
 // What K7a's design does about it: two launches.
 // - The stage pass (k7s_stage_kernel, stage_pass) runs a thread per (stage,
-//   lane) and a terminal row: it forms x_g, x_{g+1} and u_g with the
-//   one-thread body's expression (xa + a dx, in registers; the candidate is
-//   never written to device memory), and the stage's three terms with its
-//   code (stage_terms: soa_rk4, half_quad, barrier_value), written to
+//   lane) and a terminal row: it forms x_g, x_{g+1} and u_g as xa + a dx
+//   (candidate, in registers; the candidate is never written to device
+//   memory), and the stage's three terms (stage_terms: soa_rk4, half_quad,
+//   barrier_value), written to
 //   terms [3N + 1, B]: 1/2 tp, phi_x, phi_u at rows 3g .. 3g + 2, the
 //   terminal 1/2 e_N' Qf e_N at row 3N (64 MB at B=131072).
 // - The reduction (k7s_reduce_kernel, reduce) runs a thread per lane and
-//   adds the terms in the one-thread body's order, so theta and phi are its
-//   bits: th = 1/2 tp_0, then th + 1/2 tp_g; ph = phi_x_0 + phi_u_0, then
-//   (ph + phi_x_g) + phi_u_g; the terminal term last.
+//   adds the terms in stage order, as one thread walking its scenario's
+//   stages would: th = 1/2 tp_0, then th + 1/2 tp_g; ph = phi_x_0 +
+//   phi_u_0, then (ph + phi_x_g) + phi_u_g; the terminal term last.
 // It takes any N >= 1. Global arrays are indexed ((stage * 12 + row) * B +
 // lane), so consecutive threads read consecutive addresses. Constants
 // (model, Ac, bc, R, Q, Qf) sit in shared memory. Built with -fmad=false, so
@@ -109,41 +109,7 @@ HD void stage_terms(const Model<T>& md, const T* kc, const T* x, const T* xn,
   phi_u = sbar + half_quad(kc + K_R, u);
 }
 
-// K7a's one-thread body (merit_alpha_kernel, the yardstick): a thread walks
-// its scenario's stages and sums theta and phi in stage order
-template <typename T>
-HD void scenario(const T* kc, const T* xa, const T* dx, const T* us, const T* du,
-                 const T* xr, const T* alpha, T* theta_out, T* phi_out, int N, int B,
-                 int b, T mu_b, T theta_b) {
-#define V12(ptr, g, row) (ptr)[((size_t)(g) * 12 + (row)) * B + b]
-  const Model<T> md = load_model(kc);
-  const T log_th = k_log(theta_b);
-  const T a = alpha[b];
-
-  T x[12], xn[12], u[12], e[12];
-  candidate(xa, dx, a, 0, B, b, x);
-  T th = 0, ph = 0;
-  for (int g = 0; g < N; ++g) {
-    candidate(xa, dx, a, g + 1, B, b, xn);
-    candidate(us, du, a, g, B, b, u);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) e[i] = x[i] - V12(xr, g, i);
-    T tp, phi_x, phi_u;
-    stage_terms(md, kc, x, xn, u, e, mu_b, theta_b, log_th, tp, phi_x, phi_u);
-    th = (g == 0) ? T(0.5) * tp : th + T(0.5) * tp;
-    ph = ((g == 0) ? phi_x : ph + phi_x) + phi_u;
-#pragma unroll
-    for (int i = 0; i < 12; ++i) x[i] = xn[i];
-  }
-  // terminal: x holds the candidate x_N
-#pragma unroll
-  for (int i = 0; i < 12; ++i) e[i] = x[i] - V12(xr, N, i);
-  theta_out[b] = th;
-  phi_out[b] = ph + half_quad(kc + K_QF, e);
-#undef V12
-}
-
-// K7a's new design, pass 1 (k7s_stage_kernel): the terms of stage g < N at
+// K7a, pass 1 (k7s_stage_kernel): the terms of stage g < N at
 // rows 3g .. 3g + 2 of terms [3N + 1, B] (1/2 tp, phi_x, phi_u), or for
 // g == N the terminal 1/2 e_N' Qf e_N at row 3N
 template <typename T>
@@ -175,7 +141,7 @@ HD void stage_pass(const T* kc, const T* xa, const T* dx, const T* us, const T* 
 }
 
 // pass 2 (k7s_reduce_kernel): theta and phi of one lane from its terms, in
-// the one-thread body's order (th = 1/2 tp_0, then th + 1/2 tp_g;
+// stage order (th = 1/2 tp_0, then th + 1/2 tp_g;
 // ph = phi_x_0 + phi_u_0, then (ph + phi_x_g) + phi_u_g; the terminal last)
 template <typename T>
 HD void reduce(const T* terms, T* theta_out, T* phi_out, int N, int B, int b) {
@@ -295,20 +261,6 @@ HD void merit_scenario(const T* kc, const T* xa, const T* us, const T* xr, T* ou
 
 #ifdef __CUDACC__
 
-// K7a's one-thread body, kept as the yardstick
-__global__ void merit_alpha_kernel(const float* __restrict__ consts, const float* xa,
-                                   const float* dx, const float* us, const float* du,
-                                   const float* xr, const float* alpha, float* theta,
-                                   float* phi, int N, int B, float mu_b, float theta_b) {
-  __shared__ float kc[k7::K_LEN];
-  for (int i = threadIdx.x; i < k7::K_LEN; i += blockDim.x) kc[i] = consts[i];
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  k7::scenario<float>(kc, xa, dx, us, du, xr, alpha, theta, phi, N, B, lane, mu_b,
-                      theta_b);
-}
-
 // K7a, pass 1: a thread per (stage blockIdx.y <= N, lane)
 __global__ void k7s_stage_kernel(const float* __restrict__ consts, const float* xa,
                                  const float* dx, const float* us, const float* du,
@@ -331,23 +283,16 @@ __global__ void k7s_reduce_kernel(const float* terms, float* theta, float* phi, 
   k7::reduce<float>(terms, theta, phi, N, B, lane);
 }
 
-// one_thread != 0: the one-thread body; else the stage pass and the
-// reduction through terms [3N + 1, B]. Each launch's error is returned as it
-// is made.
-extern "C" int srbd_merit_alpha_launch(int one_thread, const float* consts,
-                                       const float* xa, const float* dx, const float* us,
-                                       const float* du, const float* xr,
-                                       const float* alpha, float* theta, float* phi,
-                                       float* terms, int N, int B, float mu_b,
+// the stage pass and the reduction through terms [3N + 1, B]. Each launch's
+// error is returned as it is made.
+extern "C" int srbd_merit_alpha_launch(const float* consts, const float* xa,
+                                       const float* dx, const float* us, const float* du,
+                                       const float* xr, const float* alpha, float* theta,
+                                       float* phi, float* terms, int N, int B, float mu_b,
                                        float theta_b, int threads, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (B + threads - 1) / threads;
-  if (one_thread) {
-    merit_alpha_kernel<<<blocks, threads, 0, s>>>(consts, xa, dx, us, du, xr, alpha,
-                                                  theta, phi, N, B, mu_b, theta_b);
-    return (int)cudaGetLastError();
-  }
   k7s_stage_kernel<<<dim3(blocks, N + 1), threads, 0, s>>>(
       consts, xa, dx, us, du, xr, alpha, terms, N, B, mu_b, theta_b);
   const int err = (int)cudaGetLastError();
@@ -391,19 +336,8 @@ extern "C" int srbd_merit_launch(const float* consts, const float* xa, const flo
 
 using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
 
-extern "C" int srbd_merit_alpha_host_f64(const host_t* consts, const host_t* xa,
-                                         const host_t* dx, const host_t* us,
-                                         const host_t* du, const host_t* xr,
-                                         const host_t* alpha, host_t* theta, host_t* phi,
-                                         int N, int B, double mu_b, double theta_b) {
-  for (int lane = 0; lane < B; ++lane)
-    k7::scenario<host_t>(consts, xa, dx, us, du, xr, alpha, theta, phi, N, B, lane, mu_b,
-                         theta_b);
-  return 0;
-}
-
-// K7a's new design: the stage pass over every (stage <= N, lane), then the
-// reduction of every lane
+// K7a: the stage pass over every (stage <= N, lane), then the reduction of
+// every lane
 extern "C" int srbd_merit_alpha_split_host(const host_t* consts, const host_t* xa,
                                            const host_t* dx, const host_t* us,
                                            const host_t* du, const host_t* xr,

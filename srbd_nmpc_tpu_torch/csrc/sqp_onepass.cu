@@ -1,334 +1,342 @@
-// K3a / K3b · one-pass fused SQP trip (dense layout), one thread per scenario.
+// K3s · the dense one-pass SQP trip (K3a at the candidate, K3b at the
+// iterate) as three launches:
 //
-// Replaces the TPU kernels srbd_nmpc_tpu/ops/sqp_pallas.py::_onepass_cand_kernel
-// (K3a, through sqp_qp_solve_onepass_cand: the trip at the line-search candidate
-// x + alpha dx, u + alpha du with a per-scenario alpha) and ::_onepass_kernel
-// (K3b, through sqp_qp_solve_onepass: the trip at the iterate itself). The two
-// TPU kernels are deliberate near-duplicates; here they are one template on a
-// compile-time CAND. Contract: the plain PyTorch versions
-// srbd_nmpc_tpu_torch/ops/sqp_kernel.py::sqp_qp_solve_onepass_cand_ref and
-// ::sqp_qp_solve_onepass_ref. The dense route runs K3 as the three launches
-// of sqp_onepass_split.cu, which call this body's stage code (terminal_stage,
-// stage_terms, closed_loop_column) and round as it does; this one-launch body
-// stays as the yardstick that the card tests and chip_smoke.py hold the split
-// kernels to (ops/sqp_kernel.py::_k3a_cuda / _k3b_cuda with one_thread).
+//   K3s-A  k3s_planes_kernel<CAND>   the plane pass, one thread per
+//                                    (stage, lane);
+//   K3s-B  k1s_riccati_team_kernel   the backward Riccati pass, K1's
+//                                    team of 16 threads per scenario, as
+//                                    sqp_planes.cu builds it and launched
+//                                    through its srbd_k1s_riccati_launch
+//                                    (no copy here);
+//   K3s-C  k3s_rollout_kernel        the closed-loop rollout, dphi and the
+//                                    merit's reduction over the stages, one
+//                                    thread per lane.
 //
-// Per scenario, stages k = N-1 ... 0 in one backward sweep: linearize the stage
-// (srbd_soa.jacobian_blocks and the four-call srbd_soa.rk4, K5's evaluation
-// order, not K1's shared chain), the relaxed barrier of the leg-block-diagonal
-// friction-cone rows, one structured Riccati stage (shared with K1), the
-// closed-loop products Acl = A + B K and bcl = b + B kv, and the merit at the
-// current point, accumulated in backward stage order. Then the rollout
-// dx_{k+1} = Acl dx_k + bcl, du_k = K dx_k + kv, and dphi. The TPU kernel's
-// `fold` (rollout as the epilogue of the last backward grid step, or N more
-// grid steps) is the same recursion; there is one loop here.
+// Replaces the TPU kernels srbd_nmpc_tpu/ops/sqp_pallas.py::_onepass_kernel
+// (:492, called at :862; K3b, CAND = false) and ::_onepass_cand_kernel
+// (:574, called at :749; K3a, CAND = true). Contract: the plain versions
+// srbd_nmpc_tpu_torch/ops/sqp_kernel.py::sqp_qp_solve_onepass_ref and
+// ::sqp_qp_solve_onepass_cand_ref. The stage code is k3_stage.cuh's.
 //
-// What bounds it on the H100: like K1, the per-scenario recursion keeps P, the
-// Cholesky factor and the 13-column solve live (past the 255-register cap) and
-// is latency- and register-bound per thread. The parked stage products (Acl, K
-// [N,12,12,B], bcl, kv, q, r_eff [N,12,B]: 1,344 bytes per stage and scenario)
-// are written once by the backward sweep and read once by the rollout, all
-// indexed (row * B + lane) so consecutive threads touch consecutive addresses.
-// Nothing crosses lanes, so a compacted launch gives bitwise the same per-lane
-// result as a full-width one. Spills are accepted here.
+// What bounds it on the H100: in one thread per scenario, the stage's
+// linearization, the 12x12 Riccati stage, the closed-loop
+// products and the merit are live together: 255 registers and ~9.7 KB of
+// spills per thread, and the dense Acl [N,12,12,B] written only to be read
+// back by the rollout (1.5 GB per call at B=131072; PERF.md). Split, the plane pass
+// and the rollout are bound by the bytes they move (the pack, K, the
+// inputs), and the Riccati pass by the instructions a team executes per stage
+// and by shared memory (K1s's note, sqp_planes.cu). The bytes of the
+// split (6.5-6.8 GB per call at B=131072, chip_smoke.py's _k3_split_bytes)
+// put a floor of ~2 ms under it at 3.35 TB/s, above the operation bound of
+// the work itself.
 //
-// Full-precision math only, built with -fmad=false, sums in the plain
-// version's order: the kernel rounds like the plain version. The per-scenario
-// body also compiles as host C++ (without __CUDACC__) for a CPU check in f64,
-// and in f32 (-DSRBD_HOST_F32) as the split kernels' bitwise yardstick.
+// What this design does about it:
+// - The plane pass holds no P. Each (stage, lane) thread runs the stage
+//   code (k3::stage_terms: srbd_soa's Jacobian blocks and
+//   four-call RK4, the constraint rows and barrier, Ru, q and r_eff), and
+//   row N the terminal stage (k3::terminal_stage). It writes K1's 87-channel
+//   pack [N, 87, B] in K1's channel order (D1, D2 row-major), so that the
+//   team Riccati pass reads it as it is; the stage's four merit scalars
+//   [N, 4, B] (0.5 |b|^2, the stage's phi term, max |b|, min constraint),
+//   each formed by merit_accumulate itself from a seed that adds nothing
+//   (theta +0 before a term >= 0, phi -0, whose sum with any x is x); and
+//   the terminal rows [13, B] (qN, eN'qN).
+// - The Riccati pass is K1s-B unchanged: seeded by P = Qf and p = qN, it
+//   parks K [N,12,12,B] and kv [N,12,B] = -Y.
+// - The rollout forms Acl and bcl in registers, column by column, from the
+//   pack and K, kv (k3::closed_loop_column), and sums each row over the 12 columns left to right,
+//   structural zeros included, as closed_loop_rollout does: Acl is written
+//   nowhere. The merit scalars are reduced over k = N-1 ... 0 from
+//   merit_seed(0.5 eN'qN), merit_accumulate's order. dx, du, dphi, theta,
+//   phi, max|defect| and min constraint are bit for bit those of one thread
+//   per scenario walking the same stages.
+// No operation crosses scenarios, so a compacted launch gives bitwise the
+// full-width result.
+//
+// Built with -fmad=false like every source (utils/build.py). The per-lane
+// bodies compile as host C++ (without __CUDACC__): the host entry runs the
+// three passes over every lane, each team of the Riccati pass emulated with
+// its members one after another (k1s::riccati_team's host path, widths 8 to
+// 32, in either order), so that tests hold it to the plain version (f64) and
+// its f32 build (-DSRBD_HOST_F32) to stored digests of its outputs without a
+// card.
 
-#include "srbd_dev.cuh"
+#include "k3_stage.cuh"
+#include "k1s_passes.cuh"
 
-namespace k3 {
+namespace k3s {
 
 using namespace srbd_dev;
 
-// constants block, K1's layout (offsets match ops/sqp_stage.py::K_*)
-constexpr int K_AC1 = 17, K_AC2 = 89, K_BC = 161;
-constexpr int K_R = 185, K_Q = 329, K_QF = 473, K_LEN = 617;
+// the merit scalars of a stage [N, MS_C, B] (as ops/sqp_kernel.py::MERIT_C)
+constexpr int MS_TH = 0, MS_PH = 1, MS_MD = 2, MS_MC = 3, MS_C = 4;
 
-// state (or input) rows of stage k, the candidate xa + a dxc under CAND
+// ---------------------------------------------------------------------------
+// K3s-A: stage k < N of one lane, or the terminal stage (k == N)
+// ---------------------------------------------------------------------------
 template <typename T, bool CAND>
-HD void load_stage(const T* xa, const T* dxc, T a, int k, int B, int b, T* x) {
+HD void plane_stage(const T* kc, const T* xa, const T* us, const T* xr, const T* dxc,
+                    const T* duc, const T* alpha, T* pack, T* mer, T* term, int N, int B,
+                    int k, int b, T mu_b, T theta_b) {
+#define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
+  const T a = CAND ? alpha[b] : T(0);
+  if (k == N) {
+    T xn[12], qN[12], sN;
+    k3::terminal_stage<T, CAND>(kc, xa, dxc, xr, a, N, B, b, xn, qN, sN);
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    const size_t at = (size_t)(k * 12 + i) * B + b;
-    x[i] = CAND ? xa[at] + a * dxc[at] : xa[at];
+    for (int i = 0; i < 12; ++i) AT(term, i) = qN[i];
+    AT(term, k1s::T_PN) = sN;
+    return;
   }
-}
+  const Model<T> md = load_model(kc);
+  T x[12], u[12], e[12], xn[12];
+  k3::load_stage<T, CAND>(xa, dxc, a, k, B, b, x);
+  k3::load_stage<T, CAND>(xa, dxc, a, k + 1, B, b, xn);
+  k3::load_stage<T, CAND>(us, duc, a, k, B, b, u);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) e[i] = x[i] - AT(xr, k * 12 + i);
+  M3<T> D1, D2;
+  T sF[3], sr[3], sl[3], bv[12], con[24], bb[24], ddb[24], Ru[12], q[12], rf[12];
+  k3::stage_terms(md, kc, mu_b, theta_b, k_log(theta_b), x, u, e, xn, D1, D2, sF, sr, sl,
+                  bv, con, bb, ddb, Ru, q, rf);
 
-// the terminal stage: the state xn = x_N (the candidate's under CAND),
-// qN = Qf (xn - x_ref,N) and sN = eN'qN, each row sum left to right
-template <typename T, bool CAND>
-HD void terminal_stage(const T* kc, const T* xa, const T* dxc, const T* xr, T a, int N,
-                       int B, int b, T* xn, T* qN, T& sN) {
-  const T* Qf = kc + K_QF;
-  load_stage<T, CAND>(xa, dxc, a, N, B, b, xn);
-  T eN[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) eN[i] = xn[i] - xr[(size_t)(N * 12 + i) * B + b];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    T acc = Qf[12 * i] * eN[0];
-#pragma unroll
-    for (int j = 1; j < 12; ++j) acc = acc + Qf[12 * i + j] * eN[j];
-    qN[i] = acc;
-    sN = (i == 0) ? eN[0] * acc : sN + eN[i] * acc;
-  }
-}
-
-// one stage's terms at (x, u), e = x - x_ref, next state xn: the Jacobian
-// blocks (srbd_soa.jacobian_blocks: D1, D2 and the generators sF, sr, sl),
-// the defect bv = rk4(x, u) - xn (the four-call srbd_soa.rk4: K5's
-// evaluation order, not K1's shared chain), the 24 leg-block-diagonal
-// constraint rows con with their relaxed barrier (bb, ddb), Ru = R u,
-// q = Q e and r_eff = Ru + Ac' db
-template <typename T>
-HD void stage_terms(const Model<T>& md, const T* kc, T mu_b, T theta_b, T log_th,
-                    const T* x, const T* u, const T* e, const T* xn, M3<T>& D1, M3<T>& D2,
-                    T* sF, T* sr, T* sl, T* bv, T* con, T* bb, T* ddb, T* Ru, T* q, T* rf) {
-  const T* Ac1 = kc + K_AC1;  // [12, 6]
-  const T* Ac2 = kc + K_AC2;
-  const T* bc = kc + K_BC;
-  const T* Rw = kc + K_R;
-  const T* Qw = kc + K_Q;
-  soa_jacobian_blocks(md, x, u, D1, D2, sF, sr, sl);
-  soa_rk4(md, x, u, bv);
-#pragma unroll
-  for (int i = 0; i < 12; ++i) bv[i] = bv[i] - xn[i];
-
-  T db[24];
-#pragma unroll
-  for (int g = 0; g < 24; ++g) {
-    const T* arow = (g < 12) ? Ac1 + 6 * g : Ac2 + 6 * (g - 12);
-    const T* ug = (g < 12) ? u : u + 6;
-    T c = arow[0] * ug[0];
-#pragma unroll
-    for (int j = 1; j < 6; ++j) c = c + arow[j] * ug[j];
-    con[g] = c + bc[g];
-    barrier(con[g], mu_b, theta_b, log_th, bb[g], db[g], ddb[g]);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    T ri = Rw[12 * i] * u[0];
-    T qi = Qw[12 * i] * e[0];
-#pragma unroll
-    for (int j = 1; j < 12; ++j) {
-      ri = ri + Rw[12 * i + j] * u[j];
-      qi = qi + Qw[12 * i + j] * e[j];
-    }
-    const T* Ab = (i < 6) ? Ac1 + i : Ac2 + (i - 6);
-    const T* dbl = (i < 6) ? db : db + 12;
-    T acc = Ab[0] * dbl[0];
-#pragma unroll
-    for (int g = 1; g < 12; ++g) acc = acc + Ab[6 * g] * dbl[g];
-    Ru[i] = ri;
-    q[i] = qi;
-    rf[i] = ri + acc;
-  }
-}
-
-// column j of the closed-loop products from column j of [K | kv] (y [12]):
-// column j < 12 of Acl = A + B K, or (j == 12) bcl = b + B kv, with
-//   A = [I + dt D1, dt D2, 0, 0; 0, I, dt SF, 0; 0, 0, I, dt I; 0, 0, 0, I]
-//   B K rows: 0; dt (Sr K0 + K1 + Sl K2 + K3); 0; dt/m (K0 + K2)
-// (dtm = dt/m). Structural zeros are returned as zeros, so that a product
-// with the column rounds as the dense one does.
-template <typename T>
-HD void closed_loop_column(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF,
-                           const T* sr, const T* sl, const T* bv, const T* y, int j, T dt,
-                           T dtm, T* col) {
-  const T k0[3] = {y[0], y[1], y[2]};
-  const T k2[3] = {y[6], y[7], y[8]};
-  T cr[3], cl[3];
-  cross3(sr, k0, cr);
-  cross3(sl, k2, cl);
+  T* pk = pack + (size_t)k * k1::P_C * B;
+#define PK(c) pk[(size_t)(c) * B + b]
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const T bk = dt * (((cr[i] + y[3 + i]) + cl[i]) + y[9 + i]);
-    const T bm = dtm * (y[i] + y[6 + i]);
-    if (j == 12) {
-      col[i] = bv[i];
-      col[3 + i] = bv[3 + i] + bk;
-      col[6 + i] = bv[6 + i];
-      col[9 + i] = bv[9 + i] + bm;
-      continue;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      PK(k1::P_D1 + 3 * i + j) = D1.m[i][j];
+      PK(k1::P_D2 + 3 * i + j) = D2.m[i][j];
     }
-    col[i] = (j < 3) ? T(i == j ? 1 : 0) + dt * D1[i][j] : (j < 6) ? dt * D2[i][j - 3] : T(0);
-    const T a3 = (j >= 3 && j < 6) ? T(i == j - 3 ? 1 : 0)
-                 : (j >= 6 && j < 9) ? dt * skew_at(sF, i, j - 6) : T(0);
-    col[3 + i] = a3 + bk;
-    col[6 + i] = (j >= 6 && j < 9) ? T(i == j - 6 ? 1 : 0)
-                 : (j >= 9) ? dt * T(i == j - 9 ? 1 : 0) : T(0);
-    col[9 + i] = T(j >= 9 && i == j - 9 ? 1 : 0) + bm;
+    PK(k1::P_SF + i) = sF[i];
+    PK(k1::P_SR + i) = sr[i];
+    PK(k1::P_SL + i) = sl[i];
   }
-}
-
-template <typename T, bool CAND>
-HD void scenario(const T* kc, const T* xa, const T* us, const T* xr, const T* dxc,
-                 const T* duc, const T* alpha, const T* dx0, T* dx_out, T* du_out,
-                 T* dphi_out, T* theta_out, T* phi_out, T* maxdef_out, T* mincon_out,
-                 T* Aclp, T* Kp, T* bclp, T* kvp, T* qp, T* rfp, int N, int B, int b,
-                 T mu_b, T theta_b, T reg) {
-#define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
-  const Model<T> md = load_model(kc);
-  const T dt = md.dt;
-  const T m_inv = T(1) / md.mass;
-  const T dtm = dt * m_inv;
-  const T a = CAND ? alpha[b] : T(0);
-  const T* Ac1 = kc + K_AC1;
-  const T* Ac2 = kc + K_AC2;
-  const T* Rw = kc + K_R;
-  const T* Qw = kc + K_Q;
-  const T* Qf = kc + K_QF;
-  const T log_th = k_log(theta_b);
-
-  // terminal stage: Riccati seed (P, p) = (Qf, qN) and phi_N
-  T P[12][12], p[12], qN[12], xn[12], sN;
-  terminal_stage<T, CAND>(kc, xa, dxc, xr, a, N, B, b, xn, qN, sN);
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
-    p[i] = qN[i];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) P[i][j] = Qf[12 * i + j];
+    PK(k1::P_B + i) = bv[i];
+    PK(k1::P_Q + i) = q[i];
+    PK(k1::P_RF + i) = rf[i];
   }
-  Merit<T> mer = merit_seed(T(0.5) * sN);
-
-  for (int k = N - 1; k >= 0; --k) {
-    // ---- stage linearization, constraints, barrier, Ru, q, r_eff ---------
-    T x[12], u[12], e[12];
-    load_stage<T, CAND>(xa, dxc, a, k, B, b, x);
-    load_stage<T, CAND>(us, duc, a, k, B, b, u);
 #pragma unroll
-    for (int i = 0; i < 12; ++i) e[i] = x[i] - AT(xr, k * 12 + i);
-    M3<T> D1, D2;
-    T sF[3], sr[3], sl[3], bv[12], con[24], bb[24], ddb[24], Ru[12], q[12], rf[12];
-    stage_terms(md, kc, mu_b, theta_b, log_th, x, u, e, xn, D1, D2, sF, sr, sl, bv, con, bb,
-                ddb, Ru, q, rf);
+  for (int g = 0; g < 24; ++g) PK(k1::P_DDB + g) = ddb[g];
+#undef PK
 
-    // ---- structured Riccati stage; [K | kv] = -Y --------------------------
-    T Y[12][13];
-    riccati_stage_structured(D1.m, D2.m, sF, sr, sl, bv, q, rf, ddb, Ac1, Ac2, Rw, Qw,
-                             dt, m_inv, reg, P, p, Y);
-#pragma unroll
-    for (int i = 0; i < 12; ++i)
-#pragma unroll
-      for (int c = 0; c < 13; ++c) Y[i][c] = -Y[i][c];
+  // the stage's terms of the merit, as merit_accumulate adds them
+  Merit<T> m = merit_seed(T(-0.0));
+  merit_accumulate(m, bv, con, bb, u, Ru, e, q);
+  T* mk = mer + (size_t)k * MS_C * B;
+  mk[(size_t)MS_TH * B + b] = m.th;
+  mk[(size_t)MS_PH * B + b] = m.ph;
+  mk[(size_t)MS_MD * B + b] = m.md;
+  mk[(size_t)MS_MC * B + b] = m.mc;
+#undef AT
+}
 
-    // ---- park K, kv, q, r_eff and Acl = A + B K, bcl = b + B kv -----------
+// ---------------------------------------------------------------------------
+// K3s-C: closed_loop_rollout with Acl and bcl formed from the pack and the
+// parked gains, then the merit in backward stage order
+// ---------------------------------------------------------------------------
+template <typename T>
+HD void rollout(const T* kc, const T* pack, const T* mer, const T* term, const T* Kp,
+                const T* kvp, const T* dx0, T* dx_out, T* du_out, T* dphi_out,
+                T* theta_out, T* phi_out, T* maxdef_out, T* mincon_out, int N, int B,
+                int b) {
+#define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
+#define PK(c) pk[(size_t)(c) * B + b]
+  const T dt = kc[k1::K_DT];
+  const T m_inv = T(1) / kc[k1::K_MASS];
+  const T dtm = dt * m_inv;
+  T dx[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) dx[i] = AT(dx0, i);
+  T tot = 0;
+  for (int k = 0; k < N; ++k) {
+    const T* pk = pack + (size_t)k * k1::P_C * B;
+    T D1[3][3], D2[3][3], sF[3], sr[3], sl[3], bv[12];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        D1[i][j] = PK(k1::P_D1 + 3 * i + j);
+        D2[i][j] = PK(k1::P_D2 + 3 * i + j);
+      }
+      sF[i] = PK(k1::P_SF + i);
+      sr[i] = PK(k1::P_SR + i);
+      sl[i] = PK(k1::P_SL + i);
+    }
+#pragma unroll
+    for (int i = 0; i < 12; ++i) bv[i] = PK(k1::P_B + i);
+
+    // du = K dx + kv and dxn = Acl dx + bcl, column j of [K | kv] and of
+    // [Acl | bcl] at a time; each row's sum left to right over j
+    T du[12], dxn[12];
 #pragma unroll
     for (int j = 0; j < 13; ++j) {
       T y[12], col[12];
 #pragma unroll
-      for (int i = 0; i < 12; ++i) y[i] = Y[i][j];
-      closed_loop_column(D1.m, D2.m, sF, sr, sl, bv, y, j, dt, dtm, col);
+      for (int i = 0; i < 12; ++i)
+        y[i] = (j < 12) ? AT(Kp, (k * 12 + i) * 12 + j) : AT(kvp, k * 12 + i);
+      k3::closed_loop_column(D1, D2, sF, sr, sl, bv, y, j, dt, dtm, col);
 #pragma unroll
       for (int i = 0; i < 12; ++i) {
-        if (j == 12) AT(bclp, k * 12 + i) = col[i];
-        else AT(Aclp, (k * 12 + i) * 12 + j) = col[i];
+        if (j == 0) {
+          du[i] = y[i] * dx[0];
+          dxn[i] = col[i] * dx[0];
+        } else if (j < 12) {
+          du[i] = du[i] + y[i] * dx[j];
+          dxn[i] = dxn[i] + col[i] * dx[j];
+        } else {
+          du[i] = du[i] + y[i];
+          dxn[i] = dxn[i] + col[i];
+        }
       }
     }
+    T px = dx[0] * PK(k1::P_Q);
+    T pu = du[0] * PK(k1::P_RF);
+#pragma unroll
+    for (int i = 1; i < 12; ++i) {
+      px = px + dx[i] * PK(k1::P_Q + i);
+      pu = pu + du[i] * PK(k1::P_RF + i);
+    }
+    tot = (k == 0) ? px + pu : tot + (px + pu);
 #pragma unroll
     for (int i = 0; i < 12; ++i) {
-#pragma unroll
-      for (int j = 0; j < 12; ++j) AT(Kp, (k * 12 + i) * 12 + j) = Y[i][j];
-      AT(kvp, k * 12 + i) = Y[i][12];
-      AT(qp, k * 12 + i) = q[i];
-      AT(rfp, k * 12 + i) = rf[i];
+      AT(du_out, k * 12 + i) = du[i];
+      AT(dx_out, k * 12 + i) = dxn[i];
+      dx[i] = dxn[i];
     }
-
-    // ---- merit at the current point, backward stage order -----------------
-    merit_accumulate(mer, bv, con, bb, u, Ru, e, q);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) xn[i] = x[i];
   }
-  AT(theta_out, 0) = mer.th;
-  AT(phi_out, 0) = mer.ph;
-  AT(maxdef_out, 0) = mer.md;
-  AT(mincon_out, 0) = mer.mc;
-
-  // ---- rollout and dphi ----------------------------------------------------
-  T dx[12];
+  T last = dx[0] * AT(term, 0);
 #pragma unroll
-  for (int i = 0; i < 12; ++i) dx[i] = AT(dx0, i);
-  AT(dphi_out, 0) =
-      closed_loop_rollout(Aclp, Kp, bclp, kvp, qp, rfp, qN, dx, dx_out, du_out, N, B, b);
+  for (int i = 1; i < 12; ++i) last = last + dx[i] * AT(term, i);
+  AT(dphi_out, 0) = tot + last;
+
+  Merit<T> m = merit_seed(T(0.5) * AT(term, k1s::T_PN));
+  for (int k = N - 1; k >= 0; --k) {
+    const T* mk = mer + (size_t)k * MS_C * B;
+    m.th = m.th + mk[(size_t)MS_TH * B + b];
+    m.ph = m.ph + mk[(size_t)MS_PH * B + b];
+    m.md = nan_max(m.md, mk[(size_t)MS_MD * B + b]);
+    m.mc = nan_min(m.mc, mk[(size_t)MS_MC * B + b]);
+  }
+  AT(theta_out, 0) = m.th;
+  AT(phi_out, 0) = m.ph;
+  AT(maxdef_out, 0) = m.md;
+  AT(mincon_out, 0) = m.mc;
+#undef PK
 #undef AT
 }
 
-}  // namespace k3
+}  // namespace k3s
 
-// K3_NO_ENTRIES: the bodies alone, for a source that includes this one
-// (sqp_onepass_split.cu)
-#ifndef K3_NO_ENTRIES
 #ifdef __CUDACC__
 
-template <bool CAND>
-__global__ void sqp_onepass_kernel(const float* __restrict__ consts, const float* xa,
-                                   const float* us, const float* xr, const float* dxc,
-                                   const float* duc, const float* alpha, const float* dx0,
-                                   float* dx_out, float* du_out, float* dphi, float* theta,
-                                   float* phi, float* maxdef, float* mincon, float* Acl,
-                                   float* K, float* bcl, float* kv, float* q, float* rf,
-                                   int N, int B, float mu_b, float theta_b, float reg) {
-  __shared__ float kc[k3::K_LEN];
-  for (int i = threadIdx.x; i < k3::K_LEN; i += blockDim.x) kc[i] = consts[i];
+// the constants block into shared memory, for the whole block
+#define K3S_CONSTS                                                  \
+  __shared__ float kc[k3::K_LEN];                                   \
+  for (int i = threadIdx.x; i < k3::K_LEN; i += blockDim.x) kc[i] = consts[i]; \
   __syncthreads();
+
+template <bool CAND>
+__global__ void __launch_bounds__(128, 3)
+    k3s_planes_kernel(const float* __restrict__ consts, const float* xa, const float* us,
+                      const float* xr, const float* dxc, const float* duc,
+                      const float* alpha, float* pack, float* mer, float* term, int N,
+                      int B, float mu_b, float theta_b) {
+  K3S_CONSTS
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  k3::scenario<float, CAND>(kc, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi,
-                            theta, phi, maxdef, mincon, Acl, K, bcl, kv, q, rf, N, B, b,
-                            mu_b, theta_b, reg);
+  k3s::plane_stage<float, CAND>(kc, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B,
+                                blockIdx.y, b, mu_b, theta_b);
 }
 
-// cand != 0: K3a (dxc, duc, alpha read); cand == 0: K3b (they may be null)
-extern "C" int srbd_sqp_onepass_launch(const float* consts, const float* xa, const float* us,
-                                       const float* xr, const float* dxc, const float* duc,
-                                       const float* alpha, const float* dx0, float* dx_out,
-                                       float* du_out, float* dphi, float* theta, float* phi,
-                                       float* maxdef, float* mincon, float* Acl, float* K,
-                                       float* bcl, float* kv, float* q, float* rf, int N,
-                                       int B, float mu_b, float theta_b, float reg, int cand,
-                                       int threads, void* stream) {
+__global__ void __launch_bounds__(128)
+    k3s_rollout_kernel(const float* __restrict__ consts, const float* pack, const float* mer,
+                       const float* term, const float* park0, const float* park1,
+                       const float* dx0, float* dx_out, float* du_out, float* dphi,
+                       float* theta, float* phi, float* maxdef, float* mincon, int N,
+                       int B) {
+  K3S_CONSTS
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  k3s::rollout<float>(kc, pack, mer, term, park0, park1, dx0, dx_out, du_out, dphi, theta,
+                      phi, maxdef, mincon, N, B, b);
+}
+
+constexpr int K3S_THREADS = 128;
+
+// K3s-A: pack [N, 87, B], mer [N, 4, B], term [13, B]; cand != 0: K3a
+// (dxc, duc, alpha read), cand == 0: K3b (they may be null)
+extern "C" int srbd_k3s_planes_launch(const float* consts, const float* xa, const float* us,
+                                      const float* xr, const float* dxc, const float* duc,
+                                      const float* alpha, float* pack, float* mer,
+                                      float* term, int N, int B, float mu_b, float theta_b,
+                                      int cand, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  const int blocks = (B + threads - 1) / threads;
+  const dim3 grid((B + K3S_THREADS - 1) / K3S_THREADS, N + 1);
   if (cand)
-    sqp_onepass_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi, theta, phi, maxdef,
-        mincon, Acl, K, bcl, kv, q, rf, N, B, mu_b, theta_b, reg);
+    k3s_planes_kernel<true><<<grid, K3S_THREADS, 0, (cudaStream_t)stream>>>(
+        consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, mu_b, theta_b);
   else
-    sqp_onepass_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out, dphi, theta, phi, maxdef,
-        mincon, Acl, K, bcl, kv, q, rf, N, B, mu_b, theta_b, reg);
+    k3s_planes_kernel<false><<<grid, K3S_THREADS, 0, (cudaStream_t)stream>>>(
+        consts, xa, us, xr, dxc, duc, alpha, pack, mer, term, N, B, mu_b, theta_b);
   return (int)cudaGetLastError();
 }
 
-#else  // host build: the same per-scenario body over every lane, in f64
+// K3s-C: dx_out = dx[1:]; park0, park1: K and kv from K1s-B
+extern "C" int srbd_k3s_rollout_launch(const float* consts, const float* pack,
+                                       const float* mer, const float* term,
+                                       const float* park0, const float* park1,
+                                       const float* dx0, float* dx_out, float* du_out,
+                                       float* dphi, float* theta, float* phi, float* maxdef,
+                                       float* mincon, int N, int B, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  k3s_rollout_kernel<<<(B + K3S_THREADS - 1) / K3S_THREADS, K3S_THREADS, 0,
+                       (cudaStream_t)stream>>>(consts, pack, mer, term, park0, park1, dx0,
+                                               dx_out, du_out, dphi, theta, phi, maxdef,
+                                               mincon, N, B);
+  return (int)cudaGetLastError();
+}
 
-using srbd_dev::host_t;  // double, or the op counter under -DSRBD_OPCOUNT
+#else  // host build: the three passes over every lane
 
-extern "C" int srbd_sqp_onepass_host_f64(const host_t* consts, const host_t* xa,
-                                         const host_t* us, const host_t* xr,
-                                         const host_t* dxc, const host_t* duc,
-                                         const host_t* alpha, const host_t* dx0,
-                                         host_t* dx_out, host_t* du_out, host_t* dphi,
-                                         host_t* theta, host_t* phi, host_t* maxdef,
-                                         host_t* mincon, host_t* Acl, host_t* K, host_t* bcl,
-                                         host_t* kv, host_t* q, host_t* rf, int N, int B,
-                                         double mu_b, double theta_b, double reg, int cand) {
+using srbd_dev::host_t;
+
+// the arguments of the three launches together; team: the team width the
+// Riccati pass emulates (8 to 32; the card's is k1s::W_CARD), rev: the
+// team's members in reverse order within each step
+extern "C" int srbd_sqp_onepass_split_host(int team, int rev, int cand, const host_t* consts,
+                                           const host_t* xa, const host_t* us,
+                                           const host_t* xr, const host_t* dxc,
+                                           const host_t* duc, const host_t* alpha,
+                                           const host_t* dx0, host_t* dx_out,
+                                           host_t* du_out, host_t* dphi, host_t* theta,
+                                           host_t* phi, host_t* maxdef, host_t* mincon,
+                                           host_t* pack, host_t* mer, host_t* term,
+                                           host_t* park0, host_t* park1, int N, int B,
+                                           double mu_b, double theta_b, double reg) {
+  if (team < 8 || team > 32) return 1;  // the team's x0: two columns a member
+  const host_t mu(mu_b), th(theta_b), rg(reg);
+  for (int k = 0; k <= N; ++k)
+    for (int b = 0; b < B; ++b) {
+      if (cand)
+        k3s::plane_stage<host_t, true>(consts, xa, us, xr, dxc, duc, alpha, pack, mer, term,
+                                       N, B, k, b, mu, th);
+      else
+        k3s::plane_stage<host_t, false>(consts, xa, us, xr, dxc, duc, alpha, pack, mer,
+                                        term, N, B, k, b, mu, th);
+    }
   for (int b = 0; b < B; ++b) {
-    if (cand)
-      k3::scenario<host_t, true>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out,
-                                 dphi, theta, phi, maxdef, mincon, Acl, K, bcl, kv, q, rf,
-                                 N, B, b, mu_b, theta_b, reg);
-    else
-      k3::scenario<host_t, false>(consts, xa, us, xr, dxc, duc, alpha, dx0, dx_out, du_out,
-                                  dphi, theta, phi, maxdef, mincon, Acl, K, bcl, kv, q, rf,
-                                  N, B, b, mu_b, theta_b, reg);
+    k1s::Team<host_t> s;
+    k1s::riccati_team(s, consts, pack, term, park0, park1, N, B, b, rg, 0, team, 0u,
+                      rev != 0);
   }
+  for (int b = 0; b < B; ++b)
+    k3s::rollout(consts, pack, mer, term, park0, park1, dx0, dx_out, du_out, dphi, theta,
+                 phi, maxdef, mincon, N, B, b);
   return 0;
 }
 
 #endif
-#endif  // K3_NO_ENTRIES

@@ -1,10 +1,10 @@
 // Device helpers shared by the port's CUDA kernels: scalar math, 3x3 algebra,
 // the SO(3) small-angle clamp, the relaxed log barrier, the SRBD model in
 // the evaluation order of srbd_nmpc_tpu_torch/models/srbd_soa.py (its SO(3)
-// chain, Jacobian blocks, dense Jacobian entries and four-call RK4), and the
-// stage bodies of the fused SQP trips (ops/sqp_stage.py): the structured
-// Riccati stage (K1's gains and factor bodies, K3), the backward-order merit
-// (K3, K4a) and the closed-loop rollout (K3, K4b).
+// chain, Jacobian blocks, dense Jacobian entries and four-call RK4), and
+// pieces of the fused SQP trips (ops/sqp_stage.py): the Jacobian products of
+// the structured Riccati stage (K1s-B, its team form), the backward-order
+// merit (K3, K4a) and the closed-loop rollout (K4b).
 //
 // Every function is __host__ __device__ and a template on the scalar type, so
 // each kernel's per-thread body also compiles as host C++ (without __CUDACC__)
@@ -455,8 +455,8 @@ template <typename T>
 HD T nan_min(T a, T b) { return (a < b || a != a) ? a : b; }
 
 // ---------------------------------------------------------------------------
-// The structured backward-Riccati stage of the fused SQP trips
-// (sqp_pallas._riccati_stage_structured), shared by K1 and K3.
+// Products with the Jacobian blocks of the structured backward-Riccati stage
+// (sqp_pallas._riccati_stage_structured), for K1s-B's team form.
 // ---------------------------------------------------------------------------
 
 // skew(s)' m = m x s (nonzero terms only)
@@ -492,240 +492,6 @@ HD T jxt_m(const T (&V)[12][12], const T (&D1)[3][3], const T (&D2)[3][3], const
   T o[3];
   skewT_mul(sF, V[j][3], V[j][4], V[j][5], o);
   return o[i - 6];
-}
-
-// Pb_p = P b + p
-template <typename T>
-HD void stage_pbp(const T (&P)[12][12], const T* bv, const T* p, T* Pbp) {
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    T acc = P[i][0] * bv[0];
-#pragma unroll
-    for (int j = 1; j < 12; ++j) acc = acc + P[i][j] * bv[j];
-    Pbp[i] = acc + p[i];
-  }
-}
-
-// V = Jx' P (rows: D1' P0 | D2' P0 | SF' P1 | P2)
-template <typename T>
-HD void stage_jxt_p(const T (&P)[12][12], const T (&D1)[3][3], const T (&D2)[3][3],
-                    const T* sF, T (&V)[12][12]) {
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      V[i][j] = D1[0][i] * P[0][j] + D1[1][i] * P[1][j] + D1[2][i] * P[2][j];
-      V[3 + i][j] = D2[0][i] * P[0][j] + D2[1][i] * P[1][j] + D2[2][i] * P[2][j];
-      V[9 + i][j] = P[6 + i][j];
-    }
-    T s[3];
-    skewT_mul(sF, P[3][j], P[4][j], P[5][j], s);
-    V[6][j] = s[0];
-    V[7][j] = s[1];
-    V[8][j] = s[2];
-  }
-}
-
-// jv = Jx' v
-template <typename T>
-HD void stage_jxt_v(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF, const T* v,
-                    T* jv) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    jv[i] = D1[0][i] * v[0] + D1[1][i] * v[1] + D1[2][i] * v[2];
-    jv[3 + i] = D2[0][i] * v[0] + D2[1][i] * v[1] + D2[2][i] * v[2];
-    jv[9 + i] = v[6 + i];
-  }
-  T s[3];
-  skewT_mul(sF, v[3], v[4], v[5], s);
-  jv[6] = s[0];
-  jv[7] = s[1];
-  jv[8] = s[2];
-}
-
-// One stage k of the structured backward Riccati recursion, from the stage's
-// Jacobian blocks (D1, D2 and the generators sF, sr, sl), defect bv, tracking
-// gradient q, r_eff rf and barrier curvature ddb [24], with the leg blocks
-// Ac1, Ac2 [12, 6] and R, Q (row-major) of the constants block. Updates (P, p)
-// to stage k in place. kGains (K1's gains body, K3): leaves X in Y, where
-// [K | kv] = -X. Otherwise (K1's factor body, sqp_stage's return_factor form)
-// skips the back substitution: leaves the forward-substituted half
-// [Yh | yv] = L^-1 [H | rv] in Y, the lower triangle of the Cholesky factor L
-// row by row in Lt [78] and 1 / diag(L) in dinv_out [12].
-template <typename T, bool kGains = true>
-HD void riccati_stage_structured(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF,
-                                 const T* sr, const T* sl, const T* bv, const T* q,
-                                 const T* rf, const T* ddb, const T* Ac1, const T* Ac2,
-                                 const T* Rw, const T* Qw, T dt, T m_inv, T reg,
-                                 T (&P)[12][12], T* p, T (&Y)[12][13], T* Lt = nullptr,
-                                 T* dinv_out = nullptr) {
-  T Pbp[12];
-  stage_pbp(P, bv, p, Pbp);
-  T V[12][12];
-  stage_jxt_p(P, D1, D2, sF, V);
-
-  // Y13 = [H | rv]: H = dt Ju'(P A), A = I + dt Jx, P A = P + dt V'
-  //   Ju' Mat rows: [Sr' M1 + M3/m | M1 | Sl' M1 + M3/m | M1]
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    T m1[3], m3[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      m1[i] = P[3 + i][j] + dt * V[j][3 + i];
-      m3[i] = P[9 + i][j] + dt * V[j][9 + i];
-    }
-    T s1[3], s2[3];
-    skewT_mul(sr, m1[0], m1[1], m1[2], s1);
-    skewT_mul(sl, m1[0], m1[1], m1[2], s2);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      Y[i][j] = dt * (s1[i] + m_inv * m3[i]);
-      Y[3 + i][j] = dt * m1[i];
-      Y[6 + i][j] = dt * (s2[i] + m_inv * m3[i]);
-      Y[9 + i][j] = dt * m1[i];
-    }
-  }
-  {
-    T s1[3], s2[3];
-    skewT_mul(sr, Pbp[3], Pbp[4], Pbp[5], s1);
-    skewT_mul(sl, Pbp[3], Pbp[4], Pbp[5], s2);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      Y[i][12] = dt * (s1[i] + m_inv * Pbp[9 + i]) + rf[i];
-      Y[3 + i][12] = dt * Pbp[3 + i] + rf[3 + i];
-      Y[6 + i][12] = dt * (s2[i] + m_inv * Pbp[9 + i]) + rf[6 + i];
-      Y[9 + i][12] = dt * Pbp[3 + i] + rf[9 + i];
-    }
-  }
-
-  // G = Reff + dt^2 Ju'(P Ju) + reg I (lower triangle), with
-  // Reff = R + blockdiag(Ac1' diag(ddb1) Ac1, Ac2' diag(ddb2) Ac2) and
-  // P Ju = (Ju' P)' = U'
-  T L[12][12];
-  const T dt2 = dt * dt;
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    // column j of Ju'(U'): rows from Mat = U' with Mat[r][j] = U[j][r]
-    T m1[3], m3[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      m1[i] = ju_p(P, sr, sl, m_inv, j, 3 + i);
-      m3[i] = ju_p(P, sr, sl, m_inv, j, 9 + i);
-    }
-    T s1[3], s2[3];
-    skewT_mul(sr, m1[0], m1[1], m1[2], s1);
-    skewT_mul(sl, m1[0], m1[1], m1[2], s2);
-    T col[12];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      col[i] = s1[i] + m_inv * m3[i];
-      col[3 + i] = m1[i];
-      col[6 + i] = s2[i] + m_inv * m3[i];
-      col[9 + i] = m1[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      if (i < j) continue;
-      T re = Rw[12 * i + j];
-      const bool same_leg = (i < 6) == (j < 6);
-      if (same_leg) {
-        const T* Ab = (i < 6) ? Ac1 : Ac2;
-        const int ii = (i < 6) ? i : i - 6, jj = (j < 6) ? j : j - 6;
-        const int g0 = (i < 6) ? 0 : 12;
-        T c = Ab[ii] * (Ab[jj] * ddb[g0]);
-#pragma unroll
-        for (int g = 1; g < 12; ++g)
-          c = c + Ab[6 * g + ii] * (Ab[6 * g + jj] * ddb[g0 + g]);
-        re = re + c;
-      }
-      T gij = re + dt2 * col[i];
-      if (i == j) gij = gij + reg;
-      L[i][j] = gij;
-    }
-  }
-
-  // right-looking Cholesky on the lower triangle, dinv = rsqrt(pivot)
-  T dinv[12];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    const T di = k_rsqrt(L[j][j]);
-    dinv[j] = di;
-#pragma unroll
-    for (int i = 0; i < 12; ++i)
-      if (i >= j) L[i][j] = L[i][j] * di;
-#pragma unroll
-    for (int c = 0; c < 12; ++c)
-#pragma unroll
-      for (int i = 0; i < 12; ++i)
-        if (c > j && i >= c) L[i][c] = L[i][c] - L[i][j] * L[c][j];
-  }
-
-  // forward substitution Y <- L^-1 [H | rv] (13 columns)
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-#pragma unroll
-    for (int c = 0; c < 13; ++c) Y[i][c] = Y[i][c] * dinv[i];
-#pragma unroll
-    for (int r = 0; r < 12; ++r)
-      if (r > i) {
-#pragma unroll
-        for (int c = 0; c < 13; ++c) Y[r][c] = Y[r][c] - L[r][i] * Y[i][c];
-      }
-  }
-
-  // P_new = Qw + P + dt (M + V) + dt^2 Jx' M - Yh' Yh, M = V';
-  // p_new = q + Pb_p + dt Jx' Pb_p - Yh' yv
-  // entries (i, j) and (j, i) read only P[i][j] and P[j][i] of the old P
-  // (V is already formed), so the symmetrized update is done in place
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      if (j < i) continue;
-      T gr = Y[0][i] * Y[0][j];
-#pragma unroll
-      for (int r = 1; r < 12; ++r) gr = gr + Y[r][i] * Y[r][j];
-      const T mv = dt * (V[j][i] + V[i][j]);
-      const T xij = (((Qw[12 * i + j] + P[i][j]) + mv) + dt2 * jxt_m(V, D1, D2, sF, i, j)) - gr;
-      const T xji = (((Qw[12 * j + i] + P[j][i]) + mv) + dt2 * jxt_m(V, D1, D2, sF, j, i)) - gr;
-      const T s = T(0.5) * (xij + xji);
-      P[i][j] = s;
-      P[j][i] = s;
-    }
-  }
-  {
-    T jv[12];
-    stage_jxt_v(D1, D2, sF, Pbp, jv);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      T yy = Y[0][i] * Y[0][12];
-#pragma unroll
-      for (int r = 1; r < 12; ++r) yy = yy + Y[r][i] * Y[r][12];
-      p[i] = ((q[i] + Pbp[i]) + dt * jv[i]) - yy;
-    }
-  }
-
-  if constexpr (kGains) {
-    // back substitution L' X = Y
-#pragma unroll
-    for (int i = 11; i >= 0; --i) {
-#pragma unroll
-      for (int c = 0; c < 13; ++c) Y[i][c] = Y[i][c] * dinv[i];
-#pragma unroll
-      for (int r = 0; r < 12; ++r)
-        if (r < i) {
-#pragma unroll
-          for (int c = 0; c < 13; ++c) Y[r][c] = Y[r][c] - L[i][r] * Y[i][c];
-        }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) Lt[i * (i + 1) / 2 + j] = L[i][j];
-      dinv_out[i] = dinv[i];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -775,7 +541,7 @@ HD void merit_accumulate(Merit<T>& m, const T* bv, const T* con, const T* bb, co
 
 // ---------------------------------------------------------------------------
 // Closed-loop rollout of parked stage products (sqp_pallas._forward_epilogue,
-// K3 and K4b): du_k = K_k dx_k + kv_k, dx_{k+1} = Acl_k dx_k + bcl_k, and the
+// K4b): du_k = K_k dx_k + kv_k, dx_{k+1} = Acl_k dx_k + bcl_k, and the
 // directional derivative dphi = sum_k (dx_k . q_k + du_k . r_k) + dx_N . q_N.
 // Stage arrays are [N, 12(, 12), B], indexed (row * B + lane); dx [12] holds
 // dx_0 on entry and dx_N on exit. Returns dphi.

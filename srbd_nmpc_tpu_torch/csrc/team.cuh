@@ -1,7 +1,7 @@
 // Helpers of the kernels that spread one scenario's Riccati stage over a
 // team of W threads, with the stage's matrices in a per-team array in shared
-// memory: K1s-B and its rank-6 and factor forms (sqp_planes_split.cu; the
-// gains form is also K3's Riccati pass) and K6's team backward pass
+// memory: K1s-B and its rank-6 and factor forms (k1s_passes.cuh; the gains
+// form is also K3's Riccati pass) and K6's team backward pass
 // (riccati.cu; its Acl form is also K4a's).
 //
 // A team body is written once for the card and the host. On the card each
@@ -12,8 +12,9 @@
 // reversed order catches such a race). The enclosing function names the
 // team's lane, W, mask and rev.
 //
-// Every entry is formed by one member with the one-thread body's expression
-// and sum order, so a team rounds exactly as that body does.
+// Every entry is formed by one member with one fixed expression and sum
+// order, so no sum is split between members and a team rounds alike at
+// every width and member order.
 
 #pragma once
 
@@ -61,9 +62,9 @@ HD unsigned team_mask(int W, int team_in_warp) {
 }
 
 // Right-looking Cholesky of the 12x12 lower triangle L (78 entries, li),
-// dinv = rsqrt(pivot), the one-thread body's order: each row's entries a
-// member. Column 0 is scaled first; then each step j updates the trailing
-// rows r > j by L[r][j] (scaled) and scales column j + 1 with the pivot every
+// dinv = rsqrt(pivot): each row's entries a member. Column 0 is scaled
+// first; then each step j updates the trailing rows r > j by L[r][j]
+// (scaled) and scales column j + 1 with the pivot every
 // member forms from L[j+1][j+1] as its owner would, so the owner leaves that
 // entry unwritten (the scaled diagonal is never read). One barrier a column;
 // ends with one.

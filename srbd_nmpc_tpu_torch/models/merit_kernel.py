@@ -141,7 +141,7 @@ def _fn(entry: str, argtypes):
 
 def _lib():
     return _fn("srbd_merit_alpha_launch",
-               [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
                + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -152,13 +152,10 @@ def _lib_merit():
 
 
 def _merit_alpha_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
-                      alpha, mu_b, theta_b, one_thread=False, consts=None):
-    """K7a on the card: the stage pass and the reduction, or with
-    ``one_thread`` the one-thread kernel ``merit_alpha_kernel``, the
-    yardstick that the card tests and chip_smoke.py hold to the plain
-    version and time the new design against. ``consts``: the block of
-    ``kernel_constants`` (built on each call when not given). CUDA tensors
-    only."""
+                      alpha, mu_b, theta_b, consts=None):
+    """K7a on the card: the stage pass and the reduction. ``consts``: the
+    block of ``kernel_constants`` (built on each call when not given). CUDA
+    tensors only."""
     Np1, _, Bt = x.shape
     N = Np1 - 1
     for name, t, shape in (("x", x, (Np1, NX, Bt)), ("xr", xr, (Np1, NX, Bt)),
@@ -172,12 +169,11 @@ def _merit_alpha_cuda(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du,
     x, dx, u, du, xr, alpha = (t.contiguous()
                                for t in (x, dx, u, du, xr, alpha))
     out = torch.empty((2, Bt), dtype=torch.float32, device=x.device)
-    terms = (None if one_thread else
-             torch.empty((3 * N + 1, Bt), dtype=torch.float32, device=x.device))
-    err = _lib()(int(one_thread), consts.data_ptr(), x.data_ptr(),
-                 dx.data_ptr(), u.data_ptr(), du.data_ptr(), xr.data_ptr(),
-                 alpha.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                 None if terms is None else terms.data_ptr(), N, Bt,
+    terms = torch.empty((3 * N + 1, Bt), dtype=torch.float32,
+                        device=x.device)
+    err = _lib()(consts.data_ptr(), x.data_ptr(), dx.data_ptr(),
+                 u.data_ptr(), du.data_ptr(), xr.data_ptr(), alpha.data_ptr(),
+                 out[0].data_ptr(), out[1].data_ptr(), terms.data_ptr(), N, Bt,
                  float(mu_b), float(theta_b), THREADS,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

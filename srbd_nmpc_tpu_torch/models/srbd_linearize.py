@@ -98,15 +98,15 @@ def linearize_ref(params: SRBDParams, Q_w, R_w, Ac, bc, xs, xn, us, xr,
 def _lib():
     fn = load_kernel("linearize").srbd_linearize_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 13
                        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(consts, xs, xn, us, xr, mu_b, theta_b, one_thread=False, q=None):
-    """K5's launch (``csrc/linearize.cu``), its return code checked; counts
+def _launch(consts, xs, xn, us, xr, mu_b, theta_b, q=None):
+    """K5's two launches (``csrc/linearize.cu``), their return code checked; counts
     nothing. ``consts``: the block of ``kernel_constants``, or a longer block
     that starts with it (K4a's). ``q``: a buffer whose first N rows take q
     (K4a's [N+1, 12, B], whose row N its terminal pass fills), else one of N
@@ -121,14 +121,12 @@ def _launch(consts, xs, xn, us, xr, mu_b, theta_b, one_thread=False, q=None):
                     empty(N, NU, NU, Bt))
     b, r_eff, mer = empty(N, NX, Bt), empty(N, NU, Bt), empty(N, 8, Bt)
     q = empty(N, NX, Bt) if q is None else q
-    hand = None if one_thread else empty(N, _HAND, Bt)
+    hand = empty(N, _HAND, Bt)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = _lib()(int(one_thread), consts.data_ptr(), xs.data_ptr(),
-                 xn.data_ptr(), us.data_ptr(), xr.data_ptr(), A.data_ptr(),
-                 Bm.data_ptr(),
+    err = _lib()(consts.data_ptr(), xs.data_ptr(), xn.data_ptr(),
+                 us.data_ptr(), xr.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  b.data_ptr(), R_eff.data_ptr(), r_eff.data_ptr(),
-                 q.data_ptr(), mer.data_ptr(),
-                 None if hand is None else hand.data_ptr(), N, Bt,
+                 q.data_ptr(), mer.data_ptr(), hand.data_ptr(), N, Bt,
                  float(mu_b), float(theta_b), stream)
     if err != 0:
         raise RuntimeError(f"linearize kernel launch failed: CUDA error {err}")
@@ -136,13 +134,11 @@ def _launch(consts, xs, xn, us, xr, mu_b, theta_b, one_thread=False, q=None):
 
 
 def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b,
-                    one_thread=False, consts=None):
+                    consts=None):
     """K5 on the card: the stage pass and the dense write (two launches
-    through a [N, 24, B] hand-off), or with ``one_thread`` the one-thread
-    kernel ``linearize_kernel``, the yardstick that the card tests and
-    chip_smoke.py hold to the plain version and time the new design
-    against. ``consts``: the block of ``kernel_constants`` (built on each
-    call when not given). CUDA tensors only."""
+    through a [N, 24, B] hand-off). ``consts``: the block of
+    ``kernel_constants`` (built on each call when not given). CUDA tensors
+    only."""
     global launches
     N, _, Bt = xs.shape
     for name, t in (("xs", xs), ("xn", xn), ("us", us), ("xr", xr)):
@@ -152,7 +148,7 @@ def _linearize_cuda(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b,
     consts = consts.to(xs.device)     # a no-op where the block lies there
     check_cuda_f32("consts", consts, (_K_LEN,))
     xs, xn, us, xr = (t.contiguous() for t in (xs, xn, us, xr))
-    out = _launch(consts, xs, xn, us, xr, mu_b, theta_b, one_thread)
+    out = _launch(consts, xs, xn, us, xr, mu_b, theta_b)
     launches += 1
     return out
 

@@ -14,9 +14,7 @@ symmetrized after each stage.
 - ``lqr_backward`` / ``lqr_forward``: CPU tensors run the plain versions;
   CUDA tensors launch ``csrc/riccati.cu`` (f32 only) or raise. The
   backward pass launches the team kernel ``riccati_team_kernel`` (a team of
-  threads per scenario over shared memory); the one-thread kernel
-  ``riccati_bwd_kernel`` it replaced stays as the yardstick, reached only
-  through the private ``_lqr_backward_cuda(..., one_thread=True)``.
+  threads per scenario over shared memory).
 - ``lqr_solve``: the contract of ``lqr_solve_pallas``.
 
 ``Q`` is either a stacked per-stage, per-scenario tensor [N+1,12,12,B] or a
@@ -98,12 +96,9 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _lqr_backward_cuda(A, B, b, Q, R, q, r, reg: float = 0.0,
-                       one_thread: bool = False):
-    """The backward recursion on the card: the team kernel, or with
-    ``one_thread`` the one-thread kernel, the yardstick that the card tests
-    and chip_smoke.py hold to the plain version and time the team kernel
-    against. float32 CUDA tensors only."""
+def _lqr_backward_cuda(A, B, b, Q, R, q, r, reg: float = 0.0):
+    """The backward recursion on the card: the team kernel. float32 CUDA
+    tensors only."""
     N, Bt = A.shape[0], A.shape[-1]
     const_q = isinstance(Q, tuple)
     shapes = [("A", A, (N, NX, NX, Bt)), ("B", B, (N, NX, NX, Bt)),
@@ -129,21 +124,12 @@ def _lqr_backward_cuda(A, B, b, Q, R, q, r, reg: float = 0.0,
     k = torch.empty((N, NX, Bt), dtype=torch.float32, device=dev)
     tail = [t.data_ptr() for t in (R, q, r, K, k)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if one_thread:
-        Qc = torch.cat([Qw.reshape(-1), Qf.reshape(-1)]) if const_q else Qw
-        fn = _fn("srbd_riccati_bwd_launch", 9,
-                 [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p])
-        err = fn(A.data_ptr(), B.data_ptr(), b.data_ptr(), Qc.data_ptr(),
-                 *tail, N, Bt, float(reg), int(const_q), THREADS, stream)
-    else:
-        fn = _fn("srbd_riccati_bwd_team_launch", 10,
-                 [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int]
-                 + [ctypes.c_void_p])
-        err = fn(A.data_ptr(), B.data_ptr(), b.data_ptr(), Qw.data_ptr(),
-                 Qf.data_ptr(), *tail, N, Bt, float(reg), int(const_q),
-                 stream)
-    _check(err, "riccati backward")
+    fn = _fn("srbd_riccati_bwd_team_launch", 10,
+             [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int]
+             + [ctypes.c_void_p])
+    _check(fn(A.data_ptr(), B.data_ptr(), b.data_ptr(), Qw.data_ptr(),
+              Qf.data_ptr(), *tail, N, Bt, float(reg), int(const_q), stream),
+           "riccati backward")
     launches["riccati_bwd_constq" if const_q else "riccati_bwd"] += 1
     return K, k
 

@@ -17,16 +17,13 @@ Counterpart of ``srbd_nmpc_tpu/ops/sqp_pallas.py``:
 Each has a plain PyTorch version (``*_ref``; any device and dtype, stage
 bodies in ``ops.sqp_stage``). CPU tensors run the plain version; CUDA
 tensors launch the hand-written kernels, float32 only, or raise: K3a and
-K3b as three launches (``csrc/sqp_onepass_split.cu``'s plane pass, the team
-Riccati pass of ``csrc/sqp_planes_split.cu`` through
+K3b as three launches (``csrc/sqp_onepass.cu``'s plane pass, the team
+Riccati pass of ``csrc/sqp_planes.cu`` through
 ``sqp_planes.riccati_team_cuda``, the closed-loop rollout); K4a backward as
 four launches (K5's stage pass and dense write of ``csrc/linearize.cu``
 into K4a's buffers, the terminal-and-merit pass of ``csrc/sqp_twopass.cu``,
 K6a's team pass of ``csrc/riccati.cu`` also writing Acl and bcl); K4b
-forward one launch of ``csrc/sqp_twopass.cu``. The one-thread kernels
-``csrc/sqp_onepass.cu`` (K3) and ``sqp_twopass_bwd_kernel`` (K4a) stay as
-yardsticks, reachable only through the private ``_k3a_cuda`` /
-``_k3b_cuda`` / ``_k4a_cuda(one_thread=True)``. The K3 wrappers take the
+forward one launch of ``csrc/sqp_twopass.cu``. The K3 wrappers take the
 constants block ``sqp_stage.kernel_constants`` as ``consts=`` so that a
 solve builds it (and checks ``Ac``) once.
 
@@ -58,8 +55,8 @@ from srbd_nmpc_tpu_torch.utils.build import check_cuda_f32, load_kernel
 # (csrc/linearize.cu) then Qf
 _K4_LEN = 761
 THREADS = 128
-# the split K3 trip's merit terms per stage [N, MERIT_C, B]: 0.5 |b|^2, the
-# stage's phi term, max |b|, min constraint (csrc/sqp_onepass_split.cu)
+# K3's merit terms per stage [N, MERIT_C, B]: 0.5 |b|^2, the stage's phi
+# term, max |b|, min constraint (csrc/sqp_onepass.cu)
 MERIT_C = 4
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
@@ -211,8 +208,8 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _split_lib():
-    lib = load_kernel("sqp_onepass_split")
+def _lib():
+    lib = load_kernel("sqp_onepass")
     if lib.srbd_k3s_planes_launch.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.srbd_k3s_planes_launch.argtypes = [P] * 10 + [I, I, F, F, I, P]
@@ -222,8 +219,8 @@ def _split_lib():
     return lib
 
 
-def _launch_split(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
-                  theta_b, reg, cand, stream):
+def _launch(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b, theta_b,
+            reg, cand, stream):
     """K3 as three launches: the plane pass (pack [N, 87, B], merit terms
     [N, MERIT_C, B], terminal rows [13, B]), the team Riccati pass (K, kv),
     the rollout; each launch's return code checked as it is made."""
@@ -235,48 +232,23 @@ def _launch_split(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
     pack, mer = empty(N, sqp_planes._C, Bt), empty(N, MERIT_C, Bt)
     term = empty(sqp_planes._T_C, Bt)
     opt = (lambda t: t.data_ptr()) if cand else (lambda t: None)
-    lib = _split_lib()
+    lib = _lib()
     _check(lib.srbd_k3s_planes_launch(
         kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
         opt(dxc), opt(duc), opt(alpha), pack.data_ptr(), mer.data_ptr(),
         term.data_ptr(), N, Bt, float(mu_b), float(theta_b), int(cand),
-        stream), "sqp_onepass_split plane pass")
+        stream), "sqp_onepass plane pass")
     K, kv = sqp_planes.riccati_team_cuda(kc, pack, term, reg, stream)
     _check(lib.srbd_k3s_rollout_launch(
         kc.data_ptr(), pack.data_ptr(), mer.data_ptr(), term.data_ptr(),
         K.data_ptr(), kv.data_ptr(), dx.data_ptr(), dx[1:].data_ptr(),
         du.data_ptr(), *(out5[i].data_ptr() for i in range(5)), N, Bt,
-        stream), "sqp_onepass_split rollout")
-
-
-def _launch_one_thread(kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
-                       theta_b, reg, cand, stream):
-    """K3 as one launch of the one-thread kernel ``csrc/sqp_onepass.cu``."""
-    N, Bt = us.shape[0], xa.shape[-1]
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=xa.device)
-
-    Acl, K = empty(N, NX, NX, Bt), empty(N, NU, NX, Bt)
-    vecs = empty(4, N, NX, Bt)                # bcl, kv, q, r_eff
-    opt = (lambda t: t.data_ptr()) if cand else (lambda t: None)
-    fn = _fn("sqp_onepass", "srbd_sqp_onepass_launch", 21,
-             [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
-             + [ctypes.c_void_p])
-    _check(fn(kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
-              opt(dxc), opt(duc), opt(alpha), dx.data_ptr(),
-              dx[1:].data_ptr(), du.data_ptr(),
-              *(out5[i].data_ptr() for i in range(5)),
-              Acl.data_ptr(), K.data_ptr(),
-              *(vecs[i].data_ptr() for i in range(4)),
-              N, Bt, float(mu_b), float(theta_b), float(reg), int(cand),
-              THREADS, stream),
-           "sqp_onepass")
+        stream), "sqp_onepass rollout")
 
 
 def _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                  alpha, dx0, mu_b, theta_b, reg, consts, cand: bool,
-                  one_thread: bool = False) -> Outputs:
+                  alpha, dx0, mu_b, theta_b, reg, consts, cand: bool
+                  ) -> Outputs:
     N = us.shape[0]
     Bt = xa.shape[-1]
     shapes = [("xa", xa, (N + 1, NX, Bt)), ("us", us, (N, NU, Bt)),
@@ -297,34 +269,29 @@ def _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     dx[0] = dx0
     du = torch.empty((N, NU, Bt), dtype=torch.float32, device=dev)
     out5 = torch.empty((5, Bt), dtype=torch.float32, device=dev)
-    launch = _launch_one_thread if one_thread else _launch_split
-    launch(consts.block, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
-           theta_b, reg, cand, _stream(dev))
+    _launch(consts.block, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
+            theta_b, reg, cand, _stream(dev))
     launches["sqp_onepass_cand" if cand else "sqp_onepass"] += 1
     return dx, du, out5[0], (out5[1], out5[2], out5[3], out5[4])
 
 
 def _k3a_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc, alpha,
-              x0s, mu_b, theta_b, reg=0.0, one_thread=False, consts=None
-              ) -> Outputs:
-    """K3a on the card: the split kernels, or with ``one_thread`` the
-    one-thread kernel ``sqp_onepass.cu <true>``, the yardstick that the card
-    tests and chip_smoke.py hold to the plain version and time the split
-    kernels against. CUDA tensors only; dx0 is formed here."""
+              x0s, mu_b, theta_b, reg=0.0, consts=None) -> Outputs:
+    """K3a on the card (the public entry on CUDA tensors), for the card
+    tests and chip_smoke.py. CUDA tensors only; dx0 is formed here."""
     check_cuda_f32("x0s", x0s, (NX, xa.shape[-1]))
     dx0 = x0s - (xa[0] + alpha[None, :] * dxc[0])
     return _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
                          duc, alpha, dx0, mu_b, theta_b, reg, consts,
-                         cand=True, one_thread=one_thread)
+                         cand=True)
 
 
 def _k3b_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dx0, mu_b,
-              theta_b, reg=0.0, one_thread=False, consts=None) -> Outputs:
-    """K3b on the card, as ``_k3a_cuda`` (``sqp_onepass.cu <false>`` with
-    ``one_thread``)."""
+              theta_b, reg=0.0, consts=None) -> Outputs:
+    """K3b on the card, as ``_k3a_cuda``."""
     return _onepass_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, None,
                          None, None, dx0, mu_b, theta_b, reg, consts,
-                         cand=False, one_thread=one_thread)
+                         cand=False)
 
 
 def _dispatch(t: torch.Tensor) -> bool:
@@ -373,7 +340,7 @@ def sqp_qp_solve_onepass_cand(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa,
 
 def _k4_constants(params, Q_w, Qf_w, R_w, Ac, bc, dev) -> torch.Tensor:
     """K4's constants block: K5's (``srbd_linearize.kernel_constants``),
-    which K4a's split hands K5's launches, then Qf (``csrc/sqp_twopass.cu``
+    which K4a hands K5's launches, then Qf (``csrc/sqp_twopass.cu``
     reads the same layout)."""
     k = torch.cat([srbd_linearize.kernel_constants(params, Q_w, R_w, Ac, bc)
                    .to(dev), Qf_w.to(device=dev, dtype=torch.float32)
@@ -382,7 +349,7 @@ def _k4_constants(params, Q_w, Qf_w, R_w, Ac, bc, dev) -> torch.Tensor:
     return k.contiguous()
 
 
-def _k4a_split(consts, xa, us, xra, mu_b, theta_b, reg, stream):
+def _k4a_launches(consts, xa, us, xra, mu_b, theta_b, reg, stream):
     """K4a as four launches, each return code checked as it is made: K5's
     stage pass and dense write (A, B, R_eff, b, q, r_eff and the merit rows
     [N, 8, B] straight into the buffers below), the terminal-and-merit
@@ -418,37 +385,11 @@ def _k4a_split(consts, xa, us, xra, mu_b, theta_b, reg, stream):
     return Acl, K, bcl, kv, q[:N], reff, q[N], tuple(out4.unbind(0))
 
 
-def _k4a_one_thread(consts, xa, us, xra, mu_b, theta_b, reg, stream):
-    """K4a as one launch of the one-thread kernel ``sqp_twopass_bwd_kernel``
-    (the yardstick)."""
-    N, Bt = us.shape[0], xa.shape[-1]
-    dev = xa.device
-    Acl = torch.empty((N, NX, NX, Bt), dtype=torch.float32, device=dev)
-    K = torch.empty((N, NU, NX, Bt), dtype=torch.float32, device=dev)
-    vecs = torch.empty((4, N, NX, Bt), dtype=torch.float32, device=dev)
-    qN = torch.empty((NX, Bt), dtype=torch.float32, device=dev)
-    mer = torch.empty((4, Bt), dtype=torch.float32, device=dev)
-    fn = _fn("sqp_twopass", "srbd_sqp_twopass_bwd_launch", 15,
-             [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int]
-             + [ctypes.c_void_p])
-    _check(fn(consts.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
-              Acl.data_ptr(), K.data_ptr(),
-              *(vecs[i].data_ptr() for i in range(4)), qN.data_ptr(),
-              *(mer[i].data_ptr() for i in range(4)),
-              N, Bt, float(mu_b), float(theta_b), float(reg), THREADS,
-              stream),
-           "sqp_twopass backward")
-    return (Acl, K, vecs[0], vecs[1], vecs[2], vecs[3], qN,
-            (mer[0], mer[1], mer[2], mer[3]))
-
-
 def _k4a_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, mu_b, theta_b,
-              reg=0.0, one_thread=False):
-    """K4a on the card: the split kernels, or with ``one_thread`` the
-    one-thread kernel ``sqp_twopass_bwd_kernel``, the yardstick that the
-    card tests and chip_smoke.py hold to the plain version and time the
-    split kernels against. CUDA tensors only; the constants block is built
-    once per call."""
+              reg=0.0):
+    """K4a on the card (the four launches of ``_k4a_launches``), for the
+    card tests and chip_smoke.py. CUDA tensors only; the constants block is
+    built once per call."""
     N = us.shape[0]
     Bt = xa.shape[-1]
     for name, t, shape in (("xa", xa, (N + 1, NX, Bt)), ("us", us, (N, NU, Bt)),
@@ -459,8 +400,7 @@ def _k4a_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, mu_b, theta_b,
     dev = xa.device
     consts = _k4_constants(params, Q_w, Qf_w, R_w, Ac, bc, dev)
     xa, us, xra = (t.contiguous() for t in (xa, us, xra))
-    launch = _k4a_one_thread if one_thread else _k4a_split
-    out = launch(consts, xa, us, xra, mu_b, theta_b, reg, _stream(dev))
+    out = _k4a_launches(consts, xa, us, xra, mu_b, theta_b, reg, _stream(dev))
     launches["sqp_twopass_bwd"] += 1
     return out
 
@@ -468,7 +408,7 @@ def _k4a_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, mu_b, theta_b,
 def sqp_qp_backward(params: SRBDParams, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,
                     mu_b: float, theta_b: float, reg: float = 0.0):
     """K4a: the plain version on CPU tensors, the CUDA kernels (f32, the
-    four launches of ``_k4a_split``) on CUDA tensors. Returns as
+    four launches of ``_k4a_launches``) on CUDA tensors. Returns as
     ``sqp_qp_backward_ref``."""
     if not _dispatch(xa):
         return sqp_qp_backward_ref(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra,

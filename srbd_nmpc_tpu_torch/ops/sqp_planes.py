@@ -14,13 +14,10 @@ same stage parking its factor (``factor=True``), and
 - ``sqp_qp_solve_onepass_planes``: the public entry. CPU tensors go to the
   plain version; CUDA tensors launch the hand-written kernels (float32; the
   gains body also float64) or raise: each of the three bodies as three
-  launches of
-  ``csrc/sqp_planes_split.cu`` (a plane pass, a Riccati pass with a team
-  of 16 threads per scenario, the rollout; the rank-6 body's Riccati pass
-  is its rank-6 form, the factor body's Riccati pass and rollout their
-  factor forms). The one-thread kernels of ``csrc/sqp_planes.cu`` stay as
-  yardsticks, reached only through the private ``_gains_cuda``,
-  ``_rank6_cuda`` and ``_factor_cuda(one_thread=True)``.
+  launches of ``csrc/sqp_planes.cu`` (a plane pass, a Riccati pass with a
+  team of 16 threads per scenario, the rollout; the rank-6 body's Riccati
+  pass is its rank-6 form, the factor body's Riccati pass and rollout their
+  factor forms).
 
 The candidate fold ``x + alpha dx`` is applied on load, so one function
 serves the bootstrap (alpha = 0) and every speculative line-search trip.
@@ -57,12 +54,7 @@ _RF = 51         # 12: r_eff = Rw u + Ac' db
 _DDB = 63        # 24: barrier curvature ddb
 _C = 87
 
-# CUDA threads per block of K1's one-launch bodies (independent of
-# NmpcConfig.pallas_block, which only sets the granularity of the compaction
-# tiers)
-THREADS = 128
-
-# the split bodies' scratch beside the pack: per stage the merit terms
+# the kernels' scratch beside the pack: per stage the merit terms
 # u_i (R u)_i, e_i (Q e)_i (12 each), the barrier sum and the least
 # constraint; the terminal stage's qN and eN'qN
 _M_C = 26
@@ -329,9 +321,6 @@ def sqp_qp_solve_onepass_planes_ref(
     return torch.stack(dxs), torch.stack(dus), dphi, aux
 
 
-# the stage bodies, in the order of the C entries' ``body`` argument
-BODIES = ("gains", "rank6", "factor")
-
 
 def park_shapes(body: str, N: int, B: int):
     """Shapes of the kernel's four park arrays for ``body``: K [N,12,12,B]
@@ -344,17 +333,7 @@ def park_shapes(body: str, N: int, B: int):
 
 
 def _lib():
-    fn = load_kernel("sqp_planes").srbd_sqp_planes_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 20
-                       + [ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _split_lib():
-    lib = load_kernel("sqp_planes_split")
+    lib = load_kernel("sqp_planes")
     if lib.srbd_k1s_planes_launch.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.srbd_k1s_planes_launch.argtypes = [P] * 10 + [I, I, F, F, P]
@@ -391,26 +370,26 @@ def _check(what: str, err: int) -> None:
 
 
 def riccati_team_cuda(kc, pack, term, reg, stream):
-    """K1s-B, ``k1s_riccati_team_kernel`` (``csrc/sqp_planes_split.cu``):
+    """K1s-B, ``k1s_riccati_team_kernel`` (``csrc/sqp_planes.cu``):
     the structured backward Riccati pass over a pack [N, 87, B] (``_D1`` ...
     ``_DDB``), seeded by P = Qf and p = ``term[:12]``, a team of 16 threads
     per scenario, in the pack's dtype (float32, or float64 through
     ``k1s_riccati_team_f64_kernel``). Returns the parked K [N,12,12,B] and kv
-    [N,12,B]. The split gains body and K3's split trip (``ops/sqp_kernel``)
-    both run it."""
+    [N,12,B]. The gains body and K3's trip (``ops/sqp_kernel``) both run
+    it."""
     N, Bt = pack.shape[0], pack.shape[-1]
     park0, park1 = (torch.empty(s, dtype=pack.dtype, device=pack.device)
                     for s in park_shapes("gains", N, Bt)[:2])
-    _check("sqp_planes_split Riccati pass",
-           _entry(_split_lib(), "riccati", pack.dtype)(
+    _check("sqp_planes Riccati pass",
+           _entry(_lib(), "riccati", pack.dtype)(
                kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
                park0.data_ptr(), park1.data_ptr(), N, Bt, float(reg), stream))
     return park0, park1
 
 
-def _launch_split(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5,
-                  mu_b, theta_b, reg, stream):
-    """``body`` as three launches (``csrc/sqp_planes_split.cu``): the plane
+def _launch(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5, mu_b,
+            theta_b, reg, stream):
+    """``body`` as three launches (``csrc/sqp_planes.cu``): the plane
     pass, the Riccati pass, the rollout (for the rank-6 body the rank-6 form
     of the Riccati pass; for the factor body the factor forms of the last
     two, which park and back-substitute the stage factor); each
@@ -422,8 +401,8 @@ def _launch_split(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5,
         return torch.empty(shape, dtype=xa.dtype, device=xa.device)
 
     pack, mer, term = empty(N, _C, Bt), empty(N, _M_C, Bt), empty(_T_C, Bt)
-    lib = _split_lib()
-    _check("sqp_planes_split plane pass", _entry(lib, "planes", xa.dtype)(
+    lib = _lib()
+    _check("sqp_planes plane pass", _entry(lib, "planes", xa.dtype)(
         kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
         dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
         mer.data_ptr(), term.data_ptr(), N, Bt, float(mu_b), float(theta_b),
@@ -433,20 +412,20 @@ def _launch_split(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5,
         parks = riccati_team_cuda(kc, pack, term, reg, stream)
     elif body == "rank6":
         parks = [empty(*s) for s in park_shapes("rank6", N, Bt)[:2]]
-        _check("sqp_planes_split rank-6 Riccati pass",
+        _check("sqp_planes rank-6 Riccati pass",
                lib.srbd_k1s_riccati_rank6_launch(
                    kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
                    *(p.data_ptr() for p in parks), N, Bt, float(reg),
                    stream))
     else:
         parks = [empty(*s) for s in park_shapes("factor", N, Bt)]
-        _check("sqp_planes_split factor Riccati pass",
+        _check("sqp_planes factor Riccati pass",
                lib.srbd_k1s_riccati_factor_launch(
                    kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
                    *(p.data_ptr() for p in parks), N, Bt, float(reg),
                    stream))
         rollout = lib.srbd_k1s_rollout_factor_launch
-    _check(f"sqp_planes_split rollout ({body})", rollout(
+    _check(f"sqp_planes rollout ({body})", rollout(
         kc.data_ptr(), pack.data_ptr(), mer.data_ptr(), term.data_ptr(),
         *(p.data_ptr() for p in parks), dx.data_ptr(), dx[1:].data_ptr(),
         du.data_ptr(), *(out5[i].data_ptr() for i in range(5)), N, Bt,
@@ -454,13 +433,11 @@ def _launch_split(body, kc, xa, us, xra, dxc, duc, alpha, dx, du, out5,
 
 
 def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                alpha, x0s, mu_b, theta_b, reg, rank6, factor, consts,
-                one_thread=False):
+                alpha, x0s, mu_b, theta_b, reg, rank6, factor, consts):
     N = us.shape[0]
     Bt = xa.shape[-1]
-    # float64 runs the gains body's split kernels; every other form is
-    # float32
-    f64 = xa.dtype == torch.float64 and not (rank6 or factor or one_thread)
+    # float64 runs the gains body's kernels; every other form is float32
+    f64 = xa.dtype == torch.float64 and not (rank6 or factor)
     dtype = torch.float64 if f64 else torch.float32
     for name, t, shape in (("xa", xa, (N + 1, NX, Bt)),
                            ("us", us, (N, NU, Bt)),
@@ -489,57 +466,35 @@ def _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     du = empty(N, NU, Bt)
     out5 = empty(5, Bt)                       # dphi, theta, phi, md, mc
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if not one_thread:
-        _launch_split(body, consts.block, xa, us, xra, dxc, duc, alpha, dx,
-                      du, out5, mu_b, theta_b, reg, stream)
-    else:
-        pack = empty(N, _C, Bt)
-        parks = [empty(*s) if s else None for s in park_shapes(body, N, Bt)]
-        _check(f"sqp_planes kernel ({body})", _lib()(
-            BODIES.index(body), consts.block.data_ptr(), xa.data_ptr(),
-            us.data_ptr(), xra.data_ptr(), dxc.data_ptr(), duc.data_ptr(),
-            alpha.data_ptr(), dx.data_ptr(), dx[1:].data_ptr(),
-            du.data_ptr(), *(out5[i].data_ptr() for i in range(5)),
-            pack.data_ptr(),
-            *(t.data_ptr() if t is not None else None for t in parks),
-            N, Bt, float(mu_b), float(theta_b), float(reg), THREADS, stream))
+    _launch(body, consts.block, xa, us, xra, dxc, duc, alpha, dx, du, out5,
+            mu_b, theta_b, reg, stream)
     launches[body] += 1
     return dx, du, out5[0], (out5[1], out5[2], out5[3], out5[4])
 
 
 def _gains_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                alpha, x0s, mu_b, theta_b, reg=0.0, one_thread=False,
-                consts=None):
-    """The gains body on the card: the split kernels, or with
-    ``one_thread`` the one-thread kernel ``sqp_planes.cu <kGains>``, the
-    yardstick that the card tests and chip_smoke.py hold to the plain
-    version and time the split kernels against. CUDA tensors only."""
+                alpha, x0s, mu_b, theta_b, reg=0.0, consts=None):
+    """The gains body on the card (the public entry's default on CUDA
+    tensors), for the card tests and chip_smoke.py. CUDA tensors only."""
     return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                       alpha, x0s, mu_b, theta_b, reg, False, False, consts,
-                       one_thread=one_thread)
+                       alpha, x0s, mu_b, theta_b, reg, False, False, consts)
 
 
 def _rank6_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                alpha, x0s, mu_b, theta_b, reg=0.0, one_thread=False,
-                consts=None):
-    """``rank6=True`` on the card, as ``_gains_cuda`` the gains body: the
-    split kernels, or with ``one_thread`` the yardstick
-    ``sqp_planes.cu <kRank6>``. ``consts.rank6`` decides the body, as on
-    the public entry. CUDA tensors only."""
+                alpha, x0s, mu_b, theta_b, reg=0.0, consts=None):
+    """``rank6=True`` on the card, as ``_gains_cuda`` the gains body.
+    ``consts.rank6`` decides the body, as on the public entry. CUDA tensors
+    only."""
     return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                       alpha, x0s, mu_b, theta_b, reg, True, False, consts,
-                       one_thread=one_thread)
+                       alpha, x0s, mu_b, theta_b, reg, True, False, consts)
 
 
 def _factor_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                 alpha, x0s, mu_b, theta_b, reg=0.0, one_thread=False,
-                 consts=None):
-    """The factor body on the card, as ``_gains_cuda`` the gains body: the
-    split kernels, or with ``one_thread`` the yardstick
-    ``sqp_planes.cu <kFactor>``. CUDA tensors only."""
+                 alpha, x0s, mu_b, theta_b, reg=0.0, consts=None):
+    """The factor body on the card, as ``_gains_cuda`` the gains body. CUDA
+    tensors only."""
     return _solve_cuda(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
-                       alpha, x0s, mu_b, theta_b, reg, False, True, consts,
-                       one_thread=one_thread)
+                       alpha, x0s, mu_b, theta_b, reg, False, True, consts)
 
 
 def sqp_qp_solve_onepass_planes(
@@ -557,16 +512,16 @@ def sqp_qp_solve_onepass_planes(
     The stage body (JAX's three):
 
     - default: the 12x12 structured stage, parking the gains (K, kv); on
-      CUDA the three launches of ``sqp_planes_split.cu``;
+      CUDA the three launches of ``sqp_planes.cu``;
     - ``rank6``: the rank-6 stage (``_riccati_stage_rank6``). It needs R_w
       leg-block-diagonal; where it is not, the 12x12 stage runs, silently,
       as in JAX (on CUDA ``consts.rank6`` decides, with no read-back; the
       launch counter says which body ran). On CUDA the three launches of
-      ``sqp_planes_split.cu`` with the rank-6 form of its Riccati pass;
+      ``sqp_planes.cu`` with the rank-6 form of its Riccati pass;
     - ``factor``: the 12x12 stage parking its factor (L, dinv) and
       forward-substituted half (Yh, yv); the rollout forms
       du = -L'^-1 (Yh dx + yv) per stage. On CUDA the three launches of
-      ``sqp_planes_split.cu`` with the factor forms of its Riccati pass and
+      ``sqp_planes.cu`` with the factor forms of its Riccati pass and
       rollout.
 
     ``factor`` with ``rank6`` raises ``ValueError``, as in JAX. JAX's

@@ -25,7 +25,6 @@ import ctypes
 import glob
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
@@ -61,27 +60,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda)")
 
 
-def _included(src: str) -> list:
-    """``src`` and the sources it includes from ``csrc/`` by name
-    (``#include "x.cu"``), and theirs in turn, each once."""
-    out, todo = [], [src]
-    while todo:
-        path = todo.pop(0)
-        if path in out:
-            continue
-        out.append(path)
-        with open(path) as f:
-            todo += [os.path.join(CSRC, n) for n in
-                     re.findall(r'^#include "([^"]+\.cu)"', f.read(), re.M)]
-    return out
-
-
 def _key(src: str, cmd) -> str:
-    """Hash of ``src``, the sources it includes (``_included``), every
-    shared header in ``csrc/`` and the command."""
+    """Hash of ``src``, every shared header in ``csrc/`` and the command."""
     h = hashlib.sha256()
-    for path in (_included(src)
-                 + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))):
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(cmd).encode())

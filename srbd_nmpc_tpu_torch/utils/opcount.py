@@ -1,14 +1,17 @@
 """Floating-point operations of the port's CUDA kernels, counted on the
 kernels' own arithmetic.
 
-Every kernel source's per-thread body also compiles as host C++. Built with
-``-DSRBD_OPCOUNT`` its scalar is ``OpCount`` (``csrc/srbd_dev.cuh``), a
-double that counts each + - * / and each sqrt, rsqrt, sin, cos and log done
-on it. Each ``count_*`` function takes the arguments of the kernel's wrapper
-(on any device), runs the host entry on ``lanes`` scenarios spread evenly
-over the batch (each lane's data-dependent branches as its inputs take them)
-and returns the operations scaled to the whole batch. The inputs are rounded
-to float32 first, as the card sees them.
+Every kernel source's per-thread and per-team bodies also compile as host
+C++. Built with ``-DSRBD_OPCOUNT`` their scalar is ``OpCount``
+(``csrc/srbd_dev.cuh``), a double that counts each + - * / and each sqrt,
+rsqrt, sin, cos and log done on it. Each ``count_*`` function takes the
+arguments of the kernel's wrapper (on any device), runs the host entry of
+the launches the wrapper makes on ``lanes`` scenarios spread evenly over the
+batch (each lane's data-dependent branches as its inputs take them; a team
+emulated member by member at the card's width, ``TEAM``) and returns the
+operations scaled to the whole batch. The inputs are rounded to float32
+first, as the card sees them. The float32 forms are counted (K1's gains
+body: its float32 plane pass).
 
     ops = opcount.count_sqp_onepass(*args, reg=reg)   # at args' batch width
 
@@ -30,6 +33,8 @@ from srbd_nmpc_tpu_torch.utils import build
 
 SOURCES = ("sqp_planes", "sqp_onepass", "sqp_twopass", "linearize",
            "riccati", "merit")
+# the card's team width of the team Riccati passes (K1s-B, K3's, K6's)
+TEAM = 16
 FLAGS = ("-O2", "-ffp-contract=off", "-DSRBD_OPCOUNT", "-fno-strict-aliasing")
 LANES = 1024
 F64 = torch.float64
@@ -70,12 +75,10 @@ def _empty(*shape) -> torch.Tensor:
     return torch.empty(shape, dtype=F64)
 
 
-def _run(source: str, entry: str, tensors, tail, B: int, n: int,
-         head=()) -> float:
-    """Run ``entry`` of the counting build on ``n`` lanes (``tensors``:
-    None passes a null pointer; ``head``: leading C ints; ``tail``: its
-    trailing arguments, Python ints as C ints, floats as doubles);
-    operations for ``B`` lanes."""
+def _count(source: str, entry: str, tensors, tail, head=()) -> int:
+    """Run ``entry`` of the counting build (``tensors``: None passes a null
+    pointer; ``head``: leading C ints; ``tail``: its trailing arguments,
+    Python ints as C ints, floats as doubles); the operations it did."""
     lib = _lib(source)
     fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_int] * len(head) + [ctypes.c_void_p] * len(
@@ -86,14 +89,21 @@ def _run(source: str, entry: str, tensors, tail, B: int, n: int,
     if fn(*head, *(None if t is None else t.data_ptr() for t in tensors),
           *tail) != 0:
         raise RuntimeError(f"{entry} failed")
-    return lib.srbd_opcount_take() * B / n
+    return lib.srbd_opcount_take()
+
+
+def _run(source: str, entry: str, tensors, tail, B: int, n: int,
+         head=()) -> float:
+    """``_count`` on ``n`` lanes, scaled to ``B`` lanes."""
+    return _count(source, entry, tensors, tail, head) * B / n
 
 
 def count_sqp_planes(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
                      alpha, x0s, mu_b, theta_b, reg=0.0, rank6=False,
                      factor=False, lanes=LANES):
     """K1 (``sqp_planes.sqp_qp_solve_onepass_planes``), the stage body that
-    ``rank6`` / ``factor`` pick, as the wrapper picks it."""
+    ``rank6`` / ``factor`` pick, as the wrapper picks it: its three
+    launches."""
     N, B = us.shape[0], xa.shape[-1]
     idx = _lanes(B, lanes)
     n = len(idx)
@@ -104,14 +114,17 @@ def count_sqp_planes(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     dx = _empty(N + 1, 12, n)
     dx[0] = x0s - (xa[0] + alpha[None] * dxc[0])
     du, out5 = _empty(N, 12, n), _empty(5, n)
-    pack = _empty(N, sqp_planes._C, n)
-    parks = [_empty(*s) if s else None
-             for s in sqp_planes.park_shapes(body, N, n)]
-    return _run("sqp_planes", "srbd_sqp_planes_host",
+    scratch = (_empty(N, sqp_planes._C, n), _empty(N, sqp_planes._M_C, n),
+               _empty(sqp_planes._T_C, n))
+    parks = [_empty(*s) for s in sqp_planes.park_shapes(body, N, n) if s]
+    entry = {"gains": "srbd_sqp_planes_split_host",
+             "rank6": "srbd_sqp_planes_split_rank6_host",
+             "factor": "srbd_sqp_planes_split_factor_host"}[body]
+    return _run("sqp_planes", entry,
                 (_consts(kc.block), xa, us, xra, dxc, duc, alpha, dx, dx[1:],
-                 du, *out5, pack, *parks),
+                 du, *out5, *scratch, *parks),
                 (N, n, float(mu_b), float(theta_b), float(reg)), B, n,
-                head=(sqp_planes.BODIES.index(body),))
+                head=(TEAM, 0))
 
 
 def _onepass(cand, params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
@@ -126,19 +139,21 @@ def _onepass(cand, params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc, duc,
     dx = _empty(N + 1, 12, n)
     dx[0] = dx0
     du, out5 = _empty(N, 12, n), _empty(5, n)
-    Acl, K = _empty(N, 12, 12, n), _empty(N, 12, 12, n)
-    vecs = _empty(4, N, 12, n)
-    return _run("sqp_onepass", "srbd_sqp_onepass_host_f64",
+    scratch = (_empty(N, sqp_planes._C, n), _empty(N, sqp_kernel.MERIT_C, n),
+               _empty(sqp_planes._T_C, n), _empty(N, 12, 12, n),
+               _empty(N, 12, n))
+    return _run("sqp_onepass", "srbd_sqp_onepass_split_host",
                 (consts, xa, us, xra, dxc, duc, alpha, dx, dx[1:], du, *out5,
-                 Acl, K, *vecs),
-                (N, n, float(mu_b), float(theta_b), float(reg), int(cand)),
-                B, n)
+                 *scratch),
+                (N, n, float(mu_b), float(theta_b), float(reg)), B, n,
+                head=(TEAM, 0, int(cand)))
 
 
 def count_sqp_onepass_cand(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
                            duc, alpha, x0s, mu_b, theta_b, reg=0.0,
                            lanes=LANES):
-    """K3a (``sqp_kernel.sqp_qp_solve_onepass_cand``)."""
+    """K3a (``sqp_kernel.sqp_qp_solve_onepass_cand``): its three
+    launches."""
     dx0 = x0s - (xa[0] + alpha[None, :] * dxc[0])
     return _onepass(True, params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dxc,
                     duc, alpha, dx0, mu_b, theta_b, reg, lanes)
@@ -153,19 +168,29 @@ def count_sqp_onepass(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, dx0, mu_b,
 
 def count_sqp_twopass_bwd(params, Q_w, Qf_w, R_w, Ac, bc, xa, us, xra, mu_b,
                           theta_b, reg=0.0, lanes=LANES):
-    """K4a (``sqp_kernel.sqp_qp_backward``)."""
+    """K4a (``sqp_kernel.sqp_qp_backward``): its four launches (K5's two
+    into K4a's buffers, the terminal-and-merit pass, K6a's team pass with
+    Acl and bcl)."""
     N, B = us.shape[0], xa.shape[-1]
     idx = _lanes(B, lanes)
     n = len(idx)
     xa, us, xra = _host(idx, xa, us, xra)
     consts = _consts(sqp_kernel._k4_constants(params, Q_w, Qf_w, R_w, Ac, bc,
                                               "cpu"))
-    Acl, K = _empty(N, 12, 12, n), _empty(N, 12, 12, n)
-    vecs = _empty(4, N, 12, n)
-    qN, mer = _empty(12, n), _empty(4, n)
-    return _run("sqp_twopass", "srbd_sqp_twopass_bwd_host_f64",
-                (consts, xa, us, xra, Acl, K, *vecs, qN, *mer),
-                (N, n, float(mu_b), float(theta_b), float(reg)), B, n)
+    A, Bm, Reff = (_empty(N, 12, 12, n) for _ in range(3))
+    b, reff, mer, q = (_empty(N, 12, n), _empty(N, 12, n), _empty(N, 8, n),
+                       _empty(N + 1, 12, n))
+    ops = _count("linearize", "srbd_linearize_split_host",
+                 (consts, xa, xa[1:], us, xra, A, Bm, b, Reff, reff, q, mer),
+                 (N, n, float(mu_b), float(theta_b)))
+    ops += _count("sqp_twopass", "srbd_k4s_merit_host",
+                  (consts, xa, xra, mer, q, *_empty(4, n)), (N, n))
+    qc = consts[srbd_linearize._K_Q:].contiguous()     # [Q | Qf]
+    ops += _count("riccati", "srbd_riccati_bwd_team_acl_host",
+                  (A, Bm, b, qc, Reff, q, reff, _empty(N, 12, 12, n),
+                   _empty(N, 12, n), _empty(N, 12, 12, n), _empty(N, 12, n)),
+                  (N, n, float(reg)), head=(TEAM, 0))
+    return ops * B / n
 
 
 def count_sqp_twopass_fwd(Acl, K, bcl, kv, q, reff, qN, dx0, lanes=LANES):
@@ -181,7 +206,7 @@ def count_sqp_twopass_fwd(Acl, K, bcl, kv, q, reff, qN, dx0, lanes=LANES):
 
 def count_linearize(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b,
                     lanes=LANES):
-    """K5 (``srbd_linearize.linearize``)."""
+    """K5 (``srbd_linearize.linearize``): its two launches."""
     N, _, B = xs.shape
     idx = _lanes(B, lanes)
     n = len(idx)
@@ -191,13 +216,13 @@ def count_linearize(params, Q_w, R_w, Ac, bc, xs, xn, us, xr, mu_b, theta_b,
     outs = (_empty(N, 12, 12, n), _empty(N, 12, 12, n), _empty(N, 12, n),
             _empty(N, 12, 12, n), _empty(N, 12, n), _empty(N, 12, n),
             _empty(N, 8, n))
-    return _run("linearize", "srbd_linearize_host_f64", (consts, *ins, *outs),
+    return _run("linearize", "srbd_linearize_split_host", (consts, *ins, *outs),
                 (N, n, float(mu_b), float(theta_b)), B, n)
 
 
 def count_riccati_bwd(A, Bm, b, Q, R, q, r, reg=0.0, lanes=LANES):
     """K6a/K6b (``riccati_kernel.lqr_backward``): Q a (Q, Qf) pair (K6a) or
-    per-stage [N+1,12,12,B] (K6b)."""
+    per-stage [N+1,12,12,B] (K6b); the team kernel."""
     N, B = A.shape[0], A.shape[-1]
     idx = _lanes(B, lanes)
     n = len(idx)
@@ -205,9 +230,10 @@ def count_riccati_bwd(A, Bm, b, Q, R, q, r, reg=0.0, lanes=LANES):
     A, Bm, b, R, q, r = _host(idx, A, Bm, b, R, q, r)
     Qptr = (_consts(torch.cat([Q[0].reshape(-1), Q[1].reshape(-1)])
                     .to(torch.float32)) if const_q else _host(idx, Q)[0])
-    return _run("riccati", "srbd_riccati_bwd_host_f64",
+    return _run("riccati", "srbd_riccati_bwd_team_host",
                 (A, Bm, b, Qptr, R, q, r, _empty(N, 12, 12, n),
-                 _empty(N, 12, n)), (N, n, float(reg), int(const_q)), B, n)
+                 _empty(N, 12, n)), (N, n, float(reg), int(const_q)), B, n,
+                head=(TEAM, 0))
 
 
 def count_riccati_fwd(A, Bm, b, K, k, x0, lanes=LANES):
@@ -222,14 +248,14 @@ def count_riccati_fwd(A, Bm, b, K, k, x0, lanes=LANES):
 
 def count_merit_alpha(params, Q_w, Qf_w, R_w, Ac, bc, x, u, xr, dx, du, alpha,
                       mu_b, theta_b, lanes=LANES):
-    """K7a (``merit_kernel.merit_alpha``)."""
+    """K7a (``merit_kernel.merit_alpha``): its two launches."""
     N, B = u.shape[0], x.shape[-1]
     idx = _lanes(B, lanes)
     n = len(idx)
     x, dx, u, du, xr, alpha = _host(idx, x, dx, u, du, xr, alpha)
     consts = _consts(merit_kernel.kernel_constants(params, Q_w, Qf_w, R_w, Ac,
                                                    bc))
-    return _run("merit", "srbd_merit_alpha_host_f64",
+    return _run("merit", "srbd_merit_alpha_split_host",
                 (consts, x, dx, u, du, xr, alpha, _empty(n), _empty(n)),
                 (N, n, float(mu_b), float(theta_b)), B, n)
 

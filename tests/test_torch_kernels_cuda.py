@@ -1,10 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 fused SQP trip with its three stage bodies, each also by its one-thread
-kernel, K2 lane permutes, K3a/K3b dense one-pass trips (split and
-one-thread), K4 the two-pass solve (K4a split and one-thread), K5 stage
-linearization, K6 Riccati backward and forward passes (the backward pass
-by its team kernel and its one-thread yardstick),
-K7a line-search merit, K7b merit with and without gradients), at
+(K1 fused SQP trip with its three stage bodies, K2 lane permutes, K3a/K3b
+dense one-pass trips, K4 the two-pass solve, K5 stage linearization, K6
+Riccati backward (its team kernel) and forward passes, K7a line-search
+merit, K7b merit with and without gradients), at
 the main path's widths; one synchronous ``pallas`` solve that launches K5,
 K6 and K7a, the dense route's solves on both loops, the ``park_factor``
 solve through K1's factor body, the batched merit ``engine._merit_fast``
@@ -77,8 +75,8 @@ K1_BODIES = {"gains": {}, "rank6": dict(rank6=True),
 def test_k1_matches_plain(dev, body, alpha_zero):
     """Each stage body against its plain version; the benchmark weights
     are leg-block-diagonal, so rank6=True runs the rank-6 body. The gains
-    body also through ``sqp_planes._gains_cuda``: the split kernels and the
-    one-thread kernel, each call counted once."""
+    body also through ``sqp_planes._gains_cuda``, each call counted
+    once."""
     args = _k1_args(dev, 20, 4096, alpha_zero)
     flags = K1_BODIES[body]
     ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9,
@@ -86,9 +84,7 @@ def test_k1_matches_plain(dev, body, alpha_zero):
     calls = [lambda: sqp_planes.sqp_qp_solve_onepass_planes(
         *args, reg=1e-9, **flags)]
     if body == "gains":
-        calls += [lambda o=o: sqp_planes._gains_cuda(*args, reg=1e-9,
-                                                     one_thread=o)
-                  for o in (False, True)]
+        calls.append(lambda: sqp_planes._gains_cuda(*args, reg=1e-9))
     for call in calls:
         before = dict(sqp_planes.launches)
         got = call()
@@ -122,91 +118,59 @@ def test_k1_rank6_on_dense_R_runs_the_12x12_body(dev):
 @pytest.mark.parametrize("alpha_zero", [True, False])
 @pytest.mark.parametrize("B", [4096, 4093, 5])
 def test_k1_gains_split_and_one_thread_match_plain(dev, B, alpha_zero):
-    """The gains body through its split kernels (the public entry's, K1s-B
-    parking K and kv from the whole block) and through the one-thread
-    yardstick ``sqp_planes.cu <kGains>`` against the plain gains body, at
+    """The gains body through its three launches (the public entry's, K1s-B
+    parking K and kv from the whole block) against the plain gains body, at
     B=4096, at a width that is not a multiple of a block's 8 teams and at
-    one narrower than a block (ragged edges): the split kernels equal to
-    plain bit for bit on all seven outputs; the one-thread kernel on dx,
-    du, dphi, max|defect| and min constraint (it sums theta and phi stage
-    by stage, the plain version per component over the stages)."""
+    one narrower than a block (ragged edges): equal bit for bit on all
+    seven outputs."""
     args = _k1_args(dev, 20, B, alpha_zero)
     ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9)
     before = sqp_planes.launches["gains"]
     split = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9)
-    one = sqp_planes._gains_cuda(*args, reg=1e-9, one_thread=True)
     torch.cuda.synchronize()
-    assert sqp_planes.launches["gains"] == before + 2
-    ref = (*ref[:3], *ref[3])
-    for g, r in zip((*split[:3], *split[3]), ref):
+    assert sqp_planes.launches["gains"] == before + 1
+    for g, r in zip((*split[:3], *split[3]), (*ref[:3], *ref[3])):
         assert torch.isfinite(g).all()
         assert torch.equal(g, r)
-    for i, (g, r) in enumerate(zip((*one[:3], *one[3]), ref)):
-        if i in (3, 4):                      # theta, phi
-            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
-                                       rtol=1e-4)
-        else:
-            assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("alpha_zero", [True, False])
 @pytest.mark.parametrize("B", [4096, 4093])
 def test_k1_factor_split_and_one_thread_match_plain(dev, B, alpha_zero):
-    """The factor body through its split kernels (the public entry's) and
-    through the one-thread yardstick ``sqp_planes.cu <kFactor>`` against
-    the plain factor body, at B=4096 and at a width that is not a multiple
-    of a block's 8 teams (a ragged edge): the split kernels equal to plain
-    bit for bit on all seven outputs; the one-thread kernel on dx, du,
-    dphi, max|defect| and min constraint (it sums theta and phi stage by
-    stage, the plain version per component over the stages)."""
+    """The factor body through its three launches (the public entry's)
+    against the plain factor body, at B=4096 and at a width that is not a
+    multiple of a block's 8 teams (a ragged edge): equal bit for bit on all
+    seven outputs."""
     args = _k1_args(dev, 20, B, alpha_zero)
     ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9,
                                                      factor=True)
     before = sqp_planes.launches["factor"]
     split = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9,
                                                    factor=True)
-    one = sqp_planes._factor_cuda(*args, reg=1e-9, one_thread=True)
     torch.cuda.synchronize()
-    assert sqp_planes.launches["factor"] == before + 2
-    ref = (*ref[:3], *ref[3])
-    for g, r in zip((*split[:3], *split[3]), ref):
+    assert sqp_planes.launches["factor"] == before + 1
+    for g, r in zip((*split[:3], *split[3]), (*ref[:3], *ref[3])):
         assert torch.isfinite(g).all()
         assert torch.equal(g, r)
-    for i, (g, r) in enumerate(zip((*one[:3], *one[3]), ref)):
-        if i in (3, 4):                      # theta, phi
-            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
-                                       rtol=1e-4)
-        else:
-            assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("alpha_zero", [True, False])
 @pytest.mark.parametrize("B", [4096, 4093])
 def test_k1_rank6_split_and_one_thread_match_plain(dev, B, alpha_zero):
-    """The rank-6 body through its split kernels (the public entry's) and
-    through the one-thread yardstick ``sqp_planes.cu <kRank6>``
-    against the plain rank-6 body, at B=4096 and at a ragged width: the
-    split kernels equal to plain bit for bit on all seven outputs; the
-    one-thread kernel on all but theta and phi (summed stage by stage)."""
+    """The rank-6 body through its three launches (the public entry's)
+    against the plain rank-6 body, at B=4096 and at a ragged width: equal
+    bit for bit on all seven outputs."""
     args = _k1_args(dev, 20, B, alpha_zero)
     ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=1e-9,
                                                      rank6=True)
     before = sqp_planes.launches["rank6"]
     split = sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9,
                                                    rank6=True)
-    one = sqp_planes._rank6_cuda(*args, reg=1e-9, one_thread=True)
     torch.cuda.synchronize()
-    assert sqp_planes.launches["rank6"] == before + 2
-    ref = (*ref[:3], *ref[3])
-    for g, r in zip((*split[:3], *split[3]), ref):
+    assert sqp_planes.launches["rank6"] == before + 1
+    for g, r in zip((*split[:3], *split[3]), (*ref[:3], *ref[3])):
         assert torch.isfinite(g).all()
         assert torch.equal(g, r)
-    for i, (g, r) in enumerate(zip((*one[:3], *one[3]), ref)):
-        if i in (3, 4):                      # theta, phi
-            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
-                                       rtol=1e-4)
-        else:
-            assert torch.equal(g, r)
 
 
 def _f64(args):
@@ -260,7 +224,7 @@ def test_k1a_float64_pack_matches_plain(dev, B):
                       (sqp_planes._T_C, B))]
     stream = torch.cuda.current_stream(dev).cuda_stream
     sqp_planes._check("K1s-A f64", sqp_planes._entry(
-        sqp_planes._split_lib(), "planes", torch.float64)(
+        sqp_planes._lib(), "planes", torch.float64)(
         *(t.data_ptr() for t in (kc, xa, us, xra, dxc, duc, alpha, *outs)),
         N, B, float(mu_b), float(theta_b), stream))
     Ac1, Ac2 = sqp_stage._split_leg_blocks(Ac)
@@ -278,30 +242,28 @@ def test_k1a_float64_ptxas(dev):
     """ptxas of K1s-A's float64 form as PERF.md records it
     (``chip_smoke.K1S_A_F64_PTXAS``): one kernel of 128 registers, so that
     four blocks of 128 threads, 16 warps, fit an SM, and 88 B of spill
-    stores (the one-thread form: 255 registers, 892 B, 8 warps); the
+    stores (one thread a (stage, lane): 255 registers, 892 B, 8 warps); the
     float32 plane pass ``k1s_planes_kernel`` keeps its 168 registers and
     36 B (``chip_smoke.K1S_A_PTXAS``)."""
     import chip_smoke
 
     from srbd_nmpc_tpu_torch.utils import build
 
-    build.load_kernel("sqp_planes_split")
-    f64 = chip_smoke._ptxas("sqp_planes_split", "k1s_planes_f64")
+    build.load_kernel("sqp_planes")
+    f64 = chip_smoke._ptxas("sqp_planes", "k1s_planes_f64")
     assert [r[1:3] for r in f64] == [chip_smoke.K1S_A_F64_PTXAS]
     assert 4 * 128 * f64[0][1] <= 65536
-    f32 = chip_smoke._ptxas("sqp_planes_split", "k1s_planes_kernel")
+    f32 = chip_smoke._ptxas("sqp_planes", "k1s_planes_kernel")
     assert [r[1:3] for r in f32] == [chip_smoke.K1S_A_PTXAS]
 
 
 def test_k1_other_forms_reject_float64(dev):
-    """The rank-6 and factor bodies and the one-thread yardstick have no
-    float64 form: a float64 batch raises, naming float32."""
+    """The rank-6 and factor bodies have no float64 form: a float64 batch
+    raises, naming float32."""
     args = _f64(_k1_args(dev, 20, 64, True))
     for kw in (dict(rank6=True), dict(factor=True)):
         with pytest.raises(TypeError, match="float32"):
             sqp_planes.sqp_qp_solve_onepass_planes(*args, reg=1e-9, **kw)
-    with pytest.raises(TypeError, match="float32"):
-        sqp_planes._gains_cuda(*args, reg=1e-9, one_thread=True)
 
 
 # K2 cases (leading shape, B, Bc, index pattern), as chip_smoke.py phase 3
@@ -480,14 +442,12 @@ def test_k2_one_device_kernel_per_call(dev):
 
 
 def test_k1_one_kernel_per_call(dev):
-    """One call of each stage body: the gains body launches the three split
+    """One call of each stage body: the gains body launches its three
     kernels (the plane pass, the Riccati pass, the rollout) once each, the
     rank-6 body the same plane pass and rollout and the rank-6 form of the
-    Riccati pass, the factor body
-    the same plane pass and the factor forms of the other two once each; no
-    one-thread body (sqp_planes_kernel) runs."""
+    Riccati pass, the factor body the same plane pass and the factor forms
+    of the other two once each."""
     kernels = _device_kernels("_k1_calls")
-    assert not any("sqp_planes_kernel" in k for k in kernels)
     split = {k: n for k, n in kernels.items() if "k1s_" in k}
     assert sum(split.values()) == 9
     for name, n in (("k1s_planes_kernel", 3), ("k1s_riccati_team_kernel", 1),
@@ -500,25 +460,21 @@ def test_k1_one_kernel_per_call(dev):
 def test_k4a_four_kernels_per_call(dev):
     """One sqp_qp_backward call launches K4a's four split kernels once each
     (K5's k5s_stage_kernel and k5s_dense_kernel, k4s_merit_kernel,
-    riccati_team_acl_kernel) and no other kernel of the port's: not the
-    one-thread sqp_twopass_bwd_kernel, nor K5's, K6's one-launch bodies
-    (the rest are PyTorch's own, which build the constants block)."""
+    riccati_team_acl_kernel) and no other kernel of the port's: not K6's
+    own team kernel (the rest are PyTorch's own, which build the constants
+    block)."""
     kernels = _device_kernels("_k4a_calls")
-    for name in ("sqp_twopass_bwd_kernel", "linearize_kernel",
-                 "riccati_team_kernel", "riccati_bwd_kernel"):
-        assert not any(name in k for k in kernels), kernels
+    assert not any("riccati_team_kernel" in k for k in kernels), kernels
     for name in ("k5s_stage_kernel", "k5s_dense_kernel", "k4s_merit_kernel",
                  "riccati_team_acl_kernel"):
         assert sum(v for k, v in kernels.items() if name in k) == 1, kernels
 
 
 def test_k3_three_kernels_per_call(dev):
-    """One K3a and one K3b call each launch the three split kernels once:
-    the plane pass (its <true> and <false> instantiations), the team
-    Riccati pass k1s_riccati_team_kernel and the rollout; the one-thread
-    body does not run."""
+    """One K3a and one K3b call each launch the three kernels once: the
+    plane pass (its <true> and <false> instantiations), the team Riccati
+    pass k1s_riccati_team_kernel and the rollout."""
     kernels = _device_kernels("_k3_calls")
-    assert not any("sqp_onepass_kernel" in k for k in kernels)
     planes = {k: n for k, n in kernels.items() if "k3s_planes_kernel" in k}
     assert sorted(planes.values()) == [1, 1]
     for name in ("k1s_riccati_team_kernel", "k3s_rollout_kernel"):
@@ -528,10 +484,9 @@ def test_k3_three_kernels_per_call(dev):
 def test_k6_one_team_kernel_per_backward_call(dev):
     """One lqr_backward call runs exactly one device kernel, the team
     kernel (its <true> instantiation for (Q, Qf), <false> for a per-stage
-    Q), and never the one-thread riccati_bwd_kernel."""
+    Q)."""
     kernels = _device_kernels("_k6_calls")
     assert sum(kernels.values()) == 2
-    assert not any("riccati_bwd_kernel" in k for k in kernels)
     team = {k: n for k, n in kernels.items() if "riccati_team_kernel" in k}
     assert sorted(team.values()) == [1, 1]
     for tag, mangled in (("<true>", "ILb1E"), ("<false>", "ILb0E")):
@@ -539,13 +494,10 @@ def test_k6_one_team_kernel_per_backward_call(dev):
 
 
 def test_k5_k7a_new_kernels_per_call(dev):
-    """One K5 call launches the new design's k5s_stage_kernel and
-    k5s_dense_kernel once each, one K7a call k7s_stage_kernel and
-    k7s_reduce_kernel once each; the one-thread linearize_kernel and
-    merit_alpha_kernel never run."""
+    """One K5 call launches k5s_stage_kernel and k5s_dense_kernel once
+    each, one K7a call k7s_stage_kernel and k7s_reduce_kernel once each,
+    and nothing else."""
     kernels = _device_kernels("_k5_k7a_calls")
-    assert not any("linearize_kernel" in k or "merit_alpha_kernel" in k
-                   for k in kernels)
     for name in ("k5s_stage_kernel", "k5s_dense_kernel", "k7s_stage_kernel",
                  "k7s_reduce_kernel"):
         assert sum(v for k, v in kernels.items() if name in k) == 1, kernels
@@ -658,8 +610,7 @@ def test_float64_solve_launches_the_float64_kernels(dev):
     for name in ("k1s_planes_kernel", "k1s_riccati_team_kernel",
                  "k1s_rollout_kernel", "take_lanes_kernel",
                  "set_lanes_kernel", "k5s_", "k7s_", "riccati_team_kernel",
-                 "riccati_bwd_kernel", "riccati_fwd_kernel", "merit_kernel",
-                 "sqp_planes_kernel"):
+                 "riccati_fwd_kernel", "merit_kernel"):
         assert not any(name in k for k in kernels), kernels
     n = {p: sum(v for k, v in kernels.items() if p in k)
          for p in ("k1s_planes_f64_kernel", "k1s_riccati_team_f64_kernel",
@@ -731,33 +682,30 @@ def _cut(args, lo, hi, B):
 
 @pytest.mark.parametrize("B", [4096, 4093])
 def test_k5_designs_match_plain_bitwise(dev, B):
-    """K5 through the new design, through the one-thread yardstick and the
-    plain version agree bit for bit on all seven outputs, at B=4096 and at
-    a width that is no multiple of a block's 128 lanes."""
+    """K5's two launches and the plain version agree bit for bit on all
+    seven outputs, at B=4096 and at a width that is no multiple of a
+    block's 128 lanes."""
     lin = _cut(_sync_args(dev, 4096)[0], 5, 9, B)
     ref = srbd_linearize.linearize_ref(*lin)
-    outs = [srbd_linearize._linearize_cuda(*lin, one_thread=one_thread)
-            for one_thread in (False, True)]
+    got = srbd_linearize._linearize_cuda(*lin)
     torch.cuda.synchronize()
-    for got in outs:
-        for g, r in zip(got, ref):
-            assert g.shape == r.shape
-            assert torch.isfinite(g).all()
-            assert torch.equal(_bits(g), _bits(r))
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert torch.isfinite(g).all()
+        assert torch.equal(_bits(g), _bits(r))
 
 
 @pytest.mark.parametrize("B", [4096, 4093])
 def test_k7a_designs_match_plain_bitwise(dev, B):
-    """K7a through the stage pass and the reduction, through the one-thread
-    yardstick and the plain version agree bit for bit on theta and phi."""
+    """K7a through the stage pass and the reduction and the plain version
+    agree bit for bit on theta and phi."""
     merit = _cut(_sync_args(dev, 4096)[2], 6, 12, B)
     ref = merit_kernel.merit_alpha_ref(*merit)
-    for one_thread in (False, True):
-        got = merit_kernel._merit_alpha_cuda(*merit, one_thread=one_thread)
-        torch.cuda.synchronize()
-        for g, r in zip(got, ref):
-            assert torch.isfinite(g).all()
-            assert torch.equal(_bits(g), _bits(r))
+    got = merit_kernel._merit_alpha_cuda(*merit)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert torch.equal(_bits(g), _bits(r))
 
 
 @pytest.mark.parametrize("const_q", [True, False])
@@ -802,36 +750,28 @@ def _k6_args(dev, B, const_q):
 @pytest.mark.parametrize("const_q", [True, False])
 def test_k6_team_and_one_thread_match_plain(dev, const_q, B):
     """K6a/K6b's backward pass through the team kernel (the public entry's)
-    and through the one-thread yardstick against the plain version, at
-    B=4096 and at a width that is not a multiple of a block's 8 teams (a
-    ragged edge); the team kernel equal to the one-thread kernel bit for
-    bit."""
+    against the plain version, at B=4096 and at a width that is not a
+    multiple of a block's 8 teams (a ragged edge)."""
     A, Bm, b, Q, R, q, r, reg = _k6_args(dev, B, const_q)
     key = "riccati_bwd_constq" if const_q else "riccati_bwd"
     before = riccati_kernel.launches[key]
     team = riccati_kernel.lqr_backward(A, Bm, b, Q, R, q, r, reg)
-    one = riccati_kernel._lqr_backward_cuda(A, Bm, b, Q, R, q, r, reg,
-                                            one_thread=True)
     torch.cuda.synchronize()
-    assert riccati_kernel.launches[key] == before + 2
+    assert riccati_kernel.launches[key] == before + 1
     ref = riccati_kernel.lqr_backward_ref(A, Bm, b, Q, R, q, r, reg)
-    for g, o, r_ in zip(team, one, ref):
+    for g, r_ in zip(team, ref):
         assert torch.isfinite(g).all()
-        assert torch.equal(g, o)
         assert parity_metric(g.cpu().numpy(), r_.cpu().numpy()) < 1e-4
 
 
 def test_k6_backward_rejects_what_it_cannot_take(dev):
     """The public backward entry raises on float64 and on misshapen CUDA
-    tensors, the team and one-thread kernels alike."""
+    tensors."""
     A, Bm, b, Q, R, q, r, reg = _k6_args(dev, 64, True)
-    for one_thread in (False, True):
-        with pytest.raises(TypeError, match="float32"):
-            riccati_kernel._lqr_backward_cuda(A.double(), Bm, b, Q, R, q, r,
-                                              reg, one_thread=one_thread)
-        with pytest.raises(ValueError, match="shape"):
-            riccati_kernel._lqr_backward_cuda(A, Bm, b, Q, R, q, r[..., :-1],
-                                              reg, one_thread=one_thread)
+    with pytest.raises(TypeError, match="float32"):
+        riccati_kernel._lqr_backward_cuda(A.double(), Bm, b, Q, R, q, r, reg)
+    with pytest.raises(ValueError, match="shape"):
+        riccati_kernel._lqr_backward_cuda(A, Bm, b, Q, R, q, r[..., :-1], reg)
     with pytest.raises(ValueError, match="shape"):
         riccati_kernel.lqr_backward(A, Bm[:-1], b, Q, R, q, r, reg)
 
@@ -891,10 +831,9 @@ def test_sync_pallas_solve_launches_kernels(dev):
 @pytest.mark.parametrize("cand", [True, False])
 @pytest.mark.parametrize("B", [4096, 4093])
 def test_k3_matches_plain(dev, B, cand):
-    """The public entry (the split kernels) and the private one-thread
-    yardstick against the plain version, at B=4096 and at a width that is
-    not a multiple of a block's 8 teams (K3s-B's ragged edge); each call
-    counts one launch."""
+    """The public entry and the private card entry against the plain
+    version, at B=4096 and at a width that is not a multiple of a block's 8
+    teams (K3s-B's ragged edge); each call counts one launch."""
     args = _k1_args(dev, 20, B, alpha_zero=False)
     head, (xa, us, xra, dxc, duc, alpha, x0s), tail = \
         args[:6], args[6:13], args[13:]
@@ -909,8 +848,7 @@ def test_k3_matches_plain(dev, B, cand):
     a, kern, private, plain, key = call
     ref = plain(*a, reg=1e-9)
     for run in (lambda: kern(*a, reg=1e-9),
-                lambda: private(*a, reg=1e-9, one_thread=False),
-                lambda: private(*a, reg=1e-9, one_thread=True)):
+                lambda: private(*a, reg=1e-9)):
         before = dict(sqp_kernel.launches)
         got = run()
         torch.cuda.synchronize()
@@ -940,22 +878,19 @@ def test_k4_matches_plain(dev):
 
 @pytest.mark.parametrize("B", [4096, 4093])
 def test_k4a_split_and_one_thread_match_plain(dev, B):
-    """K4a through its split kernels (the public entry's) and through the
-    one-thread yardstick against the plain version, at B=4096 and at a
-    width that is not a multiple of a block's 8 teams: both bit for bit on
-    all eleven outputs, each call counted once."""
+    """K4a through its four launches (the public entry's) against the plain
+    version, at B=4096 and at a width that is not a multiple of a block's 8
+    teams: bit for bit on all eleven outputs, the call counted once."""
     args = _k1_args(dev, 20, B, alpha_zero=False)
     bwd = args[:9] + args[13:]
     ref = sqp_kernel.sqp_qp_backward_ref(*bwd, reg=1e-9)
     before = sqp_kernel.launches["sqp_twopass_bwd"]
-    outs = [sqp_kernel.sqp_qp_backward(*bwd, reg=1e-9),
-            sqp_kernel._k4a_cuda(*bwd, reg=1e-9, one_thread=True)]
+    got = sqp_kernel.sqp_qp_backward(*bwd, reg=1e-9)
     torch.cuda.synchronize()
-    assert sqp_kernel.launches["sqp_twopass_bwd"] == before + 2
-    for got in outs:
-        for g, r in zip((*got[:7], *got[7]), (*ref[:7], *ref[7])):
-            assert torch.isfinite(g).all()
-            assert torch.equal(g, r)
+    assert sqp_kernel.launches["sqp_twopass_bwd"] == before + 1
+    for g, r in zip((*got[:7], *got[7]), (*ref[:7], *ref[7])):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, r)
 
 
 def test_redesigns_leave_the_other_team_kernels_unchanged(dev):
@@ -969,11 +904,11 @@ def test_redesigns_leave_the_other_team_kernels_unchanged(dev):
 
     from srbd_nmpc_tpu_torch.utils import build
 
-    for name in ("sqp_planes_split", "riccati"):
+    for name in ("sqp_planes", "riccati"):
         build.load_kernel(name)
     got = {}
-    for source, needle in (("sqp_planes_split", "k1s_riccati_team_kernel"),
-                           ("sqp_planes_split", "k1s_riccati_factor_kernel"),
+    for source, needle in (("sqp_planes", "k1s_riccati_team_kernel"),
+                           ("sqp_planes", "k1s_riccati_factor_kernel"),
                            ("riccati", "riccati_team_kernel")):
         for mangled, regs, stores, _, _ in chip_smoke._ptxas(source, needle):
             tag = ("team <true>" if "ILb1E" in mangled else "team <false>"

@@ -1,16 +1,14 @@
 """PyTorch port of the stage linearization (kernel K5): the plain version vs
-the JAX ``linearize_pallas`` in interpret mode, f64; and the CUDA source's
-per-thread arithmetic, built as host C++ in f64, vs the plain version.
+the JAX ``linearize_pallas`` in interpret mode, f64 (the CUDA source's two
+launches, built as host C++, are held to the plain version by
+test_torch_linearize_split.py).
 
-Tolerances: rtol 1e-12 against JAX (same formulas; row sums may be taken
-in another order) and against the host build (same order; only library
-transcendentals may round differently), with an absolute floor of 1e-12 for
-entries that cancel to ~0."""
+Tolerance: rtol 1e-12 against JAX (same formulas; row sums may be taken in
+another order), with an absolute floor of 1e-12 for entries that cancel to
+~0."""
 
-import ctypes
 import dataclasses
 import functools
-import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +20,6 @@ from srbd_nmpc_tpu.models import srbd as jsrbd
 from srbd_nmpc_tpu.nmpc import engine as jengine
 from srbd_nmpc_tpu_torch import convert
 from srbd_nmpc_tpu_torch.models import srbd, srbd_linearize
-from srbd_nmpc_tpu_torch.utils import build
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -92,32 +89,3 @@ def test_plain_matches_jax_kernel(jax_ref, i, name):
     assert tuple(got.shape) == ref[i].shape, name
     np.testing.assert_allclose(got.numpy(), ref[i], rtol=1e-12, atol=1e-12,
                                err_msg=name)
-
-
-def test_cuda_source_host_build_matches_plain():
-    """The kernel's per-thread body (csrc/linearize.cu) compiled as host C++
-    in double precision reproduces the plain version; the CUDA launch is
-    checked on the card by test_torch_kernels_cuda.py."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler")
-    params, weights, arrs = _problem(seed=1)
-    ref = _plain(params, weights, arrs)
-    tp, tw, Ac, bc = _port(params, weights)
-    lib = ctypes.CDLL(build.build_host(
-        f"{build.CSRC}/linearize.cu", flags=("-O2", "-ffp-contract=off")))
-    fn = lib.srbd_linearize_host_f64
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + \
-        [ctypes.c_double] * 2
-    fn.restype = ctypes.c_int
-    consts = torch.cat([srbd_linearize.model_constants(tp), Ac.reshape(-1),
-                        bc, tw.R.reshape(-1), tw.Q.reshape(-1)])
-    assert consts.numel() == srbd_linearize._K_LEN
-    ins = [torch.as_tensor(np.ascontiguousarray(a)) for a in arrs]
-    outs = [torch.empty_like(r) for r in ref]
-    # the C entry takes (A, B, b, R_eff, r_eff, q, mer)
-    order = (0, 1, 2, 5, 4, 3, 6)
-    assert fn(consts.data_ptr(), *(t.data_ptr() for t in ins),
-              *(outs[k].data_ptr() for k in order), N, B, MU_B, THETA_B) == 0
-    for name, g, r in zip(NAMES, outs, ref):
-        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-12,
-                                   atol=1e-12, err_msg=name)

@@ -4,11 +4,9 @@ two launches through a [N, 24, B] hand-off), built as host C++:
 
 - in f64 against the plain ``srbd_linearize.linearize_ref`` (rtol = atol =
   1e-12) at N = 1, 5 and 20 on a ragged width, a NaN lane included;
-- in f32 (``-DSRBD_HOST_F32``) bit for bit against the one-thread body's
-  f32 host build, on all seven outputs;
-- the one-thread body's f32 host build against stored digests of its
-  outputs: its stage code was moved into helpers that the new passes share
-  without changing one bit;
+- in f32 (``-DSRBD_HOST_F32``) against stored digests of all seven outputs
+  of the one-thread body that the two launches replaced, NaN payloads
+  included;
 
 and the card-only entry ``_linearize_cuda`` raising on what it cannot take.
 The launches are checked on the card by ``test_torch_kernels_cuda.py``."""
@@ -37,9 +35,15 @@ HOST = ("-O2", "-ffp-contract=off")
 B_RAGGED = 133
 # sha256 of the one-thread body's f32 host outputs (A, B, b, q, r_eff,
 # R_eff, mer) on _problem(20, B_RAGGED, 3) in f32, as built before its stage
-# code was shared with the new passes
+# code was shared with the two launches
 ONE_THREAD_F32_DIGEST = (
     "ab0c1280d635fa37c1a5b8502785e2e89b04884b5dfdb3c46a2317c2599c8b7e")
+# the same on _problem(N, B_RAGGED, 2) in f32, by N
+F32_DIGEST = {
+    1: "03e6d8eb0c3fde3c1046195391e2fe5ba126403e438e81ed411c3a9314e4279e",
+    5: "90adfa03b530f44aa919f38c9324143ed2c282d437a14de7038765600f8120e5",
+    20: "eca178381b9d1b7b563400762be4edec4575e3557965da1aaff1711ffb284993",
+}
 
 
 def _problem(N, B, seed, dtype=F64):
@@ -75,16 +79,16 @@ def _lib(f32: bool) -> ctypes.CDLL:
     flags = HOST + (("-DSRBD_HOST_F32",) if f32 else ())
     lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/linearize.cu",
                                        flags=flags))
-    tail = [ctypes.c_int] * 2 + [ctypes.c_double] * 2
-    for fn in (lib.srbd_linearize_host_f64, lib.srbd_linearize_split_host):
-        fn.argtypes = [ctypes.c_void_p] * 12 + tail
-        fn.restype = ctypes.c_int
+    fn = lib.srbd_linearize_split_host
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 2
+                   + [ctypes.c_double] * 2)
+    fn.restype = ctypes.c_int
     return lib
 
 
-def _host(args, split=False):
-    """The seven outputs of the host build in the inputs' dtype: the
-    one-thread body, or with ``split`` the new design."""
+def _host(args):
+    """The seven outputs of the host build (the stage pass, then the dense
+    write) in the inputs' dtype."""
     params, Q, R, Ac, bc, xs, xn, us, xr = args[:9]
     dtype = xs.dtype
     N, _, B = xs.shape
@@ -97,9 +101,7 @@ def _host(args, split=False):
              torch.empty((N, 8, B), dtype=dtype)]
     ptrs = [consts.data_ptr(), *(t.data_ptr() for t in (xs, xn, us, xr)),
             *(outs[k].data_ptr() for k in C_ORDER)]
-    lib = _lib(dtype == F32)
-    fn = (lib.srbd_linearize_split_host if split
-          else lib.srbd_linearize_host_f64)
+    fn = _lib(dtype == F32).srbd_linearize_split_host
     assert fn(*ptrs, N, B, MU_B, THETA_B) == 0
     return outs
 
@@ -117,11 +119,11 @@ def _digest(outs) -> str:
 
 @pytest.mark.parametrize("N", [1, 5, 20])
 def test_design_host_build_matches_plain(N):
-    """The new design in double precision reproduces the plain version on
+    """The two launches in double precision reproduce the plain version on
     all seven outputs, NaN for NaN."""
     args = _problem(N, B_RAGGED, seed=1)
     ref = srbd_linearize.linearize_ref(*args)
-    for name, g, r in zip(NAMES, _host(args, split=True), ref):
+    for name, g, r in zip(NAMES, _host(args), ref):
         assert g.shape == r.shape, name
         np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-12,
                                    atol=1e-12, err_msg=name)
@@ -129,34 +131,31 @@ def test_design_host_build_matches_plain(N):
 
 @pytest.mark.parametrize("N", [1, 5, 20])
 def test_design_f32_host_build_rounds_as_one_thread_body(N):
-    """In float32 the new design gives the one-thread body's seven outputs
-    bit for bit, NaN payloads included."""
-    args = _problem(N, B_RAGGED, seed=2, dtype=F32)
-    one = _host(args)
-    for name, g, r in zip(NAMES, _host(args, split=True), one):
-        assert torch.equal(_bits(g), _bits(r)), name
-    assert torch.isfinite(one[5][:, :, :, 3:]).all()   # R_eff off the NaN lane
+    """In float32 the two launches give the one-thread body's seven outputs
+    bit for bit (its stored digests), NaN payloads included."""
+    outs = _host(_problem(N, B_RAGGED, seed=2, dtype=F32))
+    assert torch.isfinite(outs[5][:, :, :, 3:]).all()  # R_eff off the NaN lane
+    assert _digest(outs) == F32_DIGEST[N]
 
 
 def test_one_thread_f32_host_build_matches_stored_digest():
-    """The one-thread body's f32 host outputs are those of the body as it
-    was before its stage code became the shared helpers."""
+    """The f32 host outputs are those of the one-thread body as it was
+    before its stage code became the shared helpers."""
     outs = _host(_problem(20, B_RAGGED, 3, F32))
     assert _digest(outs) == ONE_THREAD_F32_DIGEST
 
 
-@pytest.mark.parametrize("one_thread", [False, True])
 @pytest.mark.parametrize("case", ["cpu", "float64", "misshapen"])
-def test_card_entry_raises_on_what_it_cannot_take(case, one_thread):
-    """The card-only entry, new design or one-thread kernel, raises on CPU
-    tensors, on float64 and on misshapen inputs before anything is built."""
+def test_card_entry_raises_on_what_it_cannot_take(case):
+    """The card-only entry raises on CPU tensors, on float64 and on
+    misshapen inputs before anything is built."""
     dtype = F64 if case == "float64" else F32
     args = list(_problem(5, 16, seed=0, dtype=dtype))
     if case == "misshapen":
         args[5] = args[5][:, :-1].contiguous()    # x with 11 rows
     err = ValueError if case == "misshapen" else TypeError
     with pytest.raises(err, match="shape" if case == "misshapen" else "CUDA"):
-        srbd_linearize._linearize_cuda(*args, one_thread=one_thread)
+        srbd_linearize._linearize_cuda(*args)
 
 
 def test_public_entry_on_cpu_takes_consts_and_runs_the_plain_version():

@@ -1,8 +1,9 @@
 """PyTorch port of the batched merit: the line-search merit at a candidate
 (kernel K7a) and the merit with diagnostics and gradients (K7b, both
 variants). The plain versions vs the JAX ``merit_alpha_pallas`` /
-``merit_pallas`` in interpret mode, f64; and the CUDA source's
-per-scenario arithmetic, built as host C++ in f64, vs the plain versions.
+``merit_pallas`` in interpret mode, f64; and K7b's per-scenario
+arithmetic, built as host C++ in f64, vs the plain version (K7a's two
+launches are held the same way by test_torch_merit_split.py).
 
 Tolerance: rtol 1e-12 (same formulas; the JAX row sums may be taken in
 another order); the host build against the plain version also rtol 1e-12
@@ -110,33 +111,6 @@ def test_plain_matches_jax_kernel(jax_ref, i, name):
     assert merit_kernel.launches == before   # CPU tensors: the plain version
     np.testing.assert_allclose(got[i].numpy(), ref[i], rtol=1e-12,
                                err_msg=name)
-
-
-def test_cuda_source_host_build_matches_plain():
-    """The kernel's per-scenario body (csrc/merit.cu) compiled as host C++
-    in double precision reproduces the plain version; the CUDA launch is
-    checked on the card by test_torch_kernels_cuda.py."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler")
-    params, weights, arr = _problem(seed=1)
-    args = _port(params, weights, arr)
-    th_ref, ph_ref = merit_kernel.merit_alpha_ref(*args)
-    tp, Q, Qf, R, Ac, bc, x, u, xr, dx, du, alpha = args[:12]
-    lib = ctypes.CDLL(build.build_host(
-        f"{build.CSRC}/merit.cu", flags=("-O2", "-ffp-contract=off")))
-    fn = lib.srbd_merit_alpha_host_f64
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + \
-        [ctypes.c_double] * 2
-    fn.restype = ctypes.c_int
-    consts = torch.cat([srbd_linearize.model_constants(tp), Ac.reshape(-1),
-                        bc, R.reshape(-1), Q.reshape(-1), Qf.reshape(-1)])
-    assert consts.numel() == merit_kernel._K_LEN
-    out = torch.empty((2, B), dtype=F64)
-    assert fn(consts.data_ptr(), x.data_ptr(), dx.data_ptr(), u.data_ptr(),
-              du.data_ptr(), xr.data_ptr(), alpha.data_ptr(),
-              out[0].data_ptr(), out[1].data_ptr(), N, B, MU_B, THETA_B) == 0
-    np.testing.assert_allclose(out[0].numpy(), th_ref.numpy(), rtol=1e-12)
-    np.testing.assert_allclose(out[1].numpy(), ph_ref.numpy(), rtol=1e-12)
 
 
 K7B_OUT = ("theta", "phi", "Jphi_x", "Jphi_u", "max_defect", "min_con")

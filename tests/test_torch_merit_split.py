@@ -5,11 +5,8 @@ per lane), built as host C++:
 
 - in f64 against the plain ``merit_kernel.merit_alpha_ref`` (rtol = atol =
   1e-12) at N = 1, 5 and 20 on a ragged width, a NaN lane included;
-- in f32 (``-DSRBD_HOST_F32``) bit for bit against the one-thread body's
-  f32 host build, on theta and phi;
-- the one-thread body's f32 host build against a stored digest of its
-  outputs: its stage code was moved into a helper that the stage pass
-  shares without changing one bit;
+- in f32 (``-DSRBD_HOST_F32``) against stored digests of theta and phi as
+  the one-thread body that the two launches replaced gave them;
 
 and the card-only entry ``_merit_alpha_cuda`` raising on what it cannot
 take. The launches are checked on the card by
@@ -39,6 +36,12 @@ B_RAGGED = 133
 # with the stage pass
 ONE_THREAD_F32_DIGEST = (
     "feb0d7c56307507334c8def96189099ce9080cbea2ec40ba796becb0c88ed56f")
+# the same on _problem(N, B_RAGGED, 2) in f32, by N
+F32_DIGEST = {
+    1: "93585b8b5c788a310e4cee14d0b68d7fcb1c0ee6b14f13ebe307e66ad03fd16d",
+    5: "91a1bf6bb19d15f8e35158f73e70064e7c2c6c2ed19b7f3625a7b7682d9489be",
+    20: "f6ee3f208d57752559080aa09fc2ba63289afe8359f6303a8c44fe2ae238183c",
+}
 
 
 def _problem(N, B, seed, dtype=F64):
@@ -76,15 +79,16 @@ def _lib(f32: bool) -> ctypes.CDLL:
         pytest.skip("no host C++ compiler")
     flags = HOST + (("-DSRBD_HOST_F32",) if f32 else ())
     lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/merit.cu", flags=flags))
-    tail = [ctypes.c_int] * 2 + [ctypes.c_double] * 2
-    lib.srbd_merit_alpha_host_f64.argtypes = [ctypes.c_void_p] * 9 + tail
-    lib.srbd_merit_alpha_host_f64.restype = ctypes.c_int
+    fn = lib.srbd_merit_alpha_split_host
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                   + [ctypes.c_double] * 2)
+    fn.restype = ctypes.c_int
     return lib
 
 
-def _host(args, split=False):
-    """(theta, phi) of the host build in the inputs' dtype: the one-thread
-    body, or with ``split`` the stage pass and the reduction."""
+def _host(args):
+    """(theta, phi) of the host build (the stage pass and the reduction) in
+    the inputs' dtype."""
     params, Q, Qf, R, Ac, bc, x, u, xr, dx, du, alpha = args[:12]
     dtype = x.dtype
     N, B = u.shape[0], x.shape[-1]
@@ -95,14 +99,7 @@ def _host(args, split=False):
     ptrs = [consts.data_ptr(),
             *(t.data_ptr() for t in (x, dx, u, du, xr, alpha)),
             out[0].data_ptr(), out[1].data_ptr()]
-    lib = _lib(dtype == F32)
-    if split:
-        fn = lib.srbd_merit_alpha_split_host
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + \
-            [ctypes.c_double] * 2
-        fn.restype = ctypes.c_int
-    else:
-        fn = lib.srbd_merit_alpha_host_f64
+    fn = _lib(dtype == F32).srbd_merit_alpha_split_host
     assert fn(*ptrs, N, B, MU_B, THETA_B) == 0
     return out[0], out[1]
 
@@ -124,7 +121,7 @@ def test_split_host_build_matches_plain(N):
     plain version, NaN for NaN."""
     args = _problem(N, B_RAGGED, seed=1)
     ref = merit_kernel.merit_alpha_ref(*args)
-    for name, g, r in zip(("theta", "phi"), _host(args, split=True), ref):
+    for name, g, r in zip(("theta", "phi"), _host(args), ref):
         np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-12,
                                    atol=1e-12, err_msg=name)
         assert bool(torch.isnan(g[2])) and bool(torch.isnan(r[2])), name
@@ -133,33 +130,30 @@ def test_split_host_build_matches_plain(N):
 @pytest.mark.parametrize("N", [1, 5, 20])
 def test_split_f32_host_build_rounds_as_one_thread_body(N):
     """In float32 the two passes give the one-thread body's theta and phi
-    bit for bit."""
-    args = _problem(N, B_RAGGED, seed=2, dtype=F32)
-    one = _host(args)
-    for name, g, r in zip(("theta", "phi"), _host(args, split=True), one):
-        assert torch.equal(_bits(g), _bits(r)), name
-    assert torch.isfinite(one[1][3:]).all()
+    bit for bit (its stored digests)."""
+    outs = _host(_problem(N, B_RAGGED, seed=2, dtype=F32))
+    assert torch.isfinite(outs[1][3:]).all()
+    assert _digest(outs) == F32_DIGEST[N]
 
 
 def test_one_thread_f32_host_build_matches_stored_digest():
-    """The one-thread body's f32 host outputs are those of the body as it
-    was before its stage code became the shared helper."""
+    """The f32 host outputs are those of the one-thread body as it was
+    before its stage code became the shared helper."""
     assert (_digest(_host(_problem(20, B_RAGGED, 3, F32)))
             == ONE_THREAD_F32_DIGEST)
 
 
-@pytest.mark.parametrize("one_thread", [False, True])
 @pytest.mark.parametrize("case", ["cpu", "float64", "misshapen"])
-def test_card_entry_raises_on_what_it_cannot_take(case, one_thread):
-    """The card-only entry, new design or one-thread kernel, raises on CPU
-    tensors, on float64 and on misshapen inputs before anything is built."""
+def test_card_entry_raises_on_what_it_cannot_take(case):
+    """The card-only entry raises on CPU tensors, on float64 and on
+    misshapen inputs before anything is built."""
     dtype = F64 if case == "float64" else F32
     args = list(_problem(5, 16, seed=0, dtype=dtype))
     if case == "misshapen":
         args[6] = args[6][:, :-1].contiguous()    # x with 11 rows
     err = ValueError if case == "misshapen" else TypeError
     with pytest.raises(err, match="shape" if case == "misshapen" else "CUDA"):
-        merit_kernel._merit_alpha_cuda(*args, one_thread=one_thread)
+        merit_kernel._merit_alpha_cuda(*args)
 
 
 def test_public_entry_on_cpu_takes_consts_and_runs_the_plain_version():

@@ -2,7 +2,9 @@
 kernel source, built as host C++ with the counting scalar, counts its own
 arithmetic on the lanes and branches of its inputs. Checked against hand
 counts of the two rollouts, against the barrier branch each constraint
-takes, and for the lane sampling of every kernel's count."""
+takes, for the lane sampling of every kernel's count, and against the
+counts of the one-thread bodies that the launches replaced, each gap
+named."""
 
 import shutil
 
@@ -134,6 +136,58 @@ def _count_args(kernel):
                              dict(with_grad=False))}[kernel]
 
 
+# One lane-call's operations on _count_args(kernel) (N = 20) by the
+# one-thread body that the launches replaced, counted before it was
+# retired. The launches count ONE_THREAD_OPS + PIVOTS (the team kernels) +
+# REST. PIVOTS: a team of 16 (the card's, opcount.TEAM) forms the 12 pivots
+# of its Cholesky in every member (team.cuh's team_cholesky: 34 operations a
+# stage and member), where one thread formed them once.
+ONE_THREAD_OPS = {
+    "sqp_planes": 318844,
+    "sqp_planes_rank6": 381044,
+    "sqp_planes_factor": 284284,
+    "sqp_onepass_cand": 342870,
+    "sqp_onepass": 341897,
+    "sqp_twopass_bwd": 770673,
+    "linearize": 299040,
+    "riccati_bwd_constq": 491560,
+    "riccati_bwd": 491560,
+    "merit_alpha": 53356,
+}
+PIVOT_OPS = 34
+TEAM_KERNELS = ("sqp_planes", "sqp_planes_factor", "sqp_onepass_cand",
+                "sqp_onepass", "sqp_twopass_bwd", "riccati_bwd_constq",
+                "riccati_bwd")
+REST = {
+    # 35 N - 6 (measured at N = 5 and 20), not attributed to one line
+    "sqp_planes": 694,
+    # the rank-6 team form (its 6x6 factors one member's each, so no pivots
+    # repeated) orders its stage's work in its own steps
+    "sqp_planes_rank6": -3206,
+    # the gains body's 694, and L's diagonal re-formed from its last update
+    # when it is parked (k1s::park_word: 34 N)
+    "sqp_planes_factor": 1374,
+    # K3b's 701, and the candidate x_{k+1} = xa + alpha dxc formed again in
+    # the plane pass's thread of stage k + 1 (24 N)
+    "sqp_onepass_cand": 1181,
+    "sqp_onepass": 701,
+    # K5's two launches (241,439 here), the terminal-and-merit pass (392) and
+    # K6a's team pass (498,880 with its pivots) with Acl and bcl (24
+    # operations an entry: 74,880), against one thread's own stage order
+    "sqp_twopass_bwd": 34718,
+    # each product Ac(r, j) ddb(r) formed once for six rows of R_eff
+    # (-2,880 N), the lever arms formed again for B (+6 N)
+    "linearize": -57480,
+    # P symmetrized by its 78 entry pairs (-144 N)
+    "riccati_bwd_constq": -2880,
+    "riccati_bwd": -2880,
+    # the candidate x_{g+1} formed in the threads of stage g and g + 1, and
+    # x_N again in the terminal row (24 N + 24 = 504), against 5 fewer
+    # elsewhere
+    "merit_alpha": 499,
+}
+
+
 @pytest.mark.parametrize("kernel", [
     "sqp_planes", "sqp_planes_rank6", "sqp_planes_factor",
     "sqp_onepass_cand", "sqp_onepass", "sqp_twopass_bwd",
@@ -170,11 +224,31 @@ def test_k7b_gradients_count_the_gradient_rows():
 def test_k1_factor_count_trades_the_back_substitution():
     """K1's factor body drops the stage's 13-column back substitution (row
     i: 13 scalings and 13 (i) multiply-subtracts, 1872 operations over the
-    12 rows) and adds a one-column one to each rollout stage (144); the
-    rest is the gains body's: -1728 per stage and lane. The rank-6 body
+    12 rows), adds a one-column one to each rollout stage (144) and
+    re-forms L's diagonal from its last update when it parks it (34); the
+    rest is the gains body's: -1694 per stage and lane. The rank-6 body
     counts differently from both."""
     fn, args, kw = _count_args("sqp_planes")
     gains = fn(*args, **kw)
     factor = fn(*args, **kw, factor=True)
-    assert factor - gains == -1728 * smoke.N_MAIN
+    assert factor - gains == (-1728 + 34) * smoke.N_MAIN
     assert fn(*args, **kw, rank6=True) not in (gains, factor)
+
+
+@pytest.mark.parametrize("kernel", list(ONE_THREAD_OPS))
+def test_split_count_matches_the_one_thread_count(kernel):
+    """Each kernel's launches count the one-thread body's operations but for
+    the named gaps (PIVOTS and REST above), and a team kernel's gap scales
+    with the team width as its pivots do."""
+    fn, args, kw = _count_args(kernel)
+    team = kernel in TEAM_KERNELS
+    pivots = 15 * PIVOT_OPS * smoke.N_MAIN if team else 0
+    assert fn(*args, **kw) == ONE_THREAD_OPS[kernel] + pivots + REST[kernel]
+    if team:
+        card, opcount.TEAM = opcount.TEAM, 8
+        try:
+            narrow = fn(*args, **kw)
+        finally:
+            opcount.TEAM = card
+        assert ONE_THREAD_OPS[kernel] + REST[kernel] + 7 * PIVOT_OPS * \
+            smoke.N_MAIN == narrow

@@ -1,7 +1,8 @@
 """PyTorch port of the ``pallas`` route's LQR solve (kernel K6): the plain
 versions vs the JAX ``lqr_solve_pallas`` in interpret mode, f64, with
 stage-constant ``(Q, Qf)`` and with per-stage Q; and the CUDA source's
-per-scenario arithmetic, built as host C++ in f64, vs the plain versions.
+arithmetic (the team backward pass at the card's width, the forward
+rollout), built as host C++ in f64, vs the plain versions.
 
 Tolerance: rtol 1e-10 (a Cholesky sits between inputs and outputs)."""
 
@@ -81,9 +82,10 @@ def test_plain_matches_jax_kernel(jax_refs, const_q):
 
 @pytest.mark.parametrize("const_q", [True, False])
 def test_cuda_source_host_build_matches_plain(const_q):
-    """The kernels' per-scenario bodies (csrc/riccati.cu) compiled as host
-    C++ in double precision reproduce the plain versions; the CUDA launches
-    are checked on the card by test_torch_kernels_cuda.py."""
+    """The kernels' bodies (csrc/riccati.cu: the team backward pass, its
+    team of 16 emulated member by member, and the forward rollout) compiled
+    as host C++ in double precision reproduce the plain versions; the CUDA
+    launches are checked on the card by test_torch_kernels_cuda.py."""
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
     A, Bm, b, Q, R, q, r, x0, Qc = (
@@ -96,14 +98,14 @@ def test_cuda_source_host_build_matches_plain(const_q):
 
     lib = ctypes.CDLL(build.build_host(
         f"{build.CSRC}/riccati.cu", flags=("-O2", "-ffp-contract=off")))
-    bwd, fwd = lib.srbd_riccati_bwd_host_f64, lib.srbd_riccati_fwd_host_f64
-    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + \
-        [ctypes.c_double, ctypes.c_int]
+    bwd, fwd = lib.srbd_riccati_bwd_team_host, lib.srbd_riccati_fwd_host_f64
+    bwd.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + \
+        [ctypes.c_int] * 2 + [ctypes.c_double, ctypes.c_int]
     fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
     bwd.restype = fwd.restype = ctypes.c_int
     Qptr = torch.cat([Qc[0].reshape(-1), Qc[1].reshape(-1)]) if const_q else Q
     K, k = torch.empty_like(K_ref), torch.empty_like(k_ref)
-    assert bwd(A.data_ptr(), Bm.data_ptr(), b.data_ptr(), Qptr.data_ptr(),
+    assert bwd(16, 0, A.data_ptr(), Bm.data_ptr(), b.data_ptr(), Qptr.data_ptr(),
                R.data_ptr(), q.data_ptr(), r.data_ptr(), K.data_ptr(),
                k.data_ptr(), N, B, REG, int(const_q)) == 0
     np.testing.assert_allclose(K.numpy(), K_ref.numpy(), rtol=1e-10,

@@ -3,18 +3,19 @@ team of threads per scenario over shared memory) built as host C++, each
 team's members run one after another within each step:
 
 - in f64 against the plain ``riccati_kernel.lqr_backward_ref`` (rtol 1e-10,
-  atol 1e-12, as ``test_torch_riccati_kernel.py`` holds the one-thread
-  body), at the emulated team widths 8, 16 (the card's) and 32;
-- in f32 (``-DSRBD_HOST_F32``) bit for bit against the one-thread body's f32
-  host build, at each width in either member order: no sum is split between
-  members or reordered, and no step reads what another member writes in it;
+  atol 1e-12), at the emulated team widths 8, 16 (the card's) and 32;
+- in f32 (``-DSRBD_HOST_F32``) against stored digests of K and k as the
+  one-thread body that the team kernel replaced gave them, at each width in
+  either member order: no sum is split between members or reordered, and
+  no step reads what another member writes in it;
 
-and the card-only entry ``_lqr_backward_cuda`` (team or one-thread kernel)
-raising on what it cannot take. The launches are checked on the card by
+and the card-only entry ``_lqr_backward_cuda`` raising on what it cannot
+take. The launches are checked on the card by
 ``test_torch_kernels_cuda.py``."""
 
 import ctypes
 import functools
+import hashlib
 import shutil
 
 import numpy as np
@@ -30,6 +31,14 @@ REG = 1e-9
 # team widths to emulate: the card's (16) and two more, since the rounding
 # must not depend on how a stage's work items fall to the members
 TEAMS = (8, 16, 32)
+# sha256 of the f32 host K and k on _problem(N, seed=2) in f32, by (N,
+# const_q), as the one-thread body that the team kernel replaced gave them
+F32_DIGEST = {
+    (20, True): "8487fb50ce84259ccbd194a8817405b6e7d25d5cb7afc67672eb243ce33baf5f",
+    (20, False): "aa6f233ab9f6bd66c20e2e74e0d07e60133b0225457d0546fb3eb53da4238c9e",
+    (5, True): "fc7b334af47c12bf754cf14b8444257380b3103c61b4b440d8ee6dbf01f415d6",
+    (5, False): "3335400c71ecdf08b7fd2e212fba94a5dafe76d674f04e39920518705fd2b48c",
+}
 
 
 def _problem(N, seed=0, dtype=torch.float64):
@@ -60,19 +69,16 @@ def _lib(f32: bool) -> ctypes.CDLL:
         pytest.skip("no host C++ compiler")
     flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
     lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/riccati.cu", flags=flags))
-    tail = [ctypes.c_int] * 2 + [ctypes.c_double, ctypes.c_int]
     lib.srbd_riccati_bwd_team_host.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + tail)
-    lib.srbd_riccati_bwd_host_f64.argtypes = [ctypes.c_void_p] * 9 + tail
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 2 + [ctypes.c_double, ctypes.c_int])
     lib.srbd_riccati_bwd_team_host.restype = ctypes.c_int
-    lib.srbd_riccati_bwd_host_f64.restype = ctypes.c_int
     return lib
 
 
-def _host_backward(prob, const_q, team=None, rev=False):
+def _host_backward(prob, const_q, team, rev=False):
     """(K, k) of the team host build (``team``: the emulated width, ``rev``:
-    the members in reverse order), or of the one-thread body's host build
-    with ``team=None``, in the problem's dtype."""
+    the members in reverse order) in the problem's dtype."""
     A, Bm, b, Q, R, q, r, Qc = prob
     N, dtype = A.shape[0], A.dtype
     lib = _lib(dtype == torch.float32)
@@ -80,13 +86,19 @@ def _host_backward(prob, const_q, team=None, rev=False):
     K = torch.empty((N, 12, 12, B), dtype=dtype)
     k = torch.empty((N, 12, B), dtype=dtype)
     ptrs = [t.data_ptr() for t in (A, Bm, b, Qptr, R, q, r, K, k)]
-    if team is None:
-        rc = lib.srbd_riccati_bwd_host_f64(*ptrs, N, B, REG, int(const_q))
-    else:
-        rc = lib.srbd_riccati_bwd_team_host(team, int(rev), *ptrs, N, B, REG,
-                                            int(const_q))
-    assert rc == 0
+    assert lib.srbd_riccati_bwd_team_host(team, int(rev), *ptrs, N, B, REG,
+                                          int(const_q)) == 0
     return K, k
+
+
+def _f32_digest(N, const_q, team, rev) -> str:
+    K, k = _host_backward(_problem(N, seed=2, dtype=torch.float32), const_q,
+                          team, rev)
+    assert torch.isfinite(K).all() and torch.isfinite(k).all()
+    h = hashlib.sha256()
+    for t in (K, k):
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 @pytest.mark.parametrize("team", TEAMS)
@@ -111,13 +123,16 @@ def test_team_host_build_matches_plain(N, const_q, team):
 @pytest.mark.parametrize("const_q", [True, False])
 def test_team_f32_host_build_rounds_as_one_thread_body(const_q, team, rev):
     """In float32 the team body gives the one-thread body's K and k bit for
-    bit, with either member order of a team."""
-    prob = _problem(20, seed=2, dtype=torch.float32)
-    K_one, k_one = _host_backward(prob, const_q)
-    K, k = _host_backward(prob, const_q, team, rev)
-    assert torch.isfinite(K).all() and torch.isfinite(k).all()
-    assert torch.equal(K, K_one)
-    assert torch.equal(k, k_one)
+    bit (its stored digests), with either member order of a team."""
+    assert _f32_digest(20, const_q, team, rev) == F32_DIGEST[(20, const_q)]
+
+
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("const_q", [True, False])
+def test_team_f32_host_build_matches_digest_at_n5(const_q, rev):
+    """The same at N = 5, at the card's team width in either member
+    order."""
+    assert _f32_digest(5, const_q, 16, rev) == F32_DIGEST[(5, const_q)]
 
 
 def test_team_host_build_takes_widths_8_to_32():
@@ -131,11 +146,9 @@ def test_team_host_build_takes_widths_8_to_32():
     assert fn(64, 0, *ptrs, 5, B, REG, 0) == 1
 
 
-@pytest.mark.parametrize("one_thread", [False, True])
 @pytest.mark.parametrize("case", ["cpu", "float64", "misshapen"])
-def test_card_entry_raises_on_what_it_cannot_take(case, one_thread):
-    """The card-only backward entry, team or one-thread kernel, raises on
-    CPU tensors, on float64 and on misshapen inputs before anything is
+def test_card_entry_raises_on_what_it_cannot_take(case):
+    """The card-only backward entry raises on CPU tensors, on float64 and on misshapen inputs before anything is
     built (the constant Q and Qf may lie anywhere, so their shape is what
     a CPU call can get wrong)."""
     dtype = torch.float64 if case == "float64" else torch.float32
@@ -144,5 +157,4 @@ def test_card_entry_raises_on_what_it_cannot_take(case, one_thread):
         Qc = (Qc[0], Qc[1][:, :-1])
     err = ValueError if case == "misshapen" else TypeError
     with pytest.raises(err, match="shape" if case == "misshapen" else "CUDA"):
-        riccati_kernel._lqr_backward_cuda(A, Bm, b, Qc, R, q, r, REG,
-                                          one_thread=one_thread)
+        riccati_kernel._lqr_backward_cuda(A, Bm, b, Qc, R, q, r, REG)

@@ -1,7 +1,8 @@
 """PyTorch port of the dense fused SQP solves (kernels K3a, K3b, K4): each
 plain version vs the JAX ``ops/sqp_pallas.py`` function in interpret mode,
-f64, B=8, N=6 (rtol 1e-10); and each CUDA source's per-scenario
-arithmetic, built as host C++ in f64, vs the plain version (rtol 1e-12).
+f64, B=8, N=6 (rtol 1e-10); and K4's CUDA launches, built as host C++ in
+f64, vs the plain versions (rtol 1e-12; K3's launches are held the same
+way by test_torch_sqp_onepass_split.py).
 
 The inputs follow tests/test_sqp_pallas.py:_setup: random trajectories
 around the cold start, the benchmark reference, a random candidate
@@ -171,63 +172,44 @@ def _f64(*shape):
     return torch.empty(shape, dtype=F64)
 
 
-@pytest.mark.parametrize("cand", [True, False])
-def test_onepass_source_host_build_matches_plain(problem, cand):
-    """csrc/sqp_onepass.cu (K3a with cand, K3b without) compiled as host
-    C++ in double precision reproduces the plain version: the kernel's
-    hand-written arithmetic checked without a card."""
-    params, weights, arr = problem
-    tp, tw, Ac, bc = _port_consts(params, weights)
-    case = "cand_fold" if cand else "onepass_fold"
-    ref = _port_call(case, tp, tw, Ac, bc, arr)
-    fn = _host("sqp_onepass").srbd_sqp_onepass_host_f64
-    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 2
-                   + [ctypes.c_double] * 3 + [ctypes.c_int])
-    fn.restype = ctypes.c_int
-    Ac1, Ac2 = Ac[0:12, 0:6], Ac[12:24, 6:12]
-    consts = torch.cat([model_constants(tp), Ac1.reshape(-1), Ac2.reshape(-1),
-                        bc, tw.R.reshape(-1), tw.Q.reshape(-1),
-                        tw.Qf.reshape(-1)])
-    assert consts.numel() == sqp_stage.K_LEN
-    xa, us, xra, dxc, duc, alpha, x0s = (torch.as_tensor(arr[k]) for k in (
-        "xa", "us", "xra", "dxc", "duc", "alpha", "x0s"))
-    dx = _f64(N + 1, 12, B)
-    dx[0] = (x0s - (xa[0] + alpha[None] * dxc[0]) if cand
-             else torch.as_tensor(arr["dx0"]))
-    du, out5 = _f64(N, 12, B), _f64(5, B)
-    Acl, K, vecs = _f64(N, 12, 12, B), _f64(N, 12, 12, B), _f64(4, N, 12, B)
-    ptrs = [t.data_ptr() for t in (consts, xa, us, xra, dxc, duc, alpha, dx,
-                                   dx[1:], du, *out5, Acl, K, *vecs)]
-    assert fn(*ptrs, N, B, MU_B, THETA_B, REG, int(cand)) == 0
-    for got, want in ((dx, ref[0]), (du, ref[1]), (out5[0], ref[2]),
-                      *zip(out5[1:], ref[3])):
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
-                                   atol=1e-12)
-
-
 def test_twopass_source_host_build_matches_plain(problem):
-    """csrc/sqp_twopass.cu (K4a backward, K4b forward) as host C++ in f64
-    against the plain versions."""
+    """K4a's four launches (csrc/linearize.cu's two, csrc/sqp_twopass.cu's
+    terminal-and-merit pass, csrc/riccati.cu's team pass with Acl and bcl,
+    at the card's team width) and K4b (csrc/sqp_twopass.cu) as host C++ in
+    f64 against the plain versions."""
     params, weights, arr = problem
     tp, tw, Ac, bc = _port_consts(params, weights)
     xa, us, xra, dx0 = (torch.as_tensor(arr[k])
                         for k in ("xa", "us", "xra", "dx0"))
     ref_b = sqp_kernel.sqp_qp_backward_ref(tp, tw.Q, tw.Qf, tw.R, Ac, bc, xa,
                                            us, xra, MU_B, THETA_B, REG)
-    lib = _host("sqp_twopass")
-    bwd, fwd = lib.srbd_sqp_twopass_bwd_host_f64, lib.srbd_sqp_twopass_fwd_host_f64
-    bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 2
-                    + [ctypes.c_double] * 3)
-    fwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
-    bwd.restype = fwd.restype = ctypes.c_int
+    lin, lib, ric = _host("linearize"), _host("sqp_twopass"), _host("riccati")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    stage, merit = lin.srbd_linearize_split_host, lib.srbd_k4s_merit_host
+    team, fwd = ric.srbd_riccati_bwd_team_acl_host, lib.srbd_sqp_twopass_fwd_host_f64
+    stage.argtypes = [P] * 12 + [I, I, D, D]
+    merit.argtypes = [P] * 9 + [I, I]
+    team.argtypes = [I, I] + [P] * 11 + [I, I, D]
+    fwd.argtypes = [P] * 11 + [I, I]
+    for fn in (stage, merit, team, fwd):
+        fn.restype = ctypes.c_int
     consts = torch.cat([t.reshape(-1) for t in (model_constants(tp), Ac, bc,
                                                 tw.R, tw.Q, tw.Qf)])
-    Acl, K, vecs = _f64(N, 12, 12, B), _f64(N, 12, 12, B), _f64(4, N, 12, B)
-    qN, mer = _f64(12, B), _f64(4, B)
-    assert bwd(*(t.data_ptr() for t in (consts, xa, us, xra, Acl, K, *vecs,
-                                        qN, *mer)),
-               N, B, MU_B, THETA_B, REG) == 0
-    for got, want in zip((Acl, K, *vecs, qN, *mer),
+    A, Bm, Reff = _f64(N, 12, 12, B), _f64(N, 12, 12, B), _f64(N, 12, 12, B)
+    b, reff, mer, q = _f64(N, 12, B), _f64(N, 12, B), _f64(N, 8, B), \
+        _f64(N + 1, 12, B)
+    assert stage(*(t.data_ptr() for t in (consts, xa, xa[1:], us, xra, A, Bm,
+                                          b, Reff, reff, q, mer)),
+                 N, B, MU_B, THETA_B) == 0
+    out4 = _f64(4, B)
+    assert merit(*(t.data_ptr() for t in (consts, xa, xra, mer, q, *out4)),
+                 N, B) == 0
+    Acl, K, bcl, kv = _f64(N, 12, 12, B), _f64(N, 12, 12, B), \
+        _f64(N, 12, B), _f64(N, 12, B)
+    assert team(16, 0, *(t.data_ptr() for t in (
+        A, Bm, b, consts[473:].contiguous(), Reff, q, reff, K, kv, Acl,
+        bcl)), N, B, REG) == 0
+    for got, want in zip((Acl, K, bcl, kv, q[:N], reff, q[N], *out4),
                          (*ref_b[:7], *ref_b[7])):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
                                    atol=1e-12)

@@ -1,17 +1,15 @@
 """The dense one-pass SQP trip (K3a at the candidate, K3b at the iterate) as
-three launches (``csrc/sqp_onepass_split.cu``: the plane pass K3s-A, the
-team Riccati pass ``k1s_riccati_team_kernel`` of ``sqp_planes_split.cu``,
-the closed-loop rollout K3s-C), built as host C++ with each team of the
-Riccati pass emulated member by member:
+three launches (``csrc/sqp_onepass.cu``: the plane pass K3s-A, the team
+Riccati pass ``k1s_riccati_team_kernel`` of ``sqp_planes.cu``, the
+closed-loop rollout K3s-C), built as host C++ with each team of the Riccati
+pass emulated member by member:
 
 - in f64 against the plain versions ``sqp_qp_solve_onepass{,_cand}_ref``
   (rtol = atol = 1e-12), at team widths 8, 16 (the card's) and 32;
-- in f32 bit for bit against the one-thread body ``csrc/sqp_onepass.cu``'s
-  f32 host build, on all seven outputs, with the members in either order;
-- the one-thread body's f32 host build against stored digests of its
-  outputs: the stage code it shares with the split kernels was moved out
-  of it without changing one bit (the plain version in f32 is not bitwise
-  to it on dx, du and dphi, so it cannot serve as the yardstick).
+- in f32 against stored digests of all seven outputs of the one-thread
+  body that the three launches replaced, with the members in either order
+  (the plain version in f32 is not bitwise to that body on dx, du and dphi,
+  so it cannot serve as the yardstick).
 
 The inputs follow tests/test_sqp_pallas.py:_setup: random trajectories
 around the cold start, the benchmark reference, a random candidate
@@ -43,8 +41,8 @@ B = 16
 TEAMS = (8, 16, 32)
 HOST = ("-O2", "-ffp-contract=off")
 # sha256 of the one-thread body's f32 host outputs (dx, du, dphi, theta,
-# phi, maxdef, mincon) on _f32_args(cand), as built before its stage code
-# was shared with the split kernels
+# phi, maxdef, mincon) on _f32_args(cand), which the three launches give
+# bit for bit
 ONE_THREAD_F32_DIGEST = {
     True: "8f385294969d518c57f02656043d1340ea38ca9226672e8197fde051494e2825",
     False: "04948c08f28fb05299bd7b04a159ce2aee8cc638d92f55e3094715d509eddf7b",
@@ -120,30 +118,11 @@ def _inputs(args, cand):
         alpha, dx
 
 
-def _one_thread(args, cand, f32=False):
-    """The one-thread body (csrc/sqp_onepass.cu) built as host C++, run on
-    every lane: (dx, du, out5)."""
-    fn = _lib("sqp_onepass", f32).srbd_sqp_onepass_host_f64
-    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 2
-                   + [ctypes.c_double] * 3 + [ctypes.c_int])
-    fn.restype = ctypes.c_int
-    consts, xa, us, xra, dxc, duc, alpha, dx = _inputs(args, cand)
-    N, dtype = us.shape[0], xa.dtype
-    du, out5 = torch.empty((N, 12, B), dtype=dtype), torch.empty((5, B),
-                                                                 dtype=dtype)
-    parks = [torch.empty(s, dtype=dtype) for s in
-             ((N, 12, 12, B), (N, 12, 12, B), (4, N, 12, B))]
-    ptrs = [t.data_ptr() for t in (consts, xa, us, xra, dxc, duc, alpha, dx,
-                                   dx[1:], du, *out5, *parks[:2], *parks[2])]
-    assert fn(*ptrs, N, B, MU_B, THETA_B, REG, int(cand)) == 0
-    return dx, du, out5
-
-
 def _split(args, cand, team, rev=False, f32=False):
     """The split kernels' host build (``team``: the emulated team width,
     ``rev``: each team's members in reverse order), run on every lane:
     (dx, du, out5)."""
-    fn = _lib("sqp_onepass_split", f32).srbd_sqp_onepass_split_host
+    fn = _lib("sqp_onepass", f32).srbd_sqp_onepass_split_host
     fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 20
                    + [ctypes.c_int] * 2 + [ctypes.c_double] * 3)
     fn.restype = ctypes.c_int
@@ -191,51 +170,48 @@ def test_split_host_build_matches_plain(N, cand, team):
                                    atol=1e-12)
 
 
-@pytest.mark.parametrize("team,rev", [
-    (w, rev) for w in TEAMS for rev in (False, True)])
-@pytest.mark.parametrize("cand", [True, False])
-def test_split_f32_host_build_rounds_as_one_thread_body(cand, team, rev):
-    """In float32, the split kernels give the one-thread body's dx, du,
-    dphi, theta, phi, max|defect| and min constraint bit for bit, with
-    either member order of a team: the plane pass runs the one-thread
-    body's stage code, the team forms each entry of the Riccati stage with
-    that body's expression, the rollout forms Acl and bcl with its
-    expressions and sums each row left to right, and the merit is reduced
-    over the stages in its backward order."""
-    args = _f32_args()
-    one = _one_thread(args, cand, f32=True)
-    got = _split(args, cand, team, rev, f32=True)
-    for g, o in zip((got[0], got[1], *got[2]), (one[0], one[1], *one[2])):
-        assert torch.equal(g, o)
-
-
 def _digest(outs) -> str:
     dx, du, out5 = outs
     return hashlib.sha256(b"".join(
         t.contiguous().numpy().tobytes() for t in (dx, du, out5))).hexdigest()
 
 
+@pytest.mark.parametrize("team,rev", [
+    (w, rev) for w in TEAMS for rev in (False, True)])
+@pytest.mark.parametrize("cand", [True, False])
+def test_split_f32_host_build_rounds_as_one_thread_body(cand, team, rev):
+    """In float32, the three launches give the one-thread body's dx, du,
+    dphi, theta, phi, max|defect| and min constraint bit for bit (its
+    stored digests), with either member order of a team: the plane pass
+    runs that body's stage code, the team forms each entry of the Riccati
+    stage with that body's expression, the rollout forms Acl and bcl with
+    its expressions and sums each row left to right, and the merit is
+    reduced over the stages in its backward order."""
+    got = _split(_f32_args(), cand, team, rev, f32=True)
+    assert torch.isfinite(got[2]).all()
+    assert _digest(got) == ONE_THREAD_F32_DIGEST[cand]
+
+
 @pytest.mark.parametrize("cand", [True, False])
 def test_one_thread_f32_host_build_is_unchanged(cand):
-    """The one-thread body's f32 host build gives the outputs it gave before
-    its stage linearization, Acl/bcl columns and terminal stage became
-    functions shared with the split kernels."""
-    assert _digest(_one_thread(_f32_args(), cand, f32=True)) == \
+    """The f32 host build at the card's team width gives the outputs that
+    the one-thread body gave before its stage linearization, Acl/bcl
+    columns and terminal stage became functions shared with the three
+    launches."""
+    assert _digest(_split(_f32_args(), cand, 16, f32=True)) == \
         ONE_THREAD_F32_DIGEST[cand]
 
 
-@pytest.mark.parametrize("one_thread", [False, True])
 @pytest.mark.parametrize("cand", [True, False])
-def test_onepass_designs_raise_on_cpu_tensors(cand, one_thread):
-    """The card-only entries of K3, split or one-thread, raise on CPU
-    tensors before anything is built."""
+def test_onepass_designs_raise_on_cpu_tensors(cand):
+    """The card-only entries of K3 raise on CPU tensors before anything is
+    built."""
     args = _problem(5, seed=0)
     head, (xa, us, xra, dxc, duc, alpha, x0s) = args[:6], args[6:]
     with pytest.raises(TypeError, match="CUDA"):
         if cand:
             sqp_kernel._k3a_cuda(*head, xa, us, xra, dxc, duc, alpha, x0s,
-                                 MU_B, THETA_B, reg=REG,
-                                 one_thread=one_thread)
+                                 MU_B, THETA_B, reg=REG)
         else:
             sqp_kernel._k3b_cuda(*head, xa, us, xra, x0s - xa[0], MU_B,
-                                 THETA_B, reg=REG, one_thread=one_thread)
+                                 THETA_B, reg=REG)

@@ -1,8 +1,8 @@
 """PyTorch port of the fused SQP trip (kernel K1) and its three stage
 bodies (the gains form, ``rank6=True``, ``factor=True``): the plain version
 vs the JAX ``sqp_qp_solve_onepass_planes`` in interpret mode, f64; and the
-CUDA source's per-scenario arithmetic, built as host C++ in f64, vs the
-plain version.
+CUDA source's three launches (``csrc/sqp_planes.cu``), built as host C++,
+in f64 vs the plain version and in f32 vs stored digests of their outputs.
 
 One JAX call per horizon and body covers both cases: lanes are independent
 (no op crosses scenarios), so lanes 0-7 carry the bootstrap case (alpha = 0,
@@ -14,6 +14,7 @@ rounding (``tests/test_sqp_planes.py::test_rank6_matches_dense_stage``)."""
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import shutil
 
 import jax.numpy as jnp
@@ -35,6 +36,31 @@ MU_B, THETA_B, REG = 0.1, 5.0, 1e-9
 CASES = {"alpha0": slice(0, 8), "alpha": slice(8, 16)}
 # the stage bodies besides the default one, by their flag
 BODIES = {"rank6": dict(rank6=True), "factor": dict(factor=True)}
+# sha256 of the f32 host outputs on _f32_args(N), by (body, N): first of dx,
+# du, dphi, max|defect|, min constraint and the body's parks (rank-6: K, kv;
+# factor: Yh, yv, L, dinv), as the one-thread bodies that the three launches
+# replaced gave them; then of theta and phi, which the launches reduce in the
+# plain version's stage order, as they give them at the card's team width
+F32_DIGEST = {
+    ("gains", 20): (
+        "ac51dc9bf3ced0c9364f9d85c624a6cfc87130602ef59834b04d892192433853",
+        "62804e8f297c3f1c683023ca3a851eb8e7caf8bda77027b236f2992c01193302"),
+    ("rank6", 20): (
+        "7cc0357e42a27d3bac49f322b5bf1f761b45f744c291cdfd17c5ef13a10d8185",
+        "62804e8f297c3f1c683023ca3a851eb8e7caf8bda77027b236f2992c01193302"),
+    ("factor", 20): (
+        "cf94a1ae55a3736ed43c749b2ae2d8586f64b57b39b9be9f6a6215538ba26dfc",
+        "62804e8f297c3f1c683023ca3a851eb8e7caf8bda77027b236f2992c01193302"),
+    ("gains", 5): (
+        "c8d4ad5786e5a9c00a4643081238a909b4655a7102a87757f3dd45290c8e2073",
+        "0e706bc1f3fb64dd2ffd2264aca0f71c46d37372aea33a8722431db9683e7bef"),
+    ("rank6", 5): (
+        "d7e9d01a05eb4b94b9ae882c55aa41eda40fed80a54fbdad2d708ec9214d0d44",
+        "0e706bc1f3fb64dd2ffd2264aca0f71c46d37372aea33a8722431db9683e7bef"),
+    ("factor", 5): (
+        "6aa7469ee09f89812fd9c9ea051c12a81db0c4b7c6018b926aa55e6891f87205",
+        "0e706bc1f3fb64dd2ffd2264aca0f71c46d37372aea33a8722431db9683e7bef"),
+}
 
 
 @pytest.fixture()
@@ -212,49 +238,6 @@ def _host_consts(tp, Q, Qf, R, Ac, bc, dtype):
     return consts
 
 
-def _host_kernel(args, body="gains", f32=False, with_parks=False):
-    """The kernel's per-scenario body (csrc/sqp_planes.cu) for ``body``,
-    built as host C++ (in double precision, or in float32 with ``f32``) and
-    run on every lane of K1's arguments ``args``: (dx, du, out5, pack), and
-    with ``with_parks`` the body's park arrays after them."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler")
-    flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
-    fn = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes.cu",
-                                      flags=flags)).srbd_sqp_planes_host
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 20
-                   + [ctypes.c_int] * 2 + [ctypes.c_double] * 3)
-    fn.restype = ctypes.c_int
-    tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha, x0s = args[:13]
-    N, B = us.shape[0], xa.shape[-1]
-    dtype = torch.float32 if f32 else F64
-    consts = _host_consts(tp, Q, Qf, R, Ac, bc, dtype)
-    dx = torch.empty((N + 1, 12, B), dtype=dtype)
-    dx[0] = x0s - (xa[0] + alpha[None] * dxc[0])
-    du = torch.empty((N, 12, B), dtype=dtype)
-    out5 = torch.empty((5, B), dtype=dtype)
-    pack = torch.empty((N, sqp_planes._C, B), dtype=dtype)
-    parks = [torch.empty(s, dtype=dtype) if s else None
-             for s in sqp_planes.park_shapes(body, N, B)]
-    ins = (consts, xa, us, xra, dxc, duc, alpha)
-    assert all(t.dtype == dtype for t in ins)
-    ptrs = [t.data_ptr() for t in (*ins, dx, dx[1:], du, *out5, pack)]
-    ptrs += [None if t is None else t.data_ptr() for t in parks]
-    assert fn(sqp_planes.BODIES.index(body), *ptrs, N, B, *args[13:15],
-              REG) == 0
-    return (dx, du, out5, pack) + ((parks,) if with_parks else ())
-
-
-def _host_run(N, body=None):
-    """The host f64 build for ``body`` (None: the default one) and the
-    plain version on the same inputs."""
-    flags = BODIES[body] if body else {}
-    params, weights, arr = _problem(N, seed=1)
-    args = _port_args(params, weights, arr)
-    ref = sqp_planes.sqp_qp_solve_onepass_planes_ref(*args, reg=REG, **flags)
-    return _host_kernel(args, body or "gains")[:3], ref
-
-
 def _assert_host_matches_plain(got, ref):
     dx, du, out5 = got
     np.testing.assert_allclose(dx.numpy(), ref[0].numpy(), rtol=1e-12,
@@ -267,23 +250,6 @@ def _assert_host_matches_plain(got, ref):
                                    rtol=1e-12, atol=1e-13)
 
 
-@pytest.mark.parametrize("N", [5, 20])
-def test_cuda_source_host_build_matches_plain(N):
-    """The kernel's per-scenario body (csrc/sqp_planes.cu) compiled as host
-    C++ in double precision reproduces the plain version: it checks the
-    hand-written arithmetic of K1 without a card (the CUDA launch itself
-    is checked on the card by test_torch_kernels_cuda.py)."""
-    _assert_host_matches_plain(*_host_run(N))
-
-
-@pytest.mark.parametrize("N", [5, 20])
-@pytest.mark.parametrize("body", sorted(BODIES))
-def test_cuda_source_host_build_body_matches_plain(body, N):
-    """As above for the rank-6 and factor instantiations of the kernel's
-    per-scenario body, against the plain version with the same flag."""
-    _assert_host_matches_plain(*_host_run(N, body))
-
-
 def _jax_association(Jlt, djl_a, w, Jw):
     """JAX's association of (d Jl^-1 / d r_a) w: the matrix first."""
     from srbd_nmpc_tpu_torch.models import srbd_planes as spl
@@ -294,9 +260,9 @@ def _jax_association(Jlt, djl_a, w, Jw):
 @pytest.mark.parametrize("association", ["kernel", "jax"])
 def test_f32_host_build_rounds_d1_as_plain(monkeypatch, association):
     """Why the plain model forms (d Jl^-1 / d r_a) w as K1 does
-    (``srbd_planes.djlt_apply``) and not in JAX's order: K1's plane phase
-    built as host C++ in float32 against the plain version's pass 1 in
-    float32. The host's sin/cos and PyTorch's do not always round alike,
+    (``srbd_planes.djlt_apply``) and not in JAX's order: K1's plane pass
+    (K1s-A's float32 form, ``plane_stage``) built as host C++ in float32
+    against the plain version's pass 1 in float32. The host's sin/cos and PyTorch's do not always round alike,
     so the comparison is made on the (stage, lane) pairs whose D2 (the
     same chain without the derivative term) is bitwise the plain one's.
     There D1 is bitwise the plain one's with K1's association, and almost
@@ -311,7 +277,7 @@ def test_f32_host_build_rounds_d1_as_plain(monkeypatch, association):
     args[0] = dataclasses.replace(tp, **{
         f.name: getattr(tp, f.name).to(torch.float32)
         for f in dataclasses.fields(tp)})
-    pack = _host_kernel(args, f32=True)[3].permute(1, 0, 2)   # [87, N, B]
+    pack = _host_planes(args, False, False, f32=True)[0].permute(1, 0, 2)
     if association == "jax":
         monkeypatch.setattr(spl, "djlt_apply", _jax_association)
     Ac1, Ac2 = sqp_stage._split_leg_blocks(Ac.to(torch.float32))
@@ -329,7 +295,7 @@ def test_f32_host_build_rounds_d1_as_plain(monkeypatch, association):
 
 
 # ---------------------------------------------------------------------------
-# The split gains body (csrc/sqp_planes_split.cu: plane pass, Riccati pass,
+# The split gains body (csrc/sqp_planes.cu: plane pass, Riccati pass,
 # rollout) built as host C++, each team of the Riccati pass emulated with its
 # members one after another within each step
 # ---------------------------------------------------------------------------
@@ -350,7 +316,7 @@ def _host_split(args, team, rev=False, f32=False, body="gains"):
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
     flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
-    lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes_split.cu",
+    lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes.cu",
                                        flags=flags))
     factor = body == "factor"
     fn = {"gains": lib.srbd_sqp_planes_split_host,
@@ -395,7 +361,7 @@ def _split_run(N, team, body="gains"):
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("N", [5, 20])
 def test_split_host_build_matches_plain(N, case, team):
-    """The three split kernels' arithmetic (csrc/sqp_planes_split.cu)
+    """The three split kernels' arithmetic (csrc/sqp_planes.cu)
     compiled as host C++ in double precision reproduces the plain version,
     with the Riccati pass's team at each emulated width."""
     (dx, du, out5), ref = _split_run(N, team)
@@ -406,8 +372,8 @@ def test_split_host_build_matches_plain(N, case, team):
          tuple(a[lanes] for a in ref[3])))
 
 
-def _f32_args():
-    params, weights, arr = _problem(20, seed=2)
+def _f32_args(N=20):
+    params, weights, arr = _problem(N, seed=2)
     args = list(_port_args(params, weights, arr))
     for i in range(1, 13):
         args[i] = args[i].to(torch.float32)
@@ -417,28 +383,45 @@ def _f32_args():
     return args
 
 
+def _digest(ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _assert_f32_digests(body, N, team, rev):
+    """The f32 host build of ``body``'s three launches against
+    ``F32_DIGEST[(body, N)]``."""
+    got = _host_split(_f32_args(N), team, rev, f32=True, body=body)
+    dx, du, out5 = got[:3]
+    parks = got[3] if body != "gains" else []
+    exact, reduced = F32_DIGEST[(body, N)]
+    assert torch.isfinite(out5).all()
+    assert _digest([dx, du, out5[0], out5[3], out5[4], *parks]) == exact
+    assert _digest([out5[1], out5[2]]) == reduced
+
+
 @pytest.mark.parametrize("team,rev", [
     (w, rev) for w in TEAMS for rev in (False, True)])
 def test_split_f32_host_build_rounds_as_one_thread_body(team, rev):
-    """In float32, the split kernels give the one-thread gains body's dx,
-    du, dphi, max|defect| and min constraint bit for bit, with either
-    member order of a team: no sum of the Riccati stage is split between
-    threads or reordered, and no step reads what another member writes in
-    it. theta and phi are reduced over the stages in the plain version's
-    order, where the one-thread body sums stage by stage: they may differ
-    in the last bits."""
-    args = _f32_args()
-    one_dx, one_du, one_out5, _ = _host_kernel(args, f32=True)
-    dx, du, out5 = _host_split(args, team, rev, f32=True)
-    assert torch.equal(dx, one_dx)
-    assert torch.equal(du, one_du)
-    for i in (0, 3, 4):                      # dphi, maxdef, mincon
-        assert torch.equal(out5[i], one_out5[i])
-    for i, name in ((1, "theta"), (2, "phi")):
-        rel = float(((out5[i].double() - one_out5[i].double()).abs()
-                     / one_out5[i].double().abs()).max())
-        print(f"{name}: split vs one-thread body, max relative {rel:.3e}")
-        assert rel <= 1e-6
+    """In float32, the three launches give the one-thread gains body's dx,
+    du, dphi, max|defect| and min constraint bit for bit (stored digests of
+    that body's outputs), with either member order of a team: no sum of the
+    Riccati stage is split between threads or reordered, and no step reads
+    what another member writes in it. theta and phi are reduced over the
+    stages in the plain version's order, where the one-thread body summed
+    stage by stage: their digest is the launches' own, the same at every
+    team width and member order."""
+    _assert_f32_digests("gains", 20, team, rev)
+
+
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("body", ["gains", "rank6", "factor"])
+def test_split_f32_host_build_matches_digest_at_n5(body, rev):
+    """The f32 digests at N=5, for each body, at the card's team width (16)
+    in either member order."""
+    _assert_f32_digests(body, 5, 16, rev)
 
 
 @pytest.mark.parametrize("rev", [False, True])
@@ -460,25 +443,28 @@ def test_split_f64_card_form_matches_plain(rev):
     _assert_host_matches_plain((dx, du, out5), ref)
 
 
-def _host_planes(args, split, rev):
-    """K1s-A alone from the split source's f64 host build
-    (``srbd_k1s_planes_host``) on every stage and lane of K1's arguments
-    ``args``: (pack, mer, term), by the one-thread ``plane_stage`` or
-    (``split``) by the float64 form's parts, in part order or (``rev``) in
-    reverse. Every output starts NaN, so that an entry no part writes
-    shows."""
+def _host_planes(args, split, rev, f32=False):
+    """K1s-A alone from the source's host build (``srbd_k1s_planes_host``;
+    f64, or f32 with ``f32``) on every stage and lane of K1's arguments
+    ``args``: (pack, mer, term), by ``plane_stage``, a thread a (stage,
+    lane), or (``split``, f64 only) by the float64 form's parts, in part
+    order or (``rev``) in reverse. Every output starts NaN, so that an entry
+    no part writes shows."""
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
-    lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes_split.cu",
-                                       flags=("-O2", "-ffp-contract=off")))
+    flags = ("-O2", "-ffp-contract=off") + (("-DSRBD_HOST_F32",) if f32 else ())
+    lib = ctypes.CDLL(build.build_host(f"{build.CSRC}/sqp_planes.cu",
+                                       flags=flags))
     fn = lib.srbd_k1s_planes_host
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 2 + [ctypes.c_double] * 2)
     fn.restype = ctypes.c_int
     tp, Q, Qf, R, Ac, bc, xa, us, xra, dxc, duc, alpha = args[:12]
     N, B = us.shape[0], xa.shape[-1]
-    consts = _host_consts(tp, Q, Qf, R, Ac, bc, F64)
-    outs = [torch.full(s, float("nan"), dtype=F64) for s in (
+    dtype = torch.float32 if f32 else F64
+    consts = _host_consts(tp, Q, Qf, R, Ac, bc, dtype)
+    assert all(t.dtype == dtype for t in (xa, us, xra, dxc, duc, alpha))
+    outs = [torch.full(s, float("nan"), dtype=dtype) for s in (
         (N, sqp_planes._C, B), (N, sqp_planes._M_C, B), (sqp_planes._T_C, B))]
     ptrs = [t.data_ptr() for t in (consts, xa, us, xra, dxc, duc, alpha, *outs)]
     assert fn(int(split), int(rev), *ptrs, N, B, *args[13:15]) == 0
@@ -490,9 +476,9 @@ def _host_planes(args, split, rev):
 @pytest.mark.parametrize("N", [5, 20])
 def test_split_f64_plane_pass_writes_the_one_thread_stage(N, case, rev):
     """The float64 plane pass spread over a thread for each of its parts a
-    (stage, lane), the parts run in either order, writes the one-thread
-    ``plane_stage<double>``'s pack, merit terms and terminal stage bit for
-    bit, on every channel: each entry keeps its expression and sum order,
+    (stage, lane), the parts run in either order, writes the pack, merit
+    terms and terminal stage of ``plane_stage<double>`` (one thread a
+    (stage, lane)) bit for bit, on every channel: each entry keeps its expression and sum order,
     and no sum is split between the threads."""
     params, weights, arr = _problem(N, seed=3)
     args = _port_args(params, weights, arr)
@@ -506,30 +492,27 @@ def test_split_f64_plane_pass_writes_the_one_thread_stage(N, case, rev):
 
 
 @pytest.mark.parametrize("kw,dtype", [
-    (dict(), "float64"), (dict(one_thread=True), "float32"),
-    (dict(rank6=True), "float32"), (dict(factor=True), "float32")])
+    (dict(), "float64"), (dict(rank6=True), "float32"),
+    (dict(factor=True), "float32")])
 def test_float64_takes_the_gains_split_kernels_only(kw, dtype):
     """A float64 batch is checked against the float64 form of the gains
-    body's split kernels; the one-thread yardstick and the rank-6 and
-    factor bodies take float32 only (on CPU tensors each raises before
-    anything is built, naming the dtype it takes)."""
+    body's kernels; the rank-6 and factor bodies take float32 only (on CPU
+    tensors each raises before anything is built, naming the dtype it
+    takes)."""
     params, weights, arr = _problem(5)
     args = _port_args(params, weights, arr)
-    one_thread = kw.pop("one_thread", False)
     with pytest.raises(TypeError, match=f"takes {dtype} CUDA tensors"):
         sqp_planes._solve_cuda(*args, reg=REG, rank6=kw.get("rank6", False),
-                               factor=kw.get("factor", False), consts=None,
-                               one_thread=one_thread)
+                               factor=kw.get("factor", False), consts=None)
 
 
-@pytest.mark.parametrize("one_thread", [False, True])
-def test_gains_designs_raise_on_what_they_cannot_take(one_thread):
-    """The card-only entry of the gains body's kernels, split or one-thread,
-    raises on CPU tensors before anything is built."""
+def test_gains_designs_raise_on_what_they_cannot_take():
+    """The card-only entry of the gains body's kernels raises on CPU
+    tensors before anything is built."""
     params, weights, arr = _problem(5)
     args = _port_args(params, weights, arr)
     with pytest.raises(TypeError, match="CUDA"):
-        sqp_planes._gains_cuda(*args, reg=REG, one_thread=one_thread)
+        sqp_planes._gains_cuda(*args, reg=REG)
 
 
 # ---------------------------------------------------------------------------
@@ -543,7 +526,7 @@ def test_gains_designs_raise_on_what_they_cannot_take(one_thread):
 @pytest.mark.parametrize("N", [5, 20])
 def test_split_factor_host_build_matches_plain(N, case, team):
     """The split factor kernels' arithmetic (the factor forms of the team
-    Riccati pass and of the rollout in csrc/sqp_planes_split.cu) compiled
+    Riccati pass and of the rollout in csrc/sqp_planes.cu) compiled
     as host C++ in double precision reproduces the plain factor body to
     1e-12 (relative and absolute), with the team at each emulated width."""
     (dx, du, out5), ref = _split_run(N, team, "factor")
@@ -558,41 +541,25 @@ def test_split_factor_host_build_matches_plain(N, case, team):
 @pytest.mark.parametrize("team,rev", [
     (w, rev) for w in TEAMS for rev in (False, True)])
 def test_split_factor_f32_host_build_rounds_as_one_thread_body(team, rev):
-    """In float32, the split factor kernels give the one-thread factor
-    body's (sqp_planes.cu <kFactor>) dx, du, dphi, max|defect| and min
-    constraint bit for bit, and park the same Yh, yv, L (its diagonal
-    included) and dinv bit for bit, with either member order of a team.
-    theta and phi are reduced in the plain version's order, as the split
-    gains body's are (see the gains test above)."""
-    args = _f32_args()
-    one_dx, one_du, one_out5, _, one_parks = _host_kernel(
-        args, "factor", f32=True, with_parks=True)
-    dx, du, out5, parks = _host_split(args, team, rev, f32=True,
-                                      body="factor")
-    assert torch.equal(dx, one_dx)
-    assert torch.equal(du, one_du)
-    for i in (0, 3, 4):                      # dphi, maxdef, mincon
-        assert torch.equal(out5[i], one_out5[i])
-    for got, want in zip(parks, one_parks):
-        assert torch.equal(got, want)
-    for i in (1, 2):                         # theta, phi
-        rel = float(((out5[i].double() - one_out5[i].double()).abs()
-                     / one_out5[i].double().abs()).max())
-        assert rel <= 1e-6
+    """In float32, the factor forms give the one-thread factor body's dx,
+    du, dphi, max|defect| and min constraint bit for bit, and park the same
+    Yh, yv, L (its diagonal included) and dinv bit for bit (stored digests
+    of that body's outputs), with either member order of a team. theta and
+    phi are reduced in the plain version's order, as the gains body's are
+    (see the gains test above): the same digest as the gains body's."""
+    _assert_f32_digests("factor", 20, team, rev)
 
 
-@pytest.mark.parametrize("one_thread", [False, True])
 @pytest.mark.parametrize("dtype", [F64, torch.float32])
-def test_factor_designs_raise_on_what_they_cannot_take(one_thread, dtype):
-    """The card-only entry of the factor body's kernels, split or
-    one-thread, raises on CPU tensors (float64 or float32) before anything
-    is built."""
+def test_factor_designs_raise_on_what_they_cannot_take(dtype):
+    """The card-only entry of the factor body's kernels raises on CPU
+    tensors (float64 or float32) before anything is built."""
     params, weights, arr = _problem(5)
     args = list(_port_args(params, weights, arr))
     for i in range(6, 13):
         args[i] = args[i].to(dtype)
     with pytest.raises(TypeError, match="CUDA"):
-        sqp_planes._factor_cuda(*args, reg=REG, one_thread=one_thread)
+        sqp_planes._factor_cuda(*args, reg=REG)
 
 
 # ---------------------------------------------------------------------------
@@ -605,7 +572,7 @@ def test_factor_designs_raise_on_what_they_cannot_take(one_thread, dtype):
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("N", [5, 20])
 def test_split_rank6_host_build_matches_plain(N, case, team):
-    """The rank-6 form of the team Riccati pass (csrc/sqp_planes_split.cu,
+    """The rank-6 form of the team Riccati pass (csrc/sqp_planes.cu,
     between the plane pass and the gains rollout) compiled as host C++ in
     double precision reproduces the plain rank-6 body to 1e-12 (relative
     and absolute), with the team at each emulated width."""
@@ -621,30 +588,19 @@ def test_split_rank6_host_build_matches_plain(N, case, team):
 @pytest.mark.parametrize("team,rev", [
     (w, rev) for w in TEAMS for rev in (False, True)])
 def test_split_rank6_f32_host_build_rounds_as_one_thread_body(team, rev):
-    """In float32, the split rank-6 kernels give the one-thread rank-6
-    body's (sqp_planes.cu <kRank6>) dx, du, dphi, max|defect| and min
-    constraint bit for bit, and park the same K and kv, with either member
+    """In float32, the rank-6 form gives the one-thread rank-6 body's dx,
+    du, dphi, max|defect| and min constraint bit for bit, and parks the same
+    K and kv (stored digests of that body's outputs), with either member
     order of a team: no sum of the 6x6 stage is split between members or
     reordered. theta and phi are reduced in the plain version's order, as
-    the split gains body's are; they are held bit for bit to the split
-    gains body's, whose plane pass and rollout the rank-6 split shares."""
+    the gains body's are; they are held bit for bit to the gains body's,
+    whose plane pass and rollout the rank-6 form shares."""
+    _assert_f32_digests("rank6", 20, team, rev)
     args = _f32_args()
-    one_dx, one_du, one_out5, _, one_parks = _host_kernel(
-        args, "rank6", f32=True, with_parks=True)
-    dx, du, out5, parks = _host_split(args, team, rev, f32=True,
-                                      body="rank6")
-    assert torch.equal(dx, one_dx)
-    assert torch.equal(du, one_du)
-    for i in (0, 3, 4):                      # dphi, maxdef, mincon
-        assert torch.equal(out5[i], one_out5[i])
-    for got, want in zip(parks, one_parks[:2]):
-        assert torch.equal(got, want)
+    out5 = _host_split(args, team, rev, f32=True, body="rank6")[2]
     gains_out5 = _host_split(args, team, rev, f32=True)[2]
     for i in (1, 2):                         # theta, phi
         assert torch.equal(out5[i], gains_out5[i])
-        rel = float(((out5[i].double() - one_out5[i].double()).abs()
-                     / one_out5[i].double().abs()).max())
-        assert rel <= 1e-6
 
 
 def test_split_rank6_host_build_matches_jax_kernel(jax_refs):
@@ -658,11 +614,10 @@ def test_split_rank6_host_build_matches_jax_kernel(jax_refs):
                         slice(None))
 
 
-@pytest.mark.parametrize("one_thread", [False, True])
-def test_rank6_designs_raise_on_what_they_cannot_take(one_thread):
-    """The card-only entry of the rank-6 body's kernels, split or
-    one-thread, raises on CPU tensors before anything is built."""
+def test_rank6_designs_raise_on_what_they_cannot_take():
+    """The card-only entry of the rank-6 body's kernels raises on CPU
+    tensors before anything is built."""
     params, weights, arr = _problem(5)
     args = _port_args(params, weights, arr)
     with pytest.raises(TypeError, match="CUDA"):
-        sqp_planes._rank6_cuda(*args, reg=REG, one_thread=one_thread)
+        sqp_planes._rank6_cuda(*args, reg=REG)

@@ -1,5 +1,5 @@
 """K4a, the two-pass solve's backward kernel, as four launches
-(``ops/sqp_kernel._k4a_split``): K5's stage pass and dense write
+(``ops/sqp_kernel._k4a_launches``): K5's stage pass and dense write
 (``csrc/linearize.cu``), the terminal-and-merit pass (``csrc/sqp_twopass.cu``
 ``k4s_merit_kernel``) and K6a's team pass also writing Acl and bcl
 (``csrc/riccati.cu`` ``riccati_team_acl_kernel``), each built as host C++
@@ -9,18 +9,19 @@ step:
 - in f64 against the plain ``sqp_kernel.sqp_qp_backward_ref`` (rtol 1e-10,
   atol 1e-12) on all eleven outputs, at N = 5 and 20 and the emulated team
   widths 8, 16 (the card's) and 32;
-- in f32 (``-DSRBD_HOST_F32``) bit for bit against the one-thread body
-  ``k4::backward``'s f32 host build, at each width in either member order;
+- in f32 (``-DSRBD_HOST_F32``) against stored digests of the eleven
+  outputs of the one-thread body that the four launches replaced, at each
+  width in either member order (N = 20) and at the card's (N = 5);
 - in f64 against JAX's ``sqp_pallas.sqp_qp_solve`` backward outputs in
   interpret mode, at ``test_torch_sqp_kernel.py``'s tolerance;
 
-and the card-only entry ``_k4a_cuda`` (split or one-thread) raising on what
-it cannot take. The launches are checked on the card by
+and the card-only entry ``_k4a_cuda`` raising on what it cannot take. The launches are checked on the card by
 ``test_torch_kernels_cuda.py``."""
 
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import shutil
 
 import jax.numpy as jnp
@@ -46,6 +47,12 @@ B = 16
 TEAMS = (8, 16, 32)
 NAMES = ("Acl", "K", "bcl", "kv", "q", "reff", "qN",
          "theta", "phi", "maxdef", "mincon")
+# sha256 of the eleven f32 host outputs on _problem(N, seed=3) in f32, by N,
+# as the one-thread body that the four launches replaced gave them
+F32_DIGEST = {
+    20: "8b4dfb38f723aea3147cb5f33c7a61f9cfe46aad2f89fad411ec3fc51ad7efea",
+    5: "b361c68a2579a1c3307fa2b48cbbf823bd3a9c47b1e1aca9c94f0403806a8dc2",
+}
 
 
 def _problem(N, seed=0, Bt=B):
@@ -93,10 +100,8 @@ def _libs(f32: bool):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lin.srbd_linearize_split_host.argtypes = [P] * 12 + [I, I, D, D]
     two.srbd_k4s_merit_host.argtypes = [P] * 9 + [I, I]
-    two.srbd_sqp_twopass_bwd_host_f64.argtypes = [P] * 15 + [I, I, D, D, D]
     ric.srbd_riccati_bwd_team_acl_host.argtypes = [I, I] + [P] * 11 + [I, I, D]
     for fn in (lin.srbd_linearize_split_host, two.srbd_k4s_merit_host,
-               two.srbd_sqp_twopass_bwd_host_f64,
                ric.srbd_riccati_bwd_team_acl_host):
         fn.restype = ctypes.c_int
     return lin, two, ric
@@ -141,21 +146,17 @@ def _host_split(args, team, rev=False):
     return (Acl, K, bcl, kv, q[:N], reff, q[N], *out4)
 
 
-def _host_one_thread(args):
-    """The one-thread body ``k4::backward``'s host build (its f32 build on
-    f32 ``args``): the eleven outputs."""
-    xa, us, xra = args[6:9]
-    dtype = xa.dtype
-    _, two, _ = _libs(dtype == F32)
-    N, Bt = us.shape[0], xa.shape[-1]
-    consts = _consts(args, dtype)
-    outs = [torch.empty(s, dtype=dtype) for s in (
-        (N, 12, 12, Bt), (N, 12, 12, Bt), (N, 12, Bt), (N, 12, Bt),
-        (N, 12, Bt), (N, 12, Bt), (12, Bt), (Bt,), (Bt,), (Bt,), (Bt,))]
-    assert two.srbd_sqp_twopass_bwd_host_f64(
-        *(t.data_ptr() for t in (consts, xa, us, xra, *outs)),
-        N, Bt, MU_B, THETA_B, REG) == 0
-    return tuple(outs)
+def _digest(outs) -> str:
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _f32_digest(N, team, rev) -> str:
+    params, weights, arr = _problem(N, seed=3)
+    return _digest(_host_split(_port_args(params, weights, arr, F32), team,
+                               rev))
 
 
 def _flat(ref):
@@ -181,16 +182,18 @@ def test_split_host_build_matches_plain(N, team):
     (w, rev) for w in TEAMS for rev in (False, True)])
 def test_split_f32_host_build_rounds_as_one_thread_body(team, rev):
     """In float32, the four launches give the one-thread body's eleven
-    outputs bit for bit, with either member order of K6a's team: the
-    linearization, the Riccati stage, Acl = A + B K and bcl = b + B kv round
-    as that body's, and the merit is accumulated in its stage order and
-    grouping."""
-    params, weights, arr = _problem(20, seed=3)
-    args = _port_args(params, weights, arr, F32)
-    one = _host_one_thread(args)
-    got = _host_split(args, team, rev)
-    for name, g, r in zip(NAMES, got, one):
-        assert torch.equal(g, r), name
+    outputs bit for bit (its stored digests), with either member order of
+    K6a's team: the linearization, the Riccati stage, Acl = A + B K and
+    bcl = b + B kv round as that body's, and the merit is accumulated in its
+    stage order and grouping."""
+    assert _f32_digest(20, team, rev) == F32_DIGEST[20]
+
+
+@pytest.mark.parametrize("rev", [False, True])
+def test_split_f32_host_build_matches_digest_at_n5(rev):
+    """The same at N = 5, at the card's team width in either member
+    order."""
+    assert _f32_digest(5, 16, rev) == F32_DIGEST[5]
 
 
 def test_split_host_build_matches_jax_kernel():
@@ -231,16 +234,15 @@ def test_split_host_build_matches_jax_kernel():
                                    rtol=1e-10, atol=1e-12, err_msg=name)
 
 
-@pytest.mark.parametrize("one_thread", [False, True])
 @pytest.mark.parametrize("dtype", [F64, F32])
-def test_card_entry_raises_on_what_it_cannot_take(one_thread, dtype):
-    """The card-only entry of K4a, split or one-thread, raises on CPU
-    tensors (float64 or float32), and on a misshapen input on any device,
-    before anything is built."""
+def test_card_entry_raises_on_what_it_cannot_take(dtype):
+    """The card-only entry of K4a raises on CPU tensors (float64 or
+    float32), and on a misshapen input on any device, before anything is
+    built."""
     params, weights, arr = _problem(5)
     args = list(_port_args(params, weights, arr, dtype))
     with pytest.raises(TypeError, match="CUDA"):
-        sqp_kernel._k4a_cuda(*args, reg=REG, one_thread=one_thread)
+        sqp_kernel._k4a_cuda(*args, reg=REG)
     args[6] = args[6][:-1]                   # xa with N rows, not N + 1
     with pytest.raises(ValueError, match="xa"):
-        sqp_kernel._k4a_cuda(*args, reg=REG, one_thread=one_thread)
+        sqp_kernel._k4a_cuda(*args, reg=REG)
