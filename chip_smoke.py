@@ -86,11 +86,11 @@ unpacked older commit times that commit's K2 on the same card.
     python3 chip_smoke.py --k1s-b-trees build/parent [build/other ...]
 
 runs phases 1-2 for ``sqp_planes.cu`` alone and builds K1s-B
-(``k1s_riccati_team_kernel``) from each named tree's source (an unpacked
-checkout, such as ``git archive <commit> | tar -x -C build/parent``): each
-build's parks against this tree's at B=4093 and the speculative loop's
-three widths (bitwise expected), and its ms per call beside the first
-tree's, in alternated rounds in one process.
+(``k1s_riccati_team_kernel`` and its float64 form) from each named tree's
+source (an unpacked checkout, such as ``git archive <commit> | tar -x -C
+build/parent``): each build's parks against this tree's at B=4093 and the
+speculative loop's three widths (bitwise expected), and its ms per call
+beside the first tree's, in alternated rounds in one process.
 """
 
 from __future__ import annotations
@@ -136,10 +136,12 @@ K1FS_PASSES = {"K1s-A": "k1s_planes_kernel",
 K1S_A_PTXAS = (168, 36)
 K1S_A_F64_PTXAS = (128, 88)
 # K1s-B's ptxas reports (registers, spill stores) by kernel, as PERF.md
-# records them: the gains form's (with its block park), and the factor
-# form's, which does not change with the gains form's beside it
-K1S_B_PTXAS = {"k1s_riccati_team_kernel": (64, 0),
-               "k1s_riccati_factor_kernel": (64, 0)}
+# records them: the gains form's (with its block park; 6 blocks of 128
+# threads an SM leave it 80 registers), the factor form's, and the float64
+# form's (8 blocks of 64 threads: 128 registers)
+K1S_B_PTXAS = {"k1s_riccati_team_kernel": (80, 24),
+               "k1s_riccati_factor_kernel": (80, 0),
+               "k1s_riccati_team_f64_kernel": (128, 0)}
 # widths of K1s-B's comparison with other trees' builds (--k1s-b-trees): the
 # three widths the speculative loop launches it at (its parks are also
 # checked at 4093, a ragged edge)
@@ -918,27 +920,38 @@ def _tree_split(tree: str, tag: str):
 
 
 def _tree_k1s_b(tree: str, tag: str):
-    """K1s-B's launch (``srbd_k1s_riccati_launch``) from ``tree``'s K1s
-    source (``_tree_split``), and its registers and spill stores
-    (ptxas)."""
+    """K1s-B's launches from ``tree``'s K1s source (``_tree_split``) by
+    dtype (``srbd_k1s_riccati_launch``; ``srbd_k1s_riccati_f64_launch``
+    where the tree has the float64 form), and their kernels'
+    registers and spill stores (ptxas)."""
     import ctypes
 
     lib, log = _tree_split(tree, tag)
-    fn = lib.srbd_k1s_riccati_launch
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 5 + [I, I, F, P]
-    fn.restype = ctypes.c_int
-    regs = _ptxas("sqp_planes", "k1s_riccati_team_kernel", log)
-    return fn, regs[0][1:3]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    for dtype, name, kernel, scalar in (
+            (torch.float32, "srbd_k1s_riccati_launch", "k1s_riccati_team_kernel",
+             ctypes.c_float),
+            (torch.float64, "srbd_k1s_riccati_f64_launch",
+             "k1s_riccati_team_f64_kernel", ctypes.c_double)):
+        if not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = [P] * 5 + [I, I, scalar, P]
+        fn.restype = ctypes.c_int
+        out[dtype] = (fn, _ptxas("sqp_planes", kernel, log)[0][1:3])
+    return out
 
 
 def phase_k1s_b_trees(dev, trees):
     """Phases 1-2 for sqp_planes.cu, and K1s-B as built from each of
     ``trees`` (unpacked checkouts of other commits, or variants) beside
-    this tree's, on this tree's K1s-A pack of the same inputs: each tree's
-    parks K and kv against this tree's at K1S_B_TREE_WIDTHS and at B=4093
-    (bitwise expected), then ms per call in four alternated rounds at
-    K1S_B_TREE_WIDTHS (``_rounds``, 10 back-to-back launches each, CUDA
+    this tree's, on this tree's K1s-A pack of the same inputs, in float32
+    (``k1s_riccati_team_kernel``) and then in float64
+    (``k1s_riccati_team_f64_kernel``, against the trees that have it): each
+    tree's parks K and kv against this tree's at K1S_B_TREE_WIDTHS and at
+    B=4093 (bitwise expected), then ms per call in four alternated rounds
+    at K1S_B_TREE_WIDTHS (``_rounds``, 10 back-to-back launches each, CUDA
     events), each beside the first tree's; each build's registers and spill
     stores. Fails if a tree's parks differ from this tree's."""
     import os
@@ -952,54 +965,65 @@ def phase_k1s_b_trees(dev, trees):
         pending = pool.map(_tree_k1s_b, trees, tags)
         phase_build(("sqp_planes",))
         lib = sqp_planes._lib()
-        built = [(lib.srbd_k1s_riccati_launch,
-                  _ptxas("sqp_planes",
-                         "k1s_riccati_team_kernel")[0][1:3])] + list(pending)
+        built = [{torch.float32: (lib.srbd_k1s_riccati_launch,
+                                  _ptxas("sqp_planes", "k1s_riccati_team_kernel")
+                                  [0][1:3]),
+                  torch.float64: (lib.srbd_k1s_riccati_f64_launch,
+                                  _ptxas("sqp_planes", "k1s_riccati_team_f64_kernel")
+                                  [0][1:3])}] + list(pending)
     tags = ["this"] + tags
-    for tag, (_, (regs, stores)) in zip(tags, built):
-        print(f"[K1s-B trees] {tag}: k1s_riccati_team_kernel {regs} "
-              f"registers, {stores} B spill stores", flush=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rng = np.random.default_rng(23)
-    for B in (4093, *K1S_B_TREE_WIDTHS):
-        args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
-        kc = kernel_constants(*args[:6]).block
-        xa, us, xra, dxc, duc, alpha = args[6:12]
-        pack = torch.empty(N_MAIN, sqp_planes._C, B, device=dev)
-        mer = torch.empty(N_MAIN, sqp_planes._M_C, B, device=dev)
-        term = torch.empty(sqp_planes._T_C, B, device=dev)
-        sqp_planes._check("K1s-A", lib.srbd_k1s_planes_launch(
-            kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
-            dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
-            mer.data_ptr(), term.data_ptr(), N_MAIN, B, float(args[13]),
-            float(args[14]), stream))
-        shapes = sqp_planes.park_shapes("gains", N_MAIN, B)[:2]
-        parks = {tag: [torch.empty(sh, device=dev) for sh in shapes]
-                 for tag in tags}
+    for dtype in (torch.float32, torch.float64):
+        have = [(tag, b[dtype]) for tag, b in zip(tags, built) if dtype in b]
+        dtags = [tag for tag, _ in have]
+        if len(dtags) < 2:
+            continue
+        f64 = "_f64" if dtype == torch.float64 else ""
+        name = f"k1s_riccati_team{f64}_kernel"
+        for tag, (_, (regs, stores)) in have:
+            print(f"[K1s-B trees] {tag}: {name} {regs} registers, {stores} B "
+                  f"spill stores", flush=True)
+        planes = getattr(lib, f"srbd_k1s_planes{f64}_launch")
+        rng = np.random.default_rng(23)
+        for B in (4093, *K1S_B_TREE_WIDTHS):
+            args, reg = _k1_inputs(rng, N_MAIN, B, dev, False)
+            kc = kernel_constants(*args[:6], dtype=dtype).block
+            xa, us, xra, dxc, duc, alpha = (a.to(dtype) for a in args[6:12])
+            pack = torch.empty(N_MAIN, sqp_planes._C, B, device=dev, dtype=dtype)
+            mer = torch.empty(N_MAIN, sqp_planes._M_C, B, device=dev, dtype=dtype)
+            term = torch.empty(sqp_planes._T_C, B, device=dev, dtype=dtype)
+            sqp_planes._check("K1s-A", planes(
+                kc.data_ptr(), xa.data_ptr(), us.data_ptr(), xra.data_ptr(),
+                dxc.data_ptr(), duc.data_ptr(), alpha.data_ptr(), pack.data_ptr(),
+                mer.data_ptr(), term.data_ptr(), N_MAIN, B, float(args[13]),
+                float(args[14]), stream))
+            shapes = sqp_planes.park_shapes("gains", N_MAIN, B)[:2]
+            parks = {tag: [torch.empty(sh, device=dev, dtype=dtype)
+                           for sh in shapes] for tag in dtags}
 
-        def call(tag, fn):
-            return lambda: sqp_planes._check(f"K1s-B ({tag})", fn(
-                kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
-                *(p.data_ptr() for p in parks[tag]), N_MAIN, B, float(reg),
-                stream))
+            def call(tag, fn):
+                return lambda: sqp_planes._check(f"K1s-B ({tag})", fn(
+                    kc.data_ptr(), pack.data_ptr(), term.data_ptr(),
+                    *(p.data_ptr() for p in parks[tag]), N_MAIN, B, float(reg),
+                    stream))
 
-        calls = {tag: call(tag, fn) for tag, (fn, _) in zip(tags, built)}
-        for c in calls.values():
-            c()
-        torch.cuda.synchronize()
-        same = {tag: all(torch.equal(a, b) for a, b in
-                         zip(parks[tag], parks["this"])) for tag in tags[1:]}
-        print(f"[K1s-B trees] B={B}: K and kv bitwise equal to this tree's: "
-              f"{same}", flush=True)
-        if not all(same.values()):
-            raise AssertionError(f"K1s-B's parks differ at B={B}: {same}")
-        if B in K1S_B_TREE_WIDTHS:
-            ms = _rounds(calls, 10)
-            print(f"[K1s-B trees] B={B} ms per call: " + ", ".join(
-                f"{tag} {v:.3f} ({v / ms[tags[1]]:.3f}x {tags[1]})"
-                for tag, v in ms.items()), flush=True)
-        del args, pack, mer, term, parks, calls
-        torch.cuda.empty_cache()
+            calls = {tag: call(tag, fn) for tag, (fn, _) in have}
+            for c in calls.values():
+                c()
+            torch.cuda.synchronize()
+            same = {tag: all(torch.equal(a, b) for a, b in
+                             zip(parks[tag], parks["this"])) for tag in dtags[1:]}
+            print(f"[K1s-B trees] {name} B={B}: K and kv bitwise equal to this "
+                  f"tree's: {same}", flush=True)
+            if not all(same.values()):
+                raise AssertionError(f"{name}'s parks differ at B={B}: {same}")
+            if B in K1S_B_TREE_WIDTHS:
+                ms = _rounds(calls, 10)
+                print(f"[K1s-B trees] {name} B={B} ms per call: " + ", ".join(
+                    f"{tag} {v:.3f} ({v / ms[dtags[1]]:.3f}x {dtags[1]})"
+                    for tag, v in ms.items()), flush=True)
+            del args, pack, mer, term, parks, calls
+            torch.cuda.empty_cache()
 
 
 def _k1_split_bytes(N, B, factor):

@@ -337,32 +337,126 @@ HD void plane_part(int part, const T* kc, const T* xa, const T* us, const T* xr,
 // K1s-B, a team of W threads per scenario
 // ---------------------------------------------------------------------------
 
-// the stage's 87 pack channels, in channel order
+// the rank-6 form's stage: the 87 pack channels, in channel order
 template <typename T> struct Stage {
   T D1[3][3], D2[3][3], sF[3], sr[3], sl[3], bv[12], q[12], rf[12], ddb[24];
 };
 
-// one scenario's per-team array: L's lower triangle row by row; U the rows
-// of Ju'P at its columns 3..5, 9..11. 720 words, so that the two teams of a
-// warp start 16 banks apart
-template <typename T> struct Team {
-  T P[12][12], V[12][12], Y[12][13], L[78], U[12][6];
-  T Pbp[12], p[12], dinv[12];
-  Stage<T> st;
-  T pad[3];
+// The gains and factor forms' stage, in shared memory: the 87 pack
+// channels with each group that the whole team reads on a 16-byte boundary.
+// jx: D1 (0-8), D2 (9-17), sF (18-20), sr (21-23), sl (24-26) and a pad word
+template <typename T> struct alignas(16) StageA {
+  T jx[28], bv[12], q[12], rf[12], ddb[24];
 };
-static_assert(sizeof(Team<float>) == 720 * sizeof(float), "720 words a team");
-// The float64 form keeps the layout, 720 doubles (5,760 B; the two teams of
+constexpr int SA_SF = 18, SA_SR = 21, SA_SL = 24;
+// pack channel c's word in StageA
+HD constexpr int stage_word(int c) { return c < P_B ? c : c + 1; }
+
+// L's lower triangle by rows, row r at lo(r), each row padded to a multiple
+// of 4 words (4 words for rows 0-3, 8 for 4-7, 12 for 8-11), so that a row
+// is read 16 bytes at a time
+HD constexpr int lo(int r) { return r < 4 ? 4 * r : r < 8 ? 8 * r - 16 : 12 * r - 48; }
+HD constexpr int lp(int r, int c) { return lo(r) + c; }
+constexpr int LP_LEN = 96;
+
+// one scenario's per-team array for the gains and factor forms: Yc the
+// columns of [H | rv] (Yc[c][i] = Y[i][c]), Uc the columns 3..5, 9..11 of
+// Ju'P (Uc[m][r]), L by padded rows, the stage as StageA. Every field starts
+// on a 16-byte boundary; 752 words, so that the two teams of a warp start 16
+// banks apart
+template <typename T> struct alignas(16) Team {
+  T P[12][12], V[12][12], Yc[13][12], L[LP_LEN], Uc[6][12];
+  T Pbp[12], p[12], dinv[12];
+  StageA<T> st;
+  T pad[16];
+};
+static_assert(sizeof(Team<float>) == 752 * sizeof(float), "752 words a team");
+
+// K1s-B's constants (rc), in shared memory beside the teams: dt, the mass,
+// Ac1's and Ac2's columns (RC_ACT + 72 leg + 12 k: column k of leg leg, its
+// 12 rows g), R, and Q's columns (RC_Q + 12 j: column j); every matrix row
+// and column on a 16-byte boundary
+constexpr int RC_DT = 0, RC_MASS = 1, RC_ACT = 4, RC_R = 148, RC_Q = 292, RC_LEN = 436;
+
+// word i of rc, from the constants block kc
+template <typename T>
+HD T rc_word(const T* kc, int i) {
+  if (i == RC_DT) return kc[K_DT];
+  if (i == RC_MASS) return kc[K_MASS];
+  if (i < RC_ACT) return T(0);
+  if (i < RC_R) {
+    const int a = i - RC_ACT, leg = a / 72, k = (a % 72) / 12, g = a % 12;
+    return kc[(leg == 0 ? K_AC1 : K_AC2) + 6 * g + k];
+  }
+  if (i < RC_Q) return kc[K_R + i - RC_R];
+  const int a = i - RC_Q;
+  return kc[K_Q + 12 * (a % 12) + a / 12];
+}
+
+// The float64 form keeps the layout, 752 doubles (6,016 B; the two teams of
 // a warp are its two half-warps, which the card serves apart for 8-byte
-// words, so the 16-bank offset is not needed). 4 teams and the constants
-// block in double, 27,976 B, keep the block under the 48 KB of static
-// shared memory and fit 8 blocks, 32 teams, in an SM's 228 KB; a block park
-// of 4 lanes of 8 bytes is one 32-byte sector, as 8 floats are.
-constexpr int F64_SHARED = TEAMS_F64 * (int)sizeof(Team<double>) + K_LEN * (int)sizeof(double);
-static_assert(sizeof(Team<double>) == 720 * sizeof(double), "720 doubles a team");
+// words, so the 16-bank offset is not needed). 4 teams and rc in double,
+// 27,552 B, keep the block under the 48 KB of static shared memory and fit 8
+// blocks, 32 teams, in an SM's 228 KB; a block park of 4 lanes of 8 bytes is
+// one 32-byte sector, as 8 floats are.
+constexpr int F64_SHARED = TEAMS_F64 * (int)sizeof(Team<double>) + RC_LEN * (int)sizeof(double);
+static_assert(sizeof(Team<double>) == 752 * sizeof(double), "752 doubles a team");
 static_assert(F64_SHARED <= 48 * 1024, "static shared memory of a float64 block");
 static_assert(8 * (F64_SHARED + 1024) <= 228 * 1024, "8 float64 blocks an SM");
 
+// the first n (<= cap, cap words by default) words at p, 16-byte aligned,
+// into r: 16 bytes a load on the card (4 floats or 2 doubles; a load that
+// starts below n reads its whole 16 bytes), word by word on the host. Where
+// n is a loop's index, the card's loop is unrolled and the loads it needs
+// are known when the kernel is compiled
+template <int cap, typename T>
+HD void ld16(const T* p, T* r, int n = cap) {
+#ifdef __CUDA_ARCH__
+  static_assert(cap % (16 / sizeof(T)) == 0, "whole 16-byte loads");
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < cap; i += 4)
+      if (i < n) {
+        const float4 a = *reinterpret_cast<const float4*>(p + i);
+        r[i] = a.x;
+        r[i + 1] = a.y;
+        r[i + 2] = a.z;
+        r[i + 3] = a.w;
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < cap; i += 2)
+      if (i < n) {
+        const double2 a = *reinterpret_cast<const double2*>(p + i);
+        r[i] = a.x;
+        r[i + 1] = a.y;
+      }
+  }
+#else
+  for (int i = 0; i < n; ++i) r[i] = p[i];
+#endif
+}
+
+// the first n (<= cap) words of r into p, 16-byte aligned: 16 bytes a
+// store on the card (a store that starts below n writes its whole 16 bytes)
+template <int cap, typename T>
+HD void st16(T* p, const T* r, int n = cap) {
+#ifdef __CUDA_ARCH__
+  static_assert(cap % (16 / sizeof(T)) == 0, "whole 16-byte stores");
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < cap; i += 4)
+      if (i < n)
+        *reinterpret_cast<float4*>(p + i) = make_float4(r[i], r[i + 1], r[i + 2], r[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < cap; i += 2)
+      if (i < n) *reinterpret_cast<double2*>(p + i) = make_double2(r[i], r[i + 1]);
+  }
+#else
+  for (int i = 0; i < n; ++i) p[i] = r[i];
+#endif
+}
 
 // component i of Jx' v (rows: D1' v0 | D2' v0 | SF' v1 | v2)
 template <typename T>
@@ -376,8 +470,7 @@ HD T jxtv_at(const T (&D1)[3][3], const T (&D2)[3][3], const T* sF, const T* v, 
 }
 
 // column j of V = Jx' P (rows: D1' P0 | D2' P0 | SF' P1 | P2) and
-// Pb_p[j] = (P b + p)_j, the first step of the gains and the rank-6 team
-// stages
+// Pb_p[j] = (P b + p)_j, the first step of the rank-6 team stage
 template <typename T>
 HD void v_column(const T (&P)[12][12], const Stage<T>& st, const T* p, int j,
                  T (&V)[12][12], T* Pbp) {
@@ -403,22 +496,21 @@ HD void v_column(const T (&P)[12][12], const Stage<T>& st, const T* p, int j,
 // in their place, L's lower triangle row by row (< 234) and dinv
 constexpr int G_WORDS = 156, F_WORDS = 246;
 
-// word e of the team's parked stage, from Y, L and dinv: the gains form's
-// back substitution leaves [K | kv] in Y, the factor form parks [Yh | yv].
+// word e of the team's parked stage, from Yc, L and dinv: the gains form's
+// back substitution leaves [K | kv] in Yc, the factor form parks [Yh | yv].
 // L's diagonal is parked as the pivot times dinv: the team Cholesky leaves
 // each pivot's last update to the members that read it
 template <typename T>
 HD T park_word(const Team<T>& s, int e) {
-  if (e < 144) return s.Y[e / 12][e % 12];
-  if (e < 156) return s.Y[e - 144][12];
+  if (e < 144) return s.Yc[e % 12][e / 12];
+  if (e < 156) return s.Yc[12][e - 144];
   if (e < 234) {
-    const int q = e - 156;
     int r, c;
-    tri(q, r, c);
-    T v = s.L[q];
+    tri(e - 156, r, c);
+    T v = s.L[lp(r, c)];
     if (c == r) {
       if (r > 0) {
-        const T l = s.L[li(r, r - 1)];
+        const T l = s.L[lp(r, r - 1)];
         v = v - l * l;
       }
       v = v * s.dinv[r];
@@ -438,98 +530,199 @@ HD T* park_row(T* park0, T* park1, T* park2, T* park3, int k, int e, int B) {
   return park3 + ((size_t)k * 12 + e - 234) * B;
 }
 
+// component i of Jx' v from the stage's jx words (jxtv_at's and jxt_m's
+// expressions: Jx' V' takes v = V's row j)
+template <typename T>
+HD T jxt_at(const T* jx, const T* v, int i) {
+  if (i < 3) return jx[i] * v[0] + jx[3 + i] * v[1] + jx[6 + i] * v[2];
+  if (i < 6) return jx[6 + i] * v[0] + jx[9 + i] * v[1] + jx[12 + i] * v[2];
+  if (i >= 9) return v[i - 3];
+  T o[3];
+  skewT_mul(jx + SA_SF, v[3], v[4], v[5], o);
+  return o[i - 6];
+}
+
+// a member's (i, j) of its rounds' items (TEAM_ITEMS over n items), four
+// to a word, formed once (pack_items): G's 42 entries within a leg (gw, leg
+// by leg, row by row) and P's 78 lower entries (pw, row by row)
+HD void g_within(int k, int& i, int& j) {
+  const int leg = k < 21 ? 0 : 1;
+  tri(k - 21 * leg, i, j);
+  i += 6 * leg;
+  j += 6 * leg;
+}
+template <typename F>
+HD void pack_items(unsigned (&w)[4], int t, int W, int n, F ij) {
+  for (int q = 0; q < 4; ++q) w[q] = 0u;
+  for (int q = 0; q < 16 && t + q * W < n; ++q) {
+    int i, j;
+    ij(t + q * W, i, j);
+    w[q / 4] |= (unsigned)(i | j << 4) << (8 * (q % 4));
+  }
+}
+// round q's item of a member's packed words
+HD void unpack_item(const unsigned (&w)[4], int q, int& i, int& j) {
+  const unsigned v = w[q / 4] >> (8 * (q % 4));
+  i = (int)(v & 15u);
+  j = (int)((v >> 4) & 15u);
+}
+
 // kFactor: park0..park3 take [Yh | yv], L and dinv (ops/sqp_planes.py::
-// park_shapes) in place of K and kv. On the card the
-// block writes either park (park(k), once every team is done with stage k)
+// park_shapes) in place of K and kv. kc: the constants block, whose Qf seeds
+// P; rc: K1s-B's constants (rc_word). On the card the block writes either
+// park (park(k), once every team is done with stage k).
+//
+// Each step reads what the whole team reads 16 bytes at a time (the stage's
+// groups, Ac's columns, L's rows, dinv) and each operand a member uses again
+// once, into registers (P's column and row, V's row, Yc's columns). The
+// Cholesky and the forward substitution share their steps: step j reads L's
+// row j + 1 once for both.
 template <typename T, bool kFactor = false, typename Park = int>
-HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* park0,
-                     T* park1, int N, int B, int b, T reg, int lane, int W, unsigned mask,
-                     bool rev, T* park2 = nullptr, T* park3 = nullptr,
+HD void riccati_team(Team<T>& s, const T* kc, const T* rc, const T* pack, const T* term,
+                     T* park0, T* park1, int N, int B, int b, T reg, int lane, int W,
+                     unsigned mask, bool rev, T* park2 = nullptr, T* park3 = nullptr,
                      const Park& park = Park()) {
 #define AT(ptr, row) (ptr)[(size_t)(row) * B + b]
   (void)lane;
   (void)mask;
   (void)rev;
-  const T dt = kc[K_DT];
+  const T dt = rc[RC_DT];
   const T dt2 = dt * dt;
-  const T m_inv = T(1) / kc[K_MASS];
-  const T* Ac1 = kc + K_AC1;
-  const T* Ac2 = kc + K_AC2;
-  const T* Rw = kc + K_R;
-  const T* Qw = kc + K_Q;
+  const T m_inv = T(1) / rc[RC_MASS];
   const T* Qf = kc + K_QF;
-  const Stage<T>& st = s.st;
-  // X0 = Qw + P + dt (V + V') + dt^2 Jx'V', the part of P_new before
-  // - Yh'Yh, by columns (at most two per member for W >= 8), kept across a
-  // barrier
-  T x0[SLOTS][2][12];
+  const StageA<T>& st = s.st;
+  // across the Cholesky's steps: a member's rows r = t, t + W of L (G's
+  // entries until formed) and their diagonals' updates, and its columns
+  // c = t, t + W of Y
+  T lr[SLOTS][2][12], dg[SLOTS][2], yc[SLOTS][2][12];
+  // the pivots' dinv, which every member forms: kept in registers for the
+  // back substitution in float; in shared memory (dinv) for the factor park
+  // and in double
+  constexpr bool kDinvShared = kFactor || sizeof(T) == 8;
+  T dv[SLOTS][12];
+
+  // the (i, j) of a member's G entries within a leg and P entries
+  unsigned gw[SLOTS][4], pw[SLOTS][4];
 
   // seed P = Qf, p = qN (read after the first stage's load is synced)
   TEAM_FOR(t) {
     for (int e = t; e < 144; e += W) s.P[e / 12][e % 12] = Qf[e];
     for (int i = t; i < 12; i += W) s.p[i] = AT(term, i);
+    pack_items(MINE(gw), t, W, 42, [](int e, int& i, int& j) { g_within(e, i, j); });
+    pack_items(MINE(pw), t, W, 78, [](int e, int& i, int& j) { tri(e, j, i); });
   }
   for (int k = N - 1; k >= 0; --k) {
+#ifdef __CUDA_ARCH__
+    // the member's index and its items' words as this stage's own values, so
+    // that the addresses they give are formed in each stage and not held in
+    // registers through the loop
+    int lane_k = lane;
+    asm volatile("" : "+r"(lane_k));
+    const int lane = lane_k;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      asm volatile("" : "+r"(MINE(gw)[q]));
+      asm volatile("" : "+r"(MINE(pw)[q]));
+    }
+#endif
     const T* pk = pack + (size_t)k * P_C * B;
-    T* flat = reinterpret_cast<T*>(&s.st);
+    T* sw = reinterpret_cast<T*>(&s.st);
     TEAM_FOR(t) {
-      for (int c = t; c < P_C; c += W) flat[c] = pk[(size_t)c * B + b];
+      TEAM_ITEMS(c, P_C) sw[stage_word(c)] = pk[(size_t)c * B + b];
     }
     TEAM_SYNC();
 
-    // column j of V = Jx' P (v_column), Pb_p[j] = (P b + p)_j,
-    // and for j in 3..5, 9..11 column j of Ju'P (srbd_dev::ju_p)
+    // column j of V = Jx' P, Pb_p[j] = (P b + p)_j (v_column's expressions),
+    // and for j in 3..5, 9..11 column j of Ju'P (ju_p) into Uc: P's column
+    // j read once, the stage's groups and P's row j 16 bytes at a time
     TEAM_FOR(t) {
       TEAM_ITEMS(j, 12) {
-        v_column(s.P, st, s.p, j, s.V, s.Pbp);
-        if ((j >= 3 && j < 6) || j >= 9) {
-          const int m = (j < 6) ? j - 3 : j - 6;
+        T pc[12], ja[12], jb[12];
 #pragma unroll
-          for (int r = 0; r < 12; ++r) s.U[r][m] = ju_p(s.P, st.sr, st.sl, m_inv, r, j);
+        for (int i = 0; i < 12; ++i) pc[i] = s.P[i][j];
+        ld16<12>(st.jx, ja);       // D1, D2's row 0
+        ld16<12>(st.jx + 12, jb);  // D2's rows 1-2, sF, sr
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          s.V[i][j] = ja[i] * pc[0] + ja[3 + i] * pc[1] + ja[6 + i] * pc[2];
+          s.V[3 + i][j] = ja[9 + i] * pc[0] + jb[i] * pc[1] + jb[3 + i] * pc[2];
+          s.V[9 + i][j] = pc[6 + i];
+        }
+        T sv[3];
+        skewT_mul(jb + 6, pc[3], pc[4], pc[5], sv);
+        s.V[6][j] = sv[0];
+        s.V[7][j] = sv[1];
+        s.V[8][j] = sv[2];
+        T acc = T(0);
+#pragma unroll
+        for (int c0 = 0; c0 < 12; c0 += 4) {
+          T pr[4], bv[4];
+          ld16<4>(s.P[j] + c0, pr);
+          ld16<4>(st.bv + c0, bv);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc = (c0 + c == 0) ? pr[0] * bv[0] : acc + pr[c] * bv[c];
+        }
+        s.Pbp[j] = acc + s.p[j];
+        if ((j >= 3 && j < 6) || j >= 9) {
+          T sl[4], u[12];
+          ld16<4>(st.jx + SA_SL, sl);
+#pragma unroll
+          for (int r = 0; r < 12; ++r) u[r] = ju_p(pc, jb + 9, sl, m_inv, r);
+          st16<12>(s.Uc[j < 6 ? j - 3 : j - 6], u);
         }
       }
     }
     TEAM_SYNC();
 
-    // column j of Y = [H | rv], of Ju'(P Ju) into G's lower triangle, and of
-    // X0 (sqp_stage._riccati_stage_structured)
+    // column j of Y = [H | rv] (Yc), of Ju'(P Ju) into G's lower triangle, and
+    // of X0 (sqp_stage._riccati_stage_structured) into P's column j, which no
+    // member reads after this step; V's row j 16 bytes at a time
     TEAM_FOR(t) {
       TEAM_ITEMS(j, 13) {
+        T jb[12], sl[4], y[12], s1[3], s2[3];
+        ld16<12>(st.jx + 12, jb);
+        ld16<4>(st.jx + SA_SL, sl);
+        const T* sr = jb + 9;
         if (j == 12) {
-          T s1[3], s2[3];
-          skewT_mul(st.sr, s.Pbp[3], s.Pbp[4], s.Pbp[5], s1);
-          skewT_mul(st.sl, s.Pbp[3], s.Pbp[4], s.Pbp[5], s2);
+          T pb[12], rf[12];
+          ld16<12>(s.Pbp, pb);
+          ld16<12>(st.rf, rf);
+          skewT_mul(sr, pb[3], pb[4], pb[5], s1);
+          skewT_mul(sl, pb[3], pb[4], pb[5], s2);
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
-            s.Y[i][12] = dt * (s1[i] + m_inv * s.Pbp[9 + i]) + st.rf[i];
-            s.Y[3 + i][12] = dt * s.Pbp[3 + i] + st.rf[3 + i];
-            s.Y[6 + i][12] = dt * (s2[i] + m_inv * s.Pbp[9 + i]) + st.rf[6 + i];
-            s.Y[9 + i][12] = dt * s.Pbp[3 + i] + st.rf[9 + i];
+            y[i] = dt * (s1[i] + m_inv * pb[9 + i]) + rf[i];
+            y[3 + i] = dt * pb[3 + i] + rf[3 + i];
+            y[6 + i] = dt * (s2[i] + m_inv * pb[9 + i]) + rf[6 + i];
+            y[9 + i] = dt * pb[3 + i] + rf[9 + i];
           }
+          st16<12>(s.Yc[12], y);
         } else {
-          T m1[3], m3[3];
+          T vr[12], m1[3], m3[3];
+          ld16<12>(s.V[j], vr);
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
-            m1[i] = s.P[3 + i][j] + dt * s.V[j][3 + i];
-            m3[i] = s.P[9 + i][j] + dt * s.V[j][9 + i];
+            m1[i] = s.P[3 + i][j] + dt * vr[3 + i];
+            m3[i] = s.P[9 + i][j] + dt * vr[9 + i];
           }
-          T s1[3], s2[3];
-          skewT_mul(st.sr, m1[0], m1[1], m1[2], s1);
-          skewT_mul(st.sl, m1[0], m1[1], m1[2], s2);
+          skewT_mul(sr, m1[0], m1[1], m1[2], s1);
+          skewT_mul(sl, m1[0], m1[1], m1[2], s2);
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
-            s.Y[i][j] = dt * (s1[i] + m_inv * m3[i]);
-            s.Y[3 + i][j] = dt * m1[i];
-            s.Y[6 + i][j] = dt * (s2[i] + m_inv * m3[i]);
-            s.Y[9 + i][j] = dt * m1[i];
+            y[i] = dt * (s1[i] + m_inv * m3[i]);
+            y[3 + i] = dt * m1[i];
+            y[6 + i] = dt * (s2[i] + m_inv * m3[i]);
+            y[9 + i] = dt * m1[i];
           }
+          st16<12>(s.Yc[j], y);
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
-            m1[i] = s.U[j][i];
-            m3[i] = s.U[j][3 + i];
+            m1[i] = s.Uc[i][j];
+            m3[i] = s.Uc[3 + i][j];
           }
-          skewT_mul(st.sr, m1[0], m1[1], m1[2], s1);
-          skewT_mul(st.sl, m1[0], m1[1], m1[2], s2);
+          skewT_mul(sr, m1[0], m1[1], m1[2], s1);
+          skewT_mul(sl, m1[0], m1[1], m1[2], s2);
           T col[12];
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
@@ -539,84 +732,210 @@ HD void riccati_team(Team<T>& s, const T* kc, const T* pack, const T* term, T* p
             col[9 + i] = m1[i];
           }
 #pragma unroll
-          for (int i = 0; i < 12; ++i) {
-            if (i >= j) s.L[li(i, j)] = col[i];
-            const T mv = dt * (s.V[j][i] + s.V[i][j]);
-            MINE(x0)[q_][i] = ((Qw[12 * i + j] + s.P[i][j]) + mv)
-                              + dt2 * jxt_m(s.V, st.D1, st.D2, st.sF, i, j);
+          for (int i = 0; i < 12; ++i)
+            if (i >= j) s.L[lp(i, j)] = col[i];
+          // the stage's D1, D2 and sF in registers in float, read word by
+          // word in double
+          T jx[28];
+          const T* jd = jx;
+          if constexpr (sizeof(T) == 8) {
+            jd = st.jx;
+          } else {
+            ld16<12>(st.jx, jx);
+#pragma unroll
+            for (int i = 12; i < 24; ++i) jx[i] = jb[i - 12];
+          }
+#pragma unroll
+          for (int i0 = 0; i0 < 12; i0 += 4) {
+            T qw[4];
+            ld16<4>(rc + RC_Q + 12 * j + i0, qw);  // Qw[i][j]
+#pragma unroll
+            for (int i = i0; i < i0 + 4; ++i) {
+              const T mv = dt * (vr[i] + s.V[i][j]);
+              s.P[i][j] = ((qw[i - i0] + s.P[i][j]) + mv) + dt2 * jxt_at(jd, vr, i);
+            }
           }
         }
       }
     }
     TEAM_SYNC();
 
-    // G = Reff + dt^2 Ju'(P Ju) + reg I, entry by entry; X0 into V's place
+    // G = Reff + dt^2 Ju'(P Ju) + reg I, entry by entry: the 42 entries
+    // within a leg in rounds of their own (Ac's columns ii and jj and the
+    // leg's ddb 16 bytes at a time), then the 36 across the legs (R alone)
     TEAM_FOR(t) {
-      TEAM_ITEMS(e, 78) {
+      TEAM_ITEMS(k, 42) {
         int i, j;
-        tri(e, i, j);
-        T re = Rw[12 * i + j];
-        if ((i < 6) == (j < 6)) {
-          const T* Ab = (i < 6) ? Ac1 : Ac2;
-          const int ii = (i < 6) ? i : i - 6, jj = (j < 6) ? j : j - 6;
-          const T* dd = st.ddb + ((i < 6) ? 0 : 12);
-          T c = Ab[ii] * (Ab[jj] * dd[0]);
+        unpack_item(MINE(gw), q_, i, j);
+        const int leg = (i < 6) ? 0 : 1;
+        const T* ai = rc + RC_ACT + 72 * leg + 12 * (i - 6 * leg);
+        const T* aj = rc + RC_ACT + 72 * leg + 12 * (j - 6 * leg);
+        const T* dd = st.ddb + 12 * leg;
+        T c = T(0);
 #pragma unroll
-          for (int g = 1; g < 12; ++g) c = c + Ab[6 * g + ii] * (Ab[6 * g + jj] * dd[g]);
-          re = re + c;
+        for (int g0 = 0; g0 < 12; g0 += 4) {
+          T a4[4], b4[4], d4[4];
+          ld16<4>(ai + g0, a4);
+          ld16<4>(aj + g0, b4);
+          ld16<4>(dd + g0, d4);
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            c = (g0 + g == 0) ? a4[0] * (b4[0] * d4[0]) : c + a4[g] * (b4[g] * d4[g]);
         }
-        T gij = re + dt2 * s.L[e];
+        const T re = rc[RC_R + 12 * i + j] + c;
+        T gij = re + dt2 * s.L[lp(i, j)];
         if (i == j) gij = gij + reg;
-        s.L[e] = gij;
+        s.L[lp(i, j)] = gij;
       }
-      TEAM_ITEMS(j, 12) {
-#pragma unroll
-        for (int i = 0; i < 12; ++i) s.V[i][j] = MINE(x0)[q_][i];
+      TEAM_ITEMS(m, 36) {
+        const int i = 6 + m / 6, j = m % 6;
+        s.L[lp(i, j)] = rc[RC_R + 12 * i + j] + dt2 * s.L[lp(i, j)];
       }
     }
     TEAM_SYNC();
 
-    // right-looking Cholesky, dinv = rsqrt(pivot), a row per member; forward
-    // substitution Y <- L^-1 [H | rv], a column per member
-    team_cholesky(s.L, s.dinv, lane, W, mask, rev);
-    team_forward_subst(s.L, s.dinv, s.Y, lane, W, mask, rev);
-
-    // P_new = 0.5 ((X0 - Yh'Yh) + (X0 - Yh'Yh)'), 78 entries in place, and
-    // p_new = q + Pb_p + dt Jx' Pb_p - Yh' yv (12)
+    // Cholesky of G, dinv = rsqrt(pivot), and forward substitution Y <- L^-1
+    // [H | rv], in the same 12 steps. Step 0 scales column 0; step j + 1
+    // reads L's row j + 1 with its diagonal's last update, forms the pivot
+    // (every member, as team_cholesky's members do), L[r][j + 1] of the
+    // member's rows r > j + 1 with the last of its diagonal's updates
+    // (team_cholesky's operations on the entry, in its order), and y[j + 1]
+    // of the member's columns (team_forward_subst's); the owner of row j + 2
+    // writes it once complete. Every barrier but the last is the next step's
+    // read of a row
     TEAM_FOR(t) {
-      TEAM_ITEMS(e, 90) {
-        if (e < 78) {
-          int j, i;
-          tri(e, j, i);  // i <= j
-          T gr = s.Y[0][i] * s.Y[0][j];
+      const T d0 = k_rsqrt(s.L[0]);
+      MINE(dv)[0] = d0;
+      if (kDinvShared && t == 0) s.dinv[0] = d0;
 #pragma unroll
-          for (int r = 1; r < 12; ++r) gr = gr + s.Y[r][i] * s.Y[r][j];
-          const T xij = s.V[i][j] - gr;
-          const T xji = s.V[j][i] - gr;
-          const T sym = T(0.5) * (xij + xji);
-          s.P[i][j] = sym;
-          s.P[j][i] = sym;
-        } else {
-          const int i = e - 78;
-          T yy = s.Y[0][i] * s.Y[0][12];
+      for (int q = 0; q < 2; ++q) {
+        const int r = t + q * W;
+        if (q * W < 12 && r < 12) {
+          T* g = MINE(lr)[q];
+          ld16<12>(s.L + lo(r), g);
+          if (r >= 1) g[0] = g[0] * d0;
 #pragma unroll
-          for (int r = 1; r < 12; ++r) yy = yy + s.Y[r][i] * s.Y[r][12];
-          s.p[i] = ((st.q[i] + s.Pbp[i]) + dt * jxtv_at(st.D1, st.D2, st.sF, s.Pbp, i)) - yy;
+          for (int c = 0; c < 12; ++c)
+            if (c == r) MINE(dg)[q] = g[c];
+          if (r == 1) s.L[lp(1, 0)] = g[0];
         }
+        if (q * W < 13 && r < 13) {
+          T* y = MINE(yc)[q];
+          ld16<12>(s.Yc[r], y);
+          y[0] = y[0] * d0;
+        }
+      }
+    }
+    TEAM_SYNC();
+#pragma unroll
+    for (int j = 0; j < 11; ++j) {
+      TEAM_FOR(t) {
+        T l[12];
+        ld16<12>(s.L + lo(j + 1), l, j + 2);
+        const T lj = l[j];
+        const T dn = k_rsqrt(l[j + 1] - lj * lj);
+        MINE(dv)[j + 1] = dn;
+        if (kDinvShared && t == 0) s.dinv[j + 1] = dn;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int r = t + q * W;
+          if (q * W < 12 && r < 12 && r >= j + 2) {
+            T* g = MINE(lr)[q];
+            T a = g[j + 1];
+#pragma unroll
+            for (int i = 0; i < j; ++i) a = a - g[i] * l[i];
+            g[j + 1] = (a - g[j] * lj) * dn;
+            MINE(dg)[q] = MINE(dg)[q] - g[j] * g[j];
+            if (r == j + 2) {
+              T row[12];
+#pragma unroll
+              for (int c = 0; c < 12; ++c) row[c] = (c == j + 2) ? MINE(dg)[q] : g[c];
+              st16<12>(s.L + lo(j + 2), row, j + 3);
+            }
+          }
+          if (q * W < 13 && r < 13) {
+            T* y = MINE(yc)[q];
+            T a = y[j + 1];
+#pragma unroll
+            for (int i = 0; i <= j; ++i) a = a - l[i] * y[i];
+            y[j + 1] = a * dn;
+            if (j == 10) st16<12>(s.Yc[r], y);
+          }
+        }
+      }
+      TEAM_SYNC();
+    }
+
+    // P_new = 0.5 ((X0 - Yh'Yh) + (X0 - Yh'Yh)'), 78 entries in place (X0 in
+    // P's place: entry (i, j) reads and writes X0[i][j] and X0[j][i] alone),
+    // then in rounds of their own p_new = q + Pb_p + dt Jx' Pb_p - Yh' yv
+    // (12); Yc's columns 16 bytes at a time
+    TEAM_FOR(t) {
+      TEAM_ITEMS(e, 78) {
+        int i, j;
+        unpack_item(MINE(pw), q_, i, j);  // i <= j
+        T yi[12], yj[12];
+        ld16<12>(s.Yc[i], yi);
+        ld16<12>(s.Yc[j], yj);
+        T gr = yi[0] * yj[0];
+#pragma unroll
+        for (int r = 1; r < 12; ++r) gr = gr + yi[r] * yj[r];
+        const T xij = s.P[i][j] - gr;
+        const T xji = s.P[j][i] - gr;
+        const T sym = T(0.5) * (xij + xji);
+        s.P[i][j] = sym;
+        s.P[j][i] = sym;
+      }
+      TEAM_ITEMS(i, 12) {
+        // column i is the member's own from the forward substitution (its
+        // slot q_ holds column t + q_ W), in registers in float, read again
+        // in double
+        T yl[12], yv[12];
+        const T* yi = MINE(yc)[q_];
+        if constexpr (sizeof(T) == 8) {
+          ld16<12>(s.Yc[i], yl);
+          yi = yl;
+        }
+        ld16<12>(s.Yc[12], yv);
+        T yy = yi[0] * yv[0];
+#pragma unroll
+        for (int r = 1; r < 12; ++r) yy = yy + yi[r] * yv[r];
+        s.p[i] = ((st.q[i] + s.Pbp[i]) + dt * jxt_at(st.jx, s.Pbp, i)) - yy;
       }
     }
     TEAM_SYNC();
 
     if constexpr (!kFactor) {
-      // back substitution L' X = Y in place, one column per member: column
-      // c of Y becomes column c of [K | kv] = -X (a member reads only its
-      // own column)
+      // back substitution L' X = Y in place, one column per member
+      // (back_subst_column's operations): column c of Yc becomes column c of
+      // [K | kv] = -X; L's rows and dinv 16 bytes at a time
       TEAM_FOR(t) {
         TEAM_ITEMS(c, 13) {
-          T y[12];
-          back_subst_column(s.L, s.dinv, s.Y, c, y);
+          // the member's column from the forward substitution, kept in
+          // registers in float and read again in double
+          T yl[12];
+          T* y = yl;
+          if constexpr (sizeof(T) == 8)
+            ld16<12>(s.Yc[c], yl);
+          else
+            y = MINE(yc)[q_];
+          T dl[12];
+          const T* dn = MINE(dv);
+          if constexpr (kDinvShared) {
+            ld16<12>(s.dinv, dl);
+            dn = dl;
+          }
 #pragma unroll
-          for (int i = 0; i < 12; ++i) s.Y[i][c] = -y[i];
+          for (int i = 11; i >= 0; --i) {
+            y[i] = y[i] * dn[i];
+            T l[12];
+            ld16<12>(s.L + lo(i), l, i);
+#pragma unroll
+            for (int r = 0; r < i; ++r) y[r] = y[r] - l[r] * y[i];
+          }
+#pragma unroll
+          for (int i = 0; i < 12; ++i) y[i] = -y[i];
+          st16<12>(s.Yc[c], y);
         }
       }
     }

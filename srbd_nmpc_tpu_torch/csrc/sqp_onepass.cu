@@ -328,9 +328,11 @@ extern "C" int srbd_sqp_onepass_split_host(int team, int rev, int cand, const ho
         k3s::plane_stage<host_t, false>(consts, xa, us, xr, dxc, duc, alpha, pack, mer,
                                         term, N, B, k, b, mu, th);
     }
+  host_t rc[k1s::RC_LEN];
+  for (int i = 0; i < k1s::RC_LEN; ++i) rc[i] = k1s::rc_word(consts, i);
   for (int b = 0; b < B; ++b) {
     k1s::Team<host_t> s;
-    k1s::riccati_team(s, consts, pack, term, park0, park1, N, B, b, rg, 0, team, 0u,
+    k1s::riccati_team(s, consts, rc, pack, term, park0, park1, N, B, b, rg, 0, team, 0u,
                       rev != 0);
   }
   for (int b = 0; b < B; ++b)

@@ -34,9 +34,13 @@
 // per thread, two blocks of 128 per SM, 32 blocks at the B/32 tier, as
 // measured on the H100: PERF.md). Split, the plane pass and the rollout are bound
 // by the bytes they move (the pack, the merit terms, the parked gains), and
-// the Riccati pass, ~70 % of a call, by the instructions a team issues per
-// stage and by shared memory, which holds 64 teams per SM; at the small
-// tiers, by the latency of a stage's serial chain (12 pivots, 18 barriers).
+// the Riccati pass, ~70 % of a call, by the SM's shared-memory pipe: a
+// warp's shared load or store takes at least one of its cycles, and a load
+// of 16 bytes by every member (4 a cycle) or a 4-byte load whose members'
+// addresses share banks (a row of a 12-wide matrix: 4 a cycle) takes more
+// (PERF.md). Then by the instructions a team issues and by the registers
+// they hold; at the small tiers, by the latency of a stage's serial chain
+// (12 pivots, 17 barriers).
 //
 // What this design does about it:
 // - The plane pass holds no P. Its stages do not depend on one another, so
@@ -46,36 +50,51 @@
 //   per-stage terms [N, 26, B] (u_i (R u)_i, e_i (Q e)_i, the stage's
 //   barrier sum and least constraint).
 // - The Riccati pass keeps the stage's matrices in shared memory, one
-//   per-team array per scenario (720 words), and spreads each step over the
-//   team: columns of V = Jx'P with Pb_p and the rows of Ju'P that G needs;
-//   columns of [H | rv], of G's Ju'PJu part and of X0 = Qw + P + dt (V + V')
-//   + dt^2 Jx'V' (the part of P_new that needs no factor); the 78 entries of
-//   G; the Cholesky factor a row per member, one barrier per column; the 13
-//   columns of the forward and of the back substitution, each serial within
-//   its column and in place in Y; the 78 entries of P and the 12 of p.
-//   Every entry is formed by one thread with one fixed expression, and every
-//   in-place update of an entry keeps one order, so no sum is split between
-//   threads: the team rounds alike at every width and member order, and as
-//   one thread per scenario did (the stage is ill-conditioned enough, R_eff
-//   ~ 1e-4 against dt^2 B'PB, that another sum order alone moves du by
-//   ~1e-4 relative). Members synchronize with __syncwarp on the team's lanes
-//   between steps (18 per stage). The team's members load its pack; the
-//   whole block writes K and kv out of the teams' Y, between two block
-//   barriers a stage, once every team is done with it (BlockPark): each
-//   row's 8 lanes are one 32-byte sector, where the members of the two
-//   teams of a warp would write 8-byte pieces of 16 rows (7.5 -> 6.7 ms a
-//   call at B=131072 on the H100; the next stage's pack brought in by the
-//   block in the same window, by cp.async, was slower at full width and not
-//   kept, PERF.md). The team is 16 threads, two a warp: against one thread
-//   per scenario and teams of 8 and 32, it was the fastest at each width
-//   the main path launches on the H100 (PERF.md); the host build emulates
-//   widths 8 to 32, its members parking their own words.
+//   per-team array per scenario (752 words), and spreads each step over the
+//   team: columns of V = Jx'P with Pb_p and the columns of Ju'P that G
+//   needs; columns of [H | rv], of G's Ju'PJu part and of X0 = Qw + P + dt
+//   (V + V') + dt^2 Jx'V' (the part of P_new that needs no factor, written
+//   in P's place); G's 42 entries within a leg, then its 36 across the legs,
+//   each in rounds of their own; the Cholesky factor and the forward
+//   substitution in the same 12 steps, a row of L and a column of Y per
+//   member in registers, each step reading L's row j + 1 once for both; the
+//   78 entries of P, then the 12 of p; the 13 columns of the back
+//   substitution from the members' registers. Every entry is formed by one
+//   thread with one fixed expression, and every update of an entry keeps
+//   one order, so no sum is split between threads: the team rounds alike at
+//   every width and member order, and as one thread per scenario did (the
+//   stage is ill-conditioned enough, R_eff ~ 1e-4 against dt^2 B'PB, that
+//   another sum order alone moves du by ~1e-4 relative). Members
+//   synchronize with __syncwarp on the team's lanes between steps (17 per
+//   stage). To spare the shared-memory pipe, each operand that the whole
+//   team reads is read 16 bytes at a time (the stage's groups, placed on
+//   16-byte boundaries; Ac's and Q's columns, R's rows, copied so by the
+//   block into its own constants (k1s::rc_word); L's rows, padded to 4
+//   words; dinv), each operand a member uses again is read once into
+//   registers (P's column and row, V's row, the columns of [H | rv], kept
+//   as columns, Yc), and the factor's rows and Y's columns stay in
+//   registers from the Cholesky to the back substitution: the static SASS
+//   count of a stage fell from 757 shared loads and 204 stores to 243 and
+//   107 (PERF.md). 8 teams a block, 6 blocks an SM at 80 registers (64
+//   registers and 8 blocks spilled and were slower at each width). The
+//   team's members load its pack; the whole block writes K and kv out of
+//   the teams' Yc, between two block barriers a stage, once every team is
+//   done with it (BlockPark): each row's 8 lanes are one 32-byte sector,
+//   where the members of the two teams of a warp would write 8-byte pieces
+//   of 16 rows (7.5 -> 6.7 ms a call at B=131072 on the H100; the next
+//   stage's pack brought in by the block in the same window, by cp.async,
+//   was slower at full width and not kept, PERF.md). The team is 16
+//   threads, two a warp: against one thread per scenario and teams of 8
+//   and 32, it was the fastest at each width the main path launches on the
+//   H100 (PERF.md); the host build emulates widths 8 to 32, its members
+//   parking their own words.
 // - The rollout holds dx, du and the merit's running sums, no P. It reduces
 //   theta and phi over the stages in the plain version's order
 //   (_planes_phase: per component over the stages, then over the
 //   components), not stage by stage.
 // - The rank-6 form (k1s_riccati_rank6_kernel, a sibling of the gains team
-//   body that shares its load and V/Pb_p step) spreads
+//   body with its own per-team array and load, and the V/Pb_p step
+//   v_column) spreads
 //   the rank-6 stage (ops/sqp_planes.py::_riccati_stage_rank6) over the
 //   team in 11 steps a stage: columns of
 //   V with Pb_p beside the 42 lower entries of R1h/R2h; the two 6x6 leg
@@ -148,6 +167,8 @@
 
 #include "k1s_passes.cuh"
 
+#include <type_traits>
+
 #ifdef __CUDACC__
 
 // the constants block into shared memory, for the whole block, in the
@@ -155,6 +176,12 @@
 #define K1S_CONSTS(T)                                              \
   __shared__ T kc[k1::K_LEN];                                      \
   for (int i = threadIdx.x; i < k1::K_LEN; i += blockDim.x) kc[i] = consts[i]; \
+  __syncthreads();
+
+// K1s-B's constants (k1s::rc_word) into shared memory, for the whole block
+#define K1S_RC(T)                                                  \
+  __shared__ __align__(16) T rc[k1s::RC_LEN];                      \
+  for (int i = threadIdx.x; i < k1s::RC_LEN; i += blockDim.x) rc[i] = k1s::rc_word(consts, i); \
   __syncthreads();
 
 __global__ void __launch_bounds__(128, 3)
@@ -185,10 +212,25 @@ struct BlockPark {
 #ifdef __CUDA_ARCH__
     __syncthreads();  // every team is done with stage k
     const int sc = threadIdx.x % NT;
-    if (b0 + sc < B)
-      for (int e = threadIdx.x / NT; e < WORDS; e += k1s::W_CARD)
-        k1s::park_row(park0, park1, park2, park3, k, e, B)[b0 + sc] =
-            k1s::park_word(teams[sc], e);
+    if (b0 + sc < B) {
+      if constexpr (WORDS == k1s::G_WORDS && std::is_same_v<TeamT, k1s::Team<T>>) {
+        // the gains form: K's words e = e0, e0 + 16, ... (all 144 in 9 rounds)
+        // and kv's word e0, with park_word's and park_row's indices unrolled
+        const int e0 = threadIdx.x / NT;
+        const T* yc = &teams[sc].Yc[0][0];
+        T* kp = park0 + (size_t)k * 144 * B + b0 + sc;
+#pragma unroll
+        for (int m = 0; m < 9; ++m) {
+          const int e = e0 + k1s::W_CARD * m;
+          kp[(size_t)e * B] = yc[12 * (e % 12) + e / 12];
+        }
+        if (e0 < 12) park1[((size_t)k * 12 + e0) * B + b0 + sc] = yc[144 + e0];
+      } else {
+        for (int e = threadIdx.x / NT; e < WORDS; e += k1s::W_CARD)
+          k1s::park_row(park0, park1, park2, park3, k, e, B)[b0 + sc] =
+              k1s::park_word(teams[sc], e);
+      }
+    }
     __syncthreads();  // before a team's next stage writes the parked words
 #else
     (void)k;
@@ -197,42 +239,46 @@ struct BlockPark {
 };
 
 // a team past the ragged edge of the team kernels repeats the last lane
-// and parks nothing, so that it reaches the block's barriers
+// and parks nothing, so that it reaches the block's barriers. The two teams
+// of a warp thus run the same steps and reach each team barrier together:
+// the gains and factor forms sync the whole warp (kWarp), a constant mask
+// that spares the barrier its test of which lanes have arrived
+constexpr unsigned kWarp = 0xffffffffu;
 __device__ __forceinline__ int team_lane(int b0, int team, int B) {
   return b0 + team < B ? b0 + team : B - 1;
 }
 
-__global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
+__global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 6)
     k1s_riccati_team_kernel(const float* __restrict__ consts, const float* pack,
                             const float* term, float* park0, float* park1, int N, int B,
                             float reg) {
   constexpr int W = k1s::W_CARD;
   static_assert(32 % W == 0, "a team lies within one warp");
   __shared__ k1s::Team<float> teams[k1s::TEAMS];
-  K1S_CONSTS(float)
+  K1S_RC(float)
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b0 = blockIdx.x * k1s::TEAMS;
-  const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
+  const unsigned mask = kWarp;
   const BlockPark<k1s::Team<float>, k1s::G_WORDS> park{teams, park0, park1, nullptr,
                                                         nullptr, B, b0};
-  k1s::riccati_team<float>(teams[team], kc, pack, term, park0, park1, N, B,
+  k1s::riccati_team<float>(teams[team], consts, rc, pack, term, park0, park1, N, B,
                            team_lane(b0, team, B), reg, lane, W, mask, false, nullptr,
                            nullptr, park);
 }
 
-__global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 8)
+__global__ void __launch_bounds__(k1s::TEAMS * k1s::W_CARD, 6)
     k1s_riccati_factor_kernel(const float* __restrict__ consts, const float* pack,
                               const float* term, float* park0, float* park1, float* park2,
                               float* park3, int N, int B, float reg) {
   constexpr int W = k1s::W_CARD;
   __shared__ k1s::Team<float> teams[k1s::TEAMS];
-  K1S_CONSTS(float)
+  K1S_RC(float)
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b0 = blockIdx.x * k1s::TEAMS;
-  const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
+  const unsigned mask = kWarp;
   const BlockPark<k1s::Team<float>, k1s::F_WORDS> park{teams, park0, park1, park2,
                                                         park3, B, b0};
-  k1s::riccati_team<float, true>(teams[team], kc, pack, term, park0, park1, N, B,
+  k1s::riccati_team<float, true>(teams[team], consts, rc, pack, term, park0, park1, N, B,
                                  team_lane(b0, team, B), reg, lane, W, mask, false, park2,
                                  park3, park);
 }
@@ -309,13 +355,13 @@ __global__ void __launch_bounds__(k1s::TEAMS_F64 * k1s::W_CARD, 8)
                                 int B, double reg) {
   constexpr int W = k1s::W_CARD;
   __shared__ k1s::Team<double> teams[k1s::TEAMS_F64];
-  K1S_CONSTS(double)
+  K1S_RC(double)
   const int team = threadIdx.x / W, lane = threadIdx.x % W;
   const int b0 = blockIdx.x * k1s::TEAMS_F64;
-  const unsigned mask = srbd_team::team_mask(W, (threadIdx.x & 31) / W);
+  const unsigned mask = kWarp;
   const BlockPark<k1s::Team<double>, k1s::G_WORDS, double, k1s::TEAMS_F64> park{
       teams, park0, park1, nullptr, nullptr, B, b0};
-  k1s::riccati_team<double>(teams[team], kc, pack, term, park0, park1, N, B,
+  k1s::riccati_team<double>(teams[team], consts, rc, pack, term, park0, park1, N, B,
                             team_lane(b0, team, B), reg, lane, W, mask, false, nullptr,
                             nullptr, park);
 }
@@ -459,8 +505,6 @@ extern "C" int srbd_k1s_rollout_f64_launch(const double* consts, const double* p
 
 #else  // host build: the three passes over every lane
 
-#include <type_traits>
-
 using srbd_dev::host_t;
 
 // K1s-A over every stage and lane: plane_stage (the float32 form's body),
@@ -499,6 +543,8 @@ static int split_host(int team, int rev, const host_t* consts, const host_t* xa,
   const host_t mu(mu_b), th(theta_b), rg(reg);
   planes_host(kBody == k1::kGains && std::is_same<host_t, double>::value, rev != 0, consts, xa,
               us, xr, dxc, duc, alpha, pack, mer, term, N, B, mu, th);
+  host_t rc[k1s::RC_LEN];
+  for (int i = 0; i < k1s::RC_LEN; ++i) rc[i] = k1s::rc_word(consts, i);
   for (int b = 0; b < B; ++b) {
     if constexpr (kBody == k1::kRank6) {
       k1s::Team6<host_t> s;
@@ -506,8 +552,8 @@ static int split_host(int team, int rev, const host_t* consts, const host_t* xa,
                                       team, 0u, rev != 0);
     } else {
       k1s::Team<host_t> s;
-      k1s::riccati_team<host_t, kFactor>(s, consts, pack, term, park0, park1, N, B, b, rg, 0,
-                                         team, 0u, rev != 0, park2, park3);
+      k1s::riccati_team<host_t, kFactor>(s, consts, rc, pack, term, park0, park1, N, B, b, rg,
+                                         0, team, 0u, rev != 0, park2, park3);
     }
   }
   for (int b = 0; b < B; ++b)

@@ -467,16 +467,16 @@ HD void skewT_mul(const T* s, T m0, T m1, T m2, T* out) {
   out[2] = s[1] * m0 - s[0] * m1;
 }
 
-// (Ju' P)[j][c] from the symmetric P: rows [Sr' P1 + P3/m | P1 | Sl' P1 + P3/m | P1]
+// (Ju' P)[j][c] from P's column c, pc: rows [Sr' P1 + P3/m | P1 | Sl' P1 + P3/m | P1]
 template <typename T>
-HD T ju_p(const T (&P)[12][12], const T* sr, const T* sl, T m_inv, int j, int c) {
-  if (j >= 3 && j < 6) return P[j][c];
-  if (j >= 9) return P[j - 6][c];
+HD T ju_p(const T* pc, const T* sr, const T* sl, T m_inv, int j) {
+  if (j >= 3 && j < 6) return pc[j];
+  if (j >= 9) return pc[j - 6];
   const T* s = (j < 3) ? sr : sl;
   const int i = (j < 3) ? j : j - 6;
   T o[3];
-  skewT_mul(s, P[3][c], P[4][c], P[5][c], o);
-  return o[i] + m_inv * P[9 + i][c];
+  skewT_mul(s, pc[3], pc[4], pc[5], o);
+  return o[i] + m_inv * pc[9 + i];
 }
 
 // (Jx' M)[i][j] with M = V' (M[r][j] = V[j][r]); rows D1' M0 | D2' M0 | SF' M1 | M2

@@ -897,9 +897,9 @@ def test_redesigns_leave_the_other_team_kernels_unchanged(dev):
     """ptxas (registers, spill stores) of the team kernels that the rank-6
     and Acl forms sit beside, as PERF.md records them
     (``chip_smoke.K1S_B_PTXAS``, ``chip_smoke.K6_TEAM_PTXAS``): K1s-B's
-    gains form (with its block park) and factor form, each at
-    64 registers and 0 B, K6a's and K6b's team kernel at 128 and 148
-    registers and 0 B."""
+    gains form (with its block park) at 80 registers and 24 B, its factor
+    form at 80 and 0 B, its float64 form at 128 and 0 B, K6a's and K6b's
+    team kernel at 128 and 148 registers and 0 B."""
     import chip_smoke
 
     from srbd_nmpc_tpu_torch.utils import build
@@ -909,6 +909,7 @@ def test_redesigns_leave_the_other_team_kernels_unchanged(dev):
     got = {}
     for source, needle in (("sqp_planes", "k1s_riccati_team_kernel"),
                            ("sqp_planes", "k1s_riccati_factor_kernel"),
+                           ("sqp_planes", "k1s_riccati_team_f64_kernel"),
                            ("riccati", "riccati_team_kernel")):
         for mangled, regs, stores, _, _ in chip_smoke._ptxas(source, needle):
             tag = ("team <true>" if "ILb1E" in mangled else "team <false>"

@@ -372,6 +372,33 @@ def test_split_host_build_matches_plain(N, case, team):
          tuple(a[lanes] for a in ref[3])))
 
 
+@functools.lru_cache(maxsize=None)
+def _plain_run(N, body):
+    """K1's arguments (every lane: 0-7 alpha = 0, 8-15 random alpha) and the
+    plain version of ``body`` on them, in double."""
+    params, weights, arr = _problem(N, seed=1)
+    args = _port_args(params, weights, arr)
+    return args, sqp_planes.sqp_qp_solve_onepass_planes_ref(
+        *args, reg=REG, **BODIES.get(body, {}))
+
+
+@pytest.mark.parametrize("team,rev", [
+    (w, rev) for w in TEAMS for rev in (False, True)])
+@pytest.mark.parametrize("body", ["gains", "factor"])
+def test_split_team_steps_match_plain_in_either_order(body, team, rev):
+    """The gains and factor forms' team steps (k1s_passes.cuh::riccati_team:
+    the stage's groups, Ac's columns and L's rows read 16 bytes at a time,
+    the Cholesky and the forward substitution in shared steps with L's rows
+    and Y's columns in the members' registers, X0 in P's place, G's and P's
+    entries in rounds of their own) compiled as host C++ in double
+    reproduce the plain version on every lane, with the team at each
+    emulated width in either member order: no step reads what another
+    member writes in it, and no member's registers are read by another."""
+    args, ref = _plain_run(20, body)
+    dx, du, out5 = _host_split(args, team, rev=rev, body=body)[:3]
+    _assert_host_matches_plain((dx, du, out5), ref)
+
+
 def _f32_args(N=20):
     params, weights, arr = _problem(N, seed=2)
     args = list(_port_args(params, weights, arr))
@@ -428,8 +455,8 @@ def test_split_f32_host_build_matches_digest_at_n5(body, rev):
 def test_split_f64_card_form_matches_plain(rev):
     """The float64 form of the three launches at the card's layout: the
     split source's f64 host build, whose team array in double is the
-    card's (720 doubles; the source's static assertions hold 4 such teams
-    and the constants block in double within 48 KB of static shared memory
+    card's (752 doubles; the source's static assertions hold 4 such teams
+    and K1s-B's constants in double within 48 KB of static shared memory
     and 8 blocks within an SM's 228 KB, or it does not build), and whose
     plane pass runs as the card's float64 form does (a stage of a lane
     spread over the threads of its parts, ``plane_part``), with
