@@ -8,7 +8,8 @@ program's readings: the lower ends of the limits) and, on each of
 ``--control-seeds`` further seeds, one batch of the control in the
 program's place (``check.control``: the reference in float32 with TF32
 products; the upper ends), each checked as a run checks its window, and
-prints one JSON line per run and a summary. The limits in the
+prints one JSON line per run and a summary of every compared number (a
+warm mix's ``setup_*`` entries too). The limits in the
 configuration file are set from these readings (PERF.md section 2).
 """
 
@@ -40,7 +41,7 @@ def main(argv=None) -> int:
         return 2
     harness.use_checkout_caches()
     cfg = harness.cell(args.workload)["config"]
-    rows = []
+    rows, names = [], []
     seeds = [args.first_seed + 7919 * i
              for i in range(args.seeds + args.control_seeds)]
     for i, seed in enumerate(seeds):
@@ -55,13 +56,14 @@ def main(argv=None) -> int:
                    failed=out["failed"], attempted=out["attempted"],
                    **{k: c["value"] for k, c in out["checks"].items()})
         rows.append(row)
+        names = names or [k for k in out["checks"] if k != "lost_batches"]
         print(json.dumps(row), flush=True)
     summary = {}
     for kind in ("program", "control"):
         sel = [r for r in rows if r["kind"] == kind]
         summary[kind] = {k: dict(min=min(r[k] for r in sel),
                                  max=max(r[k] for r in sel))
-                         for k in check.NAMES} if sel else None
+                         for k in names} if sel else None
     print(json.dumps(dict(workload=args.workload, summary=summary)),
           flush=True)
     return 0

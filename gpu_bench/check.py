@@ -3,8 +3,10 @@ of the window's scenarios against the plain reference's.
 
 The reference (``reference/<config["reference"]>.py``) solves the sampled
 scenarios from the same starts in float64, full precision, once the window
-has closed. Three numbers are compared, each with its limit from the
-configuration's ``limits``:
+has closed. For a warm mix those starts are the program's own set-up
+solution at the sampled scenarios, shifted as its batches are
+(``traffic.Traffic.reference_start``). Three numbers are compared, each
+with its limit from the configuration's ``limits``:
 
 - ``mismatch_pct``: the share of sampled scenarios whose status or SQP
   iteration count differs from the reference's (an iteration-cap or NaN
@@ -15,6 +17,11 @@ configuration's ``limits``:
   |program - reference| over |reference|, the denominator floored at 1 % of
   that scenario's largest |reference| (``parity_metric`` of the port's
   ``utils/metrics.py``, per scenario).
+
+For a warm mix the same three are read once more of the set-up solve, as
+``setup_mismatch_pct``, ``setup_u_gap`` and ``setup_x_gap`` under the same
+limits: the program's set-up answer at the sampled scenarios against the
+reference's cold solve of their set-up. A cold mix has no such entries.
 
 A batch that raised lost its answers: ``lost_batches`` has the limit 0.
 """
@@ -47,23 +54,26 @@ def gap(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 def reference_answers(config: dict, tr, sample: dict, device):
     """The reference's (x, u, status, iters) for the sampled scenarios,
-    in float64 at full precision, solved in blocks of ``BLOCK``."""
+    in float64 at full precision, solved in blocks of ``BLOCK``; and for a
+    warm mix its answers to their set-up solve (else None)."""
     ref = reference(config)
     P = ref.problem(config, torch.float64, device)
-    out = []
-
-    def solve(*a):
-        return ref.solve(P, *a)[:2]
-
+    out, setup = [], []
     with ref.full_precision():
         S = sample["lanes"].shape[0]
         for lo in range(0, S, BLOCK):
             sl = slice(lo, min(S, lo + BLOCK))
-            start = tr.reference_start(sample["lanes"][sl],
-                                       sample["noise"][sl], solve,
+            lanes = sample["lanes"][sl]
+            if tr.warm:
+                setup.append(ref.solve(P, *tr.setup_start(
+                    lanes, torch.float64))[:4])
+            start = tr.reference_start(lanes, sample["noise"][sl],
                                        torch.float64)
             out.append(ref.solve(P, *start)[:4])
-    return [torch.cat(t) for t in zip(*out)]
+
+    def cat(parts):
+        return [torch.cat(t) for t in zip(*parts)] if parts else None
+    return cat(out), cat(setup)
 
 
 def control(config: dict, device):
@@ -109,11 +119,15 @@ def readings(sample: Optional[dict], answers) -> dict:
 def compare(config: dict, tr, sample: Optional[dict], device,
             lost: int = 0) -> dict:
     """Readings beside their limits: {name: {"value", "limit"}}."""
-    answers = (None if sample is None
-               else reference_answers(config, tr, sample, device))
-    r = readings(sample, answers)
+    answers, setup = ((None, None) if sample is None
+                      else reference_answers(config, tr, sample, device))
     limits = config["limits"]
-    out = {k: dict(value=r[k], limit=limits[k]) for k in NAMES}
+    out = {k: dict(value=v, limit=limits[k])
+           for k, v in readings(sample, answers).items()}
+    if tr.warm:
+        mine = None if sample is None else tr.setup_answers(sample["lanes"])
+        out.update({f"setup_{k}": dict(value=v, limit=limits[k])
+                    for k, v in readings(mine, setup).items()})
     out["lost_batches"] = dict(value=lost, limit=0)
     return out
 

@@ -163,7 +163,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     system = System(cfg, dev, dtype)
     solve = system.solve if wrap_solve is None else wrap_solve(system.solve)
     tr = traffic.Traffic(c["traffic"], cfg, B, seed, dev, dtype)
-    tr.setup(lambda *a: (lambda r: (r.x, r.u))(solve(*a)))
+    tr.setup(solve)
     kept = _Kept()
     lane_gen = torch.Generator(device=dev)
     lane_gen.manual_seed(int(seed) + 1)

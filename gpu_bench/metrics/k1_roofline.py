@@ -12,6 +12,13 @@ numpy.random.default_rng(0), 20, 8192, "cpu", False)`` at commit 2a93068
 scalar; K1 at B=131072: 0.624 ms at 67 TFLOP/s). Bytes: its inputs read
 once and outputs written once, xa, us, xra, dxc, duc, alpha, x0s, dx, du,
 dphi and four merit words in float32: 6,984 a lane.
+
+The count stays frozen at the work the inputs need. The split launches
+count 329,786.93 on the same inputs, because each member of a team of 16
+forms the Cholesky's pivots again; that repetition is the
+implementation's, not the problem's, so a share does not credit it.
+``k1_f64_roofline``, ``step_mfu`` and ``step_mfu_f64`` read the same
+constant for the same reason.
 """
 
 from gpu_bench import roofline

@@ -14,6 +14,11 @@ from gpu_bench import check, harness
 from gpu_bench.system import Answer
 
 B = 96
+# the warm mix in a cell of the default route
+WARM_SPEC = harness.benchmark_spec()
+WARM_SPEC["workloads"].append(dict(
+    name="fleet_warm", config="srbd_n20_fleet", traffic="warm", chips=1,
+    why="the receding-horizon cycle of the default route"))
 
 
 def _unchanged(solve):
@@ -72,15 +77,15 @@ def test_control_is_not_correct():
     assert not out["correct"], out["checks"]
 
 
-def test_warm_mix_runs_and_checks(monkeypatch):
-    """A warm mix is data alone: set-up solves the fleet cold, each batch
-    starts from that solution shifted a stage; the reference works the
-    set-up solve out again."""
-    from gpu_bench import traffic
-
-    warm = dict(traffic.load("cold"), start="warm", shift=1)
-    monkeypatch.setattr(traffic, "load", lambda name: warm)
-    out = _run("fleet_cold")
+def test_warm_mix_runs_and_checks():
+    """The warm mix (``traffic/warm.json``, cell ``fleet_warm``) is data
+    alone: set-up solves the fleet cold, each batch starts from that
+    solution shifted a stage; the reference starts each sampled scenario
+    from the program's own set-up solution there, and the set-up itself is
+    checked against the reference's cold solve of it (``setup_*``)."""
+    out = _run("fleet_warm", spec=WARM_SPEC)
     assert out["correct"], out["checks"]
-    bad = _run("fleet_cold", wrap_solve=_altered)
+    assert {"setup_mismatch_pct", "setup_u_gap", "setup_x_gap"} \
+        <= set(out["checks"])
+    bad = _run("fleet_warm", spec=WARM_SPEC, wrap_solve=_altered)
     assert not bad["correct"], bad["checks"]

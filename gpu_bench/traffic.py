@@ -13,9 +13,15 @@ Each batch's initial states are ``x0 + x0_noise_std * N(0, 1)``, drawn
 afresh per batch from the seed, where ``x0`` is the configuration's
 nominal state (cold) or the set-up solution's state at stage ``shift``
 (warm). The draws are made on the device with a ``torch.Generator`` seeded
-from ``--seed``, so a seed gives the same batches on every run. The
-reference is handed the same draws and works any set-up state out again
-itself (``reference_start``).
+from ``--seed``, so a seed gives the same batches on every run.
+
+The reference is handed the same draws (``reference_start``). For a warm
+mix it starts where the program started: from the program's own set-up
+solution at the sampled scenarios, shifted and cast to the reference's
+precision, which set-up keeps on the host. That solution is checked in
+turn: the reference solves the set-up of the same scenarios cold
+(``setup_start``) and the check compares the two (its ``setup_*``
+entries), so a wrong set-up cannot pass as the reference's start.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ class Traffic:
         self.cold = self._cold(batch)
         self.base = None
         self.setup_noise = None
+        self.setup_answer = None
 
     def _cold(self, n: int):
         it = self.spec["initial_iterate"]
@@ -74,14 +81,24 @@ class Traffic:
         return torch.randn((self.B, 12), generator=self.gen,
                            dtype=self.dtype, device=self.device)
 
+    @property
+    def warm(self) -> bool:
+        return self.spec["start"] == "warm"
+
     def setup(self, solve) -> None:
         """For a warm mix: one cold solve of the fleet by ``solve(x, u,
-        alpha, x0) -> (x, u)``, kept shifted as every batch's start."""
-        if self.spec["start"] != "warm":
+        alpha, x0)``, which returns the program's answer (``x``, ``u``,
+        ``status``, ``sqp_iters``); its solution, shifted, is every
+        batch's start, and the answer is kept on the host for the
+        check."""
+        if not self.warm:
             return
         self.setup_noise = self.draw()
-        x, u = solve(*self.cold, self.x0_nom + self.std * self.setup_noise)
-        self.base = shift(x, u, int(self.spec["shift"]))
+        a = solve(*self.cold, self.x0_nom + self.std * self.setup_noise)
+        self.base = shift(a.x, a.u, int(self.spec["shift"]))
+        self.setup_answer = dict(x=a.x.cpu(), u=a.u.cpu(),
+                                 status=a.status.cpu(),
+                                 iters=a.sqp_iters.cpu())
 
     def start(self, noise: torch.Tensor):
         """(x, u, alpha, x0) of the batch with this noise."""
@@ -90,16 +107,32 @@ class Traffic:
         x, u, alpha = self.base
         return x, u, alpha, x[:, 0] + self.std * noise
 
+    def setup_answers(self, lanes: torch.Tensor) -> dict:
+        """The program's set-up answer at ``lanes`` of the fleet, on their
+        device, keyed as the check reads a sample."""
+        at = lanes.cpu()
+        out = {k: v[at].to(lanes.device)
+               for k, v in self.setup_answer.items()}
+        return dict(out, lanes=lanes)
+
+    def _cold_start(self, noise: torch.Tensor, dtype):
+        """The initial iterate and ``x0 + std * noise`` in ``dtype``."""
+        x, u, alpha = (t.to(dtype) for t in self._cold(noise.shape[0]))
+        return x, u, alpha, self.x0_nom.to(dtype) + self.std * noise.to(dtype)
+
+    def setup_start(self, lanes: torch.Tensor, dtype):
+        """The set-up solve's start of the scenarios at ``lanes``, in
+        ``dtype``."""
+        return self._cold_start(self.setup_noise[lanes], dtype)
+
     def reference_start(self, lanes: torch.Tensor, noise: torch.Tensor,
-                        solve, dtype):
-        """The same starts for the scenarios at ``lanes`` of the fleet,
-        worked out by the reference ``solve`` (same signature as in
-        ``setup``) in ``dtype``."""
-        x0_nom = self.x0_nom.to(dtype)
-        x, u, alpha = (t.to(dtype) for t in self._cold(lanes.shape[0]))
-        if self.spec["start"] == "cold":
-            return x, u, alpha, x0_nom + self.std * noise.to(dtype)
-        x, u = solve(x, u, alpha, x0_nom + self.std * self.setup_noise[
-            lanes].to(dtype))
-        x, u, alpha = shift(x, u, int(self.spec["shift"]))
+                        dtype):
+        """The program's start of the scenarios at ``lanes`` with these
+        noise draws, in ``dtype``: cold, the initial iterate; warm, the
+        program's set-up solution there, shifted as its batches are."""
+        if not self.warm:
+            return self._cold_start(noise, dtype)
+        s = self.setup_answers(lanes)
+        x, u, alpha = shift(s["x"].to(dtype), s["u"].to(dtype),
+                            int(self.spec["shift"]))
         return x, u, alpha, x[:, 0] + self.std * noise.to(dtype)
